@@ -44,12 +44,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the
-# CUDA cores' 32-bit instruction rate — 67 TFLOP/s float32 counts an FMA as
-# two operations, so 33.5e12 lane instructions/s; the card's integer
-# pipes issue no faster, so this is a floor on the kernel's time
+# H100 SXM published HBM3 rate (NVIDIA data sheet). The pair count's binding
+# unit is the popcount: compute capability 9.0 issues 16 popcounts per clock
+# per SM (CUDA C++ Programming Guide, arithmetic instruction throughput),
+# against 64 per clock for the AND and the add, so the popcounts alone take
+# twice as long as those two together
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS_PER_S = 33.5e12
+POPC_PER_CLOCK_PER_SM = 16
 
 SCALE = dict(n_playlists=1_000_000, n_tracks=1_000_000, target_rows=50_000_000)
 SCALE_MIN_SUPPORT = 5e-4
@@ -63,9 +64,9 @@ def fail(msg: str) -> None:
     raise SystemExit(f"FAIL: {msg}")
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_query(fields: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
@@ -391,31 +392,34 @@ def phase_scale(seed: int) -> dict:
     log(f"scale shape bt {tuple(bt.shape)}: kernel == plain (exact); kernel "
         f"{kernel_ms:.3f} ms, swar kernel {swar_ms:.3f} ms, plain {plain_ms:.3f} ms")
 
-    library_ms = None
-    try:
-        unpacked = torch.empty((v_pad, w_pad * 32), dtype=torch.int8, device="cuda")
-        shifts = torch.arange(32, dtype=torch.int32, device="cuda")
-        step = 1024
-        for w0 in range(0, w_pad, step):
-            w1 = min(w0 + step, w_pad)
-            unpacked[:, w0 * 32:w1 * 32] = (
-                (bt[:, w0:w1, None] >> shifts) & 1
-            ).to(torch.int8).reshape(v_pad, -1)
-        lib_out = torch._int_mm(unpacked, unpacked.t())
-        torch.cuda.synchronize()
-        if not torch.equal(lib_out, got):
-            fail("torch._int_mm yardstick disagrees with the kernel")
-        library_ms = cuda_ms(lambda: torch._int_mm(unpacked, unpacked.t()), 3)
-        del unpacked, lib_out
-        log(f"yardstick torch._int_mm on the unpacked int8 operand "
-            f"({v_pad} x {w_pad * 32}): {library_ms:.3f} ms (unpack not timed)")
-    except RuntimeError as exc:
-        log(f"yardstick torch._int_mm unavailable here: {exc}")
+    unpacked = torch.empty((v_pad, w_pad * 32), dtype=torch.int8, device="cuda")
+    shifts = torch.arange(32, dtype=torch.int32, device="cuda")
+    step = 1024
+    for w0 in range(0, w_pad, step):
+        w1 = min(w0 + step, w_pad)
+        unpacked[:, w0 * 32:w1 * 32] = (
+            (bt[:, w0:w1, None] >> shifts) & 1
+        ).to(torch.int8).reshape(v_pad, -1)
+    lib_out = torch._int_mm(unpacked, unpacked.t())
+    torch.cuda.synchronize()
+    if not torch.equal(lib_out, got):
+        fail("torch._int_mm yardstick disagrees with the kernel")
+    library_ms = cuda_ms(lambda: torch._int_mm(unpacked, unpacked.t()), 3)
+    del unpacked, lib_out
+    log(f"yardstick torch._int_mm on the unpacked int8 operand "
+        f"({v_pad} x {w_pad * 32}): {library_ms:.3f} ms (unpack not timed)")
 
+    # C is symmetric, so the function needs one popcount per word of each
+    # unordered row pair, the diagonal included
     nbytes = 4 * v_pad * w_pad + 4 * v_pad * v_pad
-    ops = 3 * v_pad * v_pad * w_pad  # AND + popcount + add per word pair
+    popcounts = v_pad * (v_pad + 1) // 2 * w_pad
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    t_ops = 1e3 * ops / PEAK_INT32_OPS_PER_S
+    t_ops = 1e3 * popcounts / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
+    log(f"bound: {popcounts} popcounts at {POPC_PER_CLOCK_PER_SM}/clock x {sms} "
+        f"SMs x {clock_hz / 1e6:.0f} MHz = {t_ops:.3f} ms; {nbytes} bytes at "
+        f"{PEAK_BYTES_PER_S:.3g} B/s = {t_bytes:.3f} ms")
     return {
         "name": "popcount_pairs",
         "route": "cuda",
@@ -446,7 +450,7 @@ def main() -> int:
         print(f"FAIL: the port is not beside this script: {exc}", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
-    smi = nvidia_smi_line()
+    smi = nvidia_smi_query("name,power.limit")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)} ({smi})")
 

@@ -54,6 +54,9 @@ LAUNCHES = {"popcount_pairs": 0}
 
 _MASK32 = 0xFFFFFFFF
 
+# int64 elements per block of the plain version's (rows, V, words) temporaries
+_PLAIN_BLOCK_ELEMS = {"cuda": 1 << 26, "cpu": 1 << 22}
+
 
 def resolve_tiles(
     tile_i: int | None = None,
@@ -137,15 +140,13 @@ def _popcount32_(x: torch.Tensor) -> torch.Tensor:
     return x.add_(t).bitwise_and_(0x3F)
 
 
-def popcount_pair_counts_plain(
-    bt: torch.Tensor, *, max_elems: int | None = None
-) -> torch.Tensor:
+def popcount_pair_counts_plain(bt: torch.Tensor) -> torch.Tensor:
     """The kernel's function written straight out: AND every row pair's
     words, SWAR-popcount them in int64, sum over words. Works in
-    ``(rows, V, words)`` blocks of at most ``max_elems`` elements so memory
-    stays bounded. → int32 ``(V, V)`` on ``bt``'s device."""
-    if max_elems is None:
-        max_elems = 1 << (26 if bt.is_cuda else 22)
+    ``(rows, V, words)`` blocks of at most ``_PLAIN_BLOCK_ELEMS`` elements
+    for ``bt``'s device so memory stays bounded. → int32 ``(V, V)`` on
+    ``bt``'s device."""
+    max_elems = _PLAIN_BLOCK_ELEMS["cuda" if bt.is_cuda else "cpu"]
     v, w = bt.shape
     out = torch.zeros((v, v), dtype=torch.int64, device=bt.device)
     if v == 0 or w == 0:
