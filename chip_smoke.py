@@ -19,8 +19,23 @@ main loop on the card and fails loudly on any mismatch:
    (BASELINE config 4's shape cut to one card), mined in process through
    ``mining.miner.mine`` with the launch counters reset just before and
    read just after; counts checked against exact numpy set intersections;
-   then the kernel, its plain version and the ``torch._int_mm`` yardstick
-   are timed at that shape and the kernels line is printed.
+   then the kernel, its plain version (computed slab by slab over the two
+   dp slabs of phase 6) and the ``torch._int_mm`` yardstick are timed at
+   that shape;
+6. ranks on the card (``parallel/``): two ranks, bootstrapped by the env
+   triple, sharing the card over gloo (one card per rank over NCCL when
+   the machine has two): (a) each rank's kernel on its slab of the ds2
+   bitset against the plain version, and the all-reduced sum against the
+   single-card kernel; (b) two ranks of ``python -m
+   kmlserver_tpu_torch.mining.job`` on phase 4's CSV, whose rank-0
+   publication must equal phase 4's; (c) the scale mine at dp = 2 from
+   phase 5's baskets, whose rule tensors must equal phase 5's exactly,
+   each rank timing its slab kernel and the all-reduce; then the kernels
+   line is printed.
+
+``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
+5M rows (a shorter check; prints a ``reduced`` line). The script starts
+itself with ``--rank-worker`` for the ranks of phase 6.
 
 The last two lines of standard output are the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line and the result JSON. Exits
@@ -53,7 +68,11 @@ PEAK_BYTES_PER_S = 3.35e12
 POPC_PER_CLOCK_PER_SM = 16
 
 SCALE = dict(n_playlists=1_000_000, n_tracks=1_000_000, target_rows=50_000_000)
+QUICK_SCALE = dict(n_playlists=100_000, n_tracks=100_000, target_rows=5_000_000)
 SCALE_MIN_SUPPORT = 5e-4
+DS2_MIN_SUPPORT = 0.05  # the job's default MIN_SUPPORT
+
+RANKS = 2  # phase 6's dp
 
 
 def log(msg: str) -> None:
@@ -90,6 +109,105 @@ def subproc_env(**extra: str) -> dict:
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     env.update(extra)
     return env
+
+
+def popcount_bound(v_pad: int, w: int) -> tuple[float, float, int, int, float]:
+    """→ (ms by bytes, ms by operations, bytes, popcounts, SM clock Hz) of
+    the pair count over a ``(v_pad, w)`` bitset. C is symmetric, so the
+    function needs one popcount per word of each unordered row pair, the
+    diagonal included; bytes are the bitset read once and C written once."""
+    import torch
+
+    nbytes = 4 * v_pad * w + 4 * v_pad * v_pad
+    popcounts = v_pad * (v_pad + 1) // 2 * w
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * popcounts / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
+    return t_bytes, t_ops, nbytes, popcounts, clock_hz
+
+
+def int_mm_ms(bt, want) -> float:
+    """``torch._int_mm`` on the unpacked int8 operand of ``bt`` (the
+    yardstick: one library call for the same function), checked against
+    ``want`` and timed by CUDA events; the unpack is not timed."""
+    import torch
+
+    v_pad, w = bt.shape
+    unpacked = torch.empty((v_pad, w * 32), dtype=torch.int8, device="cuda")
+    shifts = torch.arange(32, dtype=torch.int32, device="cuda")
+    step = 1024
+    for w0 in range(0, w, step):
+        w1 = min(w0 + step, w)
+        unpacked[:, w0 * 32:w1 * 32] = (
+            (bt[:, w0:w1, None] >> shifts) & 1
+        ).to(torch.int8).reshape(v_pad, -1)
+    lib_out = torch._int_mm(unpacked, unpacked.t())
+    torch.cuda.synchronize()
+    if not torch.equal(lib_out, want):
+        fail(f"torch._int_mm yardstick disagrees with the kernel at {tuple(bt.shape)}")
+    del lib_out
+    ms = cuda_ms(lambda: torch._int_mm(unpacked, unpacked.t()), 3)
+    del unpacked
+    return ms
+
+
+def run_ranks(argvs: list[list[str]], envs: list[dict], timeout_s: float, label: str) -> list[str]:
+    """Start one process per rank and wait for all of them. A rank that
+    exits non-zero, or a group that outlives ``timeout_s``, kills the
+    group and fails the smoke. → each rank's output."""
+    procs = [
+        subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for argv, env in zip(argvs, envs)
+    ]
+    outs: list[list[str]] = [[] for _ in procs]
+
+    def pump(i: int) -> None:
+        for line in procs[i].stdout:
+            outs[i].append(line.rstrip())
+
+    threads = [threading.Thread(target=pump, args=(i,), daemon=True) for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [i for i, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                i = bad[0]
+                fail(f"{label}: rank {i} exited {codes[i]}:\n" + "\n".join(outs[i][-60:]))
+            if all(c == 0 for c in codes):
+                break
+            if time.monotonic() > deadline:
+                fail(f"{label}: ranks still running after {timeout_s:.0f} s:\n"
+                     + "\n".join(f"rank {i}: {o[-5:]}" for i, o in enumerate(outs)))
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for t in threads:
+            t.join(timeout=10)
+    return ["\n".join(o) for o in outs]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_envs(port: int, **extra: str) -> list[dict]:
+    return [
+        subproc_env(KMLS_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                    KMLS_NUM_PROCESSES=str(RANKS), KMLS_PROCESS_ID=str(r), **extra)
+        for r in range(RANKS)
+    ]
 
 
 # ---------------------------------------------------------------- phase 3
@@ -326,19 +444,26 @@ def check_rows(tensors, baskets, rows: np.ndarray, k_max: int) -> None:
             fail(f"row {i}: rule counts differ from exact set intersections")
 
 
-def phase_scale(seed: int) -> dict:
+def phase_scale(seed: int, work: str, shape: dict) -> dict:
+    """Phase 5. Saves the basket arrays into ``work`` for phase 6's ranks and
+    returns the kernel line's entry plus what phase 6 is held against."""
     import torch
 
     from kmlserver_tpu_torch.config import MiningConfig
     from kmlserver_tpu_torch.data.synthetic import synthetic_baskets
     from kmlserver_tpu_torch.mining.miner import mine, prune_infrequent
     from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.parallel import support
 
     t0 = time.perf_counter()
-    baskets = synthetic_baskets(**SCALE, seed=seed)
-    log(f"scale data: {SCALE['n_playlists']} playlists x {SCALE['n_tracks']} "
+    baskets = synthetic_baskets(**shape, seed=seed)
+    log(f"scale data: {shape['n_playlists']} playlists x {shape['n_tracks']} "
         f"tracks, {len(baskets.track_ids)} memberships (Zipf 1.0, seed {seed}) "
         f"generated in {time.perf_counter() - t0:.3f} s")
+    np.save(os.path.join(work, "scale_rows.npy"), baskets.playlist_rows)
+    np.save(os.path.join(work, "scale_tids.npy"), baskets.track_ids)
+    with open(os.path.join(work, "scale_shape.json"), "w") as fh:
+        json.dump({"n_playlists": baskets.n_playlists, "n_tracks": baskets.n_tracks}, fh)
     cfg = MiningConfig(min_support=SCALE_MIN_SUPPORT)
 
     # ---- the main path: counters to 0, mine, read counters
@@ -376,51 +501,51 @@ def phase_scale(seed: int) -> dict:
         n_playlists=reduced.n_playlists, n_tracks=reduced.n_tracks,
         v_pad=v_pad, w_pad=w_pad, device="cuda",
     )
+    # phase 6's dp slabs of the same memberships: the plain version is
+    # computed slab by slab, so one pass of it checks the whole-bitset
+    # kernel here and each slab's kernel in phase 6
+    _, w_total = support.sharded_padded_shape(reduced.n_tracks, reduced.n_playlists, RANKS)
+    slabs = [
+        pc.bitpack_slab_by_track(
+            reduced.playlist_rows, reduced.track_ids,
+            n_playlists=reduced.n_playlists, n_tracks=reduced.n_tracks,
+            v_pad=v_pad, w_total=w_total, dp=RANKS, rank=r, device="cuda",
+        )
+        for r in range(RANKS)
+    ]
     del baskets, reduced
     got = pc.popcount_pair_counts_padded(bt)  # warm
     torch.cuda.synchronize()
     kernel_ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(bt), 5)
     swar_ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(bt, swar=True), 2)
-    t0 = time.perf_counter()
-    plain = pc.popcount_pair_counts_plain(bt)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
+    slab_plain, slab_plain_ms = [], []
+    for slab in slabs:
+        t0 = time.perf_counter()
+        slab_plain.append(pc.popcount_pair_counts_plain(slab))
+        torch.cuda.synchronize()
+        slab_plain_ms.append(1e3 * (time.perf_counter() - t0))
+    plain = slab_plain[0] + slab_plain[1]
+    plain_ms = sum(slab_plain_ms)
     max_err = int((plain.long() - got.long()).abs().max())
     if not torch.equal(plain, got):
         fail(f"scale shape {tuple(bt.shape)}: kernel != plain")
     del plain
-    log(f"scale shape bt {tuple(bt.shape)}: kernel == plain (exact); kernel "
-        f"{kernel_ms:.3f} ms, swar kernel {swar_ms:.3f} ms, plain {plain_ms:.3f} ms")
+    log(f"scale shape bt {tuple(bt.shape)}: kernel == plain (exact; plain summed "
+        f"over {RANKS} slabs {tuple(slabs[0].shape)}: "
+        + ", ".join(f"{ms:.3f}" for ms in slab_plain_ms)
+        + f" ms); kernel {kernel_ms:.3f} ms, swar kernel {swar_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms")
 
-    unpacked = torch.empty((v_pad, w_pad * 32), dtype=torch.int8, device="cuda")
-    shifts = torch.arange(32, dtype=torch.int32, device="cuda")
-    step = 1024
-    for w0 in range(0, w_pad, step):
-        w1 = min(w0 + step, w_pad)
-        unpacked[:, w0 * 32:w1 * 32] = (
-            (bt[:, w0:w1, None] >> shifts) & 1
-        ).to(torch.int8).reshape(v_pad, -1)
-    lib_out = torch._int_mm(unpacked, unpacked.t())
-    torch.cuda.synchronize()
-    if not torch.equal(lib_out, got):
-        fail("torch._int_mm yardstick disagrees with the kernel")
-    library_ms = cuda_ms(lambda: torch._int_mm(unpacked, unpacked.t()), 3)
-    del unpacked, lib_out
+    library_ms = int_mm_ms(bt, got)
     log(f"yardstick torch._int_mm on the unpacked int8 operand "
         f"({v_pad} x {w_pad * 32}): {library_ms:.3f} ms (unpack not timed)")
 
-    # C is symmetric, so the function needs one popcount per word of each
-    # unordered row pair, the diagonal included
-    nbytes = 4 * v_pad * w_pad + 4 * v_pad * v_pad
-    popcounts = v_pad * (v_pad + 1) // 2 * w_pad
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
-    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    t_ops = 1e3 * popcounts / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
-    log(f"bound: {popcounts} popcounts at {POPC_PER_CLOCK_PER_SM}/clock x {sms} "
-        f"SMs x {clock_hz / 1e6:.0f} MHz = {t_ops:.3f} ms; {nbytes} bytes at "
+    t_bytes, t_ops, nbytes, popcounts, clock_hz = popcount_bound(v_pad, w_pad)
+    log(f"bound: {popcounts} popcounts at {POPC_PER_CLOCK_PER_SM}/clock x "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
+        f"{clock_hz / 1e6:.0f} MHz = {t_ops:.3f} ms; {nbytes} bytes at "
         f"{PEAK_BYTES_PER_S:.3g} B/s = {t_bytes:.3f} ms")
-    return {
+    kernel = {
         "name": "popcount_pairs",
         "route": "cuda",
         "source": "kmlserver_tpu_torch/ops/csrc/popcount.cu",
@@ -434,6 +559,321 @@ def phase_scale(seed: int) -> dict:
         "library_ms": library_ms,
         "shape": [v_pad, w_pad],
         "swar_ms": swar_ms,
+    }
+    del bt, got
+    return {
+        "kernel": kernel,
+        "tensors": tensors,
+        "slabs": slabs,
+        "slab_plain": slab_plain,
+        "slab_plain_ms": slab_plain_ms,
+    }
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def predicted_backend() -> str:
+    import torch
+
+    # rank r takes cuda:(r % device_count); NCCL needs a card per rank
+    return "nccl" if torch.cuda.device_count() >= RANKS else "gloo"
+
+
+def backend_of(out: str, rank: int) -> str:
+    line = next((l for l in out.splitlines() if l.startswith("Distributed runtime:")), "")
+    if f"rank {rank}/{RANKS}" not in line or "backend " not in line:
+        fail(f"rank {rank} printed no backend line")
+    return line.split("backend ", 1)[1].split()[0]
+
+
+def rank_result(out: str, rank: int) -> dict:
+    for line in out.splitlines():
+        if line.startswith("RANK_RESULT "):
+            return json.loads(line[len("RANK_RESULT "):])
+    fail(f"rank {rank} printed no result")
+
+
+def phase_ranks(work: str, scale: dict) -> dict:
+    """Phase 6: ranks on the card."""
+    import torch
+
+    from kmlserver_tpu_torch.io import artifacts
+    from kmlserver_tpu_torch.ops import popcount as pc
+
+    want_backend = predicted_backend()
+    case = (f"{RANKS} ranks, one card each over nccl" if want_backend == "nccl"
+            else f"{RANKS} ranks sharing cuda:0 over gloo")
+    log(f"phase 6 case: {case} ({torch.cuda.device_count()} card(s) visible)")
+    worker = [sys.executable, os.path.abspath(__file__), "--rank-worker"]
+
+    # ---- (a) each rank's slab kernel against plain; the sum against one card
+    t0 = time.perf_counter()
+    outs = run_ranks(
+        [worker + ["slabs", work] for _ in range(RANKS)], rank_envs(free_port()), 300,
+        "slab check",
+    )
+    slab_err = 0
+    for r, out in enumerate(outs):
+        if backend_of(out, r) != want_backend:
+            fail(f"rank {r} ran backend {backend_of(out, r)}, the rule says {want_backend}")
+        res = rank_result(out, r)
+        for c in res["cases"]:
+            for key in ("launched", "kernel_eq_plain", "slab_eq_block", "sum_eq_single"):
+                if not c[key]:
+                    fail(f"slab check, rank {r}, word chunk {c['word_chunk']}: {key} failed: {c}")
+            slab_err = max(slab_err, c["max_abs_err"])
+            log(f"  rank {r} slab {c['shape']} (word chunk {c['word_chunk']}, "
+                f"{c['nonzero_words']} nonzero words): kernel == plain, slab == the "
+                f"whole bitset's block, all-reduced sum == single-card kernel (exact)")
+        if not all(c["nonzero_words"] > 0 for c in res["cases"] if c["word_chunk"] == 32):
+            fail(f"rank {r}: the small-chunk case left its slab empty")
+    log(f"slab check: {time.perf_counter() - t0:.3f} s wall")
+
+    # ---- (b) the job's entry point on phase 4's CSV
+    pvc, ranks_pvc = os.path.join(work, "pvc"), os.path.join(work, "pvc_ranks")
+    os.makedirs(os.path.join(ranks_pvc, "datasets"))
+    for name in os.listdir(os.path.join(pvc, "datasets")):
+        shutil.copy(os.path.join(pvc, "datasets", name), os.path.join(ranks_pvc, "datasets"))
+    t0 = time.perf_counter()
+    outs = run_ranks(
+        [[sys.executable, "-m", "kmlserver_tpu_torch.mining.job"] for _ in range(RANKS)],
+        rank_envs(free_port(), BASE_DIR=ranks_pvc,
+                  DATASETS_DIR=os.path.join(ranks_pvc, "datasets")),
+        300, "job ranks",
+    )
+    job_s = time.perf_counter() - t0
+    job_launches = []
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            log(f"  job rank {r} | {line}")
+        if backend_of(out, r) != want_backend:
+            fail(f"job rank {r} ran backend {backend_of(out, r)}, the rule says {want_backend}")
+        if "Pair-count path: sharded-bitpack-cuda" not in out:
+            fail(f"job rank {r} did not log 'Pair-count path: sharded-bitpack-cuda'")
+        n = [int(l.rsplit(":", 1)[1]) for l in out.splitlines()
+             if l.startswith("Popcount kernel launches:")]
+        if not n or n[0] < 1:
+            fail(f"job rank {r} launched the popcount kernel {n} times")
+        job_launches.append(n[0])
+        if (r == 0) == ("not the writer" in out):
+            fail(f"job rank {r}: wrong writer role")
+    history = artifacts.read_text(os.path.join(ranks_pvc, "dataset_history.csv"))
+    if len(history.splitlines()) != 2:
+        fail(f"the ranks' history has {len(history.splitlines()) - 1} runs, want 1")
+    for name in sorted(os.listdir(os.path.join(pvc, "pickles"))):
+        a, b = os.path.join(pvc, "pickles", name), os.path.join(ranks_pvc, "pickles", name)
+        if name.endswith(".pickle") and artifacts.load_pickle(a) != artifacts.load_pickle(b):
+            fail(f"{name} from the ranks differs from phase 4's")
+        if name.endswith(".npz"):
+            x, y = np.load(a, allow_pickle=True), np.load(b, allow_pickle=True)
+            if x.files != y.files or not all(np.array_equal(x[k], y[k]) for k in x.files):
+                fail(f"{name} from the ranks differs from phase 4's")
+    log(f"job ranks: {job_s:.3f} s wall, launches {job_launches}; only rank 0 "
+        f"published, and its pickles and npz equal phase 4's single-card run")
+
+    # ---- (c) the scale mine at dp = RANKS: the main path of this phase
+    t0 = time.perf_counter()
+    outs = run_ranks(
+        [worker + ["scale", work] for _ in range(RANKS)], rank_envs(free_port()), 900,
+        "scale ranks",
+    )
+    results = [rank_result(out, r) for r, out in enumerate(outs)]
+    for r, res in enumerate(results):
+        if res["backend"] != want_backend:
+            fail(f"scale rank {r} ran backend {res['backend']}, the rule says {want_backend}")
+        if res["count_path"] != "sharded-bitpack-cuda" or res["launches"] < 1:
+            fail(f"scale rank {r} did not run the kernel: {res}")
+        log(f"  scale rank {r}: mine bracket {res['bracket_s']:.3f} s ("
+            + ", ".join(f"{k} {v:.3f} s" for k, v in res["phases"].items())
+            + f"); launches {res['launches']}; slab {res['slab_shape']} kernel "
+            f"{res['slab_ms']:.3f} ms (CUDA events); all-reduce {res['all_reduce_ms']:.3f} "
+            f"ms over {res['backend']}; peak device memory {res['peak_gib']:.3f} GiB")
+    got = np.load(os.path.join(work, "ranks_tensors.npz"))
+    want = scale["tensors"]
+    for key in got.files:
+        if not np.array_equal(got[key], getattr(want, key)):
+            fail(f"dp={RANKS} scale mine: {key} differs from phase 5's single-card mine")
+    log(f"scale ranks: {time.perf_counter() - t0:.3f} s wall; rank 0's rule tensors "
+        f"({', '.join(got.files)}) == phase 5's exactly")
+
+    # ---- the slab kernel at the scale slab shape, held against plain
+    slabs = scale["slabs"]
+    max_err = slab_err
+    for r, (slab, plain) in enumerate(zip(slabs, scale["slab_plain"])):
+        part = pc.popcount_pair_counts_padded(slab)
+        torch.cuda.synchronize()
+        max_err = max(max_err, int((part.long() - plain.long()).abs().max()))
+        if not torch.equal(part, plain):
+            fail(f"scale slab {r} {tuple(slab.shape)}: kernel != plain")
+    v_pad, w_slab = slabs[0].shape
+    library_ms = int_mm_ms(slabs[0], pc.popcount_pair_counts_padded(slabs[0]))
+    t_bytes, t_ops, _, popcounts, _ = popcount_bound(v_pad, w_slab)
+    log(f"scale slabs {tuple(slabs[0].shape)}: kernel == plain on each (exact); "
+        f"bound {max(t_bytes, t_ops):.3f} ms ({popcounts} popcounts); "
+        f"torch._int_mm on the unpacked slab {library_ms:.3f} ms")
+    return {
+        "launches_job": job_launches,
+        "kernel": {
+            "name": "popcount_pairs_sharded",
+            "route": "cuda",
+            "source": "kmlserver_tpu_torch/ops/csrc/popcount.cu",
+            "call_site": "kmlserver_tpu_torch/parallel/support.py",
+            "replaces": "kmlserver_tpu/parallel/support.py:214",
+            "launches": sum(res["launches"] for res in results),
+            "launches_per_rank": [res["launches"] for res in results],
+            "launches_job": sum(job_launches),
+            "max_abs_err": max_err,
+            "ms": max(res["slab_ms"] for res in results),
+            "ms_per_rank": [res["slab_ms"] for res in results],
+            "plain_ms": scale["slab_plain_ms"][0],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms,
+            "all_reduce_ms": max(res["all_reduce_ms"] for res in results),
+            "backend": want_backend,
+            "dp": RANKS,
+            "shape": [v_pad, w_slab],
+            "mine_bracket_s": [res["bracket_s"] for res in results],
+        },
+    }
+
+
+def rank_worker(task: str, work: str) -> int:
+    """One rank of phase 6, started by :func:`phase_ranks` with the env
+    triple; prints ``RANK_RESULT <json>``."""
+    sys.path.insert(0, ROOT)
+    from kmlserver_tpu_torch.parallel import distributed
+
+    distributed.maybe_initialize(device="cuda", timeout_s=600)
+    mesh = distributed.resolve_mesh("auto", distributed=True).flattened()
+    out = {"rank": distributed.runtime().rank, "backend": distributed.runtime().backend}
+    out.update((worker_slabs if task == "slabs" else worker_scale)(mesh, work))
+    print("RANK_RESULT " + json.dumps(out), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def worker_slabs(mesh, work: str) -> dict:
+    import torch
+
+    from kmlserver_tpu_torch.data.csv import read_tracks
+    from kmlserver_tpu_torch.mining.miner import prune_infrequent
+    from kmlserver_tpu_torch.mining.vocab import build_baskets
+    from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.ops.support import min_count_for
+    from kmlserver_tpu_torch.parallel import support
+    from kmlserver_tpu_torch.parallel.mesh import this_rank
+
+    datasets = os.path.join(work, "pvc", "datasets")
+    baskets = build_baskets(read_tracks(os.path.join(datasets, os.listdir(datasets)[0])))
+    reduced, _ = prune_infrequent(baskets, min_count_for(DS2_MIN_SUPPORT, baskets.n_playlists))
+    cases = []
+    # the job's word chunk (the data fills the first slab), then a small
+    # one that puts the ds2 playlists into every slab
+    for chunk in (None, 32):
+        if chunk is None:
+            os.environ.pop("KMLS_POPCOUNT_WORD_CHUNK", None)
+        else:
+            os.environ["KMLS_POPCOUNT_WORD_CHUNK"] = str(chunk)
+        slab = support.pack_rank_slab(reduced, mesh, "cuda")
+        before = pc.LAUNCHES["popcount_pairs"]
+        part = pc.popcount_pair_counts_padded(slab)
+        torch.cuda.synchronize()
+        launched = pc.LAUNCHES["popcount_pairs"] == before + 1
+        plain = pc.popcount_pair_counts_plain(slab)
+        err = int((part.long() - plain.long()).abs().max())
+        total = support.reduce_counts(part.clone(), mesh)
+        v_pad, w_total = support.sharded_padded_shape(
+            reduced.n_tracks, reduced.n_playlists, mesh.shape["dp"]
+        )
+        whole = pc.bitpack_by_track(
+            reduced.playlist_rows, reduced.track_ids, n_playlists=reduced.n_playlists,
+            n_tracks=reduced.n_tracks, v_pad=v_pad, w_pad=w_total, device="cuda",
+        )
+        s = slab.shape[1]
+        i = mesh.ranks().index(this_rank())
+        single = pc.popcount_pair_counts_padded(whole)
+        torch.cuda.synchronize()
+        cases.append({
+            "word_chunk": chunk or pc.word_chunk(),
+            "shape": list(slab.shape),
+            "nonzero_words": int(slab.count_nonzero()),
+            "launched": launched,
+            "kernel_eq_plain": bool(torch.equal(part, plain)),
+            "max_abs_err": err,
+            "slab_eq_block": bool(torch.equal(whole[:, i * s:(i + 1) * s], slab)),
+            "sum_eq_single": bool(torch.equal(total, single)),
+        })
+    os.environ.pop("KMLS_POPCOUNT_WORD_CHUNK", None)
+    return {"cases": cases}
+
+
+def worker_scale(mesh, work: str) -> dict:
+    import torch
+
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.mining.miner import mine, prune_infrequent
+    from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
+    from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.parallel import distributed, support
+
+    with open(os.path.join(work, "scale_shape.json")) as fh:
+        shape = json.load(fh)
+    names = [f"Track {i:07d}" for i in range(shape["n_tracks"])]
+    baskets = Baskets(
+        playlist_rows=np.load(os.path.join(work, "scale_rows.npy")),
+        track_ids=np.load(os.path.join(work, "scale_tids.npy")),
+        n_playlists=shape["n_playlists"],
+        vocab=Vocab(names=names, index={n: i for i, n in enumerate(names)}),
+    )
+    cfg = MiningConfig(min_support=SCALE_MIN_SUPPORT)
+    # the job's mesh: "auto" over the world, flattened onto dp by the miner
+    job_mesh = distributed.resolve_mesh("auto", distributed=True)
+
+    # ---- the main path: counters to 0, mine, read counters
+    for key in pc.LAUNCHES:
+        pc.LAUNCHES[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    result = mine(baskets, cfg, device="cuda", mesh=job_mesh)
+    launches = pc.LAUNCHES["popcount_pairs"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if distributed.runtime().rank == 0:
+        t = result.tensors
+        np.savez(os.path.join(work, "ranks_tensors.npz"), rule_ids=t.rule_ids,
+                 rule_counts=t.rule_counts, rule_confs=t.rule_confs,
+                 item_counts=t.item_counts, row_valid_counts=t.row_valid_counts)
+
+    # ---- timings after the mine: this rank's slab kernel, ranks in turn
+    reduced, _ = prune_infrequent(baskets, result.tensors.min_count)
+    slab = support.pack_rank_slab(reduced, mesh, "cuda")
+    pc.popcount_pair_counts_padded(slab)  # warm
+    torch.cuda.synchronize()
+    slab_ms = None
+    for turn in mesh.ranks():
+        distributed.barrier()
+        if turn == distributed.runtime().rank:
+            slab_ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(slab), 3)
+    distributed.barrier()
+    counts = torch.ones((slab.shape[0], slab.shape[0]), dtype=torch.int32, device="cuda")
+    support.reduce_counts(counts, mesh)  # warm
+    torch.cuda.synchronize()
+    distributed.barrier()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        support.reduce_counts(counts, mesh)
+    torch.cuda.synchronize()
+    all_reduce_ms = 1e3 * (time.perf_counter() - t0) / reps
+    return {
+        "count_path": result.count_path,
+        "launches": launches,
+        "bracket_s": result.duration_s,
+        "phases": result.phase_timings,
+        "slab_shape": list(slab.shape),
+        "slab_ms": slab_ms,
+        "all_reduce_ms": all_reduce_ms,
+        "peak_gib": peak_gib,
     }
 
 
@@ -449,10 +889,13 @@ def main() -> int:
     except ImportError as exc:
         print(f"FAIL: the port is not beside this script: {exc}", file=sys.stderr)
         return 2
+    quick = "--quick" in sys.argv[1:]
     t_all = time.perf_counter()
     smi = nvidia_smi_query("name,power.limit")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)} ({smi})")
+    if quick:
+        log(f"reduced: --quick cuts the scale shape from {SCALE} to {QUICK_SCALE}")
 
     t0 = time.perf_counter()
     cuda_build.build("popcount")
@@ -466,13 +909,16 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="kmls_smoke_")
     try:
         e2e = phase_end_to_end(work)
+        scale = phase_scale(2024, work, QUICK_SCALE if quick else SCALE)
+        ranks = phase_ranks(work, scale)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    kernel = phase_scale(seed=2024)
+    kernel = scale["kernel"]
     kernel["launches_job"] = e2e["job_launches"]
+    kernel["launches_sharded"] = ranks["kernel"]["launches"] + sum(ranks["launches_job"])
     kernel["max_abs_err"] = max(kernel["max_abs_err"], small_err)
     log(f"total smoke time {time.perf_counter() - t_all:.3f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, ranks["kernel"]]}))
     print(smi)
     print(json.dumps({
         "ok": True,
@@ -486,4 +932,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(*sys.argv[2:4]))
     sys.exit(main())

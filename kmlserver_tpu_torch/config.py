@@ -39,6 +39,15 @@ def _getenv_bool(name: str, default: bool) -> bool:
     return raw.strip().lower() in ("1", "true", "yes", "on")
 
 
+def _getenv_model_layout() -> str:
+    """``KMLS_MODEL_LAYOUT``: ``replicated`` (default), ``sharded`` or
+    ``auto``, validated by ``parallel.layout.validate_layout`` (a typo
+    fails safe to ``replicated``)."""
+    from .parallel.layout import validate_layout
+
+    return validate_layout(os.getenv("KMLS_MODEL_LAYOUT", "replicated"))
+
+
 def torch_device_from_env() -> str:
     """``KMLS_TORCH_DEVICE`` (default ``cuda``)."""
     return os.getenv("KMLS_TORCH_DEVICE") or "cuda"
@@ -75,10 +84,28 @@ class MiningConfig:
     prune_vocab_threshold: int = 512
     write_tensor_artifact: bool = True
     write_manifest: bool = True
+    # rank mesh for the multi-rank job: "auto" (every rank when the job is
+    # distributed, none in a single process), "1x1"/"" (none), "DPxTP",
+    # or "hybrid"/"hybrid:tpN" (tp = the ranks of one host)
+    mesh_shape: str = "auto"
+    # "replicated", "sharded" or "auto" (parallel/layout.py)
+    model_layout: str = "replicated"
+    # where the per-rank heartbeat files live; empty = <base_dir>/mining_checkpoint
+    checkpoint_dir: str = ""
+    # dead-rank watchdog (distributed jobs only): a peer silent for
+    # rank_timeout_s aborts the rank with exit 76; 0 disables
+    rank_timeout_s: float = 300.0
+    rank_heartbeat_interval_s: float = 5.0
+    # deadline of one guarded collective section (the mine); 0 = 6 x rank_timeout_s
+    collective_timeout_s: float = 1800.0
 
     @property
     def pickles_dir(self) -> str:
         return os.path.join(self.base_dir, self.pickles_folder)
+
+    @property
+    def checkpoint_path(self) -> str:
+        return self.checkpoint_dir or os.path.join(self.base_dir, "mining_checkpoint")
 
     @staticmethod
     def from_env(dotenv_path: str | None = ".env") -> "MiningConfig":
@@ -107,6 +134,12 @@ class MiningConfig:
             prune_vocab_threshold=_getenv_int("KMLS_PRUNE_VOCAB_THRESHOLD", 512),
             write_tensor_artifact=_getenv_bool("KMLS_WRITE_TENSOR_ARTIFACT", True),
             write_manifest=_getenv_bool("KMLS_WRITE_MANIFEST", True),
+            mesh_shape=os.getenv("KMLS_MESH_SHAPE", "auto"),
+            model_layout=_getenv_model_layout(),
+            checkpoint_dir=os.getenv("KMLS_CKPT_DIR", ""),
+            rank_timeout_s=_getenv_float("KMLS_RANK_TIMEOUT_S", 300.0),
+            rank_heartbeat_interval_s=_getenv_float("KMLS_RANK_HEARTBEAT_S", 5.0),
+            collective_timeout_s=_getenv_float("KMLS_COLLECTIVE_TIMEOUT_S", 1800.0),
         )
 
 

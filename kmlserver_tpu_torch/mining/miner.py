@@ -1,13 +1,16 @@
 """Mining driver: baskets → rule tensors, on the bit-packed count route.
 
 Counterpart of ``kmlserver_tpu/mining/miner.py`` for the reference's default
-configuration (support mode, ``max_itemset_len=2``, one device): Apriori
-prune on the host, pair counts ``C = XᵀX`` from the bit-packed operand
-through the CUDA popcount kernel (``ops/popcount.py``), then threshold +
-top-k emission. Counts are exact integers, so the rule tensors equal the
-reference's whichever count route the reference took. The dense-fused,
-sparse, native-CPU and sharded routes, their dispatch and the itemset
-census are not part of this slice.
+configuration (support mode, ``max_itemset_len=2``): Apriori prune on the
+host, pair counts ``C = XᵀX`` from the bit-packed operand through the CUDA
+popcount kernel (``ops/popcount.py``), then threshold + top-k emission.
+With a rank mesh every rank runs the same prune, packs its slab of the
+word axis, counts it with the kernel and all-reduces the partials
+(``parallel/support.py``; the reference's ``sharded-bitpack`` route,
+``miner.py:199-232``, ``tp`` flattened onto ``dp``). Counts are exact
+integers, so the rule tensors equal the reference's whichever count route
+the reference took. The dense-fused, sparse, native-CPU and dense sharded
+routes, their dispatch and the itemset census are not ported.
 
 Timing brackets rule generation like the reference (machine-learning/
 main.py:264,306-308), synchronising the device at each phase boundary so
@@ -26,6 +29,8 @@ import torch
 from ..config import MiningConfig
 from ..ops import popcount, rules
 from ..ops.support import min_count_for
+from ..parallel import layout, support
+from ..parallel.mesh import RankMesh
 from ..utils.device import resolve_device
 from .vocab import Baskets, Vocab
 
@@ -41,10 +46,11 @@ class MiningResult:
     pruned_vocab: int | None = None  # size after pruning, when it ran
     phase_timings: dict[str, float] | None = None
     # which pair-count route ran: "bitpack-cuda" (the CUDA kernel),
-    # "bitpack-torch" (its plain PyTorch version on the CPU), or
-    # "pruned-empty" (nothing frequent in a large vocabulary)
+    # "bitpack-torch" (its plain PyTorch version on the CPU), the same two
+    # with a "sharded-" prefix over a rank mesh, or "pruned-empty"
+    # (nothing frequent in a large vocabulary)
     count_path: str | None = None
-    # launches of the CUDA popcount kernel during this mine
+    # launches of the CUDA popcount kernel during this mine (this rank's)
     kernel_launches: int = 0
 
 
@@ -95,10 +101,22 @@ def mine(
     baskets: Baskets,
     cfg: MiningConfig,
     device: str | torch.device = "cuda",
+    mesh: RankMesh | None = None,
 ) -> MiningResult:
     """Run the mining compute on ``device``, timed like the reference's rule
-    step. Raises when ``device`` is CUDA and no card is present."""
+    step. Raises when ``device`` is CUDA and no card is present. With a
+    ``mesh`` every rank of it must call this with the same baskets: the
+    count is dp-sharded and all-reduced (phase ``all_reduce``)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        if layout.wants_sharded_mining(cfg, mesh):
+            print(
+                "NOTE: KMLS_MODEL_LAYOUT=sharded: the vocab-sharded count and "
+                "emission are not ported; counting on the dp-sharded "
+                "bit-packed route with tp flattened onto dp (exact counts, "
+                "so the same rule tensors)"
+            )
+        mesh = mesh.flattened()
     timer = PhaseTimer(dev)
     launches0 = popcount.LAUNCHES["popcount_pairs"]
     if dev.type == "cuda":
@@ -146,21 +164,25 @@ def mine(
                     phase_timings=dict(timer.phases), count_path="pruned-empty",
                 )
     with timer.phase("bitpack"):
-        v_pad, w_pad = popcount.padded_shape(mined.n_tracks, mined.n_playlists)
-        bt = popcount.bitpack_by_track(
-            mined.playlist_rows, mined.track_ids,
-            n_playlists=mined.n_playlists, n_tracks=mined.n_tracks,
-            v_pad=v_pad, w_pad=w_pad, device=dev,
-        )
+        if mesh is None:
+            v_pad, w_pad = popcount.padded_shape(mined.n_tracks, mined.n_playlists)
+            bt = popcount.bitpack_by_track(
+                mined.playlist_rows, mined.track_ids,
+                n_playlists=mined.n_playlists, n_tracks=mined.n_tracks,
+                v_pad=v_pad, w_pad=w_pad, device=dev,
+            )
+        else:
+            bt = support.pack_rank_slab(mined, mesh, dev)
     with timer.phase("pair_counts"):
         variant, swar = popcount.resolve_kernel_opts(None, None)
-        counts = popcount.popcount_pair_counts_padded(
-            bt, variant=variant, swar=swar
-        )[: mined.n_tracks, : mined.n_tracks]
+        counts = popcount.popcount_pair_counts_padded(bt, variant=variant, swar=swar)
         del bt
+    if mesh is not None:
+        with timer.phase("all_reduce"):
+            support.reduce_counts(counts, mesh)
     with timer.phase("rule_emission"):
         tensors = rules.mine_rules_from_counts(
-            counts,
+            counts[: mined.n_tracks, : mined.n_tracks],
             n_playlists=mined.n_playlists,
             min_support=cfg.min_support,
             k_max=cfg.k_max_consequents,
@@ -176,6 +198,7 @@ def mine(
         duration_s=time.perf_counter() - t0,
         pruned_vocab=pruned_vocab,
         phase_timings=dict(timer.phases),
-        count_path="bitpack-cuda" if dev.type == "cuda" else "bitpack-torch",
+        count_path=("bitpack-" if mesh is None else "sharded-bitpack-")
+        + ("cuda" if dev.type == "cuda" else "torch"),
         kernel_launches=popcount.LAUNCHES["popcount_pairs"] - launches0,
     )

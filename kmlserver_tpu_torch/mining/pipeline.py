@@ -8,8 +8,11 @@ append + invalidation-token rewrite, with the reference's progress lines.
 
 All artifact writes happen in one publication step after the compute, and
 the token is rewritten last, so a job that dies mid-run leaves the served
-artifact set untouched. Checkpoints, the publication lease, job metrics and
-the delta/embed/eval phases are not part of this slice.
+artifact set untouched. Over a rank mesh (reference ``pipeline.py:255-266``,
+``:344-350``, ``:458-461``) every rank reads the dataset list and the run
+index and mines; only rank 0, the writer, persists and publishes.
+Checkpoints, the publication lease, job metrics and the delta/embed/eval
+phases are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ import torch
 from ..config import BASE_INDEX, MiningConfig
 from ..data.csv import read_tracks
 from ..io import artifacts, registry
+from ..parallel import layout
+from ..parallel.distributed import RankWatchdog, barrier
+from ..parallel.mesh import RankMesh, this_rank
 from ..utils.timeutil import get_current_time_str, get_current_time_str_precise
 from . import vocab as vocab_mod
 from .miner import MiningResult, format_phases, mine
@@ -80,15 +86,27 @@ def _report_mining(result: MiningResult, cfg: MiningConfig) -> None:
 
 
 def run_mining_job(
-    cfg: MiningConfig, device: str | torch.device = "cuda"
+    cfg: MiningConfig,
+    device: str | torch.device = "cuda",
+    mesh: RankMesh | None = None,
+    watchdog: RankWatchdog | None = None,
 ) -> JobSummary:
     """One rotation run of the mining job on ``device`` (default ``cuda``;
-    raises when no card is present and ``device`` is not ``"cpu"``)."""
+    raises when no card is present and ``device`` is not ``"cpu"``). With a
+    ``mesh`` every rank of it runs this; ``watchdog`` guards the mine."""
     print(f"Job starting at {get_current_time_str()}")
-    datasets = registry.get_dataset_list(cfg)
+    mesh = layout.mining_mesh(cfg, mesh)
+    # every rank takes part in the collectives, but only rank 0 touches the
+    # shared volume: duplicate history appends would corrupt the rotation
+    is_writer = this_rank() == 0
+    datasets = registry.get_dataset_list(cfg, persist=is_writer)
     run_index = registry.get_next_run_index(cfg, datasets)
     selected = datasets[run_index - BASE_INDEX]
     print(f"Selected dataset {run_index}/{len(datasets)}: {selected}")
+    # every rank has read the rotation state before the writer can append
+    # to it: the mine's all-reduce orders that, but a mine that prunes to
+    # nothing runs no collective, so the ranks meet here first
+    barrier()
 
     table = read_tracks(selected, cfg.sample_ratio)
     print(
@@ -101,12 +119,36 @@ def run_mining_job(
     best = vocab_mod.most_frequent_tracks(table, cfg.top_tracks_save_percentile)
     baskets = vocab_mod.build_baskets(table)
 
-    result = mine(baskets, cfg, device=device)
+    if watchdog is not None:
+        # a dead or hung peer turns the mine's all-reduce into a
+        # forever-hang: bound it
+        with watchdog.guard("mine"):
+            result = mine(baskets, cfg, device=device, mesh=mesh)
+    else:
+        result = mine(baskets, cfg, device=device, mesh=mesh)
     _report_mining(result, cfg)
     tensors = result.tensors
+
+    summary = JobSummary(
+        dataset=selected,
+        run_index=run_index,
+        n_rows=len(table),
+        n_playlists=result.n_playlists,
+        n_tracks=result.n_tracks,
+        n_songs_missing=tensors.n_songs_missing,
+        rule_generation_s=result.duration_s,
+        token="",
+        artifact_paths={},
+        count_path=result.count_path,
+        kernel_launches=result.kernel_launches,
+    )
+    if not is_writer:
+        print(f"Rank {this_rank()}: not the writer; rank 0 publishes")
+        print(f"Job finished at {get_current_time_str()}")
+        return summary
     rules_dict = tensors.to_rules_dict(result.vocab_names)
 
-    # ---------- publication ----------
+    # ---------- publication (writer only) ----------
     def path_of(filename: str) -> str:
         return os.path.join(cfg.pickles_dir, filename)
 
@@ -152,16 +194,4 @@ def run_mining_job(
         cfg, run_index, selected, timestamp=token_value
     )
     print(f"Job finished at {get_current_time_str()}")
-    return JobSummary(
-        dataset=selected,
-        run_index=run_index,
-        n_rows=len(table),
-        n_playlists=result.n_playlists,
-        n_tracks=result.n_tracks,
-        n_songs_missing=tensors.n_songs_missing,
-        rule_generation_s=result.duration_s,
-        token=token,
-        artifact_paths=paths,
-        count_path=result.count_path,
-        kernel_launches=result.kernel_launches,
-    )
+    return dataclasses.replace(summary, token=token, artifact_paths=paths)

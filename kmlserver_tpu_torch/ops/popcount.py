@@ -281,6 +281,41 @@ def bitpack_by_track(
     )
 
 
+def bitpack_slab_by_track(
+    playlist_rows,
+    track_ids,
+    *,
+    n_playlists: int,
+    n_tracks: int,
+    v_pad: int,
+    w_total: int,
+    dp: int,
+    rank: int,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Rank ``rank``'s slab of the dp-sharded bitset: the contiguous int32
+    ``(v_pad, w_total // dp)`` block of words ``[rank·S, (rank+1)·S)`` of
+    ``bitpack_by_track(..., w_pad=w_total)``, built from the membership
+    rows of that block's playlists alone, their bits shifted down by
+    ``32·rank·S``. The reference packs the whole bitset and lets its
+    output sharding cut it (``parallel/support.py:167-177``); a rank here
+    never holds the whole bitset."""
+    if dp < 1 or w_total % dp:
+        raise ValueError(f"w_total {w_total} must split into dp={dp} equal slabs")
+    if not 0 <= rank < dp:
+        raise ValueError(f"rank {rank} outside dp={dp}")
+    if n_playlists > w_total * encode.WORD_BITS:
+        raise ValueError(f"w_total {w_total} too small for {n_playlists} playlists")
+    slab_bits = (w_total // dp) * encode.WORD_BITS
+    lo = rank * slab_bits
+    rows = _on_device(playlist_rows, device)
+    tids = _on_device(track_ids, device)
+    here = (rows >= lo) & (rows < lo + slab_bits)
+    return encode.bitpack_matrix(
+        tids[here], rows[here] - lo, n_playlists=v_pad, n_tracks=slab_bits
+    )
+
+
 def popcount_pair_counts(
     playlist_rows,
     track_ids,
