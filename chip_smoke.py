@@ -6,10 +6,15 @@ Drives ``kmlserver_tpu_torch`` (and nothing of the JAX package) through its
 main loop on the card and fails loudly on any mismatch:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compiles every CUDA kernel of the path from ``ops/csrc``;
-3. kernel against plain: the popcount kernel against its plain PyTorch
-   version at several padded shapes (default and non-default tiles, ragged
-   V and P before padding, ``swar`` on and off) — exact equality;
+2. build: compiles every CUDA kernel of the path from ``ops/csrc`` and logs
+   ptxas's registers and spills;
+3. kernels against plain: the tensor-core kernel and the SWAR kernel
+   (``swar=True``) against their plain PyTorch version at several padded
+   shapes — default and non-default tiles, ragged V and P before padding,
+   all-ones rows, words with bit 31 set, a V_pad that is no multiple of the
+   128-row tile with a W_pad that is no multiple of 4, a base pointer off a
+   16-byte boundary, a lone diagonal tile — exact equality, each launch
+   moving its own counter;
 4. end to end: writes a ds2-shaped synthetic CSV, runs
    ``python -m kmlserver_tpu_torch.mining.job`` on the card, checks its
    artifacts against the same job on the CPU, starts
@@ -19,9 +24,10 @@ main loop on the card and fails loudly on any mismatch:
    (BASELINE config 4's shape cut to one card), mined in process through
    ``mining.miner.mine`` with the launch counters reset just before and
    read just after; counts checked against exact numpy set intersections;
-   then the kernel, its plain version (computed slab by slab over the two
-   dp slabs of phase 6) and the ``torch._int_mm`` yardstick are timed at
-   that shape;
+   then the kernel, the SWAR kernel, its plain version (computed slab by
+   slab over the two dp slabs of phase 6) and the ``torch._int_mm``
+   yardstick are timed at that shape, and the kernel's time is set beside
+   its bound (:func:`popcount_bound`);
 6. ranks on the card (``parallel/``): two ranks, bootstrapped by the env
    triple, sharing the card over gloo (one card per rank over NCCL when
    the machine has two): (a) each rank's kernel on its slab of the ds2
@@ -59,13 +65,19 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published HBM3 rate (NVIDIA data sheet). The pair count's binding
-# unit is the popcount: compute capability 9.0 issues 16 popcounts per clock
-# per SM (CUDA C++ Programming Guide, arithmetic instruction throughput),
-# against 64 per clock for the AND and the add, so the popcounts alone take
-# twice as long as those two together
+# H100 SXM published rates (NVIDIA data sheet, dense, 700 W): HBM3 bytes
+# and int8 tensor-core operations (a multiply-add counts as two). Two units
+# can compute the pair count: the int8 tensor cores, on the 0/1 bytes of the
+# unpacked bitset, and the popcount unit, on the packed words, which issues
+# 16 popcounts per clock per SM on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput)
 PEAK_BYTES_PER_S = 3.35e12
+INT8_TC_OPS_PER_S = 1979e12
 POPC_PER_CLOCK_PER_SM = 16
+
+KERNEL_DESIGN = ("int8 wgmma m64n128k32, bits unpacked in the operand load (A in "
+                 "registers, B by a producer warpgroup into shared memory), upper "
+                 "triangle of 128 x 128 tiles, mbarrier stage ring")
 
 SCALE = dict(n_playlists=1_000_000, n_tracks=1_000_000, target_rows=50_000_000)
 QUICK_SCALE = dict(n_playlists=100_000, n_tracks=100_000, target_rows=5_000_000)
@@ -111,20 +123,67 @@ def subproc_env(**extra: str) -> dict:
     return env
 
 
-def popcount_bound(v_pad: int, w: int) -> tuple[float, float, int, int, float]:
-    """→ (ms by bytes, ms by operations, bytes, popcounts, SM clock Hz) of
-    the pair count over a ``(v_pad, w)`` bitset. C is symmetric, so the
-    function needs one popcount per word of each unordered row pair, the
-    diagonal included; bytes are the bitset read once and C written once."""
+def popcount_bound(v_pad: int, w: int) -> dict:
+    """The least time the card could take for the pair count over a
+    ``(v_pad, w)`` bitset: the larger of its bytes over the memory rate and
+    its operations over the fastest unit that can do them. C is symmetric,
+    so the function needs each unordered row pair once, the diagonal
+    included: 32·w int8 multiply-adds on the tensor cores, or w popcounts on
+    the popcount unit. Bytes are the bitset read once and C written once.
+    A kernel measured faster than ``ms`` means this count is wrong, not that
+    the kernel beat the card: :func:`check_share` fails the smoke on it."""
     import torch
 
+    pairs = v_pad * (v_pad + 1) // 2
     nbytes = 4 * v_pad * w + 4 * v_pad * v_pad
-    popcounts = v_pad * (v_pad + 1) // 2 * w
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
+    units = {
+        "int8 tensor cores": 1e3 * 2 * pairs * 32 * w / INT8_TC_OPS_PER_S,
+        "popcount unit": 1e3 * pairs * w / (POPC_PER_CLOCK_PER_SM * sms * clock_hz),
+    }
+    unit = min(units, key=units.get)
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    t_ops = 1e3 * popcounts / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
-    return t_bytes, t_ops, nbytes, popcounts, clock_hz
+    by_ops = units[unit] >= t_bytes
+    return {
+        "ms": max(units[unit], t_bytes),
+        "bound_by": "operations" if by_ops else "bytes",
+        "unit": unit if by_ops else "HBM3",
+        "units_ms": units,
+        "bytes_ms": t_bytes,
+        "bytes": nbytes,
+        "int8_ops": 2 * pairs * 32 * w,
+        "clock_hz": clock_hz,
+    }
+
+
+def check_share(name: str, ms: float, bound: dict) -> float:
+    """→ the kernel's share of its bound; fails the smoke above 100 %."""
+    share = bound["ms"] / ms
+    if share > 1.0:
+        fail(f"{name}: {ms:.3f} ms is below its bound {bound['ms']:.3f} ms "
+             f"({bound['unit']}): the bound's count is wrong")
+    return share
+
+
+def ptxas_registers(log: str) -> dict[str, int]:
+    """Registers per kernel entry from nvcc's ``-Xptxas=-v`` report, keyed
+    ``popcount_pairs_tc_kernel<true>`` and the like."""
+    regs: dict[str, int] = {}
+    entry = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            entry = next((k for k in ("popcount_pairs_tc_kernel", "popcount_pairs_swar_kernel")
+                          if k in mangled), mangled)
+            if "ILb1E" in mangled:
+                entry += "<true>"
+            elif "ILb0E" in mangled:
+                entry += "<false>"
+        elif entry and "Used" in line and "registers" in line:
+            regs[entry] = int(line.split("Used", 1)[1].split()[0])
+            entry = None
+    return regs
 
 
 def int_mm_ms(bt, want) -> float:
@@ -213,50 +272,80 @@ def rank_envs(port: int, **extra: str) -> list[dict]:
 # ---------------------------------------------------------------- phase 3
 
 
+def edge_bitset(rng, n_tracks: int, n_playlists: int, fill: str):
+    """A padded bitset for phase 3 as a numpy uint32 array: random words
+    (``fill="random"``), every word's bit 31 set on every other row
+    (``"bit31"``) or every bit of every word set (``"ones"``). Rows and bits
+    past the unpadded shape are zero, as the packer leaves them, except for
+    ``"ones"``, which fills the whole padded array."""
+    from kmlserver_tpu_torch.ops import popcount as pc
+
+    v_pad, w_pad = pc.padded_shape(n_tracks, n_playlists)
+    if fill == "ones":
+        return np.full((v_pad, w_pad), 0xFFFFFFFF, dtype=np.uint32)
+    words = rng.integers(0, 2**32, size=(v_pad, w_pad), dtype=np.uint64)
+    if fill == "bit31":
+        words[::2] |= 1 << 31
+    words[n_tracks:] = 0
+    tail = n_playlists % 32
+    last = n_playlists // 32
+    if tail:
+        words[:, last] &= (1 << tail) - 1
+    words[:, last + (1 if tail else 0):] = 0
+    return words.astype(np.uint32)
+
+
 def phase_kernel_vs_plain() -> int:
+    """Phase 3: both kernels against the plain version on every case,
+    exact; each launch moves its own counter and only that one."""
     import torch
 
     from kmlserver_tpu_torch.ops import popcount as pc
 
     rng = np.random.default_rng(0)
     max_err = 0
-    # (n_tracks, n_playlists) before padding, tile knobs, swar
+    # (n_tracks, n_playlists) before padding, tile knobs, words, base offset
+    # in int32 elements (1: a base pointer off a 16-byte boundary)
     cases = [
-        (429, 2246, (32, 128, 512), False),  # the ds2 mine's shape
-        (429, 2246, (32, 128, 512), True),
-        (1000, 5000, (16, 64, 128), False),  # non-default tiles
-        (300, 777, (64, 64, 256), True),
-        (129, 257, (8, 24, 8), False),  # ragged V and P, tiny tiles
-        (700, 3000, (6, 10, 64), True),  # knobs that don't fit: fallback block
+        (429, 2246, (32, 128, 512), "random", 0),  # the ds2 mine's shape
+        (1000, 5000, (16, 64, 128), "random", 0),  # non-default tiles
+        (300, 777, (64, 64, 256), "random", 0),
+        (129, 257, (8, 24, 8), "random", 0),  # ragged V and P, tiny tiles
+        (700, 3000, (6, 10, 64), "random", 0),  # knobs the SWAR block can't take
+        (256, 16384, (32, 128, 512), "ones", 0),  # every cell 32·W_pad
+        (500, 9000, (32, 128, 128), "bit31", 0),  # words with bit 31 set
+        # V_pad 144 is not a multiple of the 128 tile, W_pad 10 not of 4
+        (129, 257, (8, 24, 5), "random", 0),
+        (600, 4000, (32, 128, 128), "random", 1),  # unaligned base
+        (100, 3000, (32, 128, 512), "random", 0),  # one tile: a lone diagonal
     ]
-    for n_tracks, n_playlists, (ti, tj, wk), swar in cases:
+    for n_tracks, n_playlists, (ti, tj, wk), fill, offset in cases:
         os.environ.update(
             KMLS_POPCOUNT_TILE_I=str(ti), KMLS_POPCOUNT_TILE_J=str(tj),
             KMLS_POPCOUNT_WORD_CHUNK=str(wk),
         )
-        v_pad, w_pad = pc.padded_shape(n_tracks, n_playlists)
-        words = rng.integers(0, 2**32, size=(v_pad, w_pad), dtype=np.uint64)
-        words[n_tracks:] = 0  # padded rows/bits are zero, as the packer leaves them
-        tail = n_playlists % 32
-        last = n_playlists // 32
-        if tail:
-            words[:, last] &= (1 << tail) - 1
-        words[:, last + (1 if tail else 0):] = 0
-        bt = torch.as_tensor(words.astype(np.uint32).view(np.int32), device="cuda")
-        before = pc.LAUNCHES["popcount_pairs"]
-        got = pc.popcount_pair_counts_padded(bt, swar=swar)
-        torch.cuda.synchronize()
-        if pc.LAUNCHES["popcount_pairs"] != before + 1:
-            fail("popcount launch counter did not move")
+        words = edge_bitset(rng, n_tracks, n_playlists, fill).view(np.int32)
+        flat = torch.zeros(words.size + offset, dtype=torch.int32, device="cuda")
+        bt = flat[offset:].view(words.shape)
+        bt.copy_(torch.as_tensor(words, device="cuda"))
         want = pc.popcount_pair_counts_plain(bt)
-        torch.cuda.synchronize()
-        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
-        if not torch.equal(got, want):
-            bad = int((got != want).sum())
-            fail(f"popcount kernel != plain at {tuple(bt.shape)} tiles "
-                 f"{ti}x{tj}x{wk} swar={swar}: {bad} cells differ")
-        log(f"kernel == plain: bt {tuple(bt.shape)} tiles {ti}x{tj}x{wk} "
-            f"block {pc.block_shape(ti, tj)} swar={swar} (exact)")
+        if fill == "ones" and not bool((want == 32 * bt.shape[1]).all()):
+            fail(f"plain version on all-ones rows {tuple(bt.shape)} is not 32·W_pad")
+        for name, swar in (("popcount_pairs", False), ("popcount_pairs_swar", True)):
+            before = dict(pc.LAUNCHES)
+            got = pc.popcount_pair_counts_padded(bt, swar=swar)
+            torch.cuda.synchronize()
+            moved = {k: pc.LAUNCHES[k] - before[k] for k in before}
+            if moved != {k: int(k == name) for k in before}:
+                fail(f"{name}: launch counters moved by {moved}")
+            max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                fail(f"{name} != plain at {tuple(bt.shape)} tiles {ti}x{tj}x{wk} "
+                     f"{fill} words, base offset {4 * offset} B: {bad} cells differ")
+        log(f"both kernels == plain: bt {tuple(bt.shape)} tiles {ti}x{tj}x{wk}, "
+            f"{fill} words, base offset {4 * offset} B, SWAR block "
+            f"{pc.block_shape(ti, tj)} (exact)")
     for key in ("KMLS_POPCOUNT_TILE_I", "KMLS_POPCOUNT_TILE_J", "KMLS_POPCOUNT_WORD_CHUNK"):
         os.environ.pop(key)
     return max_err
@@ -517,6 +606,8 @@ def phase_scale(seed: int, work: str, shape: dict) -> dict:
     got = pc.popcount_pair_counts_padded(bt)  # warm
     torch.cuda.synchronize()
     kernel_ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(bt), 5)
+    if not torch.equal(pc.popcount_pair_counts_padded(bt, swar=True), got):
+        fail(f"scale shape {tuple(bt.shape)}: SWAR kernel != tensor-core kernel")
     swar_ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(bt, swar=True), 2)
     slab_plain, slab_plain_ms = [], []
     for slab in slabs:
@@ -540,11 +631,15 @@ def phase_scale(seed: int, work: str, shape: dict) -> dict:
     log(f"yardstick torch._int_mm on the unpacked int8 operand "
         f"({v_pad} x {w_pad * 32}): {library_ms:.3f} ms (unpack not timed)")
 
-    t_bytes, t_ops, nbytes, popcounts, clock_hz = popcount_bound(v_pad, w_pad)
-    log(f"bound: {popcounts} popcounts at {POPC_PER_CLOCK_PER_SM}/clock x "
-        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
-        f"{clock_hz / 1e6:.0f} MHz = {t_ops:.3f} ms; {nbytes} bytes at "
-        f"{PEAK_BYTES_PER_S:.3g} B/s = {t_bytes:.3f} ms")
+    bound = popcount_bound(v_pad, w_pad)
+    share = check_share("popcount_pairs", kernel_ms, bound)
+    log(f"bound: {bound['int8_ops']} int8 operations (one triangle) at "
+        f"{INT8_TC_OPS_PER_S:.4g}/s = {bound['units_ms']['int8 tensor cores']:.3f} ms; "
+        f"the popcount unit at {POPC_PER_CLOCK_PER_SM}/clock/SM x "
+        f"{bound['clock_hz'] / 1e6:.0f} MHz = {bound['units_ms']['popcount unit']:.3f} ms; "
+        f"{bound['bytes']} bytes at {PEAK_BYTES_PER_S:.3g} B/s = {bound['bytes_ms']:.3f} ms "
+        f"-> {bound['ms']:.3f} ms ({bound['unit']}); the kernel at {100 * share:.1f} %, "
+        f"torch._int_mm (both triangles) at {100 * bound['ms'] / library_ms:.1f} %")
     kernel = {
         "name": "popcount_pairs",
         "route": "cuda",
@@ -554,11 +649,13 @@ def phase_scale(seed: int, work: str, shape: dict) -> dict:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound["ms"],
+        "bound_by": bound["bound_by"],
+        "bound_unit": bound["unit"],
         "library_ms": library_ms,
         "shape": [v_pad, w_pad],
         "swar_ms": swar_ms,
+        "design": KERNEL_DESIGN,
     }
     del bt, got
     return {
@@ -707,11 +804,19 @@ def phase_ranks(work: str, scale: dict) -> dict:
         if not torch.equal(part, plain):
             fail(f"scale slab {r} {tuple(slab.shape)}: kernel != plain")
     v_pad, w_slab = slabs[0].shape
-    library_ms = int_mm_ms(slabs[0], pc.popcount_pair_counts_padded(slabs[0]))
-    t_bytes, t_ops, _, popcounts, _ = popcount_bound(v_pad, w_slab)
+    part = pc.popcount_pair_counts_padded(slabs[0])
+    if not torch.equal(pc.popcount_pair_counts_padded(slabs[0], swar=True), part):
+        fail(f"scale slab 0 {tuple(slabs[0].shape)}: SWAR kernel != tensor-core kernel")
+    swar_ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(slabs[0], swar=True), 2)
+    library_ms = int_mm_ms(slabs[0], part)
+    del part
+    bound = popcount_bound(v_pad, w_slab)
+    ms = max(res["slab_ms"] for res in results)
+    share = check_share("popcount_pairs_sharded", ms, bound)
     log(f"scale slabs {tuple(slabs[0].shape)}: kernel == plain on each (exact); "
-        f"bound {max(t_bytes, t_ops):.3f} ms ({popcounts} popcounts); "
-        f"torch._int_mm on the unpacked slab {library_ms:.3f} ms")
+        f"bound {bound['ms']:.3f} ms ({bound['unit']}, {bound['int8_ops']} int8 "
+        f"operations), the slowest rank's kernel at {100 * share:.1f} %; SWAR kernel "
+        f"{swar_ms:.3f} ms; torch._int_mm on the unpacked slab {library_ms:.3f} ms")
     return {
         "launches_job": job_launches,
         "kernel": {
@@ -724,12 +829,15 @@ def phase_ranks(work: str, scale: dict) -> dict:
             "launches_per_rank": [res["launches"] for res in results],
             "launches_job": sum(job_launches),
             "max_abs_err": max_err,
-            "ms": max(res["slab_ms"] for res in results),
+            "ms": ms,
             "ms_per_rank": [res["slab_ms"] for res in results],
             "plain_ms": scale["slab_plain_ms"][0],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound["ms"],
+            "bound_by": bound["bound_by"],
+            "bound_unit": bound["unit"],
             "library_ms": library_ms,
+            "swar_ms": swar_ms,
+            "design": KERNEL_DESIGN,
             "all_reduce_ms": max(res["all_reduce_ms"] for res in results),
             "backend": want_backend,
             "dp": RANKS,
@@ -901,9 +1009,11 @@ def main() -> int:
     cuda_build.build("popcount")
     log(f"build: popcount.cu in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {cuda_build.BUILD_LOG['popcount']['seconds']:.3f} s)")
-    for line in cuda_build.BUILD_LOG["popcount"]["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
+    ptxas = cuda_build.BUILD_LOG["popcount"]["ptxas"]
+    for line in ptxas.splitlines():
+        if any(k in line for k in ("registers", "spill", "entry function", "C7513")):
             log(f"  ptxas | {line.strip()}")
+    registers = ptxas_registers(ptxas)
 
     small_err = phase_kernel_vs_plain()
     work = tempfile.mkdtemp(prefix="kmls_smoke_")
@@ -917,6 +1027,8 @@ def main() -> int:
     kernel["launches_job"] = e2e["job_launches"]
     kernel["launches_sharded"] = ranks["kernel"]["launches"] + sum(ranks["launches_job"])
     kernel["max_abs_err"] = max(kernel["max_abs_err"], small_err)
+    for entry in (kernel, ranks["kernel"]):
+        entry["ptxas_registers"] = registers
     log(f"total smoke time {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": [kernel, ranks["kernel"]]}))
     print(smi)

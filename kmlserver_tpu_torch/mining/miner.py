@@ -118,7 +118,7 @@ def mine(
             )
         mesh = mesh.flattened()
     timer = PhaseTimer(dev)
-    launches0 = popcount.LAUNCHES["popcount_pairs"]
+    launches0 = sum(popcount.LAUNCHES.values())
     if dev.type == "cuda":
         # build (or load) the kernel library before the bracket: library
         # setup is environment preparation, not rule generation
@@ -200,5 +200,5 @@ def mine(
         phase_timings=dict(timer.phases),
         count_path=("bitpack-" if mesh is None else "sharded-bitpack-")
         + ("cuda" if dev.type == "cuda" else "torch"),
-        kernel_launches=popcount.LAUNCHES["popcount_pairs"] - launches0,
+        kernel_launches=sum(popcount.LAUNCHES.values()) - launches0,
     )

@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # per-source build record: seconds spent in nvcc (0.0 when a cached library
-# was reused) and nvcc's ptxas report (registers, shared memory, spills)
+# was reused) and nvcc's ptxas report (registers, shared memory, spills),
+# kept beside the library so a reused library still has its report
 BUILD_LOG: dict[str, dict] = {}
 
 
@@ -64,8 +65,10 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists.
     Raises ``RuntimeError`` with nvcc's output when compilation fails."""
     out = library_path(name)
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
-        BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+        ptxas = report.read_text() if report.exists() else ""
+        BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": ptxas})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
@@ -79,8 +82,12 @@ def build(name: str) -> Path:
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    ptxas = proc.stderr + proc.stdout
+    tmp_report = report.with_name(f".{report.name}.{os.getpid()}.tmp")
+    tmp_report.write_text(ptxas)
+    os.replace(tmp_report, report)
     os.replace(tmp, out)
-    BUILD_LOG[name] = {"seconds": seconds, "ptxas": proc.stderr + proc.stdout}
+    BUILD_LOG[name] = {"seconds": seconds, "ptxas": ptxas}
     return out
 
 

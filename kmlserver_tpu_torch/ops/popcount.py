@@ -1,33 +1,42 @@
-"""Pair-support counting over bit-packed baskets — the port's CUDA kernel.
+"""Pair-support counting over bit-packed baskets — the port's CUDA kernels.
 
 Counterpart of ``kmlserver_tpu/ops/popcount.py``. Packing the PLAYLIST axis
 into 32-bit words shrinks the operand 32x and turns pair counting into
 
-    C[i, j] = Σ_w popcount(Bt[i, w] & Bt[j, w])
+    C[i, j] = Σ_w popcount(Bt[i, w] & Bt[j, w]) = Σ_k U[i, k] · U[j, k]
 
 where ``Bt (V_pad, W_pad)`` holds track i's playlist membership as a bitset
-(int32 tensors carrying the reference's uint32 bit pattern).
+(int32 tensors carrying the reference's uint32 bit pattern) and
+``U = unpack_bits(Bt)`` is the same matrix with one 0/1 int8 per bit.
 
-On a CUDA tensor :func:`popcount_pair_counts_padded` launches the
-hand-written Hopper kernel ``ops/csrc/popcount.cu`` (which replaces the
-Pallas kernel ``_popcount_padded_jit`` with its ``_kernel_bcast`` /
-``_kernel_row`` bodies), and raises if it cannot. On a CPU tensor it runs
+On a CUDA tensor :func:`popcount_pair_counts_padded` launches a kernel of
+``ops/csrc/popcount.cu`` and raises if it cannot; on a CPU tensor it runs
 :func:`popcount_pair_counts_plain`, the same function written straight out
-in PyTorch; the CPU tests use it, and ``chip_smoke.py`` holds the kernel
-against it on the card.
+in PyTorch. The CPU tests use the plain version, and ``chip_smoke.py``
+holds both kernels against it on the card.
+
+- ``swar=False`` (the default): the Hopper kernel, which replaces the Pallas
+  kernel ``_popcount_padded_jit`` with its ``_kernel_bcast`` /
+  ``_kernel_row`` bodies and is also the counterpart of the reference's XLA
+  route ``_mxu_padded_jit``. It runs on the int8 tensor cores (``wgmma``),
+  unpacks the bits on their way into the operands (the unpacked operand
+  never exists in device memory) and computes one triangle of the
+  symmetric C, mirroring each off-diagonal tile. It is bound by int8
+  tensor-core operations; ``PERF.md`` has its time beside that bound.
+  Launches count in ``LAUNCHES["popcount_pairs"]``.
+- ``swar=True``: the reference's path without a popcount primitive
+  (``_popcount_words``): a SIMT kernel with a shift-add popcount whose
+  block tile follows the knobs (:func:`block_shape`). Launches count in
+  ``LAUNCHES["popcount_pairs_swar"]``.
 
 Knobs keep the reference's names, defaults and lazy reads:
 ``KMLS_POPCOUNT_TILE_I/TILE_J/WORD_CHUNK`` (read at call time by
 :func:`resolve_tiles`, never at import), ``KMLS_POPCOUNT_VARIANT`` and
-``KMLS_POPCOUNT_SWAR``. ``TILE_I x TILE_J`` is the CUDA block's output tile
-wherever it fits the kernel (both multiples of 4, at most 1024 threads and
-48 KB of shared staging — the default 32 x 128 does); otherwise the block
-falls back to 32 x 128 and masks the ragged edge (:func:`block_shape`).
-``WORD_CHUNK`` stays the padding unit of the word axis. Both variants map to
-the one kernel (the Pallas pair existed only as a Mosaic-lowering hedge);
-``swar=True`` selects a shift-add popcount inside the kernel in place of
-``__popc``. The reference's ``impl="mxu"`` unpack-matmul is XLA, not Pallas,
-and is not part of this module.
+``KMLS_POPCOUNT_SWAR``. For the tensor-core kernel ``TILE_I``/``TILE_J`` set
+only the padding unit of V (its block tile is fixed at 128 x 128 and it
+masks the ragged edge); ``WORD_CHUNK`` stays the padding unit of the word
+axis. Both variants map to the same kernel (the Pallas pair existed only as
+a Mosaic-lowering hedge).
 """
 
 from __future__ import annotations
@@ -49,8 +58,8 @@ _SUB = 128  # the reference's lane-aligned word slice (word-chunk validation)
 
 VARIANTS = ("bcast", "row")
 
-# launches of the CUDA kernel, counted by the wrapper where it launches
-LAUNCHES = {"popcount_pairs": 0}
+# launches of the CUDA kernels, counted by the wrapper where it launches
+LAUNCHES = {"popcount_pairs": 0, "popcount_pairs_swar": 0}
 
 _MASK32 = 0xFFFFFFFF
 
@@ -114,7 +123,7 @@ def resolve_kernel_opts(
 
 
 def block_shape(tile_i: int, tile_j: int) -> tuple[int, int]:
-    """The CUDA block's output tile for the ``(TILE_I, TILE_J)`` knobs:
+    """The SWAR kernel's output tile for the ``(TILE_I, TILE_J)`` knobs:
     the knobs themselves where they fit the kernel (4 x 4 register tile per
     thread, at most 1024 threads, 32-word staging within 48 KB), else the
     default 32 x 128 with the ragged edge masked."""
@@ -175,9 +184,10 @@ def popcount_pair_counts_padded(
     int32 with ``V_pad % lcm(TILE_I, TILE_J) == 0`` and
     ``W_pad % WORD_CHUNK == 0`` → int32 ``(V_pad, V_pad)``.
 
-    A CUDA tensor launches the CUDA kernel (``variant`` is accepted for
-    the reference's signature; both variants are this one kernel); a CPU
-    tensor takes :func:`popcount_pair_counts_plain`."""
+    A CUDA tensor launches the tensor-core kernel (``swar=True``: the SWAR
+    kernel; ``variant`` is accepted for the reference's signature, both
+    variants are the same kernel); a CPU tensor takes
+    :func:`popcount_pair_counts_plain`."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     ti, tj, wk = resolve_tiles(tile_i, tile_j, word_chunk)
@@ -204,20 +214,24 @@ def popcount_pair_counts_padded(
         return out
     if w_pad == 0:
         return out.zero_()
-    bi, bj = block_shape(ti, tj)
     lib = kernel_lib()
     with torch.cuda.device(bt.device):
         stream = torch.cuda.current_stream(bt.device).cuda_stream
-        rc = lib.kmls_popcount_pair_counts(
-            bt.data_ptr(), out.data_ptr(), v_pad, w_pad, bi, bj,
-            int(bool(swar)), stream,
-        )
+        if swar:
+            name = "popcount_pairs_swar"
+            rc = lib.kmls_popcount_pair_counts_swar(
+                bt.data_ptr(), out.data_ptr(), v_pad, w_pad, *block_shape(ti, tj), stream
+            )
+        else:
+            name = "popcount_pairs"
+            rc = lib.kmls_popcount_pair_counts(
+                bt.data_ptr(), out.data_ptr(), v_pad, w_pad, stream
+            )
     if rc != 0:
         raise RuntimeError(
-            f"popcount kernel launch failed: CUDA error {rc} "
-            f"(bt {tuple(bt.shape)}, block {bi}x{bj})"
+            f"{name} kernel launch failed: CUDA error {rc} (bt {tuple(bt.shape)})"
         )
-    LAUNCHES["popcount_pairs"] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -225,13 +239,14 @@ def kernel_lib() -> ctypes.CDLL:
     from . import cuda_build
 
     lib = cuda_build.load("popcount")
-    fn = lib.kmls_popcount_pair_counts
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    if lib.kmls_popcount_pair_counts.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.kmls_popcount_pair_counts.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.kmls_popcount_pair_counts_swar.argtypes = [
+            ptr, ptr, i32, i32, i32, i32, ptr,
         ]
-        fn.restype = ctypes.c_int
+        lib.kmls_popcount_pair_counts.restype = ctypes.c_int
+        lib.kmls_popcount_pair_counts_swar.restype = ctypes.c_int
     return lib
 
 

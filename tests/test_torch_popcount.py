@@ -66,11 +66,15 @@ def test_counts_match_jax(pv, variant, swar, mxu_counts):
 
 
 @pytest.mark.parametrize(
-    "tiles", [(16, 64, 128), (8, 24, 8), (64, 32, 256), (6, 10, 64)]
+    "tiles",
+    [(16, 64, 128), (8, 24, 8), (64, 32, 256), (6, 10, 64), (8, 24, 5), (16, 64, 1)],
 )
 def test_non_default_tiles_match_jax(tiles, monkeypatch):
-    """Non-default tile knobs pad differently; the counts must not move
-    (the last case does not fit the CUDA block and takes the fallback)."""
+    """Non-default tile knobs pad differently; the counts must not move.
+    (6, 10) does not fit the SWAR kernel's block, which then takes its
+    default; (8, 24, 5) pads V to 144, no multiple of the tensor-core
+    kernel's 128-row tile, and W to 10 words, no multiple of 4; a word chunk
+    of 1 leaves W unpadded (9 words)."""
     ti, tj, wk = tiles
     monkeypatch.setenv("KMLS_POPCOUNT_TILE_I", str(ti))
     monkeypatch.setenv("KMLS_POPCOUNT_TILE_J", str(tj))
@@ -185,6 +189,23 @@ def test_plain_version_is_exact_on_full_words():
     assert got[0, 0] == 32 * 40 and got[1, 1] == 40
 
 
+def test_plain_version_is_exact_on_all_ones_at_the_largest_count():
+    """All-ones rows make every cell 32·W_pad, the largest count a cell can
+    reach: at 32,768 words that is 2^20, beyond the scale mine's 32·31,744,
+    still exact in the int32 result."""
+    w = 32_768
+    words = np.full((6, w), 0xFFFFFFFF, dtype=np.uint32)
+    words[4] = 0x80000000  # bit 31 alone in every word
+    words[5, ::2] = 0
+    got = pc.popcount_pair_counts_plain(torch.from_numpy(words.view(np.int32)))
+    want = np.full((6, 6), 32 * w, dtype=np.int64)
+    want[4, :] = want[:, 4] = w
+    want[5, :] = want[:, 5] = 32 * (w // 2)
+    want[4, 5] = want[5, 4] = w // 2
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int32 and int(got.max()) == 1 << 20
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="int32"):
         pc.popcount_pair_counts_padded(torch.zeros((128, 512), dtype=torch.int64))
@@ -201,17 +222,82 @@ def test_launch_counter_moves_only_on_the_card():
     assert pc.LAUNCHES == before
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
-    """On the card: the CUDA kernel against the plain version, exact."""
+def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the GPU machine)")
+
+
+_COUNTER = {False: "popcount_pairs", True: "popcount_pairs_swar"}
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain():
+    """On the card: both CUDA kernels against the plain version, exact."""
+    _needs_card()
     b = _baskets((700, 300))
     for swar in (False, True):
-        before = pc.LAUNCHES["popcount_pairs"]
+        before = pc.LAUNCHES[_COUNTER[swar]]
         got = pc.popcount_pair_counts(
             b.playlist_rows, b.track_ids, n_playlists=b.n_playlists,
             n_tracks=b.n_tracks, swar=swar, device="cuda",
         ).cpu().numpy()
-        assert pc.LAUNCHES["popcount_pairs"] == before + 1
+        assert pc.LAUNCHES[_COUNTER[swar]] == before + 1
         np.testing.assert_array_equal(got, _port(b))
+
+
+def _edge_bitset(shape, fill, seed=0):
+    rng = np.random.default_rng(seed)
+    if fill == "ones":
+        return np.full(shape, 0xFFFFFFFF, dtype=np.uint32)
+    words = rng.integers(0, 2**32, size=shape, dtype=np.uint64)
+    if fill == "bit31":
+        words[::2] |= 1 << 31
+    return words.astype(np.uint32)
+
+
+# (V_pad, W_pad), tile knobs, words, base offset in int32 elements: the
+# edges chip_smoke.py's phase 3 runs
+EDGES = [
+    ((256, 512), (32, 128, 512), "ones", 0),
+    ((512, 384), (32, 128, 128), "bit31", 0),
+    ((144, 10), (8, 24, 5), "random", 0),  # V_pad ∤ 128, W_pad ∤ 4
+    ((640, 128), (32, 128, 128), "random", 1),  # base off a 16-byte boundary
+    ((128, 512), (32, 128, 512), "random", 0),  # a lone diagonal tile
+    ((720, 128), (6, 10, 64), "random", 0),  # the SWAR kernel's fallback block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swar", [False, True])
+@pytest.mark.parametrize("shape,tiles,fill,offset", EDGES)
+def test_cuda_kernels_match_plain_at_the_edges(shape, tiles, fill, offset, swar):
+    """On the card: the tensor-core kernel (and the SWAR kernel) against
+    the plain version at the padding contract's edges, exact."""
+    _needs_card()
+    ti, tj, wk = tiles
+    words = _edge_bitset(shape, fill).view(np.int32)
+    flat = torch.zeros(words.size + offset, dtype=torch.int32, device="cuda")
+    bt = flat[offset:].view(shape)
+    bt.copy_(torch.from_numpy(words))
+    got = pc.popcount_pair_counts_padded(
+        bt, swar=swar, tile_i=ti, tile_j=tj, word_chunk=wk
+    )
+    want = pc.popcount_pair_counts_plain(bt)
+    assert torch.equal(got, want)
+    if fill == "ones":
+        assert bool((got == 32 * shape[1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swar", [False, True])
+def test_cuda_launch_moves_only_its_own_counter(swar):
+    """``swar=True`` counts in ``popcount_pairs_swar`` alone, the default
+    in ``popcount_pairs`` alone."""
+    _needs_card()
+    bt = torch.from_numpy(_edge_bitset((256, 512), "random").view(np.int32)).cuda()
+    before = dict(pc.LAUNCHES)
+    pc.popcount_pair_counts_padded(bt, swar=swar)
+    torch.cuda.synchronize()
+    assert {k: pc.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == _COUNTER[swar]) for k in before
+    }
