@@ -16,10 +16,12 @@ main loop on the card and fails loudly on any mismatch:
    16-byte boundary, a lone diagonal tile — exact equality, each launch
    moving its own counter;
 4. end to end: writes a ds2-shaped synthetic CSV, runs
-   ``python -m kmlserver_tpu_torch.mining.job`` on the card, checks its
-   artifacts against the same job on the CPU, starts
-   ``python -m kmlserver_tpu_torch.serving.server`` and holds every HTTP
-   answer against the engine run on the CPU over the same PVC;
+   ``python -m kmlserver_tpu_torch.mining.job`` on the card twice — with
+   the default dispatch (it must take ``dense-fused``) and with
+   ``KMLS_COUNT_PATH=bitpack`` (``bitpack-cuda``, the popcount kernel) —
+   checks both publications against each other and the same job on the
+   CPU, starts ``python -m kmlserver_tpu_torch.serving.server`` and holds
+   every HTTP answer against the engine run on the CPU over the same PVC;
 5. scale mine: Zipf baskets at 1M playlists x 1M tracks x 50M rows
    (BASELINE config 4's shape cut to one card), mined in process through
    ``mining.miner.mine`` with the launch counters reset just before and
@@ -36,8 +38,18 @@ main loop on the card and fails loudly on any mismatch:
    kmlserver_tpu_torch.mining.job`` on phase 4's CSV, whose rank-0
    publication must equal phase 4's; (c) the scale mine at dp = 2 from
    phase 5's baskets, whose rule tensors must equal phase 5's exactly,
-   each rank timing its slab kernel and the all-reduce; then the kernels
-   line is printed.
+   each rank timing its slab kernel and the all-reduce;
+7. count routes and census (``mining/dispatch.py``, ``ops/support.py``,
+   ``ops/sparse.py``): the ds2 baskets mined in process through
+   ``mining.miner.mine`` on the card and on the CPU at every case of
+   :data:`ROUTE_CASES` — the auto dispatch, each family pinned, the sparse
+   route with a long-basket threshold that sends baskets through the
+   popcount kernel, confidence mode at ``max_itemset_len`` 3 and 4, the
+   census in support mode — with the counters reset before each card mine;
+   rule tensors, ``rule_confs64``, census and merge flag must equal the CPU
+   run's, and in support mode every route's; then the dense products and
+   the long-basket block are held against their plain versions and timed.
+   Then the kernels line is printed.
 
 ``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
 5M rows (a shorter check; prints a ``reduced`` line). The script starts
@@ -382,6 +394,48 @@ def wait_ready(base: str, proc: subprocess.Popen, timeout_s: float) -> None:
     fail("server never became ready")
 
 
+def run_job(pvc: str, label: str, **extra: str) -> tuple[str, int, float]:
+    """``python -m kmlserver_tpu_torch.mining.job`` on the card over
+    ``pvc``; echoes its log. → (stdout, popcount launches it logged, wall s)."""
+    t0 = time.perf_counter()
+    job = subprocess.run(
+        [sys.executable, "-m", "kmlserver_tpu_torch.mining.job"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=subproc_env(BASE_DIR=pvc, DATASETS_DIR=os.path.join(pvc, "datasets"), **extra),
+    )
+    wall = time.perf_counter() - t0
+    for line in job.stdout.splitlines():
+        log(f"  job {label} | {line}")
+    if job.returncode != 0:
+        log(job.stderr[-4000:])
+        fail(f"mining job ({label}) exited {job.returncode}")
+    launches = [
+        int(line.rsplit(":", 1)[1]) for line in job.stdout.splitlines()
+        if line.startswith("Popcount kernel launches:")
+    ]
+    if not launches:
+        fail(f"job ({label}) logged no popcount launch count")
+    return job.stdout, launches[0], wall
+
+
+def same_publication(pvc_a: str, pvc_b: str) -> bool:
+    """Pickles and the rule-tensor npz of two PVCs are equal."""
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.io import artifacts
+
+    cfg = MiningConfig()
+    for name in (cfg.recommendations_file, cfg.best_tracks_file,
+                 cfg.artists_mapping_file, cfg.track_info_file):
+        a = artifacts.load_pickle(os.path.join(pvc_a, "pickles", name))
+        b = artifacts.load_pickle(os.path.join(pvc_b, "pickles", name))
+        if a != b:
+            return False
+    npz = cfg.recommendations_file + artifacts.TENSOR_ARTIFACT_SUFFIX
+    a = np.load(os.path.join(pvc_a, "pickles", npz), allow_pickle=True)
+    b = np.load(os.path.join(pvc_b, "pickles", npz), allow_pickle=True)
+    return a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+
+
 def phase_end_to_end(work: str) -> dict:
     from kmlserver_tpu_torch.config import MiningConfig, ServingConfig
     from kmlserver_tpu_torch.data.csv import write_tracks_csv
@@ -390,57 +444,49 @@ def phase_end_to_end(work: str) -> dict:
     from kmlserver_tpu_torch.mining.pipeline import run_mining_job
     from kmlserver_tpu_torch.serving.engine import RecommendEngine
 
-    pvc = os.path.join(work, "pvc")
-    os.makedirs(os.path.join(pvc, "datasets"))
+    def new_pvc(name: str) -> str:
+        pvc = os.path.join(work, name)
+        os.makedirs(os.path.join(pvc, "datasets"))
+        return pvc
+
+    pvc = new_pvc("pvc")
     csv_path = os.path.join(pvc, "datasets", "2023_spotify_ds2_synthetic.csv")
     write_tracks_csv(csv_path, synthetic_table(**DS2_SHAPE, seed=7))
 
-    t0 = time.perf_counter()
-    job = subprocess.run(
-        [sys.executable, "-m", "kmlserver_tpu_torch.mining.job"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
-        env=subproc_env(BASE_DIR=pvc, DATASETS_DIR=os.path.join(pvc, "datasets")),
-    )
-    job_s = time.perf_counter() - t0
-    for line in job.stdout.splitlines():
-        log(f"  job | {line}")
-    if job.returncode != 0:
-        log(job.stderr[-4000:])
-        fail(f"mining job exited {job.returncode}")
-    if "Pair-count path: bitpack-cuda" not in job.stdout:
-        fail("job log does not show 'Pair-count path: bitpack-cuda'")
-    launches = [
-        int(line.rsplit(":", 1)[1]) for line in job.stdout.splitlines()
-        if line.startswith("Popcount kernel launches:")
-    ]
-    if not launches or launches[0] < 1:
-        fail(f"job launched the popcount kernel {launches} times")
-    log(f"mining job (ds2, on the card): {job_s:.3f} s wall, "
-        f"{launches[0]} popcount launch(es)")
+    # the default dispatch: dense-fused on the card (no popcount launch)
+    out, launches_default, job_s = run_job(pvc, "default")
+    if "Pair-count path: dense-fused" not in out:
+        fail("default job log does not show 'Pair-count path: dense-fused'")
+    log(f"mining job (ds2, on the card, default dispatch): {job_s:.3f} s wall, "
+        f"{launches_default} popcount launch(es)")
+    # the bit-packed family pinned: the popcount kernel
+    bitpack_pvc = new_pvc("pvc_bitpack")
+    shutil.copy(csv_path, os.path.join(bitpack_pvc, "datasets"))
+    out, launches, bitpack_s = run_job(bitpack_pvc, "bitpack", KMLS_COUNT_PATH="bitpack")
+    if "Pair-count path: bitpack-cuda" not in out:
+        fail("KMLS_COUNT_PATH=bitpack job log does not show 'Pair-count path: bitpack-cuda'")
+    if launches < 1:
+        fail(f"KMLS_COUNT_PATH=bitpack job launched the popcount kernel {launches} times")
+    log(f"mining job (ds2, on the card, KMLS_COUNT_PATH=bitpack): {bitpack_s:.3f} s "
+        f"wall, {launches} popcount launch(es)")
 
-    # the same job on the CPU, into a second PVC: published artifacts equal
-    cpu_pvc = os.path.join(work, "pvc_cpu")
-    os.makedirs(os.path.join(cpu_pvc, "datasets"))
+    # the same job on the CPU, into a third PVC: all three publications equal
+    cpu_pvc = new_pvc("pvc_cpu")
     shutil.copy(csv_path, os.path.join(cpu_pvc, "datasets"))
-    run_mining_job(
+    cpu_summary = run_mining_job(
         MiningConfig(base_dir=cpu_pvc, datasets_dir=os.path.join(cpu_pvc, "datasets")),
         device="cpu",
     )
+    for other, label in ((bitpack_pvc, "the bitpack job"), (cpu_pvc, "the CPU run")):
+        if not same_publication(pvc, other):
+            fail(f"the default job's publication differs from {label}'s")
     cfg = MiningConfig(base_dir=pvc)
-    for name in (cfg.recommendations_file, cfg.best_tracks_file,
-                 cfg.artists_mapping_file, cfg.track_info_file):
-        a = artifacts.load_pickle(os.path.join(cfg.pickles_dir, name))
-        b = artifacts.load_pickle(os.path.join(cpu_pvc, "pickles", name))
-        if a != b:
-            fail(f"{name} from the card differs from the CPU run")
     npz = cfg.recommendations_file + artifacts.TENSOR_ARTIFACT_SUFFIX
     a = np.load(os.path.join(cfg.pickles_dir, npz), allow_pickle=True)
-    b = np.load(os.path.join(cpu_pvc, "pickles", npz), allow_pickle=True)
-    if a.files != b.files or not all(np.array_equal(a[k], b[k]) for k in a.files):
-        fail("rule-tensor npz from the card differs from the CPU run")
     n_rules = int((a["rule_ids"] >= 0).sum())
-    log(f"published artifacts equal the CPU run's ({len(a['vocab'])} frequent "
-        f"tracks, {n_rules} rules)")
+    log(f"published artifacts of the dense-fused and bitpack-cuda jobs equal each "
+        f"other and the CPU run's ({cpu_summary.count_path}; {len(a['vocab'])} "
+        f"frequent tracks, {n_rules} rules)")
 
     # serve from the card; hold every answer against the CPU engine
     cpu_engine = RecommendEngine(ServingConfig(base_dir=pvc), device="cpu")
@@ -503,7 +549,8 @@ def phase_end_to_end(work: str) -> dict:
     log(f"served {len(requests)} rule answers + fallback from the card, all equal "
         f"to the CPU engine; client latency ms: p50 {1e3 * lat[len(lat) // 2]:.3f} "
         f"max {1e3 * lat[-1]:.3f} (first {1e3 * latencies[0]:.3f})")
-    return {"job_launches": launches[0], "job_s": job_s}
+    return {"job_launches": launches, "job_launches_default": launches_default,
+            "job_s": job_s, "bitpack_job_s": bitpack_s}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -985,6 +1032,234 @@ def worker_scale(mesh, work: str) -> dict:
     }
 
 
+# ---------------------------------------------------------------- phase 7
+
+# (name, knobs, the route the card must take, the census the reference
+# prints for these baskets or None): the reference's confserve settings,
+# its quad-overflow path and BASELINE config 2's settings among them
+ROUTE_CASES = [
+    ("auto", {}, "dense-fused", None),
+    ("dense", {"KMLS_COUNT_PATH": "dense"}, "dense-fused", None),
+    ("bitpack", {"KMLS_COUNT_PATH": "bitpack"}, "bitpack-cuda", None),
+    ("sparse", {"KMLS_COUNT_PATH": "sparse"}, "sparse-hybrid", None),
+    ("sparse_long", {"KMLS_COUNT_PATH": "sparse", "KMLS_SPARSE_LONG_BASKET": "64"},
+     "sparse-hybrid", None),
+    ("confserve", {"KMLS_CONFIDENCE_MODE": "confidence", "KMLS_MAX_ITEMSET_LEN": "3",
+                   "MIN_SUPPORT": "0.05"}, "dense", {1: 424, 2: 12623, 3: 150547}),
+    ("conf_len4", {"KMLS_CONFIDENCE_MODE": "confidence", "KMLS_MAX_ITEMSET_LEN": "4",
+                   "MIN_SUPPORT": "0.05"}, "dense", {1: 424, 2: 12623, 3: 150547, 4: -1}),
+    ("baseline2", {"KMLS_CONFIDENCE_MODE": "confidence", "KMLS_MAX_ITEMSET_LEN": "4",
+                   "MIN_SUPPORT": "0.02"}, "dense", {1: 1084, 2: 43355, 3: 666131, 4: -1}),
+    ("census3", {"KMLS_MAX_ITEMSET_LEN": "3"}, "dense", {1: 424, 2: 12623, 3: 150547}),
+]
+
+TENSOR_FIELDS = ("rule_ids", "rule_counts", "rule_confs", "item_counts", "row_valid_counts")
+
+
+def same_tensors(a, b) -> bool:
+    if any(not np.array_equal(getattr(a, k), getattr(b, k)) for k in TENSOR_FIELDS):
+        return False
+    if (a.rule_confs64 is None) != (b.rule_confs64 is None):
+        return False
+    return a.rule_confs64 is None or np.array_equal(a.rule_confs64, b.rule_confs64)
+
+
+def config_from_knobs(knobs: dict):
+    from kmlserver_tpu_torch.config import MiningConfig
+
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        return MiningConfig.from_env(None)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def dense_product_times(baskets, min_support: float) -> dict:
+    """The dense route's int8 products at this support's pruned shape, on
+    the card by CUDA events: the pair product ``XᵀX`` (and the triple
+    product ``YᵀX`` over the frequent pairs), each held against its plain
+    version and set beside its int8 tensor-core bound."""
+    import torch
+
+    from kmlserver_tpu_torch.mining.miner import prune_infrequent
+    from kmlserver_tpu_torch.ops import encode, support
+
+    min_count = support.min_count_for(min_support, baskets.n_playlists)
+    reduced, _ = prune_infrequent(baskets, min_count)
+    p, v = reduced.n_playlists, reduced.n_tracks
+    x = encode.onehot_matrix(
+        torch.as_tensor(reduced.playlist_rows, device="cuda"),
+        torch.as_tensor(reduced.track_ids, device="cuda"), n_playlists=p, n_tracks=v,
+    )
+    counts = support.pair_counts(x)
+    xt = x.t().contiguous()
+    if not torch.equal(counts, support.int8_gram_plain(xt, xt)):
+        fail(f"dense pair product != plain at P {p} x V {v}")
+    pi, pj, _, n_pairs = support.frequent_pairs(counts, min_count, capacity=1 << 16)
+    n_pairs = min(n_pairs, 1 << 16)
+    yt = xt[pi[:n_pairs].long()] * xt[pj[:n_pairs].long()]
+    triple = support.int8_gram(yt, xt)
+    if not torch.equal(triple, support.int8_gram_plain(yt, xt)):
+        fail(f"dense triple product != plain at E {n_pairs} x P {p} x V {v}")
+    torch.cuda.synchronize()
+    pair_ms = cuda_ms(lambda: support.pair_counts(x), 20)
+    pair_plain_ms = cuda_ms(lambda: support.int8_gram_plain(xt, xt), 5)
+    triple_ms = cuda_ms(lambda: support.triple_counts(x, pi[:n_pairs], pj[:n_pairs]), 5)
+    triple_gemm_ms = cuda_ms(lambda: support.int8_gram(yt, xt), 5)
+    pair_bound = product_bound(2 * p * v * v, p * v + 4 * v * v)
+    triple_bound = product_bound(2 * n_pairs * p * v, n_pairs * p + p * v + 4 * n_pairs * v)
+    return {
+        "P": p, "V": v, "E": n_pairs,
+        "pair_ms": pair_ms, "pair_plain_ms": pair_plain_ms,
+        "pair_bound_ms": pair_bound[0], "pair_bound_by": pair_bound[1],
+        "triple_ms": triple_ms, "triple_gemm_ms": triple_gemm_ms,
+        "triple_bound_ms": triple_bound[0], "triple_bound_by": triple_bound[1],
+    }
+
+
+def product_bound(int8_ops: int, nbytes: int) -> tuple[float, str]:
+    """(ms, what binds) for an int8 product: its operations at the int8
+    tensor-core rate or its bytes (inputs read once, output written once)
+    at the memory rate, whichever takes longer."""
+    t_ops = 1e3 * int8_ops / INT8_TC_OPS_PER_S
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def long_block_check(baskets, threshold: int) -> dict:
+    """The sparse route's long-basket block at ``threshold``: the popcount
+    kernel against its plain version on the block's bitset, and the block
+    against the CPU's float64 contraction; the kernel timed beside its
+    bound. (These launches are comparisons, made after the counters were
+    read.)"""
+    import torch
+
+    from kmlserver_tpu_torch.mining.miner import prune_infrequent
+    from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.ops import sparse
+    from kmlserver_tpu_torch.ops.support import min_count_for
+
+    # the mine's route sees the pruned baskets
+    baskets, _ = prune_infrequent(baskets, min_count_for(DS2_MIN_SUPPORT, baskets.n_playlists))
+    rows, tids = sparse._sorted_by_playlist(baskets.playlist_rows, baskets.track_ids)
+    starts, counts = sparse._segments(rows)
+    *_, lrows, ltids = sparse._split_long(rows, tids, starts, counts, threshold)
+    v = baskets.n_tracks
+    _, compact = np.unique(lrows, return_inverse=True)
+    p_long = int(compact.max()) + 1
+    v_pad, w_pad = pc.padded_shape(v, p_long)
+    bt = pc.bitpack_by_track(compact.astype(np.int32), ltids.astype(np.int32),
+                             n_playlists=p_long, n_tracks=v, v_pad=v_pad, w_pad=w_pad,
+                             device="cuda")
+    got = pc.popcount_pair_counts_padded(bt)
+    want = pc.popcount_pair_counts_plain(bt)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        fail(f"sparse long-basket block: kernel != plain at bt {tuple(bt.shape)}")
+    block = sparse._count_long_dense(lrows, ltids, v, "cuda")
+    if not torch.equal(block.cpu(), sparse._count_long_dense(lrows, ltids, v)):
+        fail("sparse long-basket block on the card != the CPU's float64 block")
+    ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(bt), 20)
+    t0 = time.perf_counter()
+    pc.popcount_pair_counts_plain(bt)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    library_ms = int_mm_ms(bt, got)
+    bound = popcount_bound(v_pad, w_pad)
+    return {"shape": [v_pad, w_pad], "long_playlists": p_long, "long_rows": int(len(lrows)),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["bound_by"], "bound_unit": bound["unit"],
+            "library_ms": library_ms}
+
+
+def phase_routes() -> dict:
+    """Phase 7: every count route and the census on the card, each case
+    mined in process on the card and on the CPU from the ds2 baskets."""
+    import contextlib
+    import io
+
+    from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_baskets
+    from kmlserver_tpu_torch.mining.miner import mine
+    from kmlserver_tpu_torch.ops import popcount as pc
+
+    baskets = synthetic_baskets(**DS2_SHAPE, seed=7)
+    support_tensors = None
+    cases = {}
+    for name, knobs, route, census in ROUTE_CASES:
+        cfg = config_from_knobs(knobs)
+        # ---- the main path: counters to 0, mine on the card, read counters
+        for key in pc.LAUNCHES:
+            pc.LAUNCHES[key] = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            card = mine(baskets, cfg, device="cuda")
+        launches = dict(pc.LAUNCHES)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = mine(baskets, cfg, device="cpu")
+        for line in out.getvalue().splitlines():
+            if line.startswith(("NOTE", "WARNING")):
+                log(f"  {name} | {line}")
+        if card.count_path != route:
+            fail(f"phase 7 {name}: the card took {card.count_path}, want {route}")
+        if not same_tensors(card.tensors, cpu.tensors):
+            fail(f"phase 7 {name}: rule tensors on the card != the CPU run's ({cpu.count_path})")
+        if card.itemset_census != cpu.itemset_census or (census and card.itemset_census != census):
+            fail(f"phase 7 {name}: census {card.itemset_census} (CPU {cpu.itemset_census}, "
+                 f"want {census})")
+        if card.triple_merge_applied != cpu.triple_merge_applied:
+            fail(f"phase 7 {name}: merge applied {card.triple_merge_applied} on the card, "
+                 f"{cpu.triple_merge_applied} on the CPU")
+        if cfg.confidence_mode == "support":
+            if support_tensors is None:
+                support_tensors = card.tensors
+            if not same_tensors(card.tensors, support_tensors):
+                fail(f"phase 7 {name}: support-mode tensors differ from the auto route's")
+        if name in ("bitpack", "sparse_long"):
+            if launches["popcount_pairs"] < 1:
+                fail(f"phase 7 {name}: the popcount kernel was not launched ({launches})")
+        if name == "conf_len4" and "quad-rule merge skipped" not in out.getvalue():
+            fail("phase 7 conf_len4: no quad-overflow WARNING")
+        cases[name] = {
+            "route": card.count_path, "source": card.count_path_source,
+            "cpu_route": cpu.count_path, "bracket_s": card.duration_s,
+            "cpu_bracket_s": cpu.duration_s, "phases": card.phase_timings,
+            "launches": launches, "census": card.itemset_census,
+            "merge": card.triple_merge_applied, "pruned_vocab": card.pruned_vocab,
+            "sparse_events": card.sparse_events,
+        }
+        log(f"phase 7 {name}: {card.count_path} ({card.count_path_source}; CPU "
+            f"{cpu.count_path}), bracket {card.duration_s:.3f} s (CPU {cpu.duration_s:.3f} s): "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in card.phase_timings.items())
+            + f"; launches {launches}; census {card.itemset_census}; merge "
+            f"{card.triple_merge_applied}; tensors == CPU run (exact)")
+    products = {}
+    for min_support in (0.05, 0.02):
+        t = dense_product_times(baskets, min_support)
+        products[str(min_support)] = t
+        log(f"dense products at min_support {min_support} (P {t['P']} x V {t['V']}, "
+            f"{t['E']} frequent pairs): XᵀX {t['pair_ms']:.4f} ms (bound "
+            f"{t['pair_bound_ms']:.4f} ms by {t['pair_bound_by']}; plain float64 "
+            f"{t['pair_plain_ms']:.4f} ms); YᵀX {t['triple_ms']:.4f} ms with the gather, "
+            f"{t['triple_gemm_ms']:.4f} ms the product alone (bound "
+            f"{t['triple_bound_ms']:.4f} ms by {t['triple_bound_by']}); both == plain (exact)")
+    long_block = long_block_check(baskets, 64)
+    log(f"sparse long-basket block (threshold 64): bt {tuple(long_block['shape'])} from "
+        f"{long_block['long_playlists']} playlists; kernel == plain (exact), == the CPU "
+        f"float64 block; kernel {long_block['ms']:.4f} ms, plain {long_block['plain_ms']:.3f} "
+        f"ms, torch._int_mm on the unpacked block {long_block['library_ms']:.4f} ms, bound "
+        f"{long_block['bound_ms']:.4f} ms ({long_block['bound_unit']})")
+    log("PHASE7 " + json.dumps({"cases": cases, "dense_products": products,
+                                "long_block": long_block}))
+    return {"cases": cases, "long_block": long_block,
+            "launches_sparse_long": cases["sparse_long"]["launches"]["popcount_pairs"]}
+
+
 def main() -> int:
     import torch
 
@@ -1023,8 +1298,12 @@ def main() -> int:
         ranks = phase_ranks(work, scale)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    routes = phase_routes()
     kernel = scale["kernel"]
     kernel["launches_job"] = e2e["job_launches"]
+    kernel["launches_sparse_long"] = routes["launches_sparse_long"]
+    kernel["sparse_long_block"] = routes["long_block"]
+    small_err = max(small_err, routes["long_block"]["max_abs_err"])
     kernel["launches_sharded"] = ranks["kernel"]["launches"] + sum(ranks["launches_job"])
     kernel["max_abs_err"] = max(kernel["max_abs_err"], small_err)
     for entry in (kernel, ranks["kernel"]):

@@ -39,6 +39,20 @@ def _getenv_bool(name: str, default: bool) -> bool:
     return raw.strip().lower() in ("1", "true", "yes", "on")
 
 
+def _getenv_bitpack_threshold() -> int | str | None:
+    """``KMLS_BITPACK_THRESHOLD_ELEMS``: "auto" (HBM-fit dispatch, the
+    default), "none"/"never" (dense always), or an explicit element count."""
+    raw = os.getenv("KMLS_BITPACK_THRESHOLD_ELEMS")
+    if raw in (None, ""):
+        return "auto"
+    word = raw.strip().lower()
+    if word == "auto":
+        return "auto"
+    if word in ("none", "never"):
+        return None
+    return int(raw)
+
+
 def _getenv_model_layout() -> str:
     """``KMLS_MODEL_LAYOUT``: ``replicated`` (default), ``sharded`` or
     ``auto``, validated by ``parallel.layout.validate_layout`` (a typo
@@ -73,6 +87,10 @@ class MiningConfig:
     datasets_list_file: str = "datasets_list.txt"
     dataset_history_file: str = "dataset_history.csv"
     sample_ratio: float = 1.0
+    # max itemset length: 2 reproduces the reference fast path's output;
+    # 3/4 add the itemset census and, in confidence mode, the merged
+    # multi-antecedent confidences
+    max_itemset_len: int = 2
     # padded per-antecedent rule-row capacity (consequents kept per song)
     k_max_consequents: int = 256
     # "support" = the reference fast path's semantics; "confidence" = the
@@ -82,6 +100,21 @@ class MiningConfig:
     # above this vocabulary size, prune infrequent items (exact, by the
     # Apriori property) before pair counting
     prune_vocab_threshold: int = 512
+    # bit-packed vs dense count (mining/miner.py::bitpack_wanted): "auto"
+    # (fit the budget below), an int element count, or None (never)
+    bitpack_threshold_elems: int | str | None = "auto"
+    # device bytes the auto dispatch plans against. The reference's
+    # default, kept on an 80 GB card so one configuration dispatches the
+    # same in both packages
+    hbm_budget_bytes: int = 12 * (1 << 30)
+    # "auto" (the measured table, then the heuristic) or a pinned family:
+    # "dense", "bitpack", "sparse" (mining/dispatch.py)
+    count_path: str = "auto"
+    # an alternative measured dispatch table (JSON); empty = the packaged one
+    dispatch_table: str = ""
+    # baskets longer than this leave the sparse route's pair expansion for
+    # the bit-packed sub-count; 0 = the ops/sparse.py default (256)
+    sparse_long_basket: int = 0
     write_tensor_artifact: bool = True
     write_manifest: bool = True
     # rank mesh for the multi-rank job: "auto" (every rank when the job is
@@ -128,10 +161,16 @@ class MiningConfig:
             datasets_list_file=os.getenv("DATASETS_LIST_FILE", "datasets_list.txt"),
             dataset_history_file=os.getenv("DATASET_HISTORY_FILE", "dataset_history.csv"),
             sample_ratio=_getenv_float("SAMPLE_RATIO", 1.0),
+            max_itemset_len=_getenv_int("KMLS_MAX_ITEMSET_LEN", 2),
             k_max_consequents=_getenv_int("KMLS_K_MAX_CONSEQUENTS", 256),
             confidence_mode=os.getenv("KMLS_CONFIDENCE_MODE", "support"),
             min_confidence=_getenv_float("KMLS_MIN_CONFIDENCE", 0.04),
             prune_vocab_threshold=_getenv_int("KMLS_PRUNE_VOCAB_THRESHOLD", 512),
+            bitpack_threshold_elems=_getenv_bitpack_threshold(),
+            hbm_budget_bytes=_getenv_int("KMLS_HBM_BUDGET_BYTES", 12 * (1 << 30)),
+            count_path=os.getenv("KMLS_COUNT_PATH", "auto"),
+            dispatch_table=os.getenv("KMLS_DISPATCH_TABLE", ""),
+            sparse_long_basket=_getenv_int("KMLS_SPARSE_LONG_BASKET", 0),
             write_tensor_artifact=_getenv_bool("KMLS_WRITE_TENSOR_ARTIFACT", True),
             write_manifest=_getenv_bool("KMLS_WRITE_MANIFEST", True),
             mesh_shape=os.getenv("KMLS_MESH_SHAPE", "auto"),

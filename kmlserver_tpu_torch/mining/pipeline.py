@@ -46,6 +46,8 @@ class JobSummary:
     token: str
     artifact_paths: dict[str, str]
     count_path: str | None = None
+    # how the count dispatch decided (MiningResult.count_path_source)
+    count_path_source: str | None = None
     kernel_launches: int = 0
 
 
@@ -76,6 +78,12 @@ def _report_mining(result: MiningResult, cfg: MiningConfig) -> None:
         print(format_phases(result.phase_timings).capitalize())
     if result.count_path:
         print(f"Pair-count path: {result.count_path}")
+    if result.itemset_census is not None:
+        census = ", ".join(
+            f"len {k}: {'not enumerated' if v < 0 else v}"
+            for k, v in sorted(result.itemset_census.items())
+        )
+        print(f"Frequent itemsets — {census}")
     print(f"Popcount kernel launches: {result.kernel_launches}")
     if tensors.overflow_rows:
         print(
@@ -140,6 +148,7 @@ def run_mining_job(
         token="",
         artifact_paths={},
         count_path=result.count_path,
+        count_path_source=result.count_path_source,
         kernel_launches=result.kernel_launches,
     )
     if not is_writer:

@@ -13,6 +13,13 @@ among equal values, so the device emission ranks a unique composite key
 ``score·V + (V-1-j)`` instead. Confidences are never computed on the
 device: counts travel to the host, where float64 ``count / P`` (then
 float32 for serving) reproduces the reference bit for bit.
+
+Beside the emission: :func:`fused_dense_rule_tensors` (one-hot → int8
+product → emission on the device, the ``dense-fused`` route) and the
+multi-antecedent confidence merge of confidence mode with
+``max_itemset_len ≥ 3`` (:func:`antecedent_contributions`,
+:func:`merge_confidence_contributions`, host numpy copies of the
+reference's).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import encode, support
 from .support import min_count_for
 
 
@@ -126,8 +134,9 @@ class RuleTensors:
     n_songs_missing: int  # total_songs - len(keys)
     overflow_rows: int  # rows whose true consequent set exceeded K_max
     row_valid_counts: np.ndarray | None = None  # int32 (V,)
-    # float64 confidences that counts cannot back; always None in this
-    # slice (only the reference's triple-antecedent merge sets it)
+    # set when confidences can NOT be re-derived from counts alone — the
+    # multi-antecedent merge (per-rule denominators); float64 so dict
+    # expansion keeps full precision
     rule_confs64: np.ndarray | None = None
 
     @property
@@ -145,6 +154,143 @@ class RuleTensors:
             mode=self.mode,
             rule_confs64=self.rule_confs64,
         )
+
+
+def antecedent_contributions(
+    members: tuple[np.ndarray, ...],  # each int (E,), -1 padded
+    ant_counts: np.ndarray,  # int (E,) support of the antecedent itemset
+    ext_counts: np.ndarray,  # int (E, V) support of antecedent ∪ {col}
+    *,
+    min_count: int,
+    min_confidence: float,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Directed rule contributions from one antecedent size, vectorized
+    (a copy of the reference's, host numpy).
+
+    For each row e — an antecedent itemset A = {members[0][e], …} — and each
+    column c with ``ext_counts[e, c] ≥ min_count``, the rule A→c holds at
+    conf = ext/ant. The reference slow path assigns that confidence from
+    EVERY member of A to c (machine-learning/main.py:247-255), so each hit
+    yields ``len(members)`` directed (row, col, conf) entries. Columns that
+    are themselves members hold the antecedent's own support, not a proper
+    extension, and are masked out. → (rows, cols, vals).
+    """
+    e_valid = np.flatnonzero((members[0] >= 0) & (ant_counts > 0))
+    ext = ext_counts[e_valid]  # (E', V)
+    ms = [m[e_valid].astype(np.int64) for m in members]
+    ac = ant_counts[e_valid].astype(np.int64)
+    mask = ext >= min_count
+    if e_valid.size:
+        e_rows = np.arange(e_valid.size)
+        for m in ms:
+            mask[e_rows, m] = False
+    conf = ext.astype(np.int64) / ac[:, None].astype(np.float64)
+    mask &= conf >= min_confidence
+    e_hit, k_hit = np.nonzero(mask)
+    vals_hit = conf[e_hit, k_hit]
+    rows = np.concatenate([m[e_hit] for m in ms])
+    cols = np.tile(k_hit.astype(np.int64), len(ms))
+    vals = np.tile(vals_hit, len(ms))
+    return rows, cols, vals
+
+
+def merge_confidence_contributions(
+    tensors: RuleTensors,
+    contributions: list[tuple[np.ndarray, np.ndarray, np.ndarray]],
+    *,
+    k_max: int,
+) -> RuleTensors:
+    """Fold multi-antecedent rule contributions into the pairwise confidence
+    tensors (a copy of the reference's, host numpy): conf({a,b}→c) =
+    s3/s(ab) (and conf({a,b,c}→d) = s4/s(abc)) may exceed every pairwise
+    confidence involving the consequent. Contributions max-merge with the
+    pairwise rows, re-rank per row (confidence descending, ties by lower
+    consequent id), truncate to ``k_max``. Counts cannot back the merged
+    confidences, so ``rule_counts`` is zeroed and ``rule_confs64`` set."""
+    v = tensors.rule_ids.shape[0]
+    denom = np.maximum(tensors.item_counts, 1).astype(np.float64)
+
+    # sparse (row, col, conf) entries from the pairwise emission
+    rb, kb = np.nonzero(tensors.rule_ids >= 0)
+    cols_b = tensors.rule_ids[rb, kb].astype(np.int64)
+    vals_b = tensors.rule_counts[rb, kb].astype(np.int64) / denom[rb]
+
+    rows = np.concatenate([rb.astype(np.int64)] + [c[0] for c in contributions])
+    cols = np.concatenate([cols_b] + [c[1] for c in contributions])
+    vals = np.concatenate([vals_b] + [c[2] for c in contributions])
+
+    # max-dedup per (row, col): sort by (row, col, conf desc), keep first
+    order = np.lexsort((-vals, cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    keep_first = np.ones(len(rows), dtype=bool)
+    keep_first[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+    rows, cols, vals = rows[keep_first], cols[keep_first], vals[keep_first]
+
+    # per-row rank by conf desc (ties: lower col id — deterministic)
+    order = np.lexsort((cols, -vals, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    row_start = np.ones(len(rows), dtype=bool)
+    row_start[1:] = rows[1:] != rows[:-1]
+    seg_id = np.cumsum(row_start) - 1
+    rank = np.arange(len(rows)) - np.flatnonzero(row_start)[seg_id]
+    # honest overflow: a row is truncated if the MERGED candidate set
+    # exceeds k_max, or if emission already truncated it
+    overflow_mask = np.zeros(v, dtype=bool)
+    if len(rows):
+        row_sizes = np.bincount(seg_id)
+        overflow_mask[rows[row_start]] = row_sizes > k_max
+    if tensors.row_valid_counts is not None:
+        overflow_mask |= tensors.row_valid_counts > k_max
+    overflow = int(overflow_mask.sum())
+    keep = rank < k_max
+    rows, cols, vals, rank = rows[keep], cols[keep], vals[keep], rank[keep]
+
+    rule_ids = np.full((v, k_max), -1, dtype=np.int32)
+    rule_confs64 = np.zeros((v, k_max), dtype=np.float64)
+    rule_ids[rows, rank] = cols
+    rule_confs64[rows, rank] = vals
+    return dataclasses.replace(
+        tensors,
+        rule_ids=rule_ids,
+        rule_counts=np.zeros((v, k_max), dtype=np.int32),
+        rule_confs=rule_confs64.astype(np.float32),
+        rule_confs64=rule_confs64,
+        overflow_rows=overflow,
+    )
+
+
+def fused_dense_rule_tensors(
+    playlist_rows: torch.Tensor,
+    track_ids: torch.Tensor,
+    min_count: int,
+    *,
+    n_playlists: int,
+    n_tracks: int,
+    k_max: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-hot encode → int8 pair product → threshold/top-k emission on the
+    device of ``track_ids``: membership pairs in, finished rule tensors out
+    (``rule_ids, rule_counts, row_valid, item_counts``), for one fetch.
+
+    The fetch is compacted like the reference's: ids and row sizes are
+    int16 whenever V ≤ 32767, counts whenever P ≤ 32767; the host upcasts
+    back to the int32 ``RuleTensors`` contract."""
+    x = encode.onehot_matrix(
+        playlist_rows, track_ids, n_playlists=n_playlists, n_tracks=n_tracks
+    )
+    counts = support.pair_counts(x)
+    del x
+    rule_ids, rule_counts, row_valid = emit_rule_tensors(
+        counts, min_count, k_max=k_max
+    )
+    id_dt = torch.int16 if n_tracks <= 32767 else torch.int32
+    ct_dt = torch.int16 if n_playlists <= 32767 else torch.int32
+    return (
+        rule_ids.to(id_dt),
+        rule_counts.to(ct_dt),
+        row_valid.to(id_dt),
+        torch.diagonal(counts).to(ct_dt),
+    )
 
 
 def emit_rule_tensors_np(
@@ -184,6 +330,34 @@ def emit_rule_tensors_np(
         rule_ids = np.pad(rule_ids, pad, constant_values=-1)
         rule_counts = np.pad(rule_counts, pad)
     return rule_ids, rule_counts, row_valid_counts
+
+
+def mine_rules_from_counts_np(
+    pair_count_matrix: np.ndarray,
+    *,
+    n_playlists: int,
+    min_support: float,
+    k_max: int,
+    mode: str = "support",
+    min_confidence: float = 0.0,
+    n_total_songs: int | None = None,
+) -> RuleTensors:
+    """Host-only emission from a host count matrix (the sparse route's
+    long-basket fallback on the CPU): :func:`emit_rule_tensors_np`, then
+    the shared assembly. The reference prefers its native C++ top-k here,
+    which is not ported; the numpy emitter is its pinned-identical twin."""
+    min_count = min_count_for(min_support, n_playlists)
+    rule_ids, rule_counts, row_valid = emit_rule_tensors_np(
+        pair_count_matrix, min_count, k_max=k_max
+    )
+    return assemble_rule_tensors(
+        rule_ids, rule_counts, row_valid,
+        np.diagonal(pair_count_matrix).astype(np.int32, copy=True),
+        n_playlists=n_playlists, min_support=min_support, k_max=k_max,
+        mode=mode, min_confidence=min_confidence,
+        n_total_songs=n_total_songs,
+        n_tracks=int(pair_count_matrix.shape[0]),
+    )
 
 
 def assemble_rule_tensors(

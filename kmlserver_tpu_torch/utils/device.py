@@ -21,3 +21,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "device='cpu' (or set KMLS_TORCH_DEVICE=cpu) to run on the CPU"
         )
     return dev
+
+
+def backend_name(device: str | torch.device) -> str:
+    """The reference's backend word for ``device``: ``"gpu"`` for a CUDA
+    device (what ``jax.default_backend()`` says on an NVIDIA card) and
+    ``"cpu"`` for the CPU, so the count dispatch's per-backend rules and
+    table cells decide here as the reference would on that device."""
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return "gpu"
+    if kind == "cpu":
+        return "cpu"
+    raise ValueError(f"no backend name for device {str(device)!r}")

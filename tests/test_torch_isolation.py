@@ -88,7 +88,9 @@ def test_job_entry_point_exits_64_without_cuda_and_runs_on_cpu(tmp_path):
     assert no_card.returncode == 64, no_card.stdout + no_card.stderr
     assert "CUDA is not available" in no_card.stderr
     assert not (tmp_path / "last_execution.txt").exists()
-    on_cpu = _run(code, KMLS_TORCH_DEVICE="cpu", **env)
+    # pinned to the bit-packed family: on the CPU it runs the kernel's
+    # plain version, so no launch is counted
+    on_cpu = _run(code, KMLS_TORCH_DEVICE="cpu", KMLS_COUNT_PATH="bitpack", **env)
     assert on_cpu.returncode == 0, on_cpu.stdout + on_cpu.stderr
     assert "Pair-count path: bitpack-torch" in on_cpu.stdout
     assert "Popcount kernel launches: 0" in on_cpu.stdout

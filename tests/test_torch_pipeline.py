@@ -4,12 +4,16 @@ JAX package on the same CSVs.
 The reference ``run_mining_job`` and the port's (on the CPU) run over the
 same CSV into two temporary PVCs: a synthetic table at a few hundred
 playlists (its vocabulary is large enough for the Apriori prune) and the
-repo's sample dataset. Neither side is forced onto a count route — counts
-are integers, so the published rules must be equal whatever route ran.
+repo's sample dataset. Neither side is forced onto a count route: both
+dispatch the same way (the reference with its native counter, which the
+port lacks, turned off), and counts are integers, so the published rules
+must be equal.
 Then both engines serve both PVCs crosswise, and the port's HTTP server
 answers from its PVC. Everything is exact.
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -60,14 +64,22 @@ def pvcs(tmp_path_factory):
             os.makedirs(base / "datasets")
             shutil.copy(csv_path, base / "datasets" / os.path.basename(csv_path))
             bases.append(str(base))
-        ref_run_mining_job(
-            RefMiningConfig(base_dir=bases[0], datasets_dir=bases[0] + "/datasets")
-        )
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            # the native counter (not ported) off, so the reference takes
+            # the route its dispatch names
+            ref_run_mining_job(
+                RefMiningConfig(base_dir=bases[0], datasets_dir=bases[0] + "/datasets",
+                                native_cpu_pair_counts=False)
+            )
+        ref_path = log.getvalue().split("Pair-count path: ", 1)[1].split()[0]
         summary = run_mining_job(
             MiningConfig(base_dir=bases[1], datasets_dir=bases[1] + "/datasets"),
             device="cpu",
         )
-        assert summary.count_path == "bitpack-torch"
+        # the same route by the same dispatch; the bit-packed route's name
+        # carries the port's suffix
+        assert summary.count_path == ref_path.replace("bitpack-mxu", "bitpack-torch")
         out[name] = (csv_path, bases[0], bases[1])
     return out
 

@@ -3,8 +3,8 @@
 Two ranks of ``python -m kmlserver_tpu_torch.mining.job`` (on the CPU, over
 gloo, bootstrapped by the env triple) mine one synthetic CSV on one shared
 temporary PVC; the reference ``run_mining_job`` mines the same CSV in
-process on a ``2x1`` mesh of virtual CPU devices, forced onto its
-``sharded-bitpack`` route. Only rank 0 may publish, the published pickles
+process on a ``2x1`` mesh of virtual CPU devices; both are pinned to the
+bit-packed family, so both take the ``sharded-bitpack`` route. Only rank 0 may publish, the published pickles
 and rule tensors must equal the reference's exactly, and the port's engine
 must answer from both PVCs exactly as the reference engine does.
 """
@@ -65,7 +65,9 @@ def pvcs(tmp_path_factory):
     port_base, ref_base = bases
     logs = run_gloo_ranks(
         2, _JOB_RANK, [],
-        env=dict(KMLS_TORCH_DEVICE="cpu", BASE_DIR=port_base,
+        # the ranks pin the bit-packed family, as the reference run below
+        # does with its threshold
+        env=dict(KMLS_TORCH_DEVICE="cpu", KMLS_COUNT_PATH="bitpack", BASE_DIR=port_base,
                  DATASETS_DIR=os.path.join(port_base, "datasets"),
                  KMLS_RANK_HEARTBEAT_S="0.5"),
     )
