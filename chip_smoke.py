@@ -48,8 +48,20 @@ main loop on the card and fails loudly on any mismatch:
    census in support mode — with the counters reset before each card mine;
    rule tensors, ``rule_confs64``, census and merge flag must equal the CPU
    run's, and in support mode every route's; then the dense products and
-   the long-basket block are held against their plain versions and timed.
-   Then the kernels line is printed.
+   the long-basket block are held against their plain versions and timed;
+8. serving front end (``serving/``, run right after phase 4 on its PVC;
+   alone: ``python -c "import chip_smoke as c; c.phase_serving()"``, which
+   mines its own): both micro-batchers on the card with four batches in
+   flight, hammered with 2,000 distinct seed sets from 64 threads; the
+   server with each transport under 256 concurrent posts; on the async
+   server with default knobs BASELINE config 5's replay — 1,000 warm-up
+   requests, then 3 × 8,000 at 1,000 QPS over 48 connections with
+   ``/metrics/reset`` between runs — and 8,000 distinct requests at
+   10,000 QPS; ``recommend_batch`` timed at every (batch, length) bucket
+   beside its byte bound. Every answer is held against the engine on the
+   CPU; a 5xx, a differing answer, an unwarmed dispatch, a drain that does
+   not exit 0 or a config 5 run under 95 % of its offered QPS fails.
+Then the kernels line is printed.
 
 ``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
 5M rows (a shorter check; prints a ``reduced`` line). The script starts
@@ -394,6 +406,50 @@ def wait_ready(base: str, proc: subprocess.Popen, timeout_s: float) -> None:
     fail("server never became ready")
 
 
+def start_server(pvc: str, **extra: str) -> tuple[subprocess.Popen, str, list[str]]:
+    """``python -m kmlserver_tpu_torch.serving.server`` on the card over
+    ``pvc``, waited on until ``/readyz`` answers 200 → (process, base URL,
+    its log lines so far and to come)."""
+    server = subprocess.Popen(
+        [sys.executable, "-m", "kmlserver_tpu_torch.serving.server"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=subproc_env(BASE_DIR=pvc, KMLS_PORT="0", **extra),
+    )
+    lines: list[str] = []
+    port: list[int] = []
+    ready = threading.Event()
+
+    def pump() -> None:
+        for line in server.stdout:
+            lines.append(line.rstrip())
+            if "serving on" in line and not port:
+                port.append(int(line.split("serving on", 1)[1].split()[0].rsplit(":", 1)[1]))
+                ready.set()
+
+    threading.Thread(target=pump, daemon=True).start()
+    if not ready.wait(120):
+        stop_server(server)
+        fail("server never logged its port:\n" + "\n".join(lines[-40:]))
+    base = f"http://127.0.0.1:{port[0]}"
+    try:
+        wait_ready(base, server, 120)
+    except SystemExit:
+        stop_server(server)
+        raise
+    return server, base, lines
+
+
+def stop_server(server: subprocess.Popen) -> int:
+    """SIGTERM (the drain), then wait; → the exit code (killed after 20 s)."""
+    server.terminate()
+    try:
+        return server.wait(timeout=20)
+    except subprocess.TimeoutExpired:
+        server.kill()
+        server.wait()
+        return -9
+
+
 def run_job(pvc: str, label: str, **extra: str) -> tuple[str, int, float]:
     """``python -m kmlserver_tpu_torch.mining.job`` on the card over
     ``pvc``; echoes its log. → (stdout, popcount launches it logged, wall s)."""
@@ -498,28 +554,8 @@ def phase_end_to_end(work: str) -> dict:
     requests = [best[i:i + 1 + i % 4] for i in range(8)]
     # known, mixed known/unknown, and more seeds than KMLS_MAX_SEED_TRACKS
     requests += [vocab[-3:], [vocab[5], "No Such Track"], vocab[:200]]
-    server = subprocess.Popen(
-        [sys.executable, "-m", "kmlserver_tpu_torch.serving.server"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=subproc_env(BASE_DIR=pvc, KMLS_PORT="0"),
-    )
-    lines: list[str] = []
-    port: list[int] = []
-    ready = threading.Event()
-
-    def pump() -> None:
-        for line in server.stdout:
-            lines.append(line.rstrip())
-            if "serving on" in line and not port:
-                port.append(int(line.split("serving on", 1)[1].split()[0].rsplit(":", 1)[1]))
-                ready.set()
-
-    threading.Thread(target=pump, daemon=True).start()
+    server, base, _ = start_server(pvc)
     try:
-        if not ready.wait(120):
-            fail("server never logged its port:\n" + "\n".join(lines[-40:]))
-        base = f"http://127.0.0.1:{port[0]}"
-        wait_ready(base, server, 120)
         latencies = []
         for seeds in requests:
             status, body, dt = post(base + "/api/recommend/", {"songs": seeds})
@@ -539,12 +575,7 @@ def phase_end_to_end(work: str) -> dict:
         if status != 422:
             fail(f"malformed request answered {status}, want 422")
     finally:
-        server.terminate()
-        try:
-            server.wait(timeout=20)
-        except subprocess.TimeoutExpired:
-            server.kill()
-            server.wait()
+        stop_server(server)
     lat = sorted(latencies)
     log(f"served {len(requests)} rule answers + fallback from the card, all equal "
         f"to the CPU engine; client latency ms: p50 {1e3 * lat[len(lat) // 2]:.3f} "
@@ -1260,6 +1291,333 @@ def phase_routes() -> dict:
             "launches_sparse_long": cases["sparse_long"]["launches"]["popcount_pairs"]}
 
 
+# ---------------------------------------------------------------- phase 8
+
+# BASELINE config 5 as the reference's bench measures it (bench.py:4484-4700,
+# its client at bench.py:3199-3230): 1,000 warm-up requests, then three runs
+# of 8,000 at 1,000 QPS over 48 pipelined connections with /metrics/reset
+# between runs; then one run at the replay10k rate (bench.py:1316)
+CONFIG5_QPS = 1000.0
+CONFIG5_WARMUP = 1000
+CONFIG5_REQUESTS = 8000
+CONFIG5_RUNS = 3
+CONFIG5_CONNS = 48
+REPLAY10K_QPS = 10000.0
+PIPELINE_SETS = 2000  # distinct seed sets per batcher in the staging check
+CONCURRENT_POSTS = 256
+
+
+def ds2_pvc(work: str) -> str:
+    """Phase 4's ds2 PVC under ``work``, or — phase 8 alone — a new one:
+    the ds2 CSV mined by the job on the card."""
+    from kmlserver_tpu_torch.data.csv import write_tracks_csv
+    from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_table
+
+    pvc = os.path.join(work, "pvc")
+    if not os.path.exists(os.path.join(pvc, "last_execution.txt")):
+        os.makedirs(os.path.join(pvc, "datasets"), exist_ok=True)
+        write_tracks_csv(os.path.join(pvc, "datasets", "2023_spotify_ds2_synthetic.csv"),
+                         synthetic_table(**DS2_SHAPE, seed=7))
+        run_job(pvc, "phase 8")
+    return pvc
+
+
+def engine_answers(engine, payloads: list) -> list:
+    """The engine's answers, 32 seed sets per call."""
+    out = []
+    for i in range(0, len(payloads), 32):
+        out += engine.recommend_many(payloads[i:i + 32])
+    return out
+
+
+def check_responses(label: str, responses: list, payloads: list, want: list, cpu,
+                    allow_drops: bool = False) -> dict:
+    """Every HTTP answer against the CPU engine's: a rule, empty or fallback
+    body exactly; a degraded body is the popularity fallback; a 5xx or any
+    other body fails the smoke, and so does a request the load generator
+    left unanswered (the client queue full, a connection lost) unless
+    ``allow_drops`` (an overload run). → counts."""
+    counts = {"ok": 0, "cached": 0, "degraded": 0, "shed": 0,
+              "dropped": len(payloads) - len(responses)}
+    if counts["dropped"] and not allow_drops:
+        fail(f"{label}: {counts['dropped']} requests got no answer")
+    head_k = [b["track_name"] for b in cpu.best_tracks][: cpu.cfg.k_best_tracks]
+    for i, status, head, body in responses:
+        if status >= 500:
+            fail(f"{label}: HTTP {status} for {payloads[i]}: {body[:200]!r}")
+        if status == 429:
+            counts["shed"] += 1
+            continue
+        got = json.loads(body)
+        if status == 200 and b"x-kmls-degraded:" in head:
+            counts["degraded"] += 1
+            if got["songs"] not in (cpu.static_recommendation(payloads[i]), head_k):
+                fail(f"{label}: degraded answer for {payloads[i]} is not the fallback")
+            continue
+        expect = {"songs": want[i][0], "model_date": cpu.cache_value, "version": "V1.1"}
+        if status != 200 or got != expect:
+            fail(f"{label}: answer for {payloads[i]} != the CPU engine's: {status} {body[:300]!r}")
+        counts["ok"] += 1
+        counts["cached"] += b"x-kmls-cache: hit" in head
+    return counts
+
+
+def scrape_metrics(base: str) -> dict:
+    with urllib.request.urlopen(base + "/metrics", timeout=10) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def server_window(base: str) -> dict:
+    """The server's view of the run just replayed, from /metrics."""
+    m = scrape_metrics(base)
+
+    def q(name: str, quantile: str, scale: float = 1.0) -> float:
+        return scale * m[f'{name}{{quantile="{quantile}"}}']
+
+    return {
+        "server_p50_ms": q("kmls_request_latency_seconds", "0.5", 1e3),
+        "server_p99_ms": q("kmls_request_latency_seconds", "0.99", 1e3),
+        "queue_wait_p50_ms": q("kmls_queue_wait_ms", "0.5"),
+        "queue_wait_p99_ms": q("kmls_queue_wait_ms", "0.99"),
+        "device_p50_ms": q("kmls_device_ms", "0.5"),
+        "device_p99_ms": q("kmls_device_ms", "0.99"),
+        "shed_total": m["kmls_requests_shed_total"],
+        "degraded_total": m["kmls_degraded_total"],
+        "batches_total": sum(v for k, v in m.items() if k.startswith("kmls_device_dispatch_total")),
+        "cache_hit_ratio": m.get("kmls_cache_hit_ratio"),
+    }
+
+
+def replay_run(base: str, label: str, payloads: list, want: list, cpu, qps: float,
+               allow_drops: bool = False) -> dict:
+    """One replay through the port's load generator, every answer checked,
+    then the server's window read (reset just before it)."""
+    from kmlserver_tpu_torch.serving.replay import replay_async_http
+
+    status, _, _ = post(base + "/metrics/reset", b"")
+    if status != 200:
+        fail(f"{label}: /metrics/reset answered {status}")
+    before = server_window(base)
+    responses: list = []
+    report = replay_async_http(base, payloads, qps=qps, n_conns=CONFIG5_CONNS,
+                               responses=responses)
+    counts = check_responses(label, responses, payloads, want, cpu, allow_drops)
+    window = server_window(base)
+    for key in ("shed_total", "degraded_total", "batches_total"):  # counters: this run's
+        window[key] -= before[key]
+    row = {"label": label, "qps": qps, "requests": len(payloads),
+           "achieved_qps": report.achieved_qps, "p50_ms": report.p50_ms,
+           "p95_ms": report.p95_ms, "p99_ms": report.p99_ms, "errors": report.n_errors,
+           "client_cache_hit_ratio": report.cache_hit_ratio,
+           "uncached_p50_ms": report.uncached_p50_ms, "cached_p50_ms": report.cached_p50_ms,
+           **counts, **window}
+    log(f"phase 8 {label}: {len(payloads)} requests at {qps:.0f} QPS → achieved "
+        f"{report.achieved_qps:.1f} QPS, client p50/p95/p99 {report.p50_ms:.3f}/"
+        f"{report.p95_ms:.3f}/{report.p99_ms:.3f} ms, errors {report.n_errors} "
+        f"(shed {counts['shed']}, unanswered {counts['dropped']}, degraded "
+        f"{counts['degraded']}, cache hits "
+        f"{counts['cached']}); server p50/p99 {window['server_p50_ms']:.3f}/"
+        f"{window['server_p99_ms']:.3f} ms, queue wait p50/p99 "
+        f"{window['queue_wait_p50_ms']:.3f}/{window['queue_wait_p99_ms']:.3f} ms, "
+        f"device p50/p99 {window['device_p50_ms']:.3f}/{window['device_p99_ms']:.3f} ms, "
+        f"{window['batches_total']:.0f} batches; every answer == the CPU engine's")
+    return row
+
+
+def pipelined_batchers_check(card, cpu, payloads: list, want: list) -> dict:
+    """Both batchers on the card, four batches in flight, hammered from 64
+    threads: every answer equals the CPU engine's (a staging buffer or a
+    copy-back reused too early would differ only under this load)."""
+    import asyncio
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kmlserver_tpu_torch.serving.batcher import AsyncMicroBatcher, MicroBatcher
+
+    out = {}
+    batcher = MicroBatcher(card, max_size=32, window_ms=2.0, max_inflight=4)
+    before = sum(card.dispatch_counts)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(64) as pool:
+        got = list(pool.map(lambda s: batcher.recommend(s, timeout=120), payloads))
+    out["threaded"] = {"s": time.perf_counter() - t0,
+                       "batches": sum(card.dispatch_counts) - before}
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        fail(f"phase 8: MicroBatcher on the card: {bad} answers != the CPU engine's")
+
+    async def run_async() -> list:
+        abatch = AsyncMicroBatcher(card, max_size=32, window_ms=2.0, max_inflight=4)
+        loop = asyncio.get_running_loop()
+
+        async def one(seeds):
+            return await abatch.submit(seeds)
+
+        def from_thread(seeds):
+            return asyncio.run_coroutine_threadsafe(one(seeds), loop).result(120)
+
+        def hammer():
+            with ThreadPoolExecutor(64) as pool:
+                return list(pool.map(from_thread, payloads))
+
+        try:
+            return await loop.run_in_executor(None, hammer)
+        finally:
+            abatch.close()
+
+    before = sum(card.dispatch_counts)
+    t0 = time.perf_counter()
+    got = asyncio.run(run_async())
+    out["async"] = {"s": time.perf_counter() - t0, "batches": sum(card.dispatch_counts) - before}
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        fail(f"phase 8: AsyncMicroBatcher on the card: {bad} answers != the CPU engine's")
+    for name, r in out.items():
+        log(f"phase 8 staging check ({name} batcher, 4 in flight, 64 threads): "
+            f"{len(payloads)} distinct seed sets in {r['s']:.3f} s, {r['batches']} batches "
+            f"(mean {len(payloads) / max(r['batches'], 1):.1f} rows); every answer == CPU")
+    return out
+
+
+def serve_bucket_times(card) -> list[dict]:
+    """``recommend_batch`` at every (batch, length) bucket on the ds2 rule
+    tensors, by CUDA events, each beside its bound: the bytes it must move
+    (the seeds, the rule rows of the distinct seeds, the top-k out) over
+    the memory rate. Also the host wall time of one whole dispatch →
+    finish (staging, launches, copy back, event wait)."""
+    import torch
+
+    from kmlserver_tpu_torch.ops.serve import recommend_batch
+
+    bundle = card.bundle
+    k_best = card.cfg.k_best_tracks
+    k_max = bundle.rule_ids.shape[1]
+    known = torch.nonzero(torch.as_tensor(bundle.known_mask)).flatten()
+    gen = torch.Generator().manual_seed(8)
+    rows = []
+    for length in card._len_buckets():
+        for batch in card._batch_buckets():
+            seeds_host = known[torch.randint(len(known), (batch, length), generator=gen)]
+            seeds = seeds_host.to(torch.int32).cuda()
+
+            def fn(seeds=seeds):
+                return recommend_batch(bundle.rule_ids, bundle.rule_confs, seeds, k_best=k_best)
+
+            fn()
+            torch.cuda.synchronize()
+            ms = cuda_ms(fn, 50)
+            staged = card._staging((batch, length), bundle.device)
+            staged.copy_(seeds_host.to(torch.int32))
+            walls = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                card._launch(bundle, staged)()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            uniq = int(torch.unique(seeds).numel())
+            nbytes = 4 * batch * length + 8 * uniq * k_max + 8 * batch * k_best
+            rows.append({"batch": batch, "length": length, "ms": ms,
+                         "dispatch_ms": sorted(walls)[len(walls) // 2],
+                         "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+                         "bytes": nbytes})
+    log("phase 8 serve lookup per bucket (recommend_batch, CUDA events; bound = "
+        "bytes / 3.35 TB/s; dispatch = host wall of stage → launch → copy back → wait): "
+        + "; ".join(f"{r['batch']}x{r['length']} {r['ms']:.4f} ms (dispatch "
+                    f"{r['dispatch_ms']:.4f}, bound {r['bound_ms']:.6f})" for r in rows))
+    return rows
+
+
+def phase_serving(work: str | None = None) -> dict:
+    """Phase 8: the serving front end on the card over the ds2 PVC — the
+    staging check of both batchers, both transports under 256 concurrent
+    posts, BASELINE config 5's replay on the async server with default
+    knobs, one run at 10,000 QPS, and the serve lookup per bucket. Every
+    answer is held against the engine on the CPU."""
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.io import artifacts
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.replay import replay_async_http, sample_seed_sets
+
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke8_")
+    try:
+        pvc = ds2_pvc(work)
+        cfg = ServingConfig(base_dir=pvc)
+        cpu = RecommendEngine(cfg, device="cpu")
+        card = RecommendEngine(cfg, device="cuda")
+        t0 = time.perf_counter()
+        if not card.load():
+            fail("phase 8: the card engine could not load the PVC")
+        load_s = time.perf_counter() - t0
+        if not cpu.load():
+            fail("phase 8: the CPU engine could not load the PVC")
+        log(f"phase 8: engine loaded and warmed {len(card.bundle.warmed_shapes)} buckets on "
+            f"{card.device} in {load_s:.3f} s ({len(card.replicas)} replica(s))")
+        # the config-5 client's vocabulary: the rule dict's keys
+        keys = sorted(artifacts.load_pickle(os.path.join(cfg.pickles_dir, cfg.recommendations_file)))
+        distinct = list({tuple(s): s for s in sample_seed_sets(
+            keys, PIPELINE_SETS + 400, rng_seed=3)}.values())[:PIPELINE_SETS]
+        staging = pipelined_batchers_check(card, cpu, distinct, engine_answers(cpu, distinct))
+        buckets = serve_bucket_times(card)
+        if card.unwarmed_dispatches:
+            fail(f"phase 8: {card.unwarmed_dispatches} unwarmed dispatches in process")
+
+        transports = {}
+        config5_payloads = sample_seed_sets(keys, CONFIG5_REQUESTS)
+        config5_want = engine_answers(cpu, config5_payloads)
+        fast_payloads = sample_seed_sets(keys, CONFIG5_REQUESTS, rng_seed=11)
+        fast_want = engine_answers(cpu, fast_payloads)
+        concurrent_payloads = distinct[:CONCURRENT_POSTS]
+        concurrent_want = engine_answers(cpu, concurrent_payloads)
+        runs: list[dict] = []
+        for impl in ("threaded", "async"):
+            t0 = time.perf_counter()
+            server, base, lines = start_server(pvc, KMLS_HTTP_IMPL=impl)
+            start_s = time.perf_counter() - t0
+            try:
+                responses: list = []
+                t0 = time.perf_counter()
+                replay_async_http(base, concurrent_payloads, qps=1e6, n_conns=64, pipeline=4,
+                                  responses=responses)
+                counts = check_responses(f"{impl} transport", responses, concurrent_payloads,
+                                         concurrent_want, cpu)
+                transports[impl] = {"start_s": start_s, "s": time.perf_counter() - t0, **counts}
+                log(f"phase 8 {impl} transport: ready in {start_s:.3f} s; {CONCURRENT_POSTS} "
+                    f"concurrent posts answered in {transports[impl]['s']:.3f} s, every answer "
+                    f"== the CPU engine's ({counts})")
+                if impl == "async":
+                    warm = sample_seed_sets(keys, CONFIG5_WARMUP)
+                    replay_async_http(base, warm, qps=CONFIG5_QPS, n_conns=CONFIG5_CONNS)
+                    for i in range(CONFIG5_RUNS):
+                        row = replay_run(base, f"config 5 run {i + 1}", config5_payloads,
+                                         config5_want, cpu, CONFIG5_QPS)
+                        if row["achieved_qps"] < 0.95 * CONFIG5_QPS:
+                            fail(f"phase 8 config 5 run {i + 1}: achieved "
+                                 f"{row['achieved_qps']:.1f} QPS < 95 % of {CONFIG5_QPS:.0f}")
+                        runs.append(row)
+                    runs.append(replay_run(base, "10k QPS", fast_payloads, fast_want, cpu,
+                                           REPLAY10K_QPS, allow_drops=True))
+            finally:
+                code = stop_server(server)
+            unwarmed = sum("unwarmed seed shape" in line for line in lines)
+            transports[impl].update(exit_code=code, unwarmed_dispatches=unwarmed)
+            if unwarmed:
+                fail(f"phase 8 {impl} server: {unwarmed} unwarmed dispatches")
+            if code != 0:
+                fail(f"phase 8 {impl} server: exit {code} after SIGTERM (the drain)")
+        result = {"staging": staging, "buckets": buckets, "transports": transports,
+                  "runs": runs, "load_s": load_s}
+        log("PHASE8 " + json.dumps(result))
+        return result
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1294,6 +1652,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="kmls_smoke_")
     try:
         e2e = phase_end_to_end(work)
+        phase_serving(work)
         scale = phase_scale(2024, work, QUICK_SCALE if quick else SCALE)
         ranks = phase_ranks(work, scale)
     finally:

@@ -67,6 +67,30 @@ def torch_device_from_env() -> str:
     return os.getenv("KMLS_TORCH_DEVICE") or "cuda"
 
 
+# ---- the serving entry point's process knobs (reference:
+# kmlserver_tpu/serving/server.py, aioserver.py) ----
+
+
+def http_impl_from_env() -> str:
+    """``KMLS_HTTP_IMPL``: ``async`` (the asyncio transport, default) or
+    ``threaded`` (the stdlib ``ThreadingHTTPServer``)."""
+    impl = os.environ.get("KMLS_HTTP_IMPL", "async").strip().lower()
+    return "threaded" if impl == "threaded" else "async"
+
+
+def gil_switch_s_from_env() -> float | None:
+    """``KMLS_GIL_SWITCH_S``: the interpreter's thread switch interval;
+    unset leaves the interpreter's default."""
+    raw = os.environ.get("KMLS_GIL_SWITCH_S")
+    return float(raw) if raw else None
+
+
+def drain_settle_s_from_env() -> float:
+    """``KMLS_DRAIN_SETTLE_S``: how long a SIGTERM drain waits for
+    in-flight requests (default 2 s)."""
+    return float(os.getenv("KMLS_DRAIN_SETTLE_S") or 2.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class MiningConfig:
     """Batch mining job config (reference: machine-learning/main.py:17-49,
@@ -190,16 +214,57 @@ class ServingConfig:
     version: str = "V1.1"
     base_dir: str = "./api-data/"
     pickle_dir: str = "pickles/"
+    # a directory whose templates/ and static/ re-skin the client page
+    # (reference: rest_api/app/main.py:44-48, :138)
+    app_path_from_root: str = "/app"
     recommendations_file: str = "recommendations.pickle"
     best_tracks_file: str = "best_tracks.pickle"
     data_invalidation_file: str = "last_execution.txt"
     k_best_tracks: int = 10
     polling_wait_in_minutes: float = 5.0
     port: int = 80
-    # max seed songs per request that reach the lookup (the rest are cut)
+    # max seed songs per request that reach the lookup (the rest are cut);
+    # seed lengths are bucketed up to it
     max_seed_tracks: int = 128
+    # micro-batching window (ms) for grouping concurrent requests into one
+    # device call; 0 disables batching. With the adaptive window on, this
+    # is the ceiling and the wait follows the observed arrival rate
+    batch_window_ms: float = 2.0
+    batch_max_size: int = 32
+    batch_adaptive_window: bool = True
+    batch_window_min_ms: float = 1.0
+    # admission ladder: pressure = effective queue wait / this budget (ms).
+    # Below soft_ratio admit; up to 1.0 degrade a rising share of misses to
+    # the popularity fallback; up to hard_ratio shed a rising share (429);
+    # past it shed all. 0 disables admission control
+    shed_queue_budget_ms: float = 250.0
+    shed_retry_after_s: float = 1.0
+    shed_soft_ratio: float = 0.6
+    shed_hard_ratio: float = 1.5
+    # Retry-After is uniform on base·(1 ± this), so shed clients do not
+    # come back in one wave
+    shed_retry_jitter: float = 0.5
+    # batches dispatched but not finished, per replica
+    batch_max_inflight: int = 4
+    # serving replicas: 0 = every card (one on the CPU); N > 0 = min(N, cards)
+    # (on the CPU, N copies on the host)
+    serve_devices: int = 0
+    # epoch-keyed answer cache in front of the batcher
+    cache_enabled: bool = True
+    cache_max_entries: int = 8192
     # load rule tensors from the .npz twin when present (else the pickle)
     prefer_tensor_artifact: bool = True
+    # per-replica circuit breaker: eject after this many consecutive batch
+    # failures (0 = off), probe an ejected replica every interval, and
+    # re-queue a failed request at most this many times
+    replica_eject_threshold: int = 3
+    replica_probe_interval_s: float = 5.0
+    redispatch_max_retries: int = 3
+    # per-request deadline (ms); on exhaustion the answer degrades to the
+    # popularity fallback with X-KMLS-Degraded. 0 = no deadline
+    request_deadline_ms: float = 0.0
+    # budget for the degraded fallback answer itself (ms)
+    fallback_budget_ms: float = 50.0
 
     @property
     def pickles_dir(self) -> str:
@@ -213,6 +278,7 @@ class ServingConfig:
             version=os.getenv("VERSION", "V1.1"),
             base_dir=os.getenv("BASE_DIR", "./api-data/"),
             pickle_dir=os.getenv("PICKLE_DIR", "pickles/"),
+            app_path_from_root=os.getenv("APP_PATH_FROM_ROOT", "/app"),
             recommendations_file=os.getenv("RECOMMENDATIONS_FILE", "recommendations.pickle"),
             best_tracks_file=os.getenv("BEST_TRACKS_FILE", "best_tracks.pickle"),
             data_invalidation_file=os.getenv("DATA_INVALIDATION_FILE", "last_execution.txt"),
@@ -220,5 +286,23 @@ class ServingConfig:
             polling_wait_in_minutes=_getenv_float("POLLING_WAIT_IN_MINUTES", 5.0),
             port=_getenv_int("KMLS_PORT", 80),
             max_seed_tracks=_getenv_int("KMLS_MAX_SEED_TRACKS", 128),
+            batch_window_ms=_getenv_float("KMLS_BATCH_WINDOW_MS", 2.0),
+            batch_max_size=_getenv_int("KMLS_BATCH_MAX_SIZE", 32),
+            batch_adaptive_window=_getenv_bool("KMLS_BATCH_ADAPTIVE", True),
+            batch_window_min_ms=_getenv_float("KMLS_BATCH_WINDOW_MIN_MS", 1.0),
+            shed_queue_budget_ms=_getenv_float("KMLS_SHED_QUEUE_BUDGET_MS", 250.0),
+            shed_retry_after_s=_getenv_float("KMLS_SHED_RETRY_AFTER_S", 1.0),
+            shed_soft_ratio=_getenv_float("KMLS_SHED_SOFT_RATIO", 0.6),
+            shed_hard_ratio=_getenv_float("KMLS_SHED_HARD_RATIO", 1.5),
+            shed_retry_jitter=_getenv_float("KMLS_SHED_RETRY_JITTER", 0.5),
+            batch_max_inflight=_getenv_int("KMLS_BATCH_MAX_INFLIGHT", 4),
+            serve_devices=_getenv_int("KMLS_SERVE_DEVICES", 0),
+            cache_enabled=_getenv_bool("KMLS_CACHE_ENABLED", True),
+            cache_max_entries=_getenv_int("KMLS_CACHE_MAX_ENTRIES", 8192),
             prefer_tensor_artifact=_getenv_bool("KMLS_PREFER_TENSOR_ARTIFACT", True),
+            replica_eject_threshold=_getenv_int("KMLS_REPLICA_EJECT_THRESHOLD", 3),
+            replica_probe_interval_s=_getenv_float("KMLS_REPLICA_PROBE_INTERVAL_S", 5.0),
+            redispatch_max_retries=_getenv_int("KMLS_REDISPATCH_MAX_RETRIES", 3),
+            request_deadline_ms=_getenv_float("KMLS_REQUEST_DEADLINE_MS", 0.0),
+            fallback_budget_ms=_getenv_float("KMLS_FALLBACK_BUDGET_MS", 50.0),
         )

@@ -1,58 +1,243 @@
-"""The REST surface — counterpart of ``kmlserver_tpu/serving/app.py`` for
-this slice, on the stdlib ``ThreadingHTTPServer``:
+"""The REST surface — counterpart of ``kmlserver_tpu/serving/app.py``, the
+reference's FastAPI routes rebuilt on the stdlib:
 
 - ``POST /api/recommend/`` (reference: rest_api/app/main.py:176-187): body
   ``{"songs": [...]}`` → ``{"songs": [...], "model_date": <token>,
   "version": <VERSION>}``; an empty song list → 400; a malformed body →
-  422 (FastAPI's validation status);
-- ``GET /readyz``: 200 once the first artifacts have loaded, else 503;
-- ``GET /healthz``: liveness.
+  422 (FastAPI's validation status); a shed → 429 with ``Retry-After``; a
+  deadline, overload or replica-loss degradation → 200 from the popularity
+  fallback with ``X-KMLS-Degraded``; a cache hit carries ``X-KMLS-Cache``.
+- ``POST /metrics/reset``: windows the latency percentiles (loopback only).
+- ``GET /`` (reference: :190-203): HTML test client with a seed sample.
+- ``GET /test`` (reference: :150-153): 307 redirect to the docs.
+- ``GET /docs`` + ``GET /openapi.json``: the docs with the reference's
+  three canned request examples (:158-174).
+- ``GET /healthz`` / ``GET /readyz`` (ready / degraded / 503, with the
+  artifacts' ages); ``GET /metrics``: Prometheus text; ``GET /static/``.
 
 ``handle()`` maps a request to ``(status, headers, body)`` independently of
-the transport, so the app is testable in-process.
+the transport; ``submit_recommend`` / ``finish_recommend`` are its
+non-blocking halves for the asyncio transport.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
+import os
+import random
+import threading
+import time
+from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
 from ..config import ServingConfig
+from .batcher import DeadlineExceeded, NoHealthyReplicas, Overloaded, OverloadDegraded
+from .cache import RecommendCache
 from .engine import RecommendEngine
+from .metrics import ServingMetrics
 
 logger = logging.getLogger("kmlserver_tpu_torch.serving")
 
+_TEMPLATE_PATH = os.path.join(os.path.dirname(__file__), "templates", "client.html")
+
+# The reference documents three canned request examples in its OpenAPI
+# metadata (rest_api/app/main.py:158-174): typical seeds, uncommon seeds,
+# and seeds absent from the rules (exercising the static fallback).
+CANNED_EXAMPLES = {
+    "normal": {
+        "summary": "Typical seed songs",
+        "value": {"songs": ["Yesterday", "Bohemian Rhapsody"]},
+    },
+    "uncommon": {
+        "summary": "Uncommon seed songs (sparse rules)",
+        "value": {"songs": ["Some Deep Cut B-Side"]},
+    },
+    "absent": {
+        "summary": "Songs absent from the rules (static fallback)",
+        "value": {"songs": ["Definitely Not A Real Song 123"]},
+    },
+}
+
 Response = tuple[int, dict[str, str], bytes]
+
+
+def is_loopback_host(client_host: str | None) -> bool:
+    """The loopback guard of ``/metrics/reset``. ``None`` is a direct
+    in-process call — inherently local. A dual-stack server reports IPv4
+    loopback in IPv6-mapped form (``::ffff:127.0.0.1``)."""
+    if client_host is None:
+        return True
+    host = client_host.removeprefix("::ffff:")
+    return host in ("127.0.0.1", "::1")
 
 
 def _json_response(status: int, obj) -> Response:
     return status, {"Content-Type": "application/json"}, json.dumps(obj).encode("utf-8")
 
 
+def _html_response(status: int, html: str) -> Response:
+    return status, {"Content-Type": "text/html; charset=utf-8"}, html.encode("utf-8")
+
+
+def _esc(s: str) -> str:
+    return (
+        str(s).replace("&", "&amp;").replace("<", "&lt;")
+        .replace(">", "&gt;").replace('"', "&quot;").replace("'", "&#39;")
+    )
+
+
 class RecommendApp:
+    """Transport-independent app core."""
+
     def __init__(
         self,
         cfg: ServingConfig,
         engine: RecommendEngine | None = None,
         device: str | torch.device = "cuda",
+        *,
+        defer_batcher: bool = False,
     ):
         self.cfg = cfg
         self.engine = engine if engine is not None else RecommendEngine(cfg, device)
+        self.metrics = ServingMetrics()
+        # requests whose forwarded X-KMLS-Deadline-Budget arrived spent
+        self.deadline_expired_total = 0
+        # epoch-keyed answer cache in front of the batcher: a bundle hot
+        # swap invalidates it wholesale (the engine's epoch is the key
+        # prefix)
+        self.cache = (
+            RecommendCache(cfg.cache_max_entries)
+            if cfg.cache_enabled and cfg.cache_max_entries > 0
+            else None
+        )
+        # defer_batcher: the asyncio transport installs its loop-native
+        # AsyncMicroBatcher instead of the threaded pipeline
+        self.batcher = None
+        if cfg.batch_window_ms > 0 and not defer_batcher:
+            from .batcher import MicroBatcher
 
-    def handle(self, method: str, path: str, body: bytes | None) -> Response:
+            self.batcher = MicroBatcher(self.engine, **batcher_kwargs(cfg), metrics=self.metrics)
+        # the client page and static root honor APP_PATH_FROM_ROOT like the
+        # reference (rest_api/app/main.py:44-48, :138): templates/static
+        # there take precedence over the package's copies
+        pkg_dir = os.path.dirname(__file__)
+        root = cfg.app_path_from_root or ""
+        template_path = _TEMPLATE_PATH
+        self.static_dir = os.path.abspath(os.path.join(pkg_dir, "static"))
+        if root:
+            custom_template = os.path.join(root, "templates", "client.html")
+            if os.path.isfile(custom_template):
+                template_path = custom_template
+            custom_static = os.path.join(root, "static")
+            if os.path.isdir(custom_static):
+                self.static_dir = os.path.abspath(custom_static)
+        with open(template_path, encoding="utf-8") as fh:
+            self._template = fh.read()
+
+    # ---------- routing ----------
+
+    def handle(
+        self, method: str, path: str, body: bytes | None,
+        client_host: str | None = None, budget_header: str | None = None,
+    ) -> Response:
         path = path.partition("?")[0]
         if method == "POST" and path in ("/api/recommend/", "/api/recommend"):
-            return self._post_recommend(body)
-        if method == "GET" and path == "/healthz":
-            return _json_response(200, {"status": "alive"})
-        if method == "GET" and path == "/readyz":
-            if self.engine.finished_loading:
-                return _json_response(200, {"status": "ready"})
-            return _json_response(503, {"status": "awaiting first artifacts"})
+            return self._post_recommend(body, budget_header)
+        if method == "POST" and path == "/metrics/reset":
+            # windows the latency percentiles to one replay run
+            if not is_loopback_host(client_host):
+                return _json_response(403, {"detail": "localhost only"})
+            discarded = self.metrics.reset_latency()
+            return _json_response(200, {"status": "reset", "discarded": discarded})
+        if method == "GET":
+            if path == "/":
+                return self._get_client()
+            if path == "/test":
+                return 307, {"Location": "/docs#post-api-recommend"}, b""
+            if path == "/docs":
+                return self._get_docs()
+            if path == "/openapi.json":
+                return _json_response(200, self._openapi())
+            if path == "/healthz":
+                return _json_response(200, {"status": "alive"})
+            if path == "/readyz":
+                return self._get_readyz()
+            if path == "/metrics":
+                text = self.metrics.render(
+                    self.engine.reload_counter, self.engine.finished_loading,
+                    cache=self.cache,
+                    dispatch_counts=getattr(self.engine, "dispatch_counts", None),
+                    robustness=self._robustness_state(),
+                    artifact_ages=self._artifact_ages(),
+                )
+                return 200, {"Content-Type": "text/plain; version=0.0.4"}, text.encode()
+            if path.startswith("/static/"):
+                return self._get_static(path[len("/static/"):])
         return _json_response(404, {"detail": "Not Found"})
+
+    def _get_readyz(self) -> Response:
+        """Degraded = ready-but-flagged (200): the pod keeps answering, so
+        a bad moment on one replica never readiness-fails the fleet."""
+        if not self.engine.finished_loading:
+            return _json_response(503, {"status": "awaiting first artifacts"})
+        ages = {name: round(age, 3) for name, age in self._artifact_ages().items()}
+        reasons = self.degraded_reasons()
+        if reasons:
+            return _json_response(
+                200, {"status": "degraded", "reasons": reasons, "artifact_age_seconds": ages}
+            )
+        return _json_response(200, {"status": "ready", "artifact_age_seconds": ages})
+
+    def _robustness_state(self) -> dict:
+        """Batcher recovery-state snapshot for /metrics (names ending in
+        _total render as counters, the rest as gauges)."""
+        ejected_fn = getattr(self.batcher, "ejected_replicas", None)
+        util_fn = getattr(self.batcher, "utilization", None)
+        return {
+            "replicas_ejected": len(ejected_fn()) if callable(ejected_fn) else 0,
+            # the autoscaling signal; 0.0 without a batcher so the series
+            # always exists
+            "utilization": round(util_fn() if callable(util_fn) else 0.0, 4),
+            "admission_degrade_total": getattr(self.batcher, "degrade_total", 0),
+            "deadline_expired_total": self.deadline_expired_total,
+        }
+
+    def _artifact_ages(self) -> dict:
+        ages_fn = getattr(self.engine, "artifact_ages", None)
+        return ages_fn() if callable(ages_fn) else {}
+
+    _STATIC_TYPES = {
+        ".css": "text/css; charset=utf-8",
+        ".js": "text/javascript; charset=utf-8",
+        ".html": "text/html; charset=utf-8",
+        ".json": "application/json",
+        ".svg": "image/svg+xml",
+        ".png": "image/png",
+        ".ico": "image/x-icon",
+    }
+
+    def _get_static(self, rel: str) -> Response:
+        """Static assets under the resolved static root, confined to it
+        after symlink resolution (no ``..`` or symlink escapes)."""
+        full = os.path.realpath(os.path.join(self.static_dir, rel))
+        root = os.path.realpath(self.static_dir)
+        if not full.startswith(root + os.sep):
+            return _json_response(404, {"detail": "Not Found"})
+        try:
+            with open(full, "rb") as fh:
+                data = fh.read()
+        except OSError:
+            return _json_response(404, {"detail": "Not Found"})
+        ctype = self._STATIC_TYPES.get(
+            os.path.splitext(full)[1].lower(), "application/octet-stream"
+        )
+        return 200, {"Content-Type": ctype}, data
+
+    # ---------- endpoints ----------
 
     @staticmethod
     def _validate_recommend(body: bytes | None) -> tuple[Response | None, list[str] | None]:
@@ -75,44 +260,465 @@ class RecommendApp:
             return _json_response(400, {"detail": "Request with no songs"}), None
         return None, songs
 
-    def _post_recommend(self, body: bytes | None) -> Response:
+    # ---------- degradation (the fault-tolerance contract) ----------
+
+    def _deadline_for(self, t0: float) -> float | None:
+        """Per-request perf_counter deadline from KMLS_REQUEST_DEADLINE_MS,
+        propagated cache → batcher → device. None = deadlines off."""
+        budget_ms = self.cfg.request_deadline_ms
+        return t0 + budget_ms / 1e3 if budget_ms > 0 else None
+
+    def _effective_deadline(
+        self, t0: float, budget_header: str | None
+    ) -> tuple[float | None, float | None, bool]:
+        """The TIGHTER of the local budget and the remaining milliseconds
+        an upstream hop forwarded on ``X-KMLS-Deadline-Budget`` →
+        ``(deadline, forwarded_budget_ms, expired)``; ``expired`` means the
+        budget arrived spent. A malformed header is ignored."""
+        deadline = self._deadline_for(t0)
+        if not budget_header:
+            return deadline, None, False
+        try:
+            budget_ms = float(budget_header)
+        except (TypeError, ValueError):
+            return deadline, None, False
+        if not math.isfinite(budget_ms):
+            return deadline, None, False
+        if budget_ms <= 0.0:
+            return deadline, budget_ms, True
+        remote = t0 + budget_ms / 1e3
+        if deadline is None or remote < deadline:
+            deadline = remote
+        return deadline, budget_ms, False
+
+    @staticmethod
+    def _degrade_reason(exc: Exception) -> str | None:
+        """Exceptions answered from the fallback instead of an error
+        status: deadline exhaustion, total replica loss, and the admission
+        ladder's degrade band."""
+        if isinstance(exc, DeadlineExceeded):
+            return "deadline"
+        if isinstance(exc, NoHealthyReplicas):
+            return "replica-loss"
+        if isinstance(exc, OverloadDegraded):
+            return "overload"
+        return None
+
+    def _degraded_response(self, t0: float, songs: list[str], reason: str) -> Response:
+        """200 with the latency-budgeted popularity fallback and
+        ``X-KMLS-Degraded: <reason>``: a slow device or a dead replica set
+        costs answer QUALITY, never a 5xx. The fallback runs under the
+        tighter of the request deadline and KMLS_FALLBACK_BUDGET_MS."""
+        budget = time.perf_counter() + self.cfg.fallback_budget_ms / 1e3
+        deadline = self._deadline_for(t0)
+        deadline = budget if deadline is None else min(deadline, budget)
+        recs = self.engine.static_recommendation(songs, deadline=deadline)
+        self.metrics.record_degraded(reason)
+        self.metrics.record("fallback", time.perf_counter() - t0)
+        status, headers, payload = _json_response(
+            200,
+            {"songs": recs, "model_date": self.engine.cache_value, "version": self.cfg.version},
+        )
+        headers["X-KMLS-Degraded"] = reason
+        return status, headers, payload
+
+    def degraded_reasons(self) -> list[str]:
+        """Why /readyz says "degraded" (empty = fully healthy): replicas
+        currently ejected by the batcher's circuit breaker."""
+        ejected_fn = getattr(self.batcher, "ejected_replicas", None)
+        ejected = ejected_fn() if callable(ejected_fn) else []
+        return [f"replicas ejected: {ejected}"] if ejected else []
+
+    def _recommend_error_response(self, exc: Exception) -> Response:
+        if isinstance(exc, Overloaded):
+            # visible backpressure: tell the client when to come back
+            status, headers, payload = _json_response(
+                429,
+                {"detail": "overloaded: projected queue wait "
+                           f"{exc.projected_wait_ms:.0f}ms exceeds budget"},
+            )
+            # RFC 9110 delay-seconds is a non-negative INTEGER; ceil keeps
+            # the sub-second jitter spread across whole seconds
+            headers["Retry-After"] = str(math.ceil(max(exc.retry_after_s, 0.0)))
+            return status, headers, payload
+        logger.error("recommendation failed", exc_info=exc)
+        self.metrics.record_error()
+        return _json_response(500, {"detail": "Internal Server Error"})
+
+    def _recommend_result_response(
+        self, t0: float, recs: list[str], source: str, cached: bool = False,
+    ) -> Response:
+        self.metrics.record(source, time.perf_counter() - t0)
+        status, headers, payload = _json_response(
+            200,
+            {"songs": recs, "model_date": self.engine.cache_value, "version": self.cfg.version},
+        )
+        if cached:
+            # lets load harnesses split cached vs computed latency
+            headers["X-KMLS-Cache"] = "hit"
+        # a "degraded:<reason>" source is an answered-but-partial result
+        if source.startswith("degraded:"):
+            reason = source.partition(":")[2] or source
+            headers["X-KMLS-Degraded"] = reason
+            self.metrics.record_degraded(reason)
+        return status, headers, payload
+
+    # ---------- the cache front half, shared by both transports ----------
+
+    def _cache_key(self, songs: list[str]) -> tuple:
+        if self.cache is not None:
+            return self.cache.make_key(self.engine.bundle_epoch, songs, self.cfg.max_seed_tracks)
+        return RecommendCache.key(self.engine.bundle_epoch, songs, self.cfg.max_seed_tracks)
+
+    def _cache_lookup_or_lead(self, songs: list[str], deadline: float | None = None):
+        """→ ``("hit", (songs, source))`` | ``("flight", future)`` |
+        ``("off", None)``. A miss joins the in-flight singleflight future
+        for this key or leads a new batcher submission (the leader's
+        done-callback stores the answer); raises what ``batcher.submit``
+        raises. "off": cache disabled, or no batcher."""
+        if self.cache is None or self.batcher is None:
+            return "off", None
+        key = self._cache_key(songs)
+        hit = self.cache.get(key)
+        if hit is not None:
+            return "hit", hit
+        future, joined = self.cache.join_or_lead(
+            key, lambda: self.batcher.submit(songs, deadline=deadline)
+        )
+        if not joined:
+            cache = self.cache
+            future.add_done_callback(lambda f: cache.finish(key, f))
+        # the seeds travel WITH the future so the async transport can build
+        # a per-request degraded fallback when it resolves to an exception
+        # (identical seed sets share one future, so the attribute agrees)
+        future._kmls_seeds = songs
+        return "flight", future
+
+    def recommend_direct(
+        self, songs: list[str], deadline: float | None = None,
+    ) -> tuple[list[str], str, bool]:
+        """Blocking cached recommend → ``(songs, source, cache_hit)``; raises
+        (Overloaded, DeadlineExceeded, NoHealthyReplicas included) like the
+        underlying batcher/engine. ``deadline`` None computes the local one."""
+        if deadline is None:
+            deadline = self._deadline_for(time.perf_counter())
+        state, payload = self._cache_lookup_or_lead(songs, deadline)
+        if state == "hit":
+            return payload[0], payload[1], True
+        if state == "flight":
+            timeout = 30.0
+            if deadline is not None:
+                timeout = max(deadline - time.perf_counter(), 0.0)
+            try:
+                recs, source = payload.result(timeout=timeout)
+            except FuturesTimeout:
+                if deadline is not None:
+                    raise DeadlineExceeded(
+                        "request exceeded its deadline budget in flight"
+                    ) from None
+                raise
+            return recs, source, False
+        if self.batcher is not None:
+            recs, source = self.batcher.recommend(songs, deadline=deadline)
+        else:
+            recs, source = self.engine.recommend(songs)
+        if self.cache is not None:
+            self.cache.put(self._cache_key(songs), (recs, source))
+        return recs, source, False
+
+    def _post_recommend(self, body: bytes | None, budget_header: str | None = None) -> Response:
+        t0 = time.perf_counter()
         err, songs = self._validate_recommend(body)
         if err is not None:
             return err
-        recs, _source = self.engine.recommend(songs)
-        return _json_response(
-            200,
-            {
-                "songs": recs,
-                "model_date": self.engine.cache_value,
-                "version": self.cfg.version,
-            },
+        deadline, _budget_ms, expired = self._effective_deadline(t0, budget_header)
+        if expired:
+            # the budget arrived spent: answer the fallback, compute nothing
+            self.deadline_expired_total += 1
+            return self._degraded_response(t0, songs, "deadline-expired")
+        try:
+            recs, source, cached = self.recommend_direct(songs, deadline=deadline)
+        except Exception as exc:
+            reason = self._degrade_reason(exc)
+            if reason is not None:
+                return self._degraded_response(t0, songs, reason)
+            return self._recommend_error_response(exc)
+        return self._recommend_result_response(t0, recs, source, cached=cached)
+
+    # ---------- async-transport entry points ----------
+
+    def submit_recommend(self, body: bytes | None, budget_header: str | None = None):
+        """Non-blocking twin of :meth:`_post_recommend` for the asyncio
+        transport: → ``(response, None, t0)`` when the answer is immediate
+        (validation error, cache hit, shed, degraded, or the unbatched
+        path), else ``(None, future, t0)`` — resolve the future and build
+        the reply with :meth:`finish_recommend`."""
+        t0 = time.perf_counter()
+        err, songs = self._validate_recommend(body)
+        if err is not None:
+            return err, None, t0
+        deadline, _budget_ms, expired = self._effective_deadline(t0, budget_header)
+        if expired:
+            self.deadline_expired_total += 1
+            return self._degraded_response(t0, songs, "deadline-expired"), None, t0
+        if self.batcher is None:
+            return self._post_recommend(body, budget_header), None, t0
+        try:
+            state, payload = self._cache_lookup_or_lead(songs, deadline)
+            if state == "off":
+                payload = self.batcher.submit(songs, deadline=deadline)
+                payload._kmls_seeds = songs
+        except Exception as exc:  # Overloaded / OverloadDegraded / NoHealthyReplicas
+            reason = self._degrade_reason(exc)
+            if reason is not None:
+                return self._degraded_response(t0, songs, reason), None, t0
+            return self._recommend_error_response(exc), None, t0
+        if state == "hit":
+            return self._recommend_result_response(t0, payload[0], payload[1], cached=True), None, t0
+        return None, payload, t0
+
+    def finish_recommend(self, future, t0: float) -> Response:
+        """Build the response for a DONE :meth:`submit_recommend` future; a
+        future resolved to a degradable exception answers the fallback for
+        the seeds that rode in on it."""
+        try:
+            recs, source = future.result()
+        except Exception as exc:
+            reason = self._degrade_reason(exc)
+            if reason is not None:
+                songs = getattr(future, "_kmls_seeds", None) or []
+                return self._degraded_response(t0, songs, reason)
+            return self._recommend_error_response(exc)
+        return self._recommend_result_response(t0, recs, source)
+
+    # ---------- pages ----------
+
+    def _get_client(self) -> Response:
+        """Render the HTML test client with a sampled seed + static sample
+        (reference: rest_api/app/main.py:190-203 — which sleeps 2 s when
+        data isn't loaded yet; here the page renders with a notice)."""
+        # finished_loading BEFORE best_tracks: load() publishes the tracks
+        # first, so a True snapshot guarantees the read below sees them
+        finished = self.engine.finished_loading
+        best = self.engine.best_tracks
+        page = self._template.replace("{{version}}", self.cfg.version).replace(
+            "{{model_date}}", str(self.engine.cache_value)
         )
+        if not best:
+            if finished:
+                notice = (
+                    "<p><em>Model loaded, but the popularity ranking kept "
+                    "no tracks (vocabulary × TOP_TRACKS_SAVE_PERCENTILE "
+                    "truncates to zero) — use <a href='/docs'>/docs</a> to "
+                    "POST seed songs directly.</em></p>"
+                )
+            else:
+                notice = "<p><em>Model artifacts not loaded yet — retry shortly.</em></p>"
+            page = (
+                page.replace("{{track_checkboxes}}", notice)
+                .replace("{{sample_seed}}", "—")
+                .replace("{{sample_recommendations}}", "")
+            )
+            return _html_response(200, page)
+        names = [b["track_name"] for b in best]
+        sample_pool = random.sample(names, min(12, len(names)))
+        seed = random.choice(names)
+        sample = self.engine.static_recommendation([seed])
+        checkboxes = "\n".join(
+            f'<label><input type="checkbox" value="{_esc(n)}"> {_esc(n)}</label>'
+            for n in sample_pool
+        )
+        sample_html = "\n".join(f"<li>{_esc(s)}</li>" for s in sample)
+        page = (
+            page.replace("{{track_checkboxes}}", checkboxes)
+            .replace("{{sample_seed}}", _esc(seed))
+            .replace("{{sample_recommendations}}", sample_html)
+        )
+        return _html_response(200, page)
+
+    def _get_docs(self) -> Response:
+        """The docs page: the three canned request examples (reference
+        parity: rest_api/app/main.py:158-174) each load into an editable
+        request body that can be sent to the live endpoint."""
+        examples = "\n".join(
+            f"<h3>{_esc(ex['summary'])}</h3>"
+            f"<pre>POST /api/recommend/\n{json.dumps(ex['value'], indent=2)}</pre>"
+            f"<button class='load' data-body='{_esc(json.dumps(ex['value']))}'>"
+            f"Try it</button>"
+            for ex in CANNED_EXAMPLES.values()
+        )
+        first = json.dumps(next(iter(CANNED_EXAMPLES.values()))["value"], indent=2)
+        html = f"""<!doctype html><html><head><meta charset="utf-8">
+<title>API docs — Playlist Recommender</title>
+<style>body{{font-family:system-ui;max-width:760px;margin:2rem auto;padding:0 1rem}}
+pre{{background:#8881;padding:.8rem;border-radius:6px;overflow-x:auto}}
+textarea{{width:100%;font-family:monospace;min-height:7rem}}
+button{{margin:.3rem .3rem .3rem 0;padding:.35rem .9rem;cursor:pointer}}
+#resp{{white-space:pre-wrap}}</style></head>
+<body><h1>Playlist Recommender API {_esc(self.cfg.version)}</h1>
+<p>Machine-readable spec: <a href="/openapi.json">/openapi.json</a></p>
+<h2 id="post-api-recommend">POST /api/recommend/</h2>
+<p>Request: <code>{{"songs": ["...", ...]}}</code> — at least one song
+(empty → 400). Response: <code>{{"songs": [...], "model_date": "...",
+"version": "..."}}</code>. Seeds found in the mined rules yield rule-based
+recommendations; fully unknown seed sets fall back to a deterministic
+popular-tracks sample.</p>
+{examples}
+<h2>Try it against this server</h2>
+<textarea id="body" spellcheck="false">{_esc(first)}</textarea><br>
+<button id="send">Send POST /api/recommend/</button>
+<pre id="resp">(response appears here)</pre>
+<script>
+document.querySelectorAll('button.load').forEach(function (b) {{
+  b.addEventListener('click', function () {{
+    document.getElementById('body').value =
+      JSON.stringify(JSON.parse(b.dataset.body), null, 2);
+    document.getElementById('body').scrollIntoView({{behavior: 'smooth'}});
+  }});
+}});
+document.getElementById('send').addEventListener('click', async function () {{
+  var out = document.getElementById('resp');
+  out.textContent = '...';
+  try {{
+    var r = await fetch('/api/recommend/', {{
+      method: 'POST',
+      headers: {{'Content-Type': 'application/json'}},
+      body: document.getElementById('body').value,
+    }});
+    var text = await r.text();
+    try {{ text = JSON.stringify(JSON.parse(text), null, 2); }} catch (e) {{}}
+    out.textContent = 'HTTP ' + r.status + '\\n' + text;
+  }} catch (e) {{
+    out.textContent = 'request failed: ' + e;
+  }}
+}});
+</script>
+<h2>Other endpoints</h2>
+<ul>
+<li><code>GET /</code> — HTML test client</li>
+<li><code>GET /test</code> — redirect here</li>
+<li><code>GET /healthz</code>, <code>GET /readyz</code> — probes</li>
+<li><code>GET /metrics</code> — Prometheus text metrics</li>
+</ul></body></html>"""
+        return _html_response(200, html)
+
+    def _openapi(self) -> dict:
+        return {
+            "openapi": "3.1.0",
+            "info": {"title": "Playlist Recommender (TPU rebuild)", "version": self.cfg.version},
+            "paths": {
+                "/api/recommend/": {
+                    "post": {
+                        "summary": "Recommend songs from seed songs",
+                        "requestBody": {
+                            "required": True,
+                            "content": {
+                                "application/json": {
+                                    "schema": {
+                                        "type": "object",
+                                        "required": ["songs"],
+                                        "properties": {
+                                            "songs": {
+                                                "type": "array",
+                                                "items": {"type": "string"},
+                                                "minItems": 1,
+                                            }
+                                        },
+                                    },
+                                    "examples": CANNED_EXAMPLES,
+                                }
+                            },
+                        },
+                        "responses": {
+                            "200": {
+                                "description": "Recommendations",
+                                "content": {
+                                    "application/json": {
+                                        "schema": {
+                                            "type": "object",
+                                            "properties": {
+                                                "songs": {"type": "array", "items": {"type": "string"}},
+                                                "model_date": {"type": "string"},
+                                                "version": {"type": "string"},
+                                            },
+                                        }
+                                    }
+                                },
+                            },
+                            "400": {"description": "Empty song list"},
+                            "422": {"description": "Malformed body"},
+                        },
+                    }
+                }
+            },
+        }
+
+
+def batcher_kwargs(cfg: ServingConfig) -> dict:
+    """The micro-batcher knobs of ``cfg``, shared by both transports."""
+    return dict(
+        max_size=cfg.batch_max_size,
+        window_ms=cfg.batch_window_ms,
+        max_inflight=cfg.batch_max_inflight,
+        adaptive=cfg.batch_adaptive_window,
+        window_min_ms=cfg.batch_window_min_ms,
+        shed_queue_budget_ms=cfg.shed_queue_budget_ms,
+        shed_retry_after_s=cfg.shed_retry_after_s,
+        shed_soft_ratio=cfg.shed_soft_ratio,
+        shed_hard_ratio=cfg.shed_hard_ratio,
+        shed_retry_jitter=cfg.shed_retry_jitter,
+        eject_threshold=cfg.replica_eject_threshold,
+        probe_interval_s=cfg.replica_probe_interval_s,
+        redispatch_max=cfg.redispatch_max_retries,
+    )
+
+
+# ---------- stdlib HTTP adapter ----------
 
 
 def make_handler(app: RecommendApp):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # headers and body go out as separate sends on an unbuffered
+        # socket; with Nagle on, the body waits for the peer's delayed ACK
         disable_nagle_algorithm = True
 
         def _dispatch(self, method: str) -> None:
-            body = None
-            if method == "POST":
-                length = int(self.headers.get("Content-Length") or 0)
-                body = self.rfile.read(length) if length else b""
+            # in-flight accounting for the SIGTERM drain: idle keep-alive
+            # connections sit BETWEEN requests and are not counted
+            with self.server.active_lock:
+                self.server.active_requests += 1
             try:
-                status, headers, payload = app.handle(method, self.path, body)
-            except Exception:
-                logger.exception("unhandled error for %s %s", method, self.path)
-                status, headers, payload = 500, {"Content-Type": "application/json"}, (
-                    b'{"detail": "Internal Server Error"}'
-                )
-            self.send_response(status)
-            for key, value in headers.items():
-                self.send_header(key, value)
-            self.send_header("Content-Length", str(len(payload)))
-            self.end_headers()
-            self.wfile.write(payload)
+                body = None
+                if method == "POST":
+                    length = int(self.headers.get("Content-Length") or 0)
+                    body = self.rfile.read(length) if length else b""
+                try:
+                    status, headers, payload = app.handle(
+                        method, self.path, body,
+                        client_host=self.client_address[0],
+                        budget_header=self.headers.get("X-KMLS-Deadline-Budget"),
+                    )
+                except Exception:
+                    logger.exception("unhandled error for %s %s", method, self.path)
+                    app.metrics.record_error()
+                    status, headers, payload = 500, {"Content-Type": "application/json"}, (
+                        b'{"detail": "Internal Server Error"}'
+                    )
+                self.send_response(status)
+                for key, value in headers.items():
+                    self.send_header(key, value)
+                self.send_header("Content-Length", str(len(payload)))
+                # during a drain, tell keep-alive clients to reconnect
+                # elsewhere: endpoint removal only diverts NEW connections
+                if self.server.draining.is_set():
+                    self.send_header("Connection", "close")
+                    self.close_connection = True
+                self.end_headers()
+                self.wfile.write(payload)
+            finally:
+                with self.server.active_lock:
+                    self.server.active_requests -= 1
 
         def do_GET(self) -> None:  # noqa: N802 (stdlib API)
             self._dispatch("GET")
@@ -131,10 +737,16 @@ class _Server(ThreadingHTTPServer):
     # the stdlib default listen backlog of 5 refuses bursts
     request_queue_size = 256
 
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # in-flight request count and the drain flag, read by the handlers
+        # and the SIGTERM drain (serving/server.py)
+        self.active_requests = 0
+        self.active_lock = threading.Lock()
+        self.draining = threading.Event()
+
 
 def serve(app: RecommendApp, port: int | None = None) -> ThreadingHTTPServer:
     """Bind + return the server (caller runs ``serve_forever``); port 0
     picks a free port."""
-    return _Server(
-        ("0.0.0.0", port if port is not None else app.cfg.port), make_handler(app)
-    )
+    return _Server(("0.0.0.0", port if port is not None else app.cfg.port), make_handler(app))

@@ -1,14 +1,22 @@
 """Serving state and lookups — counterpart of the reference
-``kmlserver_tpu/serving/engine.py`` for this slice: load the rule tensors
-from the PVC onto the device, hot-swap them when the invalidation token
-changes, and answer seed sets through ``ops/serve.recommend_batch``.
+``kmlserver_tpu/serving/engine.py``: load the rule tensors from the PVC
+onto every serving device, warm every (batch, length) bucket, hot-swap
+them when the invalidation token changes, and answer seed sets through
+``ops/serve.recommend_batch`` as a dispatch / finish pair the
+micro-batcher pipelines.
 
 Semantics are the reference's (rest_api/app/main.py:205-254): seeds are
 filtered by rule-dict membership and cut to ``max_seed_tracks``; a request
 with no known seed gets the deterministic popularity fallback; a request
-whose known seeds all have empty rows gets an empty list. The async front
-end, micro-batcher, answer cache, replicas, mesh and embeddings are not
-part of this slice.
+whose known seeds all have empty rows gets an empty list.
+
+On a card, :meth:`RecommendEngine.recommend_many_async` enqueues the whole
+batch — the seed copy to the device, the lookup and the copy of the ids
+back into pinned host memory — on the replica's current stream and records
+a CUDA event after it; ``finish()`` waits on that event alone. A later
+batch's kernels, enqueued behind it on the same stream, never delay it.
+The native host kernel, the vocab-sharded layout, the serve mesh,
+embeddings and deltas are not part of this package.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import random
 import threading
 import time
 from collections.abc import Mapping
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -46,7 +54,10 @@ def stable_seed(seed_tracks: list[str]) -> int:
 
 @dataclasses.dataclass
 class RuleBundle:
-    """One immutable generation of serving state, swapped atomically."""
+    """One immutable generation of serving state on one device, swapped
+    atomically. With several replicas, one bundle exists per device: the
+    vocab/index/known-mask host state is shared across the set, the rule
+    tensors live on each replica's own device."""
 
     vocab: list[str]
     index: dict[str, int]
@@ -54,6 +65,31 @@ class RuleBundle:
     rule_confs: torch.Tensor  # float32 (V, K) on the serving device
     known_mask: np.ndarray  # host bool (V,) — rule-dict key membership
     model_token: str  # invalidation-token value when loaded
+    device: torch.device = torch.device("cpu")
+    # the publication counter the answer cache keys on
+    epoch: int = 0
+    # every (batch, length) seed shape run before publication — a dispatch
+    # outside it is counted in unwarmed_dispatches
+    warmed_shapes: set = dataclasses.field(default_factory=set)
+
+
+def _host_rule_arrays(arrays: Mapping[str, Any]) -> tuple[list[str], np.ndarray, np.ndarray, np.ndarray]:
+    """→ (vocab, known mask, int32 rule ids, float32 rule confs) from the
+    dict either package's ``load_rule_tensors`` returns for a
+    ``.tensors.npz`` (the key set is the frequent items), or
+    ``vocab``/``rule_ids``/``rule_confs`` with an explicit ``known_mask``."""
+    if "known_mask" in arrays:
+        known = np.asarray(arrays["known_mask"], dtype=bool)
+    else:
+        known = np.asarray(arrays["item_counts"]) >= min_count_for(
+            float(arrays["min_support"]), int(arrays["n_playlists"])
+        )
+    return (
+        list(arrays["vocab"]),
+        known,
+        np.ascontiguousarray(arrays["rule_ids"], dtype=np.int32),
+        np.ascontiguousarray(arrays["rule_confs"], dtype=np.float32),
+    )
 
 
 def bundle_from_arrays(
@@ -62,48 +98,47 @@ def bundle_from_arrays(
     token: str = "",
     device: str | torch.device = "cuda",
 ) -> RuleBundle:
-    """Carry rule tensors onto the device as a serving bundle.
-
-    ``arrays`` is the dict either package's ``load_rule_tensors`` returns
-    for a ``.tensors.npz`` (``vocab``, ``rule_ids``, ``rule_confs``,
-    ``item_counts``, ``n_playlists``, ``min_support``: the key set is the
-    frequent items), or ``vocab``/``rule_ids``/``rule_confs`` with an
-    explicit ``known_mask``."""
+    """Carry rule tensors onto ``device`` as a serving bundle (see
+    :func:`_host_rule_arrays` for the accepted dicts)."""
     dev = resolve_device(device)
-    vocab = list(arrays["vocab"])
-    if "known_mask" in arrays:
-        known = np.asarray(arrays["known_mask"], dtype=bool)
-    else:
-        known = np.asarray(arrays["item_counts"]) >= min_count_for(
-            float(arrays["min_support"]), int(arrays["n_playlists"])
-        )
+    vocab, known, ids, confs = _host_rule_arrays(arrays)
     return RuleBundle(
-        vocab=vocab,
-        index={n: i for i, n in enumerate(vocab)},
-        rule_ids=torch.as_tensor(
-            np.ascontiguousarray(arrays["rule_ids"], dtype=np.int32), device=dev
-        ),
-        rule_confs=torch.as_tensor(
-            np.ascontiguousarray(arrays["rule_confs"], dtype=np.float32), device=dev
-        ),
-        known_mask=known,
-        model_token=token,
+        vocab=vocab, index={n: i for i, n in enumerate(vocab)},
+        rule_ids=torch.as_tensor(ids, device=dev),
+        rule_confs=torch.as_tensor(confs, device=dev),
+        known_mask=known, model_token=token, device=dev,
     )
 
 
 class RecommendEngine:
     """Holds serving state and executes lookups on ``device`` (default
-    ``cuda``; raises when no card is present). Thread-safe: the bundle and
-    best-tracks references are replaced atomically."""
+    ``cuda``: every card, or ``serve_devices`` of them; raises when no card
+    is present). Thread-safe: the replica set and best-tracks references
+    are replaced atomically; readers never block."""
 
     def __init__(self, cfg: ServingConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.bundle: RuleBundle | None = None
+        # the full replica set (one bundle per serving device); `bundle`
+        # stays the primary replica for single-device callers
+        self.replicas: list[RuleBundle] = []
+        # monotonic publication counter — the answer cache's key prefix.
+        # 0 = nothing published yet.
+        self.bundle_epoch = 0
+        # cumulative per-replica dispatch counters (they survive hot swaps)
+        self.dispatch_counts: list[int] = []
+        self._dispatch_lock = threading.Lock()
         self.best_tracks: list[dict] | None = None
         self.cache_value: str | None = None  # the reference's app.cache_value
         self.finished_loading = False
         self.reload_counter = 0
+        # dispatches whose (batch, length) shape was never warmed; stays 0
+        # unless a caller passes more rows than batch_max_size
+        self.unwarmed_dispatches = 0
+        # per-artifact publication stamps (wall clock), for /readyz and
+        # kmls_artifact_age_seconds; empty before the first load
+        self._artifact_written_at: dict[str, float] = {}
         self._reload_lock = threading.Lock()
 
     # ---------- artifact loading / hot swap ----------
@@ -128,9 +163,9 @@ class RecommendEngine:
         return token != self.cache_value
 
     def load(self) -> bool:
-        """Build a fresh bundle from the PVC and swap it in. Returns False
-        (fail-soft, last-good bundle kept) when the artifacts are absent or
-        unreadable."""
+        """Build a fresh replica set from the PVC, run every seed bucket on
+        every replica, and swap it in. Returns False (fail-soft, last-good
+        bundle kept) when the artifacts are absent or unreadable."""
         with self._reload_lock:
             if self.finished_loading and not self.is_data_stale():
                 return True
@@ -140,52 +175,140 @@ class RecommendEngine:
             try:
                 token = self._read_token() or ""
                 best = artifacts.load_pickle(best_path)
-                bundle = self._load_bundle(rec_path, token)
-                if bundle.vocab:
-                    # one lookup on the new tensors before publishing: the
-                    # first gather/scatter/sort on a device pays its lazy
-                    # initialisation here instead of inside a request
-                    recommend_batch(
-                        bundle.rule_ids, bundle.rule_confs,
-                        torch.zeros((1, 1), dtype=torch.int32, device=self.device),
-                        k_best=self.cfg.k_best_tracks,
-                    )
+                replicas = self._build_replicas(rec_path, token)
+                # every bucket on every replica BEFORE publishing: a shape's
+                # first launch grows the caching allocators and the sort's
+                # scratch space, and must not land inside a request
+                for bundle in replicas:
+                    self._warmup(bundle)
             except FileNotFoundError as exc:
                 logger.warning("artifacts not ready: %s", exc)
                 return False
             except Exception:
                 logger.exception("artifact load failed; keeping current bundle")
                 return False
+            # ordering contract for the epoch-keyed cache: the bundle
+            # references land BEFORE the epoch bump, so an answer stored
+            # under the new epoch can only come from the new rules
+            epoch = self.bundle_epoch + 1
+            for bundle in replicas:
+                bundle.epoch = epoch
             self.best_tracks = best
-            self.bundle = bundle
-            self.cache_value = bundle.model_token or self.cache_value
+            self.replicas = replicas
+            self.bundle = replicas[0]
+            self.bundle_epoch = epoch
+            with self._dispatch_lock:
+                while len(self.dispatch_counts) < len(replicas):
+                    self.dispatch_counts.append(0)
+            self.cache_value = replicas[0].model_token or self.cache_value
+            manifest = artifacts.load_manifest(cfg.pickles_dir)
+            if manifest is not None and manifest.get("token") == self.cache_value:
+                rules_at = float(manifest.get("written_at") or time.time())
+            else:
+                rules_at = time.time()
+            self._artifact_written_at = {
+                "rules": rules_at,
+                "popularity": self._file_written_at(best_path, rules_at),
+            }
             self.finished_loading = True
             self.reload_counter += 1
             logger.info(
-                "reload #%d complete: %d tracks, %d rule keys on %s, token %r",
-                self.reload_counter, len(bundle.vocab),
-                int(bundle.known_mask.sum()), self.device, bundle.model_token,
+                "reload #%d complete (epoch %d): %d tracks, %d rule keys, "
+                "%d replica(s) on %s, token %r",
+                self.reload_counter, epoch, len(replicas[0].vocab),
+                int(replicas[0].known_mask.sum()), len(replicas),
+                ", ".join(str(b.device) for b in replicas), replicas[0].model_token,
             )
             return True
 
-    def _load_bundle(self, rec_path: str, token: str) -> RuleBundle:
-        """The npz twin when present (counts → float64 → float32 confs),
-        else the reference pickle dict."""
+    def _build_replicas(self, rec_path: str, token: str) -> list[RuleBundle]:
+        """Load the rule tensors once (the npz twin when present — counts →
+        float64 → float32 confs — else the reference pickle dict), then
+        copy them onto every serving device. Host state is shared."""
         npz_path = artifacts.tensor_artifact_path(rec_path)
         if self.cfg.prefer_tensor_artifact and os.path.exists(npz_path):
-            loaded = artifacts.load_rule_tensors(npz_path)
-            return bundle_from_arrays(loaded, token=token, device=self.device)
-        rules_dict = artifacts.load_pickle(rec_path)
-        vocab = sorted(set(rules_dict) | {o for row in rules_dict.values() for o in row})
-        rule_ids, rule_confs, known = artifacts.tensors_from_rules_dict(
-            rules_dict, vocab,
-            k_max=max((len(r) for r in rules_dict.values()), default=1),
-        )
-        return bundle_from_arrays(
-            {"vocab": vocab, "rule_ids": rule_ids, "rule_confs": rule_confs,
-             "known_mask": known},
-            token=token, device=self.device,
-        )
+            arrays = artifacts.load_rule_tensors(npz_path)
+        else:
+            rules_dict = artifacts.load_pickle(rec_path)
+            vocab = sorted(set(rules_dict) | {o for row in rules_dict.values() for o in row})
+            rule_ids, rule_confs, known = artifacts.tensors_from_rules_dict(
+                rules_dict, vocab,
+                k_max=max((len(r) for r in rules_dict.values()), default=1),
+            )
+            arrays = {"vocab": vocab, "rule_ids": rule_ids, "rule_confs": rule_confs,
+                      "known_mask": known}
+        vocab, known, ids, confs = _host_rule_arrays(arrays)
+        index = {n: i for i, n in enumerate(vocab)}
+        return [
+            RuleBundle(
+                vocab=vocab, index=index,
+                rule_ids=torch.as_tensor(ids, device=dev),
+                rule_confs=torch.as_tensor(confs, device=dev),
+                known_mask=known, model_token=token, device=dev,
+            )
+            for dev in self._serve_devices()
+        ]
+
+    def _serve_devices(self) -> list[torch.device]:
+        """The devices the replica set spans. On ``cuda``: every card
+        (``serve_devices == 0``) or the first ``serve_devices`` of them; a
+        device with an explicit index pins that one card. On the CPU: one
+        replica, or ``serve_devices`` copies on the host (the reference's
+        virtual-device replicas, for exercising the replica lanes)."""
+        n = self.cfg.serve_devices
+        if self.device.type != "cuda":
+            return [self.device] * max(1, n)
+        if self.device.index is not None:
+            return [self.device]
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return devs[: min(n, len(devs))] if n > 0 else devs
+
+    @property
+    def n_replicas(self) -> int:
+        """Serving replicas currently published (1 before the first load —
+        the batcher's least-loaded dispatcher sizes its lanes off this)."""
+        return max(1, len(self.replicas))
+
+    def _note_dispatch(self, idx: int) -> None:
+        with self._dispatch_lock:
+            while len(self.dispatch_counts) <= idx:
+                self.dispatch_counts.append(0)
+            self.dispatch_counts[idx] += 1
+
+    def _warmup(self, bundle: RuleBundle) -> None:
+        """Run EVERY (batch-bucket, length-bucket) shape through the
+        dispatch path on ``bundle`` before it publishes, the copies and
+        the pinned host buffers included."""
+        if not bundle.vocab:
+            return  # nothing can be known: every answer is the fallback
+        for length in self._len_buckets():
+            for batch in self._batch_buckets():
+                seeds = self._staging((batch, length), bundle.device)
+                self._launch(bundle, seeds)()
+                bundle.warmed_shapes.add((batch, length))
+
+    @staticmethod
+    def _file_written_at(path: str, fallback: float) -> float:
+        """Best-effort artifact publication stamp: the file's mtime, or
+        the generation's manifest stamp when the file can't answer."""
+        try:
+            return os.path.getmtime(path)
+        except OSError:
+            return fallback
+
+    def artifact_ages(self) -> dict[str, float]:
+        """Seconds since publication of every artifact the server answers
+        from. ``delta-chain`` is the newest applied generation's age; with
+        no delta path it equals ``rules``. Empty before the first load."""
+        if not self._artifact_written_at:
+            return {}
+        now = time.time()
+        out = {
+            name: max(now - stamp, 0.0)
+            for name, stamp in self._artifact_written_at.items()
+        }
+        out["delta-chain"] = out["rules"]
+        return out
 
     def reload_if_required(self) -> None:
         """Reload when stale or never fully loaded
@@ -195,58 +318,191 @@ class RecommendEngine:
 
     # ---------- lookups ----------
 
+    def _len_buckets(self) -> list[int]:
+        """Coarse seed-length buckets; the cap itself is always a member."""
+        cap = self.cfg.max_seed_tracks
+        return sorted({min(b, cap) for b in (1, 8, 32, 128)} | {cap})
+
+    def _bucket_len(self, n: int) -> int:
+        buckets = self._len_buckets()
+        for b in buckets:
+            if n <= b:
+                return b
+        return buckets[-1]
+
+    def _batch_buckets(self) -> list[int]:
+        """Power-of-two batch buckets 1, 2, 4, …, up to (and always
+        including) ``batch_max_size`` — the full set the warmup runs."""
+        cap = max(self.cfg.batch_max_size, 1)
+        buckets = []
+        b = 1
+        while b < cap:
+            buckets.append(b)
+            b *= 2
+        buckets.append(cap)
+        return buckets
+
+    def _bucket_batch(self, n: int) -> int:
+        """Smallest warmed batch bucket holding ``n`` rows; oversized
+        batches (direct ``recommend_many`` calls only — the micro-batcher
+        caps at ``batch_max_size``) round up to a multiple of the cap."""
+        cap = max(self.cfg.batch_max_size, 1)
+        if n > cap:
+            return ((n + cap - 1) // cap) * cap
+        for b in self._batch_buckets():
+            if n <= b:
+                return b
+        return cap
+
+    @staticmethod
+    def _fill_seed_rows(
+        bundle: RuleBundle, seed_sets: list[list[str]],
+        arr: np.ndarray, length: int,
+    ) -> np.ndarray:
+        """Membership-filter each seed set into its -1-padded row of
+        ``arr`` → per-row any-known-seed mask (a copy, not a view)."""
+        for r, seeds in enumerate(seed_sets):
+            ids = [
+                bundle.index[s]
+                for s in seeds
+                if s in bundle.index and bundle.known_mask[bundle.index[s]]
+            ][:length]
+            arr[r, : len(ids)] = ids
+        return (arr[: len(seed_sets)] >= 0).any(axis=1)
+
+    @staticmethod
+    def _staging(shape: tuple[int, int], device: torch.device) -> torch.Tensor:
+        """A fresh -1-filled int32 host tensor for one dispatch's seeds,
+        pinned when the copy goes to a card. Fresh per dispatch: the
+        non-blocking copy may still be reading it when the next batch is
+        staged, and the dispatch keeps it alive until its finish()."""
+        return torch.full(shape, -1, dtype=torch.int32, pin_memory=device.type == "cuda")
+
+    def _stage_seeds(
+        self, bundle: RuleBundle, seed_sets: list[list[str]],
+        rows: int, length: int,
+    ) -> tuple[torch.Tensor, np.ndarray]:
+        """Fill the padded (rows, length) host seed tensor → (host seed
+        tensor, per-row any-known-seed mask)."""
+        shape = (rows, length)
+        seeds = self._staging(shape, bundle.device)
+        known_rows = self._fill_seed_rows(bundle, seed_sets, seeds.numpy(), length)
+        if shape not in bundle.warmed_shapes:
+            self.unwarmed_dispatches += 1
+            logger.warning(
+                "unwarmed seed shape %s dispatched; warmed buckets: batches "
+                "%s x lengths %s", shape, self._batch_buckets(), self._len_buckets(),
+            )
+        return seeds, known_rows
+
+    def _launch(self, bundle: RuleBundle, seeds: torch.Tensor) -> Callable[[], np.ndarray]:
+        """Start the lookup of the host ``seeds`` on ``bundle``'s device →
+        ``wait()``, which returns the (rows, k_best) host ids.
+
+        On a card the seed copy, the lookup and the copy of the ids into a
+        pinned host tensor are enqueued on the replica's current stream
+        with a CUDA event after them, and ``wait()`` synchronizes on that
+        event only (releasing the GIL). On the CPU the lookup runs inside
+        ``wait()``, so a dispatch never computes on the caller's thread."""
+        k_best = self.cfg.k_best_tracks
+        dev = bundle.device
+        if dev.type != "cuda":
+            def wait_cpu() -> np.ndarray:
+                ids, _ = recommend_batch(bundle.rule_ids, bundle.rule_confs, seeds, k_best=k_best)
+                return ids.numpy()
+
+            return wait_cpu
+        with torch.cuda.device(dev):
+            seeds_dev = seeds.to(dev, non_blocking=True)
+            top_ids, _ = recommend_batch(bundle.rule_ids, bundle.rule_confs, seeds_dev,
+                                         k_best=k_best)
+            host_ids = torch.empty(top_ids.shape, dtype=torch.int32, pin_memory=True)
+            host_ids.copy_(top_ids, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+
+        # _staged keeps the pinned seed tensor alive until the copy that
+        # reads it has provably finished
+        def wait_cuda(_staged: torch.Tensor = seeds) -> np.ndarray:
+            done.synchronize()
+            return host_ids.numpy()
+
+        return wait_cuda
+
+    def _compose_answer(
+        self, bundle: RuleBundle, seeds: list[str], rule_known: bool, ids_row,
+    ) -> tuple[list[str], str]:
+        """One request's answer → (songs, source ∈ {"rules", "fallback",
+        "empty"})."""
+        if not rule_known:
+            return self.static_recommendation(seeds), "fallback"
+        songs = [bundle.vocab[int(i)] for i in ids_row if i >= 0]
+        return songs, ("rules" if songs else "empty")
+
     def recommend(self, seed_tracks: list[str]) -> tuple[list[str], str]:
         """→ ``(songs, source)``, source ∈ {"rules", "fallback", "empty"}."""
-        return self.recommend_many([seed_tracks])[0]
+        return self.recommend_many_async([seed_tracks])()[0]
 
     def recommend_many(
         self, seed_sets: list[list[str]]
     ) -> list[tuple[list[str], str]]:
         """One device call for a batch of seed sets; per-request semantics
         identical to :meth:`recommend`."""
-        bundle = self.bundle
+        return self.recommend_many_async(seed_sets)()
+
+    def recommend_many_async(
+        self, seed_sets: list[list[str]], replica: int | None = None,
+    ) -> Callable[[], list[tuple[list[str], str]]]:
+        """Batched lookup split into DISPATCH (staged and enqueued on the
+        device; returns at once) and FINISH (a zero-arg callable that waits
+        for this batch's result and builds the answers). ``replica``
+        selects the replica that runs the batch (the batcher's least-loaded
+        pick); None uses the primary. The batch is padded up to its
+        (batch, length) bucket; a batch with no known seed in any row
+        launches nothing."""
+        replicas = self.replicas
+        idx = replica % len(replicas) if (replica is not None and replicas) else 0
+        bundle = replicas[idx] if replicas else self.bundle
         if bundle is None:
             # degrade + nudge a reload, like the reference's late-load path
             threading.Thread(target=self.reload_if_required, daemon=True).start()
-            return [(self.static_recommendation(s), "fallback") for s in seed_sets]
-        known = [
-            [
-                bundle.index[s]
-                for s in seeds
-                if s in bundle.index and bundle.known_mask[bundle.index[s]]
-            ][: self.cfg.max_seed_tracks]
-            for seeds in seed_sets
-        ]
-        out: list[tuple[list[str], str] | None] = [None] * len(seed_sets)
-        rows = [r for r, ids in enumerate(known) if ids]
-        for r, seeds in enumerate(seed_sets):
-            if not known[r]:
-                logger.info("no seed of %d known; static fallback", len(seeds))
-                out[r] = (self.static_recommendation(seeds), "fallback")
-        if rows:
-            length = max(len(known[r]) for r in rows)
-            arr = np.full((len(rows), length), -1, dtype=np.int32)
-            for n, r in enumerate(rows):
-                arr[n, : len(known[r])] = known[r]
-            top_ids, _ = recommend_batch(
-                bundle.rule_ids, bundle.rule_confs,
-                torch.as_tensor(arr, device=self.device),
-                k_best=self.cfg.k_best_tracks,
-            )
-            host_ids = top_ids.cpu().numpy()
-            for n, r in enumerate(rows):
-                songs = [bundle.vocab[int(i)] for i in host_ids[n] if i >= 0]
-                out[r] = (songs, "rules" if songs else "empty")
-        return out  # type: ignore[return-value]
 
-    def static_recommendation(self, seed_tracks: list[str]) -> list[str]:
+            def finish_fallback() -> list[tuple[list[str], str]]:
+                return [(self.static_recommendation(s), "fallback") for s in seed_sets]
+
+            return finish_fallback
+        length = self._bucket_len(max((len(s) for s in seed_sets), default=1))
+        n_rows = self._bucket_batch(max(len(seed_sets), 1))
+        seeds, known_rows = self._stage_seeds(bundle, seed_sets, n_rows, length)
+        wait = self._launch(bundle, seeds) if known_rows.any() else None
+        self._note_dispatch(idx)
+
+        def finish() -> list[tuple[list[str], str]]:
+            host_ids = wait() if wait is not None else None
+            return [
+                self._compose_answer(
+                    bundle, s, bool(known_rows[r]),
+                    host_ids[r] if host_ids is not None else None,
+                )
+                for r, s in enumerate(seed_sets)
+            ]
+
+        return finish
+
+    def static_recommendation(
+        self, seed_tracks: list[str], deadline: float | None = None
+    ) -> list[str]:
         """Deterministic popular-tracks sample (reference:
-        rest_api/app/main.py:205-222), keyed by a stable hash of the seeds."""
+        rest_api/app/main.py:205-222), keyed by a stable hash of the seeds.
+        Past ``deadline`` (perf_counter seconds) the cheapest legitimate
+        answer: the head of the popularity ranking."""
         best = self.best_tracks
         if not best:
             return []
         names = [b["track_name"] for b in best]
         k = min(self.cfg.k_best_tracks, len(names))
+        if deadline is not None and time.perf_counter() >= deadline:
+            return names[:k]
         return random.Random(stable_seed(seed_tracks)).sample(names, k)
 
     # ---------- background polling ----------

@@ -239,6 +239,7 @@ def test_pickle_only_pvc_and_bundle_from_arrays(pvcs):
         os.path.join(_pickles(ref_base), "recommendations.pickle.tensors.npz")
     )
     engine.bundle = bundle_from_arrays(ref_loaded, token=engine.cache_value, device="cpu")
+    engine.replicas = [engine.bundle]
     assert [engine.recommend(s) for s in seed_sets] == want
     pickle_only = RecommendEngine(
         ServingConfig(base_dir=ref_base, max_seed_tracks=MAX_SEEDS,
