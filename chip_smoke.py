@@ -61,6 +61,20 @@ main loop on the card and fails loudly on any mismatch:
    beside its byte bound. Every answer is held against the engine on the
    CPU; a 5xx, a differing answer, an unwarmed dispatch, a drain that does
    not exit 0 or a config 5 run under 95 % of its offered QPS fails.
+9. crash-safety (``faults.py``, ``mining/checkpoint.py``, the engine's
+   manifest check; run right after phase 8 on phase 4's CSV; alone:
+   ``python -c "import chip_smoke as c; c.phase_resume()"``): the job
+   in process on the card with ``KMLS_COUNT_PATH=bitpack``, uninterrupted
+   (checkpoints off, then on), then killed by ``mine.crash.<phase>`` after
+   each of encode, mine and rules and resumed on the card — the pickles,
+   npz and manifest files equal the uninterrupted run's byte for byte, and
+   the resume launches the popcount kernel once after encode, never after
+   mine or rules; the mine case again with the default dispatch; a crash
+   on the card resumed on the CPU and one on the CPU resumed on the card;
+   then the engine on the card against the corrupt-artifact ladder (a
+   flipped npz byte, a truncated pickle, the quarantine and the recovery,
+   an npz with rule ids >= V under verification off), every answer held
+   against the CPU engine; checkpoint save/load seconds and bytes logged.
 Then the kernels line is printed.
 
 ``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
@@ -1618,6 +1632,323 @@ def phase_serving(work: str | None = None) -> dict:
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 9
+
+RESUME_PHASES = ("encode", "mine", "rules")
+# popcount launches of a resumed KMLS_COUNT_PATH=bitpack job, by crash phase:
+# the resume after encode mines once, the later ones mine nothing
+RESUME_LAUNCHES = {"encode": 1, "mine": 0, "rules": 0}
+LADDER_SEEDS = 300  # seed sets held against the CPU engine per rung
+
+
+def publication(pvc: str) -> dict:
+    """The published bytes a resumed job must reproduce: every pickle, the
+    npz twin, and the manifest's ``files`` (size + sha256 per artifact)."""
+    from kmlserver_tpu_torch.io import artifacts
+
+    pickles = os.path.join(pvc, "pickles")
+    out = {}
+    for name in sorted(os.listdir(pickles)):
+        if name.endswith((".pickle", ".npz")):
+            with open(os.path.join(pickles, name), "rb") as fh:
+                out[name] = fh.read()
+    manifest = artifacts.load_manifest(pickles)
+    out["manifest files"] = json.dumps(manifest["files"], sort_keys=True) if manifest else None
+    return out
+
+
+class CheckpointLog:
+    """Times every CheckpointStore save and load of phase 9 (seconds,
+    bytes), by wrapping the two methods for the phase's duration."""
+
+    def __init__(self):
+        from kmlserver_tpu_torch.mining import checkpoint as ckpt_mod
+
+        self.mod = ckpt_mod
+        self.real = (ckpt_mod.CheckpointStore.save, ckpt_mod.CheckpointStore.load)
+        self.saves: dict[str, list] = {}
+        self.loads: dict[str, list] = {}
+
+    def __enter__(self):
+        real_save, real_load = self.real
+        log_ = self
+
+        def save(store, phase, payload, duration_s=None):
+            t0 = time.perf_counter()
+            path = real_save(store, phase, payload, duration_s=duration_s)
+            if path is not None:
+                log_.saves.setdefault(phase, []).append(
+                    (time.perf_counter() - t0, os.path.getsize(path)))
+            return path
+
+        def load(store, phase):
+            t0 = time.perf_counter()
+            payload = real_load(store, phase)
+            if payload is not None:
+                log_.loads.setdefault(phase, []).append(
+                    (time.perf_counter() - t0, store._state["phases"][phase]["bytes"]))
+            return payload
+
+        self.mod.CheckpointStore.save, self.mod.CheckpointStore.load = save, load
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.CheckpointStore.save, self.mod.CheckpointStore.load = self.real
+        return False
+
+
+def phase_resume(work: str | None = None) -> dict:
+    """Phase 9: crash-safety on the card, in process, on phase 4's ds2 CSV.
+    (a) a job killed after each checkpointed phase resumes on the card and
+    publishes the uninterrupted job's bytes, launching the popcount kernel
+    once when resumed after ``encode`` and never when resumed later; (b)
+    resumes across devices; (c) the engine on the card against the
+    corrupt-artifact ladder; (d) checkpoint save/load costs and the job's
+    wall clock with checkpointing on and off."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from kmlserver_tpu_torch import faults
+    from kmlserver_tpu_torch.config import MiningConfig, ServingConfig
+    from kmlserver_tpu_torch.data.csv import write_tracks_csv
+    from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_table
+    from kmlserver_tpu_torch.io import artifacts, registry
+    from kmlserver_tpu_torch.mining.pipeline import run_mining_job
+    from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke9_")
+    root = os.path.join(work, "phase9")
+    csv_path = os.path.join(root, "2023_spotify_ds2_synthetic.csv")
+    os.makedirs(root)
+    phase4_csv = os.path.join(work, "pvc", "datasets", "2023_spotify_ds2_synthetic.csv")
+    if os.path.exists(phase4_csv):
+        shutil.copy(phase4_csv, csv_path)
+    else:
+        write_tracks_csv(csv_path, synthetic_table(**DS2_SHAPE, seed=7))
+
+    def new_pvc(name: str, **knobs) -> MiningConfig:
+        pvc = os.path.join(root, name)
+        os.makedirs(os.path.join(pvc, "datasets"))
+        shutil.copy(csv_path, os.path.join(pvc, "datasets"))
+        return MiningConfig(base_dir=pvc, datasets_dir=os.path.join(pvc, "datasets"), **knobs)
+
+    def job(cfg, device="cuda"):
+        """→ (summary, popcount launches, wall s, log); the counters are
+        set to 0 just before and read just after."""
+        for key in pc.LAUNCHES:
+            pc.LAUNCHES[key] = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            summary = run_mining_job(cfg, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return summary, sum(pc.LAUNCHES.values()), time.perf_counter() - t0, out.getvalue()
+
+    def crash(cfg, phase, device="cuda"):
+        faults.clear()
+        faults.inject(f"mine.crash.{phase}", times=1)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                run_mining_job(cfg, device=device)
+        except faults.FaultInjected:
+            pass
+        else:
+            fail(f"phase 9: the injected crash after {phase!r} did not fire")
+        fired = faults.fired_counts().get((f"mine.crash.{phase}", None), 0)
+        faults.clear()
+        if fired != 1:
+            fail(f"phase 9: mine.crash.{phase} fired {fired} times")
+        if os.path.exists(os.path.join(cfg.pickles_dir, cfg.recommendations_file)):
+            fail(f"phase 9: the job killed after {phase!r} published")
+
+    def check_resume(label, summary, want_phases, base_bytes):
+        if summary.resumed_phases != want_phases:
+            fail(f"phase 9 {label}: resumed {summary.resumed_phases}, want {want_phases}")
+        got = publication(summary_pvc(summary))
+        if got != base_bytes:
+            bad = sorted(k for k in base_bytes if got.get(k) != base_bytes[k])
+            fail(f"phase 9 {label}: published bytes differ from the baseline's: {bad}")
+
+    def summary_pvc(summary):
+        return os.path.dirname(os.path.dirname(summary.artifact_paths["recommendations"]))
+
+    bitpack = dict(count_path="bitpack")
+    try:
+        with CheckpointLog() as ckpt_log:
+            # ---- (d) the uninterrupted job: a first run (it pays the
+            # process's first mine on the card, and the kernel's build when
+            # this phase runs alone), then checkpoints on, off, off, on
+            first, _, first_s, _ = job(new_pvc("first", checkpoint_enabled=False, **bitpack))
+            base_cfg = new_pvc("baseline", **bitpack)
+            base, base_launches, on_s, _ = job(base_cfg)
+            if base.count_path != "bitpack-cuda" or base_launches < 1:
+                fail(f"phase 9 baseline: {base.count_path}, {base_launches} popcount launches")
+            base_bytes = publication(base_cfg.base_dir)
+            walls = {"on": [on_s], "off": []}
+            for i, knob in enumerate(("off", "off", "on")):
+                summary, _, wall, _ = job(new_pvc(f"{knob}{i}", checkpoint_enabled=knob == "on",
+                                                  **bitpack))
+                walls[knob].append(wall)
+                if publication(summary_pvc(summary)) != base_bytes:
+                    fail(f"phase 9: the job with checkpoints {knob} published other bytes")
+            if publication(summary_pvc(first)) != base_bytes:
+                fail("phase 9: the first job published other bytes")
+            on_s, off_s = (sum(walls[k]) / len(walls[k]) for k in ("on", "off"))
+            log(f"phase 9 baseline (ds2, KMLS_COUNT_PATH=bitpack, on the card, in process): "
+                f"job wall {on_s:.3f} s with checkpoints ({', '.join(f'{w:.3f}' for w in walls['on'])}),"
+                f" {off_s:.3f} s without ({', '.join(f'{w:.3f}' for w in walls['off'])}); "
+                f"first run {first_s:.3f} s; {base_launches} popcount launch(es)")
+
+            # ---- (a) kill after each phase, resume on the card
+            resumes = {}
+            for phase in RESUME_PHASES:
+                cfg = new_pvc(f"crash_{phase}", **bitpack)
+                crash(cfg, phase)
+                summary, launches, wall, _ = job(cfg)
+                want = RESUME_PHASES[: RESUME_PHASES.index(phase) + 1]
+                check_resume(f"resume after {phase}", summary, want, base_bytes)
+                if launches != RESUME_LAUNCHES[phase] or summary.kernel_launches != launches:
+                    fail(f"phase 9 resume after {phase}: {launches} popcount launches "
+                         f"(summary {summary.kernel_launches}), want {RESUME_LAUNCHES[phase]}")
+                resumes[phase] = {"wall_s": wall, "launches": launches}
+                log(f"phase 9 (a) killed after {phase!r}, resumed on the card: "
+                    f"{summary.resumed_phases}, {launches} popcount launch(es), {wall:.3f} s "
+                    f"wall; pickles, npz and manifest files == the baseline's")
+            cfg = new_pvc("crash_mine_default")
+            crash(cfg, "mine")
+            summary, launches, wall, _ = job(cfg)
+            check_resume("default dispatch", summary, ("encode", "mine"), base_bytes)
+            if launches != 0 or summary.count_path != "dense-fused":
+                fail(f"phase 9 default dispatch: {summary.count_path}, {launches} launches")
+            log(f"phase 9 (a) default dispatch (dense-fused) killed after 'mine', resumed: "
+                f"{wall:.3f} s wall, 0 launches, the baseline's bytes")
+
+            # ---- (b) across devices
+            cfg = new_pvc("card_to_cpu", **bitpack)
+            crash(cfg, "mine", device="cuda")
+            summary, _, wall_cpu, _ = job(cfg, device="cpu")
+            check_resume("card -> CPU", summary, ("encode", "mine"), base_bytes)
+            cfg = new_pvc("cpu_to_card", **bitpack)
+            crash(cfg, "encode", device="cpu")
+            summary, launches, wall_card, _ = job(cfg)
+            check_resume("CPU -> card", summary, ("encode",), base_bytes)
+            if launches != 1:
+                fail(f"phase 9 CPU -> card: {launches} popcount launches, want 1")
+            log(f"phase 9 (b) killed after 'mine' on the card, resumed on the CPU "
+                f"({wall_cpu:.3f} s); killed after 'encode' on the CPU, resumed on the card "
+                f"({wall_card:.3f} s, 1 launch): both publish the baseline's bytes")
+        ckpt = {
+            phase: {
+                "save_s": ckpt_log.saves[phase][0][0], "bytes": ckpt_log.saves[phase][0][1],
+                "load_s": min(t for t, _ in ckpt_log.loads.get(phase, [(float("nan"), 0)])),
+            }
+            for phase in RESUME_PHASES
+        }
+        log("phase 9 (d) checkpoints (first save; fastest verified load): " + "; ".join(
+            f"{p} {c['bytes']} bytes saved in {c['save_s']:.4f} s, loaded in {c['load_s']:.4f} s"
+            for p, c in ckpt.items()))
+
+        # ---- (c) the engine on the card against the corrupt-artifact ladder
+        ladder = os.path.join(root, "ladder")
+        shutil.copytree(base_cfg.base_dir, ladder)
+        pickles = os.path.join(ladder, "pickles")
+        rec = os.path.join(pickles, "recommendations.pickle")
+        npz = artifacts.tensor_artifact_path(rec)
+        scfg = ServingConfig(base_dir=ladder, quarantine_after_failures=2,
+                             reload_backoff_base_s=0.0)
+
+        def invalidate():
+            registry.append_history_and_invalidate(MiningConfig(base_dir=ladder), 1, "ladder")
+
+        def seed_sets(vocab):
+            rng = np.random.default_rng(9)
+            return [[vocab[int(i)] for i in rng.choice(len(vocab), int(rng.integers(1, 6)))]
+                    for _ in range(LADDER_SEEDS)] + [["No Such Track"]]
+
+        def same_answers(label, card, cpu):
+            sets = seed_sets(card.bundle.vocab)
+            got, want = engine_answers(card, sets), engine_answers(cpu, sets)
+            if got != want:
+                bad = sum(g != w for g, w in zip(got, want))
+                fail(f"phase 9 (c) {label}: {bad} of {len(sets)} answers != the CPU engine's")
+
+        faults.flip_byte(npz)
+        if artifacts.verify_files(pickles, [os.path.basename(npz)]) != [npz]:
+            fail("phase 9 (c): the flipped npz byte passed its manifest")
+        card = RecommendEngine(scfg, device="cuda")
+        cpu = RecommendEngine(scfg, device="cpu")
+        t0 = time.perf_counter()
+        if not card.load():
+            fail("phase 9 (c): the card engine refused a PVC whose pickle is whole")
+        verify_load_s = time.perf_counter() - t0
+        if not cpu.load() or card.consecutive_reload_failures:
+            fail("phase 9 (c): the flipped npz did not fall back to the pickle")
+        same_answers("flipped npz byte", card, cpu)
+        good, token = card.bundle, card.cache_value
+        faults.truncate_file(rec, keep_fraction=0.4)
+        invalidate()
+        if card.load() is not False or card.bundle is not good or card.cache_value != token:
+            fail("phase 9 (c): a truncated pickle did not leave the last good bundle serving")
+        if card._backoff_until <= 0.0 or card.reload_failures != 1:
+            fail("phase 9 (c): the failed reload armed no backoff")
+        same_answers("last good bundle", card, cpu)
+        if card.load() is not False or card.artifact_quarantines < 1 or os.path.exists(rec):
+            fail("phase 9 (c): the second failed reload quarantined nothing")
+        quarantined = sorted(os.listdir(os.path.join(pickles, artifacts.QUARANTINE_DIRNAME)))
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_mining_job(MiningConfig(base_dir=ladder,
+                                        datasets_dir=os.path.join(ladder, "datasets")),
+                           device="cuda")
+        card._backoff_until = 0.0
+        card.reload_if_required()
+        if card.consecutive_reload_failures or card.cache_value == token:
+            fail("phase 9 (c): the engine did not recover after the republication")
+        cpu = RecommendEngine(scfg, device="cpu")
+        cpu.load()
+        same_answers("recovered", card, cpu)
+        log(f"phase 9 (c) engine on the card: flipped npz byte → pickle fallback (load "
+            f"{verify_load_s:.3f} s), answers == CPU; truncated pickle → last good bundle, "
+            f"token kept, backoff armed; quarantined {quarantined} after 2 failures; "
+            f"recovered after the republication")
+
+        # ids >= V in an npz that parses cleanly, verification off
+        loaded = artifacts.load_rule_tensors(npz)
+        ids = loaded["rule_ids"].copy()
+        v = len(loaded["vocab"])
+        filled = np.argwhere(ids >= 0)
+        ids[tuple(filled[::7].T)] = v
+        ids[tuple(filled[3::11].T)] = v + 1000
+        artifacts.save_rule_tensors(
+            npz, vocab=loaded["vocab"], rule_ids=ids, rule_counts=loaded["rule_counts"],
+            item_counts=loaded["item_counts"], n_playlists=loaded["n_playlists"],
+            min_support=loaded["min_support"], mode=loaded["mode"],
+            min_confidence=loaded["min_confidence"], rule_confs64=loaded["rule_confs64"])
+        invalidate()
+        ocfg = dataclasses.replace(scfg, verify_manifest=False)
+        card = RecommendEngine(ocfg, device="cuda")
+        cpu = RecommendEngine(ocfg, device="cpu")
+        if not card.load() or not cpu.load():
+            fail("phase 9 (c): the npz with ids >= V did not publish")
+        same_answers("ids >= V", card, cpu)
+        torch.cuda.synchronize()
+        same_answers("a later lookup (the CUDA context lives)", card, cpu)
+        log(f"phase 9 (c) npz with {int((ids >= v).sum())} rule ids >= V ({v}), "
+            f"KMLS_VERIFY_MANIFEST=0: published on the card, answers == CPU, and a later "
+            f"lookup on the same process succeeds")
+        return {"resumes": resumes, "checkpoints": ckpt, "job_s_checkpoints_on": on_s,
+                "job_s_checkpoints_off": off_s}
+    finally:
+        faults.clear()
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1653,6 +1984,7 @@ def main() -> int:
     try:
         e2e = phase_end_to_end(work)
         phase_serving(work)
+        resume = phase_resume(work)
         scale = phase_scale(2024, work, QUICK_SCALE if quick else SCALE)
         ranks = phase_ranks(work, scale)
     finally:
@@ -1660,6 +1992,8 @@ def main() -> int:
     routes = phase_routes()
     kernel = scale["kernel"]
     kernel["launches_job"] = e2e["job_launches"]
+    kernel["launches_resume_after_encode"] = resume["resumes"]["encode"]["launches"]
+    kernel["launches_resume_after_mine"] = resume["resumes"]["mine"]["launches"]
     kernel["launches_sparse_long"] = routes["launches_sparse_long"]
     kernel["sparse_long_block"] = routes["long_block"]
     small_err = max(small_err, routes["long_block"]["max_abs_err"])

@@ -91,6 +91,29 @@ def drain_settle_s_from_env() -> float:
     return float(os.getenv("KMLS_DRAIN_SETTLE_S") or 2.0)
 
 
+# ---- the artifact plane's IO knobs, read at call time so a test or an
+# operator can change them without a restart (reference:
+# kmlserver_tpu/io/artifacts.py, io/iohealth.py) ----
+
+
+def io_retries_from_env() -> int:
+    """``KMLS_IO_RETRIES``: retries of a write that failed with a
+    transient errno (EIO, EAGAIN, ESTALE); default 2."""
+    return max(_getenv_int("KMLS_IO_RETRIES", 2), 0)
+
+
+def io_retry_base_s_from_env() -> float:
+    """``KMLS_IO_RETRY_BASE_MS``: the first retry's backoff, doubling per
+    retry; default 50 ms."""
+    return max(_getenv_float("KMLS_IO_RETRY_BASE_MS", 50.0), 0.0) / 1e3
+
+
+def io_slow_s_from_env(default_ms: float) -> float:
+    """``KMLS_IO_SLOW_MS``: the latency EWMA over which the IO-health
+    monitor convicts the volume as slow."""
+    return _getenv_float("KMLS_IO_SLOW_MS", default_ms) / 1e3
+
+
 @dataclasses.dataclass(frozen=True)
 class MiningConfig:
     """Batch mining job config (reference: machine-learning/main.py:17-49,
@@ -147,8 +170,31 @@ class MiningConfig:
     mesh_shape: str = "auto"
     # "replicated", "sharded" or "auto" (parallel/layout.py)
     model_layout: str = "replicated"
-    # where the per-rank heartbeat files live; empty = <base_dir>/mining_checkpoint
+    # phase checkpoints (mining/checkpoint.py): after encode, mine and
+    # rules the writer rank saves the phase's host payload, keyed by a
+    # config + dataset fingerprint, and a restarted job resumes from it
+    checkpoint_enabled: bool = True
+    # the checkpoint store (and the watchdog's heartbeat files); empty =
+    # <base_dir>/mining_checkpoint
     checkpoint_dir: str = ""
+    # a checkpoint whose bytes verify but fail to unpickle this many
+    # consecutive loads is quarantined; 0 disables quarantining
+    checkpoint_quarantine_after: int = 2
+    # lease-fenced publication (io/artifacts.py PublicationLease): the
+    # writer takes a heartbeat lease with a monotonic fencing token before
+    # the phases and re-checks it before its first artifact write and
+    # before the token rewrite
+    lease_enabled: bool = True
+    # a lease whose heartbeat is older than this has a dead writer
+    lease_ttl_s: float = 60.0
+    # heartbeat period; 0 = ttl/3
+    lease_heartbeat_interval_s: float = 0.0
+    # a heartbeat write slower than this fraction of the TTL self-fences
+    # the writer (0 disables)
+    lease_stall_fraction: float = 0.5
+    # the publication preflight needs max(estimated artifact bytes, this)
+    # free on the volume, reclaims, then exits resumable; 0 disables it
+    disk_min_free_bytes: int = 64 * (1 << 20)
     # dead-rank watchdog (distributed jobs only): a peer silent for
     # rank_timeout_s aborts the rank with exit 76; 0 disables
     rank_timeout_s: float = 300.0
@@ -199,7 +245,14 @@ class MiningConfig:
             write_manifest=_getenv_bool("KMLS_WRITE_MANIFEST", True),
             mesh_shape=os.getenv("KMLS_MESH_SHAPE", "auto"),
             model_layout=_getenv_model_layout(),
+            checkpoint_enabled=_getenv_bool("KMLS_CKPT_ENABLED", True),
             checkpoint_dir=os.getenv("KMLS_CKPT_DIR", ""),
+            checkpoint_quarantine_after=_getenv_int("KMLS_CKPT_QUARANTINE_AFTER", 2),
+            lease_enabled=_getenv_bool("KMLS_LEASE_ENABLED", True),
+            lease_ttl_s=_getenv_float("KMLS_LEASE_TTL_S", 60.0),
+            lease_heartbeat_interval_s=_getenv_float("KMLS_LEASE_HEARTBEAT_S", 0.0),
+            lease_stall_fraction=_getenv_float("KMLS_LEASE_STALL_FRACTION", 0.5),
+            disk_min_free_bytes=_getenv_int("KMLS_DISK_MIN_FREE_BYTES", 64 * (1 << 20)),
             rank_timeout_s=_getenv_float("KMLS_RANK_TIMEOUT_S", 300.0),
             rank_heartbeat_interval_s=_getenv_float("KMLS_RANK_HEARTBEAT_S", 5.0),
             collective_timeout_s=_getenv_float("KMLS_COLLECTIVE_TIMEOUT_S", 1800.0),
@@ -254,6 +307,20 @@ class ServingConfig:
     cache_max_entries: int = 8192
     # load rule tensors from the .npz twin when present (else the pickle)
     prefer_tensor_artifact: bool = True
+    # check the artifacts against the mining job's manifest before a bundle
+    # publishes: a mismatched pickle aborts the reload (last-good keeps
+    # serving), a mismatched npz falls back to the pickle
+    verify_manifest: bool = True
+    # quarantine an artifact that fails to parse after this many
+    # consecutive failed reloads; 0 disables quarantining
+    quarantine_after_failures: int = 2
+    # backoff between failed reload attempts: base, doubling per
+    # consecutive failure, up to max
+    reload_backoff_base_s: float = 0.5
+    reload_backoff_max_s: float = 30.0
+    # deadline on reload-path artifact reads (a hung read fails the reload
+    # into the backoff above); 0 = no deadline
+    io_read_deadline_s: float = 0.0
     # per-replica circuit breaker: eject after this many consecutive batch
     # failures (0 = off), probe an ejected replica every interval, and
     # re-queue a failed request at most this many times
@@ -300,6 +367,11 @@ class ServingConfig:
             cache_enabled=_getenv_bool("KMLS_CACHE_ENABLED", True),
             cache_max_entries=_getenv_int("KMLS_CACHE_MAX_ENTRIES", 8192),
             prefer_tensor_artifact=_getenv_bool("KMLS_PREFER_TENSOR_ARTIFACT", True),
+            verify_manifest=_getenv_bool("KMLS_VERIFY_MANIFEST", True),
+            quarantine_after_failures=_getenv_int("KMLS_QUARANTINE_AFTER_FAILURES", 2),
+            reload_backoff_base_s=_getenv_float("KMLS_RELOAD_BACKOFF_BASE_S", 0.5),
+            reload_backoff_max_s=_getenv_float("KMLS_RELOAD_BACKOFF_MAX_S", 30.0),
+            io_read_deadline_s=_getenv_float("KMLS_IO_READ_DEADLINE_S", 0.0),
             replica_eject_threshold=_getenv_int("KMLS_REPLICA_EJECT_THRESHOLD", 3),
             replica_probe_interval_s=_getenv_float("KMLS_REPLICA_PROBE_INTERVAL_S", 5.0),
             redispatch_max_retries=_getenv_int("KMLS_REDISPATCH_MAX_RETRIES", 3),

@@ -15,13 +15,12 @@ Exit codes follow the reference (kubernetes/job.yaml podFailurePolicy):
 - ``0`` success;
 - ``64`` a configuration or data error no retry can fix (bad env, rank ≥
   world size, no datasets, invalid CSV, no CUDA device);
-- ``75`` resumable: the volume is out of space (``ENOSPC``);
+- ``75`` resumable: an injected preemption-style crash
+  (``FaultInjected``), the publication lease held by or lost to another
+  writer, or the volume out of space (``StorageExhaustedError``,
+  ``ENOSPC``); the retry resumes from the phase checkpoint;
 - ``76`` resumable: the dead-rank watchdog bounded a multi-rank hang;
 - ``1`` anything else.
-
-The reference's lease (``LeaseHeldError``/``LeaseLostError``) and injected
-fault (``FaultInjected``) branches of :func:`classify_exception` wait for
-the port's lease and fault modules (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -30,7 +29,9 @@ import errno
 import sys
 import traceback
 
+from .. import faults
 from ..config import MiningConfig, torch_device_from_env
+from ..io.artifacts import LeaseHeldError, LeaseLostError, StorageExhaustedError
 from ..parallel.distributed import (
     RankWatchdog,
     distributed_env,
@@ -53,8 +54,16 @@ RETRYABLE_EXIT_CODES = (EXIT_RESUMABLE, EXIT_RANK_DEAD)
 
 
 def classify_exception(exc: BaseException) -> int:
-    """Map an abort to the exit-code contract above."""
-    if isinstance(exc, OSError) and exc.errno == errno.ENOSPC:
+    """Map an abort to the exit-code contract above (the reference's
+    policy, ``kmlserver_tpu/mining/job.py:47-75``)."""
+    if isinstance(exc, faults.FaultInjected):
+        return EXIT_RESUMABLE  # the chaos stand-in for a preemption
+    if isinstance(exc, (LeaseHeldError, LeaseLostError)):
+        # another writer is live (or superseded us): back off and retry
+        return EXIT_RESUMABLE
+    if isinstance(exc, StorageExhaustedError) or (
+        isinstance(exc, OSError) and exc.errno == errno.ENOSPC
+    ):
         # disk full is an operator condition, not a config bug; must
         # precede the FileNotFoundError branch — both are OSErrors
         return EXIT_RESUMABLE

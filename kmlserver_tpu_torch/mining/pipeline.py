@@ -6,23 +6,39 @@ dataset list → rotation index → CSV read → vocab/aux maps → baskets →
 mining on the device → artifacts (pickles, npz twin, manifest) → history
 append + invalidation-token rewrite, with the reference's progress lines.
 
-All artifact writes happen in one publication step after the compute, and
-the token is rewritten last, so a job that dies mid-run leaves the served
-artifact set untouched. Over a rank mesh (reference ``pipeline.py:255-266``,
-``:344-350``, ``:458-461``) every rank reads the dataset list and the run
-index and mines; only rank 0, the writer, persists and publishes.
-Checkpoints, the publication lease, job metrics and the delta/embed/eval
-phases are not ported yet.
+The run is split into the reference's checkpointed phases
+(``mining/checkpoint.py``):
+
+- **encode** — CSV read, vocab validation and aux maps, basket encoding;
+- **mine**   — pair counting and rule-tensor extraction on the device;
+- **rules**  — expansion into the reference's pickle dict.
+
+After each phase the writer rank saves a sha256-manifested checkpoint
+keyed by a config + dataset fingerprint; a restarted job resumes from the
+last completed phase and publishes the same bytes. All artifact writes
+happen in one publication step after the phases, and the token is
+rewritten last, so a job that dies mid-run leaves the served set
+untouched. Before the phases the writer runs the free-space preflight and
+takes the publication lease (``io/artifacts.py PublicationLease``), which
+it re-checks before its first artifact write and before the token
+rewrite; the manifest records the lease's fencing token, the store is
+cleared after publication, and the lease is released on every exit. Over
+a rank mesh (reference ``pipeline.py:255-266``) every rank reads the
+dataset list, the run index and the store and mines; only rank 0, the
+writer, saves checkpoints and publishes. Job metrics and the
+delta/embed/eval phases are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
+from .. import faults
 from ..config import BASE_INDEX, MiningConfig
 from ..data.csv import read_tracks
 from ..io import artifacts, registry
@@ -30,6 +46,7 @@ from ..parallel import layout
 from ..parallel.distributed import RankWatchdog, barrier
 from ..parallel.mesh import RankMesh, this_rank
 from ..utils.timeutil import get_current_time_str, get_current_time_str_precise
+from . import checkpoint as ckpt_mod
 from . import vocab as vocab_mod
 from .miner import MiningResult, format_phases, mine
 
@@ -48,7 +65,12 @@ class JobSummary:
     count_path: str | None = None
     # how the count dispatch decided (MiningResult.count_path_source)
     count_path_source: str | None = None
+    # popcount kernel launches of THIS run (0 when the mine phase resumed)
     kernel_launches: int = 0
+    # phases skipped because a verified checkpoint covered them
+    resumed_phases: tuple[str, ...] = ()
+    # the publication lease's fencing token (None: lease disabled / reader)
+    fencing_token: int | None = None
 
 
 def manifest_filenames(cfg: MiningConfig) -> list[str]:
@@ -65,7 +87,31 @@ def manifest_filenames(cfg: MiningConfig) -> list[str]:
     ]
 
 
-def _report_mining(result: MiningResult, cfg: MiningConfig) -> None:
+def _crash_site(phase: str) -> None:
+    """Deterministic preemption stand-in: ``KMLS_FAULT_MINE_CRASH_PHASE``
+    aborts the job right after ``phase``'s checkpoint is saved."""
+    faults.fire(f"mine.crash.{phase}")
+
+
+def _run_encode_phase(cfg: MiningConfig, selected: str) -> dict:
+    """CSV read + vocab validation/aux maps + basket encoding → the encode
+    payload (host objects only)."""
+    table = read_tracks(selected, cfg.sample_ratio)
+    print(
+        f"Loaded {len(table)} rows, {table.n_playlists} playlists, "
+        f"{table.n_tracks} unique tracks"
+    )
+    return {
+        "n_rows": len(table),
+        "artists": vocab_mod.validate_and_map_artists(table),
+        "repeated": vocab_mod.extract_repeated_track_names(table),
+        "info": vocab_mod.map_track_ids_to_info(table),
+        "best": vocab_mod.most_frequent_tracks(table, cfg.top_tracks_save_percentile),
+        "baskets": vocab_mod.build_baskets(table),
+    }
+
+
+def _report_mining(result: MiningResult, cfg: MiningConfig, launches: int) -> None:
     tensors = result.tensors
     if result.pruned_vocab is not None:
         print(
@@ -84,13 +130,81 @@ def _report_mining(result: MiningResult, cfg: MiningConfig) -> None:
             for k, v in sorted(result.itemset_census.items())
         )
         print(f"Frequent itemsets — {census}")
-    print(f"Popcount kernel launches: {result.kernel_launches}")
+    print(f"Popcount kernel launches: {launches}")
     if tensors.overflow_rows:
         print(
             f"WARNING: {tensors.overflow_rows} songs exceeded the "
             f"K_max={cfg.k_max_consequents} consequent capacity (truncated "
             f"to the highest-support rules)"
         )
+
+
+def _publish(
+    cfg: MiningConfig,
+    encoded: dict,
+    result: MiningResult,
+    rules_dict: dict,
+    run_index: int,
+    selected: str,
+    lease: artifacts.PublicationLease | None,
+) -> tuple[str, dict[str, str]]:
+    """Write the artifact set, the manifest and the token (writer only,
+    lease-fenced) → (token, artifact paths)."""
+    if lease is not None:
+        # fence point 1: a zombie aborts BEFORE its first write
+        lease.check()
+
+    def path_of(filename: str) -> str:
+        return os.path.join(cfg.pickles_dir, filename)
+
+    paths = {"artists_mapping": path_of(cfg.artists_mapping_file)}
+    artifacts.save_pickle(encoded["artists"], paths["artists_mapping"])
+    if encoded["repeated"]:
+        # the reference saves this one conditionally (main.py:86-109)
+        paths["repeated_tracks"] = path_of(cfg.repeated_tracks_file)
+        artifacts.save_pickle(encoded["repeated"], paths["repeated_tracks"])
+    paths["track_info"] = path_of(cfg.track_info_file)
+    artifacts.save_pickle(encoded["info"], paths["track_info"])
+    paths["best_tracks"] = path_of(cfg.best_tracks_file)
+    artifacts.save_pickle(encoded["best"], paths["best_tracks"])
+    print(
+        f"Saved {len(encoded['best'])} best tracks "
+        f"(top {cfg.top_tracks_save_percentile:.0%})"
+    )
+    # the token value exists before the manifest so the manifest can be
+    # stamped with the generation it describes
+    token_value = get_current_time_str_precise()
+    tensors = result.tensors
+    paths["recommendations"] = path_of(cfg.recommendations_file)
+    artifacts.save_pickle(rules_dict, paths["recommendations"])
+    if cfg.write_tensor_artifact:
+        paths["rule_tensors"] = artifacts.tensor_artifact_path(paths["recommendations"])
+        artifacts.save_rule_tensors(
+            paths["rule_tensors"],
+            vocab=result.vocab_names,
+            rule_ids=tensors.rule_ids,
+            rule_counts=tensors.rule_counts,
+            item_counts=np.asarray(tensors.item_counts),
+            n_playlists=result.n_playlists,
+            min_support=cfg.min_support,
+            mode=tensors.mode,
+            min_confidence=tensors.min_confidence,
+            rule_confs64=tensors.rule_confs64,
+        )
+    artifacts.retire_unpublished(cfg.pickles_dir)
+    if cfg.write_manifest:
+        paths["manifest"] = artifacts.write_manifest(
+            cfg.pickles_dir, manifest_filenames(cfg), token=token_value,
+            fencing_token=lease.fencing_token if lease else None,
+        )
+    if lease is not None:
+        # fence point 2: the last instant a zombie can be stopped before
+        # the token rewrite makes its set authoritative
+        lease.check()
+    token = registry.append_history_and_invalidate(
+        cfg, run_index, selected, timestamp=token_value
+    )
+    return token, paths
 
 
 def run_mining_job(
@@ -111,96 +225,108 @@ def run_mining_job(
     run_index = registry.get_next_run_index(cfg, datasets)
     selected = datasets[run_index - BASE_INDEX]
     print(f"Selected dataset {run_index}/{len(datasets)}: {selected}")
-    # every rank has read the rotation state before the writer can append
-    # to it: the mine's all-reduce orders that, but a mine that prunes to
-    # nothing runs no collective, so the ranks meet here first
+    # every rank reads the store (identical skip decisions keep the
+    # collectives aligned); the writer saves. The completed-phase set is
+    # snapshotted here.
+    store = ckpt_mod.open_store(cfg, selected, run_index, writer=is_writer)
+    # every rank has read the rotation state and the store before the
+    # writer can append to or retire them: the mine's all-reduce orders
+    # that, but a resumed or pruned-to-nothing mine runs no collective
     barrier()
+    resumed: list[str] = []
 
-    table = read_tracks(selected, cfg.sample_ratio)
-    print(
-        f"Loaded {len(table)} rows, {table.n_playlists} playlists, "
-        f"{table.n_tracks} unique tracks"
-    )
-    artists = vocab_mod.validate_and_map_artists(table)
-    repeated = vocab_mod.extract_repeated_track_names(table)
-    info = vocab_mod.map_track_ids_to_info(table)
-    best = vocab_mod.most_frequent_tracks(table, cfg.top_tracks_save_percentile)
-    baskets = vocab_mod.build_baskets(table)
+    def phase(name: str, compute):
+        """Resume ``name`` from its checkpoint or compute and save it. The
+        crash site fires after the save — where a preemption that already
+        banked the phase would land."""
+        payload = store.load(name) if store is not None else None
+        if payload is not None:
+            resumed.append(name)
+            print(f"Resumed phase {name!r} from checkpoint ({store.age_s(name):.0f}s old)")
+            return payload
+        t_phase = time.perf_counter()
+        payload = compute()
+        if store is not None:
+            store.save(name, payload, duration_s=time.perf_counter() - t_phase)
+        _crash_site(name)
+        return payload
 
-    if watchdog is not None:
-        # a dead or hung peer turns the mine's all-reduce into a
-        # forever-hang: bound it
-        with watchdog.guard("mine"):
-            result = mine(baskets, cfg, device=device, mesh=mesh)
-    else:
-        result = mine(baskets, cfg, device=device, mesh=mesh)
-    _report_mining(result, cfg)
-    tensors = result.tensors
+    lease = None
+    if is_writer:
+        # the free-space preflight BEFORE the phases: the next publication
+        # is estimated from the last manifest; short → reclaim, still short
+        # → StorageExhaustedError (exit 75) rather than a torn publication
+        free = artifacts.ensure_free_space(
+            cfg.pickles_dir,
+            max(artifacts.estimate_publication_bytes(cfg.pickles_dir), cfg.disk_min_free_bytes),
+            extra_dirs=ckpt_mod.retired_dirs(cfg),
+        )
+        print(f"Disk preflight: {free / (1 << 20):.0f} MiB free on PVC")
+        if cfg.lease_enabled:
+            # taken BEFORE the phases: its heartbeats prove liveness for the
+            # whole mine, and a superseding run fences this one out
+            lease = artifacts.PublicationLease.acquire(
+                cfg.pickles_dir,
+                ttl_s=cfg.lease_ttl_s,
+                heartbeat_interval_s=cfg.lease_heartbeat_interval_s or None,
+                stall_fraction=cfg.lease_stall_fraction,
+            )
+            lease.start_heartbeat()
+            print(f"Publication lease acquired (fencing token {lease.fencing_token})")
+    try:
+        encoded = phase("encode", lambda: _run_encode_phase(cfg, selected))
+        baskets = encoded["baskets"]
 
-    summary = JobSummary(
-        dataset=selected,
-        run_index=run_index,
-        n_rows=len(table),
-        n_playlists=result.n_playlists,
-        n_tracks=result.n_tracks,
-        n_songs_missing=tensors.n_songs_missing,
-        rule_generation_s=result.duration_s,
-        token="",
-        artifact_paths={},
-        count_path=result.count_path,
-        count_path_source=result.count_path_source,
-        kernel_launches=result.kernel_launches,
-    )
-    if not is_writer:
-        print(f"Rank {this_rank()}: not the writer; rank 0 publishes")
-        print(f"Job finished at {get_current_time_str()}")
-        return summary
-    rules_dict = tensors.to_rules_dict(result.vocab_names)
+        def _mine() -> MiningResult:
+            if watchdog is not None:
+                # a dead or hung peer turns the mine's all-reduce into a
+                # forever-hang: bound it
+                with watchdog.guard("mine"):
+                    return mine(baskets, cfg, device=device, mesh=mesh)
+            return mine(baskets, cfg, device=device, mesh=mesh)
 
-    # ---------- publication (writer only) ----------
-    def path_of(filename: str) -> str:
-        return os.path.join(cfg.pickles_dir, filename)
-
-    paths = {"artists_mapping": path_of(cfg.artists_mapping_file)}
-    artifacts.save_pickle(artists, paths["artists_mapping"])
-    if repeated:
-        # the reference saves this one conditionally (main.py:86-109)
-        paths["repeated_tracks"] = path_of(cfg.repeated_tracks_file)
-        artifacts.save_pickle(repeated, paths["repeated_tracks"])
-    paths["track_info"] = path_of(cfg.track_info_file)
-    artifacts.save_pickle(info, paths["track_info"])
-    paths["best_tracks"] = path_of(cfg.best_tracks_file)
-    artifacts.save_pickle(best, paths["best_tracks"])
-    print(
-        f"Saved {len(best)} best tracks "
-        f"(top {cfg.top_tracks_save_percentile:.0%})"
-    )
-    # the token value exists before the manifest so the manifest can be
-    # stamped with the generation it describes
-    token_value = get_current_time_str_precise()
-    paths["recommendations"] = path_of(cfg.recommendations_file)
-    artifacts.save_pickle(rules_dict, paths["recommendations"])
-    if cfg.write_tensor_artifact:
-        paths["rule_tensors"] = artifacts.tensor_artifact_path(paths["recommendations"])
-        artifacts.save_rule_tensors(
-            paths["rule_tensors"],
-            vocab=result.vocab_names,
-            rule_ids=tensors.rule_ids,
-            rule_counts=tensors.rule_counts,
-            item_counts=np.asarray(tensors.item_counts),
+        result: MiningResult = phase("mine", _mine)
+        launches = 0 if "mine" in resumed else result.kernel_launches
+        _report_mining(result, cfg, launches)
+        tensors = result.tensors
+        rules_dict = phase("rules", lambda: tensors.to_rules_dict(result.vocab_names))
+        summary = JobSummary(
+            dataset=selected,
+            run_index=run_index,
+            n_rows=encoded["n_rows"],
             n_playlists=result.n_playlists,
-            min_support=cfg.min_support,
-            mode=tensors.mode,
-            min_confidence=tensors.min_confidence,
-            rule_confs64=tensors.rule_confs64,
+            n_tracks=result.n_tracks,
+            n_songs_missing=tensors.n_songs_missing,
+            rule_generation_s=result.duration_s,
+            token="",
+            artifact_paths={},
+            count_path=result.count_path,
+            count_path_source=result.count_path_source,
+            kernel_launches=launches,
+            resumed_phases=tuple(resumed),
+            fencing_token=lease.fencing_token if lease else None,
         )
-    artifacts.retire_unpublished(cfg.pickles_dir)
-    if cfg.write_manifest:
-        paths["manifest"] = artifacts.write_manifest(
-            cfg.pickles_dir, manifest_filenames(cfg), token=token_value
-        )
-    token = registry.append_history_and_invalidate(
-        cfg, run_index, selected, timestamp=token_value
-    )
+        if not is_writer:
+            print(f"Rank {this_rank()}: not the writer; rank 0 publishes")
+            print(f"Job finished at {get_current_time_str()}")
+            return summary
+        token, paths = _publish(cfg, encoded, result, rules_dict, run_index, selected, lease)
+        if store is not None:
+            # published: the next rotation run must start fresh
+            store.clear()
+        if lease is not None:
+            lease.release()
+    except BaseException:
+        if lease is not None:
+            # a Python-level abort releases: this process writes nothing
+            # more, and its successor must not wait out the TTL
+            try:
+                lease.release()
+            except (artifacts.LeaseLostError, OSError):
+                pass  # already fenced or unwritable: nothing to hand back
+        raise
+    finally:
+        if lease is not None:
+            lease.stop_heartbeat()
     print(f"Job finished at {get_current_time_str()}")
     return dataclasses.replace(summary, token=token, artifact_paths=paths)

@@ -19,8 +19,7 @@ only those on the card; everything else (host names, barriers) runs over
 the gloo world group on the host. The kernels run on the card either way.
 
 Not ported: the serve-gang bootstrap (``:56-197``; the serve mesh is on
-ROADMAP) and the ``rank.heartbeat`` fault site of :class:`RankWatchdog`
-(``:298-304``; the port has no ``faults`` module yet).
+ROADMAP).
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ import socket
 import threading
 import time
 
+from .. import faults
 from .mesh import RankMesh, make_mesh, world_ranks
 
 logger = logging.getLogger("kmlserver_tpu_torch.distributed")
@@ -172,9 +172,8 @@ def shutdown() -> None:
 
 class RankWatchdog:
     """Bounded-time abort for the multi-rank forever-hang — the reference's
-    ``RankWatchdog`` (``kmlserver_tpu/parallel/distributed.py:203-413``)
-    without its ``rank.heartbeat`` fault site (the port has no ``faults``
-    module yet).
+    ``RankWatchdog`` (``kmlserver_tpu/parallel/distributed.py:203-413``),
+    with its ``rank.heartbeat`` fault site.
 
     A collective has no application-level timeout that ends the job with
     the right exit code: when one rank dies, every surviving rank blocks in
@@ -245,8 +244,14 @@ class RankWatchdog:
     def _beat_path(self, rank: int) -> str:
         return os.path.join(self.directory, f"rank{rank}.hb")
 
-    def beat_once(self) -> None:
-        """Write this rank's heartbeat."""
+    def beat_once(self) -> bool:
+        """Write this rank's heartbeat; False once the rank is fault-dead
+        (the ``rank.heartbeat`` site, ``KMLS_FAULT_RANK_DEAD``)."""
+        try:
+            faults.fire("rank.heartbeat", replica=self.rank)
+        except faults.FaultInjected:
+            logger.warning("rank %d heartbeat silenced by injected fault", self.rank)
+            return False
         from ..io.artifacts import atomic_write_text
 
         try:
@@ -255,6 +260,7 @@ class RankWatchdog:
             # a full/unwritable volume must not kill the job via its own
             # watchdog; peers age this rank out if it persists
             logger.warning("heartbeat write failed: %s", exc)
+        return True
 
     def peer_ages(self) -> dict[int, float]:
         """Seconds since each PEER rank's last heartbeat; never-seen peers
@@ -299,7 +305,8 @@ class RankWatchdog:
 
     def _beat_loop(self) -> None:
         while not self._stop.is_set():
-            self.beat_once()
+            if not self.beat_once():
+                return  # fault-dead: silent for good
             self._stop.wait(self.heartbeat_interval_s)
 
     def _monitor_loop(self) -> None:

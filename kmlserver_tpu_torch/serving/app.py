@@ -35,6 +35,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from ..config import ServingConfig
+from ..io.iohealth import MONITOR
 from .batcher import DeadlineExceeded, NoHealthyReplicas, Overloaded, OverloadDegraded
 from .cache import RecommendCache
 from .engine import RecommendEngine
@@ -173,11 +174,19 @@ class RecommendApp:
                     dispatch_counts=getattr(self.engine, "dispatch_counts", None),
                     robustness=self._robustness_state(),
                     artifact_ages=self._artifact_ages(),
+                    io=MONITOR.snapshot(),
                 )
                 return 200, {"Content-Type": "text/plain; version=0.0.4"}, text.encode()
             if path.startswith("/static/"):
                 return self._get_static(path[len("/static/"):])
         return _json_response(404, {"detail": "Not Found"})
+
+    def close(self) -> None:
+        """Stop the threaded batcher's threads (the asyncio transport closes
+        the batcher it installed itself)."""
+        close = getattr(self.batcher, "close", None)
+        if callable(close):
+            close()
 
     def _get_readyz(self) -> Response:
         """Degraded = ready-but-flagged (200): the pod keeps answering, so
@@ -198,6 +207,11 @@ class RecommendApp:
         ejected_fn = getattr(self.batcher, "ejected_replicas", None)
         util_fn = getattr(self.batcher, "utilization", None)
         return {
+            "artifact_quarantines_total": getattr(self.engine, "artifact_quarantines", 0),
+            "reload_failures_total": getattr(self.engine, "reload_failures", 0),
+            "reload_consecutive_failures": getattr(
+                self.engine, "consecutive_reload_failures", 0
+            ),
             "replicas_ejected": len(ejected_fn()) if callable(ejected_fn) else 0,
             # the autoscaling signal; 0.0 without a batcher so the series
             # always exists
@@ -323,11 +337,22 @@ class RecommendApp:
         return status, headers, payload
 
     def degraded_reasons(self) -> list[str]:
-        """Why /readyz says "degraded" (empty = fully healthy): replicas
-        currently ejected by the batcher's circuit breaker."""
+        """Why /readyz says "degraded" (empty = fully healthy), in the
+        reference's order: reloads failing while the last-good bundle keeps
+        serving, replicas ejected by the batcher's circuit breaker, and the
+        artifact volume convicted as slow (degraded, not unready: serving
+        runs from memory)."""
+        reasons: list[str] = []
+        consec = getattr(self.engine, "consecutive_reload_failures", 0)
+        if consec > 0:
+            reasons.append(f"reload failing x{consec} (serving last-good bundle)")
         ejected_fn = getattr(self.batcher, "ejected_replicas", None)
         ejected = ejected_fn() if callable(ejected_fn) else []
-        return [f"replicas ejected: {ejected}"] if ejected else []
+        if ejected:
+            reasons.append(f"replicas ejected: {ejected}")
+        if MONITOR.storage_slow():
+            reasons.append("storage-slow")
+        return reasons
 
     def _recommend_error_response(self, exc: Exception) -> Response:
         if isinstance(exc, Overloaded):

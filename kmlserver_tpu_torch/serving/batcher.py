@@ -535,8 +535,12 @@ class MicroBatcher(_ReplicaPolicy):
             probe_interval_s=probe_interval_s, redispatch_max=redispatch_max, metrics=metrics,
         )
         # priority queue of (priority, seq, pending): re-dispatched requests
-        # ride at 0, ahead of fresh arrivals at 1; seq keeps FIFO order
-        self._queue: queue.PriorityQueue[tuple[int, int, _Pending]] = queue.PriorityQueue()
+        # ride at 0, ahead of fresh arrivals at 1; seq keeps FIFO order.
+        # close() queues (2, seq, None), behind every request
+        self._queue: queue.PriorityQueue[tuple[int, int, _Pending | None]] = (
+            queue.PriorityQueue()
+        )
+        self._lane_threads: list[threading.Thread] = []
         self._seq = itertools.count()
         # one completion lane PER REPLICA, created by the collector on its
         # first dispatch to that replica
@@ -576,11 +580,23 @@ class MicroBatcher(_ReplicaPolicy):
         if lane is None:
             lane = queue.Queue()
             self._completions[idx] = lane
-            threading.Thread(
+            thread = threading.Thread(
                 target=self._complete_loop, args=(idx,), daemon=True,
                 name=f"kmls-batch-completer-{idx}",
-            ).start()
+            )
+            thread.start()
+            self._lane_threads.append(thread)
         return lane
+
+    def close(self, timeout_s: float = 5.0) -> None:
+        """Stop the collector and the completion lanes after the requests
+        already queued have been dispatched and finished."""
+        if not self._collector.is_alive():
+            return
+        self._queue.put((2, next(self._seq), None))
+        self._collector.join(timeout_s)
+        for thread in self._lane_threads:
+            thread.join(timeout_s)
 
     # ---------- admission ----------
 
@@ -626,15 +642,30 @@ class MicroBatcher(_ReplicaPolicy):
 
     # ---------- collection ----------
 
+    def _next_pending(self, timeout: float | None) -> _Pending | None:
+        """The next queued request, None when none came within ``timeout``
+        (0 = don't wait) or the close marker is next (it goes back)."""
+        try:
+            item = self._queue.get(timeout=timeout) if timeout else self._queue.get_nowait()
+        except queue.Empty:
+            return None
+        if item[2] is None:
+            self._queue.put(item)
+        return item[2]
+
     def _collect_loop(self) -> None:
         while True:
             _, _, first = self._queue.get()  # block for the batch leader
+            if first is None:  # close(): every request before it dispatched
+                for lane in list(self._completions.values()):
+                    lane.put(None)
+                return
             batch = [first]
             while len(batch) < self.max_size:
-                try:
-                    batch.append(self._queue.get_nowait()[2])
-                except queue.Empty:
+                pending = self._next_pending(0)
+                if pending is None:
                     break
+                batch.append(pending)
             with self._n_lock:
                 device_idle = self._total_inflight_locked() < max(
                     1, self._n_effective_locked(self._n_replicas())
@@ -645,12 +676,10 @@ class MicroBatcher(_ReplicaPolicy):
                 until = now + self._busy_window_s(len(batch), batch[0].t_enqueue, now)
                 while len(batch) < self.max_size:
                     remaining = until - time.perf_counter()
-                    if remaining <= 0:
+                    pending = self._next_pending(remaining) if remaining > 0 else None
+                    if pending is None:
                         break
-                    try:
-                        batch.append(self._queue.get(timeout=remaining)[2])
-                    except queue.Empty:
-                        break
+                    batch.append(pending)
             # bound the pipeline AGGREGATELY: backpressure, not failure
             with self._pipe_cond:
                 while self._total_inflight_locked() >= self.max_inflight * max(
@@ -685,7 +714,10 @@ class MicroBatcher(_ReplicaPolicy):
     def _complete_loop(self, idx: int) -> None:
         lane = self._completions[idx]
         while True:
-            batch, finish, t_dispatch = lane.get()
+            item = lane.get()
+            if item is None:  # close()
+                return
+            batch, finish, t_dispatch = item
             try:
                 results = finish()
                 err = None

@@ -15,6 +15,17 @@ batch — the seed copy to the device, the lookup and the copy of the ids
 back into pinned host memory — on the replica's current stream and records
 a CUDA event after it; ``finish()`` waits on that event alone. A later
 batch's kernels, enqueued behind it on the same stream, never delay it.
+Fault tolerance is the reference's: before any bytes are trusted the
+artifact set is checked against the mining job's manifest (a mismatched
+npz falls back to the pickle, a mismatched pickle aborts the reload); a
+failed reload keeps the last-good bundle serving without consuming the
+invalidation token, backs off exponentially, and after
+``quarantine_after_failures`` consecutive failures moves the files that
+fail to parse into ``pickles/quarantine/``. Rule ids outside the
+vocabulary are dropped on the host before any upload, as the reference's
+XLA scatter drops them, so a crafted or stale npz cannot raise a
+device-side assert that would poison the CUDA context.
+
 The native host kernel, the vocab-sharded layout, the serve mesh,
 embeddings and deltas are not part of this package.
 """
@@ -34,8 +45,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import faults
 from ..config import ServingConfig
 from ..io import artifacts, registry
+from ..io.artifacts import ArtifactIntegrityError
+from ..io.iohealth import MONITOR
 from ..ops.serve import recommend_batch
 from ..ops.support import min_count_for
 from ..utils.device import resolve_device
@@ -77,19 +91,37 @@ def _host_rule_arrays(arrays: Mapping[str, Any]) -> tuple[list[str], np.ndarray,
     """→ (vocab, known mask, int32 rule ids, float32 rule confs) from the
     dict either package's ``load_rule_tensors`` returns for a
     ``.tensors.npz`` (the key set is the frequent items), or
-    ``vocab``/``rule_ids``/``rule_confs`` with an explicit ``known_mask``."""
+    ``vocab``/``rule_ids``/``rule_confs`` with an explicit ``known_mask``.
+
+    Checked here, on the host, before any upload: the shapes must agree
+    (``ValueError`` otherwise, so the load rolls back), and rule ids
+    outside ``[0, V)`` become -1. That gives the reference's answers — its
+    scatter sends an id equal to V into the spill slot and drops one past
+    it — where the lookup's scatter would raise on such an id, on a card
+    as a device-side assert."""
+    vocab = list(arrays["vocab"])
     if "known_mask" in arrays:
         known = np.asarray(arrays["known_mask"], dtype=bool)
     else:
         known = np.asarray(arrays["item_counts"]) >= min_count_for(
             float(arrays["min_support"]), int(arrays["n_playlists"])
         )
-    return (
-        list(arrays["vocab"]),
-        known,
-        np.ascontiguousarray(arrays["rule_ids"], dtype=np.int32),
-        np.ascontiguousarray(arrays["rule_confs"], dtype=np.float32),
-    )
+    ids = np.ascontiguousarray(arrays["rule_ids"], dtype=np.int32)
+    confs = np.ascontiguousarray(arrays["rule_confs"], dtype=np.float32)
+    if ids.ndim != 2 or confs.shape != ids.shape:
+        raise ValueError(f"rule_ids {ids.shape} and rule_confs {confs.shape} disagree")
+    if not len(vocab) == len(known) == ids.shape[0]:
+        raise ValueError(
+            f"{len(vocab)} vocabulary entries, {len(known)} known flags and "
+            f"{ids.shape[0]} rule rows disagree"
+        )
+    outside = ids >= len(vocab)
+    if outside.any():
+        logger.warning(
+            "%d rule ids outside [0, %d) dropped", int(outside.sum()), len(vocab)
+        )
+        ids = np.where(outside, np.int32(-1), ids)
+    return vocab, known, ids, confs
 
 
 def bundle_from_arrays(
@@ -140,17 +172,40 @@ class RecommendEngine:
         # kmls_artifact_age_seconds; empty before the first load
         self._artifact_written_at: dict[str, float] = {}
         self._reload_lock = threading.Lock()
+        # failed reloads: each one KEPT the last-good bundle serving (the
+        # rollback counter); consecutive ones drive the retry backoff and
+        # the quarantine strikes
+        self.reload_failures = 0
+        self.consecutive_reload_failures = 0
+        self.artifact_quarantines = 0
+        self.last_load_error: str | None = None
+        # monotonic deadline before which reload_if_required() won't retry
+        # a failed load (direct load() calls always go through)
+        self._backoff_until = 0.0
+        # the free-space gauge follows the artifact volume, and every read
+        # below feeds the latency EWMAs behind the storage-slow conviction
+        MONITOR.watch_disk(cfg.pickles_dir)
 
     # ---------- artifact loading / hot swap ----------
 
     def _token_path(self) -> str:
         return registry.token_path_for(self.cfg.base_dir, self.cfg.data_invalidation_file)
 
+    def _read_deadline(self) -> float | None:
+        """Deadline for reload-path artifact reads (None = unbounded)."""
+        return self.cfg.io_read_deadline_s or None
+
     def _read_token(self) -> str | None:
         try:
-            return artifacts.read_text(self._token_path())
+            return artifacts.read_text(self._token_path(), op="token_poll")
         except FileNotFoundError:
             return None
+        except OSError as exc:
+            # a transient EIO or stall on the poll must not flip
+            # is_data_stale (one flaky read would churn reloads): report
+            # the cached token and let the next poll retry
+            logger.warning("token poll failed (%s); keeping cached token", exc)
+            return self.cache_value
 
     def is_data_stale(self) -> bool:
         """Token-comparison staleness (reference: rest_api/app/main.py:82-97);
@@ -165,17 +220,23 @@ class RecommendEngine:
     def load(self) -> bool:
         """Build a fresh replica set from the PVC, run every seed bucket on
         every replica, and swap it in. Returns False (fail-soft, last-good
-        bundle kept) when the artifacts are absent or unreadable."""
+        bundle kept, token not consumed) when the artifacts are absent,
+        fail their manifest or do not load."""
         with self._reload_lock:
             if self.finished_loading and not self.is_data_stale():
                 return True
             cfg = self.cfg
             best_path = os.path.join(cfg.pickles_dir, cfg.best_tracks_file)
             rec_path = os.path.join(cfg.pickles_dir, cfg.recommendations_file)
+            npz_path = artifacts.tensor_artifact_path(rec_path)
             try:
+                # KMLS_FAULT_RELOAD_FAIL / faults.inject("engine.load") fails
+                # the reload like a torn artifact: same rollback and backoff
+                faults.fire("engine.load")
                 token = self._read_token() or ""
-                best = artifacts.load_pickle(best_path)
-                replicas = self._build_replicas(rec_path, token)
+                use_npz = self._verify_before_load(best_path, rec_path, npz_path)
+                best = artifacts.load_pickle(best_path, deadline_s=self._read_deadline())
+                replicas = self._build_replicas(rec_path, npz_path, token, use_npz=use_npz)
                 # every bucket on every replica BEFORE publishing: a shape's
                 # first launch grows the caching allocators and the sort's
                 # scratch space, and must not land inside a request
@@ -184,8 +245,12 @@ class RecommendEngine:
             except FileNotFoundError as exc:
                 logger.warning("artifacts not ready: %s", exc)
                 return False
-            except Exception:
+            except Exception as exc:
+                # corrupt or torn artifacts: keep the current bundle, back
+                # off, quarantine persistent offenders. cache_value moves
+                # only on success, so every retry still sees the staleness
                 logger.exception("artifact load failed; keeping current bundle")
+                self._note_reload_failure(exc, best_path, rec_path, npz_path)
                 return False
             # ordering contract for the epoch-keyed cache: the bundle
             # references land BEFORE the epoch bump, so an answer stored
@@ -201,7 +266,7 @@ class RecommendEngine:
                 while len(self.dispatch_counts) < len(replicas):
                     self.dispatch_counts.append(0)
             self.cache_value = replicas[0].model_token or self.cache_value
-            manifest = artifacts.load_manifest(cfg.pickles_dir)
+            manifest = artifacts.load_manifest(cfg.pickles_dir, deadline_s=self._read_deadline())
             if manifest is not None and manifest.get("token") == self.cache_value:
                 rules_at = float(manifest.get("written_at") or time.time())
             else:
@@ -212,6 +277,9 @@ class RecommendEngine:
             }
             self.finished_loading = True
             self.reload_counter += 1
+            self.consecutive_reload_failures = 0
+            self.last_load_error = None
+            self._backoff_until = 0.0
             logger.info(
                 "reload #%d complete (epoch %d): %d tracks, %d rule keys, "
                 "%d replica(s) on %s, token %r",
@@ -221,15 +289,101 @@ class RecommendEngine:
             )
             return True
 
-    def _build_replicas(self, rec_path: str, token: str) -> list[RuleBundle]:
-        """Load the rule tensors once (the npz twin when present — counts →
-        float64 → float32 confs — else the reference pickle dict), then
-        copy them onto every serving device. Host state is shared."""
-        npz_path = artifacts.tensor_artifact_path(rec_path)
-        if self.cfg.prefer_tensor_artifact and os.path.exists(npz_path):
-            arrays = artifacts.load_rule_tensors(npz_path)
-        else:
-            rules_dict = artifacts.load_pickle(rec_path)
+    def _verify_before_load(self, best_path: str, rec_path: str, npz_path: str) -> bool:
+        """Check the artifact set against the mining job's manifest before
+        any bytes are trusted. A mismatched best-tracks or recommendations
+        pickle aborts the reload (raise → last-good keeps serving); a
+        mismatched npz only turns off the tensor fast path for this reload,
+        since the pickle carries the same generation. The current token
+        gates the check: a manifest stamped for another generation steps
+        aside. → whether the npz may be used."""
+        if not self.cfg.verify_manifest:
+            return True
+        bad = artifacts.verify_files(
+            self.cfg.pickles_dir,
+            [os.path.basename(p) for p in (best_path, rec_path, npz_path)],
+            token=self._read_token(),
+        )
+        use_npz = npz_path not in bad
+        if not use_npz:
+            logger.warning(
+                "tensor artifact %s fails its manifest checksum; falling back "
+                "to the pickle", npz_path,
+            )
+            bad.remove(npz_path)
+        if bad:
+            raise ArtifactIntegrityError(f"artifact checksum mismatch vs manifest: {bad}", bad)
+        return use_npz
+
+    def _note_reload_failure(
+        self, exc: Exception, best_path: str, rec_path: str, npz_path: str
+    ) -> None:
+        """Failed-reload bookkeeping (caller holds ``_reload_lock``): count
+        the rollback, arm the exponential retry backoff, and once the same
+        set has failed ``quarantine_after_failures`` consecutive reloads,
+        quarantine the files that are actually corrupt."""
+        self.reload_failures += 1
+        self.consecutive_reload_failures += 1
+        self.last_load_error = f"{type(exc).__name__}: {exc}"
+        backoff = min(
+            self.cfg.reload_backoff_base_s * (2 ** (self.consecutive_reload_failures - 1)),
+            self.cfg.reload_backoff_max_s,
+        )
+        self._backoff_until = time.monotonic() + backoff
+        logger.warning(
+            "reload failure #%d (consecutive); retrying in %.1fs",
+            self.consecutive_reload_failures, backoff,
+        )
+        threshold = self.cfg.quarantine_after_failures
+        if threshold > 0 and self.consecutive_reload_failures >= threshold:
+            self._quarantine_corrupt_artifacts(best_path, rec_path, npz_path)
+
+    def _quarantine_corrupt_artifacts(self, best_path: str, rec_path: str, npz_path: str) -> None:
+        """Move persistently corrupt artifacts into ``pickles/quarantine/``.
+        Only a PARSE failure condemns a file, never a manifest mismatch
+        alone (two polls inside one slow publication see new bytes under
+        the old manifest), and never a probe that timed out."""
+        probes = (
+            (best_path, artifacts.load_pickle),
+            (rec_path, artifacts.load_pickle),
+            (npz_path, artifacts.load_rule_tensors),
+        )
+        for path, probe in probes:
+            if not os.path.exists(path):
+                continue
+            try:
+                probe(path, deadline_s=self._read_deadline())
+                continue  # parses fine: never quarantine on suspicion
+            except (FileNotFoundError, artifacts.IoStallError):
+                continue
+            except Exception:
+                pass
+            dest = artifacts.quarantine_file(path)
+            if dest is not None:
+                self.artifact_quarantines += 1
+                logger.warning("quarantined corrupt artifact %s -> %s", path, dest)
+
+    def _build_replicas(
+        self, rec_path: str, npz_path: str, token: str, use_npz: bool = True
+    ) -> list[RuleBundle]:
+        """Load the rule tensors once (the npz twin when present and
+        verified — counts → float64 → float32 confs — else the reference
+        pickle dict), then copy them onto every serving device. Host state
+        is shared."""
+        arrays = None
+        if self.cfg.prefer_tensor_artifact and use_npz and os.path.exists(npz_path):
+            try:
+                arrays = artifacts.load_rule_tensors(npz_path, deadline_s=self._read_deadline())
+            except artifacts.IoStallError:
+                # a hung read is not a torn artifact: fail the reload rather
+                # than fall back to an equally hung pickle read
+                raise
+            except Exception:
+                # a torn npz beside a possibly intact pickle of the same
+                # generation: fall through to the pickle
+                logger.exception("tensor artifact %s unreadable; trying the pickle", npz_path)
+        if arrays is None:
+            rules_dict = artifacts.load_pickle(rec_path, deadline_s=self._read_deadline())
             vocab = sorted(set(rules_dict) | {o for row in rules_dict.values() for o in row})
             rule_ids, rule_confs, known = artifacts.tensors_from_rules_dict(
                 rules_dict, vocab,
@@ -312,7 +466,12 @@ class RecommendEngine:
 
     def reload_if_required(self) -> None:
         """Reload when stale or never fully loaded
-        (reference: rest_api/app/main.py:110-114)."""
+        (reference: rest_api/app/main.py:110-114). After a failed reload
+        this retries on the backoff ladder instead of every poll; the
+        staleness signal survives (is_data_stale is pure), so the retry
+        always comes."""
+        if time.monotonic() < self._backoff_until:
+            return
         if self.is_data_stale() or not self.finished_loading:
             self.load()
 
@@ -478,6 +637,9 @@ class RecommendEngine:
         self._note_dispatch(idx)
 
         def finish() -> list[tuple[list[str], str]]:
+            # chaos site on the completion path, where a real device
+            # failure or stall surfaces
+            faults.fire("replica.kernel", replica=idx)
             host_ids = wait() if wait is not None else None
             return [
                 self._compose_answer(

@@ -59,6 +59,15 @@ METRIC_REGISTRY: dict[str, str] = {
     "kmls_utilization": "gauge:serving",
     "kmls_admission_degrade_total": "counter:serving",
     "kmls_deadline_expired_total": "counter:serving",
+    "kmls_artifact_quarantines_total": "counter:serving",
+    "kmls_reload_failures_total": "counter:serving",
+    "kmls_reload_consecutive_failures": "gauge:serving",
+    # --- storage health (io/iohealth.py) ---
+    "kmls_io_latency_seconds": "gauge:serving",
+    "kmls_io_errors_total": "counter:serving",
+    "kmls_io_retries_total": "counter:serving",
+    "kmls_disk_free_bytes": "gauge:serving",
+    "kmls_storage_slow": "gauge:serving",
     # --- artifact freshness ---
     "kmls_artifact_age_seconds": "gauge:serving",
     # --- lifecycle ---
@@ -265,13 +274,15 @@ class ServingMetrics:
     def render(
         self, reload_counter: int, finished_loading: bool,
         cache=None, dispatch_counts=None, robustness=None, artifact_ages=None,
+        io=None,
     ) -> str:
         """Prometheus text. ``cache`` (a serving.cache.RecommendCache),
         ``dispatch_counts`` (the engine's per-replica dispatch counters),
         ``robustness`` (a flat dict of engine/batcher state — names ending
         in ``_total`` render as counters, the rest as gauges, all under a
-        ``kmls_`` prefix) and ``artifact_ages`` (artifact → seconds since
-        publication) are optional."""
+        ``kmls_`` prefix), ``artifact_ages`` (artifact → seconds since
+        publication) and ``io`` (the IO-health monitor's snapshot) are
+        optional."""
         p50, p95, p99 = self.latency.percentiles(0.50, 0.95, 0.99)
         uptime = time.time() - self.started_at
         lines = [
@@ -359,6 +370,32 @@ class ServingMetrics:
                 f"{artifact_ages[name]:.3f}"
                 for name in sorted(artifact_ages)
             ]
+        if io is not None:
+            # the IO-health monitor: latency EWMAs as gauges (the
+            # conviction's exact inputs), errors by errno, and the 0/1
+            # conviction behind /readyz's "storage-slow"
+            lines.append("# TYPE kmls_io_latency_seconds gauge")
+            lines += [
+                f'kmls_io_latency_seconds{{op="{op}"}} {ewma:.6f}'
+                for op, ewma in sorted(io.get("latency_s", {}).items())
+            ]
+            lines.append("# TYPE kmls_io_errors_total counter")
+            lines += [
+                f'kmls_io_errors_total{{op="{op}",errno="{err}"}} {count}'
+                for (op, err), count in sorted(io.get("errors", {}).items())
+            ]
+            lines += [
+                "# TYPE kmls_io_retries_total counter",
+                f"kmls_io_retries_total {int(io.get('retries', 0))}",
+                "# TYPE kmls_storage_slow gauge",
+                f"kmls_storage_slow {int(bool(io.get('storage_slow')))}",
+            ]
+            free = io.get("disk_free_bytes")
+            if free is not None:
+                lines += [
+                    "# TYPE kmls_disk_free_bytes gauge",
+                    f"kmls_disk_free_bytes {int(free)}",
+                ]
         if robustness:
             # a dynamic entry colliding with a series rendered above is
             # dropped whole: a second `# TYPE` line for one name is

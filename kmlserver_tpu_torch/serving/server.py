@@ -85,6 +85,7 @@ def serve_threaded(app: RecommendApp, port: int | None = None, ready=None) -> in
                 "flight (raise KMLS_DRAIN_SETTLE_S to match "
                 "terminationGracePeriodSeconds)", settle_s, server.active_requests,
             )
+    app.close()
     return 0
 
 

@@ -29,9 +29,29 @@ def pvc(tmp_path_factory):
     return mine_pvc(tmp_path_factory.mktemp("torch_app"))
 
 
+# port apps built by a test, closed by _close_port_apps after it: the
+# threaded batcher's collector and completion threads would otherwise stay
+# parked for the rest of the session
+_OPEN_APPS: list = []
+
+
+def _port_app(*args, **kwargs) -> RecommendApp:
+    app = RecommendApp(*args, **kwargs)
+    _OPEN_APPS.append(app)
+    return app
+
+
+@pytest.fixture(autouse=True)
+def _close_port_apps():
+    n = len(_OPEN_APPS)
+    yield
+    while len(_OPEN_APPS) > n:
+        _OPEN_APPS.pop().close()
+
+
 def _apps(pvc, *, delay_s=0.0, fail=False, **knobs):
     """(port app on the CPU, reference app), engines loaded (and wrapped)."""
-    port = RecommendApp(port_cfg(pvc, **knobs), device="cpu")
+    port = _port_app(port_cfg(pvc, **knobs), device="cpu")
     ref = RefApp(ref_cfg(pvc, **knobs))
     assert port.engine.load() and ref.engine.load()
     if delay_s or fail:
@@ -53,7 +73,10 @@ def _post(app, payload, **kw):
 
 @pytest.fixture(scope="module")
 def apps(pvc):
-    return _apps(pvc)
+    port, ref = _apps(pvc)
+    yield port, ref
+    _OPEN_APPS.remove(port)
+    port.close()
 
 
 def test_recommend_route_matches_the_reference(apps, pvc):
@@ -112,7 +135,7 @@ def test_readyz_and_metrics(apps, pvc):
     _, _, ref_body = _view(ref.handle("GET", "/readyz", None))
     assert status == 200 and body["status"] == ref_body["status"] == "ready"
     assert set(body["artifact_age_seconds"]) == set(ref_body["artifact_age_seconds"])
-    cold = RecommendApp(port_cfg(pvc + "-missing"), device="cpu")
+    cold = _port_app(port_cfg(pvc + "-missing"), device="cpu")
     ref_cold = RefApp(ref_cfg(pvc + "-missing"))
     assert _view(cold.handle("GET", "/readyz", None)) == _view(
         ref_cold.handle("GET", "/readyz", None))
@@ -178,7 +201,7 @@ def test_transport_answers_concurrent_load_like_the_reference(pvc, transport):
     """200 distinct seed sets, pipelined over 16 connections: multi-row
     batches form, and every body equals the reference engine's answer
     (admission off: the CPU lookups here are slow enough to shed)."""
-    app = RecommendApp(port_cfg(pvc, shed_queue_budget_ms=0.0), device="cpu",
+    app = _port_app(port_cfg(pvc, shed_queue_budget_ms=0.0), device="cpu",
                        defer_batcher=transport == "async")
     assert app.engine.load()
     ref = RefEngine(ref_cfg(pvc))
@@ -205,7 +228,7 @@ def test_drain_closes_keepalive_and_exits(pvc, transport, monkeypatch):
     an idle keep-alive connection does not hold the exit, and the
     transport returns 0."""
     monkeypatch.setenv("KMLS_DRAIN_SETTLE_S", "3")
-    app = RecommendApp(port_cfg(pvc), device="cpu", defer_batcher=transport == "async")
+    app = _port_app(port_cfg(pvc), device="cpu", defer_batcher=transport == "async")
     assert app.engine.load()
     server = ServerThread(app, transport)
     conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=5)
@@ -233,7 +256,7 @@ def test_threaded_transport_serves_post_and_get(pvc):
     """A plain keep-alive client over the threaded transport: recommend,
     a 400 (not counted as a request) and /metrics on one connection,
     then 32 concurrent clients."""
-    app = RecommendApp(port_cfg(pvc), device="cpu")
+    app = _port_app(port_cfg(pvc), device="cpu")
     assert app.engine.load()
     server = ServerThread(app, "threaded")
     try:

@@ -117,7 +117,10 @@ def test_threaded_batcher_pipelines_exact_answers(engines, pvc):
     want = [ref.recommend(s) for s in sets]
     batcher = MicroBatcher(port, max_size=8, window_ms=2.0, max_inflight=4)
     before = sum(port.dispatch_counts)
-    got = _hammer(lambda s: batcher.recommend(s, timeout=30), sets)
+    try:
+        got = _hammer(lambda s: batcher.recommend(s, timeout=30), sets)
+    finally:
+        batcher.close()
     assert got == want
     # concurrent arrivals formed multi-row batches
     assert sum(port.dispatch_counts) - before < len(sets)
@@ -162,8 +165,12 @@ def _replica_scenario(engine, batcher_cls, sets):
         answers += [batcher.recommend(s, timeout=30) for s in sets[12:24]]
     finally:
         engine.recommend_many_async = real
-    return answers, ejected, (batcher.eject_total, batcher.readmit_total,
-                              batcher.redispatch_total, batcher.ejected_replicas())
+    counters = (batcher.eject_total, batcher.readmit_total,
+                batcher.redispatch_total, batcher.ejected_replicas())
+    close = getattr(batcher, "close", None)  # the reference's has none
+    if callable(close):
+        close()
+    return answers, ejected, counters
 
 
 def test_replica_lanes_eject_redispatch_and_readmit_like_the_reference(pvc):
@@ -199,6 +206,7 @@ def test_total_replica_loss_raises_no_healthy_replicas(engines, pvc):
         assert batcher.ejected_replicas() == [0]
         with pytest.raises(NoHealthyReplicas):
             batcher.submit(["y"])
+        batcher.close()
     finally:
         port.recommend_many_async = real
 
@@ -229,6 +237,7 @@ def test_deadlines_expire_queued_and_in_flight_requests(engines, pvc):
         with pytest.raises(DeadlineExceeded):
             batcher.recommend(sets[2], deadline=time.perf_counter() + 0.05)
         first.result(timeout=5)
+        batcher.close()
     finally:
         port.recommend_many_async = real
 
@@ -247,7 +256,10 @@ def test_cuda_pipelined_batches_match_the_cpu_engine(pvc):
     sets = seed_sets(pvc, 2000, seed=5)
     want = [cpu.recommend(s) for s in sets]
     batcher = MicroBatcher(card, max_size=8, window_ms=2.0, max_inflight=4)
-    assert _hammer(lambda s: batcher.recommend(s, timeout=60), sets, threads=32) == want
+    try:
+        assert _hammer(lambda s: batcher.recommend(s, timeout=60), sets, threads=32) == want
+    finally:
+        batcher.close()
 
     async def run():
         abatch = AsyncMicroBatcher(card, max_size=8, window_ms=2.0, max_inflight=4)

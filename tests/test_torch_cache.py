@@ -170,7 +170,8 @@ def test_series_catalog_is_the_references():
 
 def test_render_names_only_catalog_series():
     """Everything the port's render() emits — with a cache, dispatch
-    counts, a robustness dict and artifact ages — is a registered series,
+    counts, a robustness dict, artifact ages and an IO-health snapshot — is
+    a registered series,
     and the shared sections render identically to the reference's."""
     port_m, ref_m = metrics.ServingMetrics(), ref_metrics.ServingMetrics()
     for m in (port_m, ref_m):
@@ -185,9 +186,12 @@ def test_render_names_only_catalog_series():
     cache.put((1, 0, ("a",)), (["x"], "rules"))
     cache.get((1, 0, ("a",)))
     robust = {"replicas_ejected": 0, "utilization": 0.25, "admission_degrade_total": 2,
-              "deadline_expired_total": 1}
+              "deadline_expired_total": 1, "artifact_quarantines_total": 1,
+              "reload_failures_total": 2, "reload_consecutive_failures": 1}
+    io = {"latency_s": {"read": 0.002}, "errors": {("read", 5): 1}, "retries": 1,
+          "storage_slow": False, "disk_free_bytes": 1 << 30}
     text = port_m.render(3, True, cache=cache, dispatch_counts=[4, 5], robustness=robust,
-                         artifact_ages={"rules": 1.0, "popularity": 2.0})
+                         artifact_ages={"rules": 1.0, "popularity": 2.0}, io=io)
     names = set()
     for line in text.splitlines():
         if line.startswith("# TYPE "):
@@ -204,3 +208,8 @@ def test_render_names_only_catalog_series():
     ref_lines = [line for line in want.splitlines() if not line.startswith(strip)]
     port_lines = [line for line in text.splitlines() if not line.startswith("kmls_uptime_seconds ")]
     assert port_lines[: len(ref_lines)] == ref_lines
+    # the storage-health section renders as the reference's does
+    def storage(t):
+        return [line for line in t.splitlines()
+                if any(k in line for k in ("kmls_io_", "kmls_storage_slow", "kmls_disk_free"))]
+    assert storage(text) == storage(ref_m.render(3, True, io=io))

@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax_or_the_reference():
             kmlserver_tpu_torch.__path__, prefix="kmlserver_tpu_torch."
         )
     ]
-    assert "kmlserver_tpu_torch.ops.popcount" in names
+    for name in ("ops.popcount", "faults", "io.iohealth", "io.artifacts", "mining.checkpoint"):
+        assert f"kmlserver_tpu_torch.{name}" in names, name
     proc = _run(
         f"""
         import importlib, sys
