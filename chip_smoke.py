@@ -75,6 +75,25 @@ main loop on the card and fails loudly on any mismatch:
    flipped npz byte, a truncated pickle, the quarantine and the recovery,
    an npz with rule ids >= V under verification off), every answer held
    against the CPU engine; checkpoint save/load seconds and bytes logged.
+10. observability (``observability/``, ``utils/profiling.py``; run right
+   after phase 9 on phase 4's PVC; alone: ``python -c "import chip_smoke
+   as c; c.phase_observability()"``): (a) the async server with
+   ``KMLS_TRACE_SAMPLE=1.0`` under 2,000 distinct config-5 seed sets at
+   1,000 QPS with a ``ClientTraceLog`` — every answer equal to the CPU
+   engine's, every retained trace holding queue + device + compose spans
+   that sum within its server time, ``tracejoin`` joining ≥ 95 % of the
+   client records, the span split's p50/p99 logged; (b) in process, the
+   serving loop stalled 200 ms: every follow-up request degraded or shed,
+   no 5xx, ``kmls_loop_lag_ms`` above 100; (c) ``/metrics`` after (a):
+   ``kmls_kernel_device_seconds{serve_rules}`` > 0, ``kmls_mfu`` in (0, 1],
+   the peak source naming the card, ``kmls_device_bytes_in_use`` present,
+   ``kmls_compiles_total{serve_rules}`` 0 like the unwarmed dispatches;
+   (d) the job with ``KMLS_COUNT_PATH=bitpack`` and ``KMLS_PROFILE_DIR``:
+   ``job_metrics.prom`` phases encode / mine / rules, count path
+   ``bitpack-cuda``, the mine's flops equal to ``phase_cost``, and the
+   profiler's CUDA time of the popcount launch within 20 % of a CUDA-event
+   timing of the same launch; (e) ``/debug/profile?seconds=2`` under load
+   writes a trace naming the lookup's kernels.
 Then the kernels line is printed.
 
 ``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
@@ -694,6 +713,7 @@ def phase_scale(seed: int, work: str, shape: dict) -> dict:
         )
         for r in range(RANKS)
     ]
+    mined_p, mined_v = reduced.n_playlists, reduced.n_tracks
     del baskets, reduced
     got = pc.popcount_pair_counts_padded(bt)  # warm
     torch.cuda.synchronize()
@@ -732,6 +752,18 @@ def phase_scale(seed: int, work: str, shape: dict) -> dict:
         f"{bound['bytes']} bytes at {PEAK_BYTES_PER_S:.3g} B/s = {bound['bytes_ms']:.3f} ms "
         f"-> {bound['ms']:.3f} ms ({bound['unit']}); the kernel at {100 * share:.1f} %, "
         f"torch._int_mm (both triangles) at {100 * bound['ms'] / library_ms:.1f} %")
+    # the cost model's support_count formula counts the full 2·p·v²
+    # product; the bound above counts one triangle of int8 operations
+    from kmlserver_tpu_torch.observability.costmodel import PEAK_TABLE, phase_cost
+
+    support_flops, _ = phase_cost("support_count", p=mined_p, v=mined_v)
+    bf16_peak = dict((needle, f) for needle, f, _bw in PEAK_TABLE)["h100"]
+    log(f"yardstick: support_count 2·p·v² at (p={mined_p}, v={mined_v}) = "
+        f"{support_flops:.6g}, the kernel's triangle {bound['int8_ops']:.6g} int8 ops, ratio "
+        f"{support_flops / bound['int8_ops']:.4f}; over the kernel's {kernel_ms:.3f} ms: "
+        f"{support_flops / (kernel_ms / 1e3):.6g} FLOP/s = "
+        f"{support_flops / (kernel_ms / 1e3) / bf16_peak:.4f}x the bf16 peak "
+        f"{bf16_peak:.4g} (kmls_mfu would clamp it at 1.0)")
     kernel = {
         "name": "popcount_pairs",
         "route": "cuda",
@@ -1949,6 +1981,434 @@ def phase_resume(work: str | None = None) -> dict:
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 10
+
+TRACED_REQUESTS = 2000  # distinct config-5 seed sets replayed with tracing on
+TRACED_QPS = 1000.0
+STALL_S = 0.2  # the event-loop stall of check (b)
+STALL_BUDGET_MS = 100.0  # (b)'s shed budget: the stall is twice it
+STALL_FOLLOW_UPS = 10
+PROFILE_SECONDS = 2.0  # (e)'s /debug/profile window
+
+
+def distinct_sets(keys: list, n: int, seed: int) -> list:
+    """``n`` config-5 seed sets (``sample_seed_sets``) of which no two hold
+    the same tracks: each one misses the answer cache and reaches the card."""
+    from kmlserver_tpu_torch.serving.replay import sample_seed_sets
+
+    drawn = sample_seed_sets(keys, 2 * n + 100, rng_seed=seed)
+    return list({tuple(sorted(s)): s for s in drawn}.values())[:n]
+
+
+def quantiles(values: list) -> tuple[float, float]:
+    """(p50, p99) of ``values`` (nan when empty)."""
+    if not values:
+        return float("nan"), float("nan")
+    v = sorted(values)
+    return v[len(v) // 2], v[min(int(0.99 * len(v)), len(v) - 1)]
+
+
+def trace_kernels(path: str) -> dict[str, list[float]]:
+    """Kernel name → CUDA durations (ms) of every kernel event in a
+    ``torch.profiler`` Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    out: dict[str, list[float]] = {}
+    for ev in events:
+        if ev.get("cat") == "kernel" and "dur" in ev:
+            out.setdefault(ev["name"], []).append(float(ev["dur"]) / 1e3)
+    return out
+
+
+def wait_for_trace(directory: str, timeout_s: float) -> str:
+    """The one ``*.pt.trace.json`` a capture writes under ``directory``."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if os.path.isdir(directory):
+            files = [f for f in os.listdir(directory) if f.endswith(".pt.trace.json")]
+            if files:
+                path = os.path.join(directory, files[0])
+                try:
+                    with open(path) as fh:
+                        json.load(fh)
+                    return path
+                except ValueError:
+                    pass  # still being written
+        time.sleep(0.2)
+    fail(f"no profiler trace appeared under {directory} within {timeout_s:.0f} s")
+
+
+def post_with_headers(port: int, seeds: list) -> tuple[int, dict]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("POST", "/api/recommend/", json.dumps({"songs": seeds}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        resp.read()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}
+    finally:
+        conn.close()
+
+
+def traced_replay(base: str, server_lines: list, keys: list, cpu, work: str) -> dict:
+    """(a) and (c): BASELINE config 5's seed sets with every request traced,
+    the trace join, the span split, and the cost-model gauges."""
+    from kmlserver_tpu_torch.serving.replay import ClientTraceLog, replay_async_http
+
+    payloads = distinct_sets(keys, TRACED_REQUESTS, 29)
+    want = engine_answers(cpu, payloads)
+    trace_log = ClientTraceLog()
+    responses: list = []
+    report = replay_async_http(base, payloads, qps=TRACED_QPS, n_conns=CONFIG5_CONNS,
+                               responses=responses, trace_log=trace_log)
+    counts = check_responses("phase 10 (a)", responses, payloads, want, cpu)
+    if counts["ok"] != len(payloads) or counts["cached"]:
+        fail(f"phase 10 (a): {counts}: every distinct request must reach the card")
+    with urllib.request.urlopen(base + "/debug/traces", timeout=30) as resp:
+        debug = json.loads(resp.read())
+    traces = debug["traces"]
+    if len(traces) != len(payloads):
+        fail(f"phase 10 (a): {len(traces)} retained traces for {len(payloads)} requests")
+    spans: dict[str, list] = {}
+    for t in traces:
+        names = {s["name"]: s["duration_ms"] for s in t["spans"]}
+        for need in ("queue", "device", "compose"):
+            if need not in names:
+                fail(f"phase 10 (a): trace {t['trace_id']} has no {need} span: {t}")
+        total = sum(s["duration_ms"] for s in t["spans"])
+        if total > t["duration_ms"] + 0.001 * len(t["spans"]):
+            fail(f"phase 10 (a): trace {t['trace_id']}'s spans sum to {total} ms, over "
+                 f"its {t['duration_ms']} ms")
+        for name, ms in names.items():
+            spans.setdefault(name, []).append(ms)
+        spans.setdefault("server", []).append(t["duration_ms"])
+        spans.setdefault("unspanned", []).append(t["duration_ms"] - total)
+    client_path = os.path.join(work, "client_traces.jsonl")
+    traces_path = os.path.join(work, "debug_traces.json")
+    trace_log.write_jsonl(client_path)
+    with open(traces_path, "w") as fh:
+        json.dump(debug, fh)
+    join = subprocess.run(
+        [sys.executable, "-m", "kmlserver_tpu_torch.observability.tracejoin",
+         "--client", client_path, "--traces", traces_path],
+        cwd=ROOT, env=subproc_env(), capture_output=True, text=True, timeout=120)
+    joined = [json.loads(line) for line in join.stdout.splitlines() if line.strip()]
+    n_client = len(trace_log.entries())
+    if join.returncode != 0 or n_client != len(payloads) or len(joined) < 0.95 * n_client:
+        fail(f"phase 10 (a): tracejoin joined {len(joined)} of {n_client} client records "
+             f"(exit {join.returncode}): {join.stderr[-500:]}")
+    spans["client_minus_server"] = [r["client_overhead_ms"] for r in joined]
+    split = {name: quantiles(v) for name, v in spans.items()}
+    log(f"phase 10 (a): {len(payloads)} distinct config-5 seed sets at {TRACED_QPS:.0f} QPS "
+        f"with KMLS_TRACE_SAMPLE=1.0 → achieved {report.achieved_qps:.1f} QPS, client p50/p99 "
+        f"{report.p50_ms:.3f}/{report.p99_ms:.3f} ms, every answer == the CPU engine's; "
+        f"{len(traces)} traces retained, each with queue + device + compose summing within "
+        f"its server time; tracejoin joined {len(joined)}/{n_client} client records")
+    log("phase 10 (a) span split p50/p99 ms: " + ", ".join(
+        f"{name} {p50:.4f}/{p99:.4f}" for name, (p50, p99) in split.items()))
+
+    # (c) the cost model's gauges after the traced run
+    m = scrape_metrics(base)
+    unwarmed = sum("unwarmed seed shape" in line for line in server_lines)
+    device_s = m.get('kmls_kernel_device_seconds{kernel="serve_rules"}', 0.0)
+    mfu = m.get('kmls_mfu{kernel="serve_rules"}', 0.0)
+    compiles = m.get('kmls_compiles_total{kernel="serve_rules"}')
+    in_use = {k: v for k, v in m.items() if k.startswith("kmls_device_bytes_in_use")}
+    if device_s <= 0.0:
+        fail(f"phase 10 (c): kmls_kernel_device_seconds{{serve_rules}} = {device_s}")
+    if not 0.0 < mfu <= 1.0:
+        fail(f"phase 10 (c): kmls_mfu{{serve_rules}} = {mfu}, not in (0, 1]")
+    if not in_use:
+        fail("phase 10 (c): no kmls_device_bytes_in_use series on the card")
+    if compiles != 0 or unwarmed != 0:
+        fail(f"phase 10 (c): kmls_compiles_total{{serve_rules}} = {compiles}, "
+             f"unwarmed dispatches logged {unwarmed}")
+    dispatches = m['kmls_kernel_dispatches_total{kernel="serve_rules"}']
+    cost = {"device_s": device_s, "dispatches": dispatches, "mfu": mfu,
+            "flops_per_s": m['kmls_kernel_flops_per_second{kernel="serve_rules"}'],
+            "bytes_per_s": m['kmls_kernel_bytes_per_second{kernel="serve_rules"}'],
+            "compute_bound": m['kmls_kernel_compute_bound{kernel="serve_rules"}'],
+            "compiles": compiles, "device_bytes_in_use": in_use,
+            "tensor_bytes": {k: v for k, v in m.items() if k.startswith("kmls_model_tensor")},
+            "slo_burn": {k: v for k, v in m.items() if k.startswith("kmls_slo_burn_rate")}}
+    log(f"phase 10 (c) /metrics: serve_rules {dispatches:.0f} dispatches, "
+        f"{device_s:.6f} device s ({1e3 * device_s / max(dispatches, 1):.4f} ms each), "
+        f"{cost['flops_per_s']:.6g} FLOP/s, {cost['bytes_per_s']:.6g} B/s, kmls_mfu {mfu:.6g}, "
+        f"compute-bound {cost['compute_bound']:.0f}; kmls_compiles_total 0 == unwarmed "
+        f"dispatches; device bytes in use {in_use}")
+    return {"report": {"achieved_qps": report.achieved_qps, "p50_ms": report.p50_ms,
+                       "p99_ms": report.p99_ms}, "split": split, "joined": len(joined),
+            "client_records": n_client, "cost": cost}
+
+
+def profile_under_load(base: str, keys: list, cpu) -> dict:
+    """(e): GET /debug/profile?seconds=N while distinct requests reach the
+    card — replayed a second at a time until the capture's trace is
+    written; the trace must name the lookup's CUDA kernels."""
+    from kmlserver_tpu_torch.serving.replay import replay_async_http
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(base + f"/debug/profile?seconds={PROFILE_SECONDS}",
+                                timeout=30) as resp:
+        doc = json.loads(resp.read())
+        if resp.status != 202:
+            fail(f"phase 10 (e): /debug/profile answered {resp.status}: {doc}")
+    n_sent = 0
+    totals: dict[str, int] = {}
+    chunk = int(TRACED_QPS)
+    for seed in range(41, 71):
+        payloads = distinct_sets(keys, chunk, seed)
+        responses: list = []
+        replay_async_http(base, payloads, qps=TRACED_QPS, n_conns=CONFIG5_CONNS,
+                          responses=responses)
+        counts = check_responses("phase 10 (e)", responses, payloads,
+                                 engine_answers(cpu, payloads), cpu, allow_drops=True)
+        for key, value in counts.items():
+            totals[key] = totals.get(key, 0) + value
+        n_sent += len(payloads)
+        if os.path.isdir(doc["dir"]) and os.listdir(doc["dir"]):
+            break
+    path = wait_for_trace(doc["dir"], 60)
+    kernels = trace_kernels(path)
+    lookup = {name: v for name, v in kernels.items() if "scatter" in name}
+    if not lookup:
+        fail(f"phase 10 (e): the /debug/profile trace names no scatter kernel of the "
+             f"lookup: {sorted(kernels)[:20]}")
+    top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:8]
+    log(f"phase 10 (e): /debug/profile?seconds={PROFILE_SECONDS:g} under {n_sent} distinct "
+        f"requests at {TRACED_QPS:.0f} QPS ({totals}) wrote {os.path.basename(path)} "
+        f"{time.perf_counter() - t0:.3f} s after the request, with "
+        f"{sum(len(v) for v in kernels.values())} kernel events; top by CUDA time: "
+        + "; ".join(f"{name[:70]} x{len(v)} {sum(v):.3f} ms" for name, v in top))
+    return {"kernel_events": sum(len(v) for v in kernels.values()),
+            "scatter_launches": sum(len(v) for v in lookup.values()), "requests": n_sent,
+            "answers": totals, "top": [(name, len(v), sum(v)) for name, v in top]}
+
+
+def stalled_loop(pvc: str, keys: list) -> dict:
+    """(b): in process on the card, the async server's loop stalls for
+    ``STALL_S``; the requests after it are degraded or shed, none 5xx, and
+    ``kmls_loop_lag_ms`` reads above 100."""
+    import asyncio
+
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.serving.aioserver import run_async
+    import torch
+
+    from kmlserver_tpu_torch.serving.app import RecommendApp
+
+    cfg = ServingConfig(base_dir=pvc, shed_queue_budget_ms=STALL_BUDGET_MS)
+    app = RecommendApp(cfg, device="cuda", defer_batcher=True)
+    if not app.engine.load():
+        fail("phase 10 (b): the card engine could not load the PVC")
+    peak_source = app.engine.cost_model.peak_source
+    if torch.cuda.get_device_name(0) not in peak_source:
+        fail(f"phase 10 (c): the cost model's peak source {peak_source!r} does not name "
+             f"the card {torch.cuda.get_device_name(0)!r}")
+    bound: dict = {}
+    ready = threading.Event()
+
+    def on_ready(port, drain):
+        bound.update(port=port, drain=drain, loop=asyncio.get_running_loop())
+        ready.set()
+
+    result: dict = {}
+    thread = threading.Thread(
+        target=lambda: result.update(code=asyncio.run(run_async(app, 0, ready=on_ready))),
+        daemon=True)
+    thread.start()
+    if not ready.wait(60):
+        fail("phase 10 (b): the in-process server never bound")
+    port = bound["port"]
+    sets = distinct_sets(keys, 5 + STALL_FOLLOW_UPS, 37)
+    try:
+        for seeds in sets[:5]:  # warm: the tick is armed and the loop healthy
+            status, _ = post_with_headers(port, seeds)
+            if status != 200:
+                fail(f"phase 10 (b): a warm-up request answered {status}")
+        time.sleep(0.3)
+        before = app.loop_lag.lag_s() * 1e3
+        bound["loop"].call_soon_threadsafe(time.sleep, STALL_S)
+        time.sleep(STALL_S + 0.1)  # the stall, then the overdue tick notes it
+        m = scrape_metrics(f"http://127.0.0.1:{port}")
+        lag_ms = m["kmls_loop_lag_ms"]
+        outcomes = [post_with_headers(port, seeds) for seeds in sets[5:5 + STALL_FOLLOW_UPS]]
+    finally:
+        bound["drain"]()
+        thread.join(30)
+        app.close()
+    if result.get("code") != 0:
+        fail(f"phase 10 (b): the in-process server's drain returned {result.get('code')}")
+    codes = [status for status, _ in outcomes]
+    degraded = sum(1 for status, h in outcomes if status == 200 and "x-kmls-degraded" in h)
+    shed = codes.count(429)
+    if any(code >= 500 for code in codes):
+        fail(f"phase 10 (b): a 5xx after the stall: {codes}")
+    if degraded + shed != len(outcomes):
+        fail(f"phase 10 (b): {len(outcomes) - degraded - shed} of {len(outcomes)} follow-up "
+             f"requests answered normally after a {STALL_S * 1e3:.0f} ms stall: {outcomes}")
+    if lag_ms <= 100.0:
+        fail(f"phase 10 (b): kmls_loop_lag_ms {lag_ms} after a {STALL_S * 1e3:.0f} ms stall")
+    log(f"phase 10 (b): loop stalled {STALL_S * 1e3:.0f} ms in process on the card "
+        f"(shed budget {STALL_BUDGET_MS:.0f} ms): kmls_loop_lag_ms {before:.3f} → "
+        f"{lag_ms:.3f}; {len(outcomes)} follow-up requests: {degraded} degraded, {shed} "
+        f"shed, 0 5xx; cost model peak source {peak_source!r}")
+    return {"lag_ms": lag_ms, "lag_ms_before": before, "degraded": degraded, "shed": shed,
+            "peak_source": peak_source}
+
+
+def profiled_job(work: str, pvc: str) -> dict:
+    """(d): the job on the card with ``KMLS_COUNT_PATH=bitpack`` and
+    ``KMLS_PROFILE_DIR`` set; its ``job_metrics.prom`` and its profiler
+    trace, the popcount kernel's CUDA time there beside a CUDA-event timing
+    of the same launch in process, and the support-count yardstick."""
+    import torch
+
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.data.csv import read_tracks
+    from kmlserver_tpu_torch.mining import vocab as vocab_mod
+    from kmlserver_tpu_torch.mining.miner import prune_infrequent
+    from kmlserver_tpu_torch.observability.costmodel import PEAK_TABLE, phase_cost
+    from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.ops.support import min_count_for
+
+    job_pvc = os.path.join(work, "pvc_observability")
+    os.makedirs(os.path.join(job_pvc, "datasets"))
+    csv = [f for f in os.listdir(os.path.join(pvc, "datasets")) if f.endswith(".csv")][0]
+    shutil.copy(os.path.join(pvc, "datasets", csv), os.path.join(job_pvc, "datasets"))
+    profile_root = os.path.join(work, "profile_job")
+    out, launches, wall = run_job(job_pvc, "profiled", KMLS_COUNT_PATH="bitpack",
+                                  KMLS_PROFILE_DIR=profile_root)
+    if launches != 1:
+        fail(f"phase 10 (d): the profiled job launched the popcount kernel {launches} times")
+    with open(os.path.join(job_pvc, "pickles", "job_metrics.prom")) as fh:
+        text = fh.read()
+    prom = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            prom[key] = float(value)
+    phases = sorted(k.split('"')[1] for k in prom if k.startswith("kmls_job_phase_duration"))
+    if phases != ["encode", "mine", "rules"]:
+        fail(f"phase 10 (d): job_metrics.prom phases {phases}")
+    paths = [k for k in prom if k.startswith("kmls_job_count_path")]
+    if len(paths) != 1 or 'path="bitpack-cuda"' not in paths[0]:
+        fail(f"phase 10 (d): job_metrics.prom count path {paths}")
+    p, v_all = int(prom["kmls_job_playlists"]), int(prom["kmls_job_tracks"])
+    flops, _ = phase_cost("support_count", p=p, v=v_all)
+    mine_flops = prom['kmls_job_phase_flops{phase="mine"}']
+    if mine_flops != flops:
+        fail(f"phase 10 (d): mine flops {mine_flops} != phase_cost('support_count', "
+             f"p={p}, v={v_all}) = {flops}")
+    if prom["kmls_job_success"] != 1:
+        fail("phase 10 (d): kmls_job_success is not 1")
+    trace = wait_for_trace(os.path.join(profile_root, "mine"), 30)
+    kernels = trace_kernels(trace)
+    job_kernel = [ms for name, v in kernels.items() if "popcount_pairs_tc_kernel" in name
+                  for ms in v]
+    if len(job_kernel) != 1:
+        fail(f"phase 10 (d): the job's trace holds {len(job_kernel)} popcount kernel events: "
+             f"{sorted(kernels)}")
+
+    # the same launch in process: the mined baskets' bitset, by CUDA events
+    table = read_tracks(os.path.join(job_pvc, "datasets", csv), 1.0)
+    baskets = vocab_mod.build_baskets(table)
+    mined, _ = prune_infrequent(baskets, min_count_for(DS2_MIN_SUPPORT, baskets.n_playlists))
+    v_pad, w_pad = pc.padded_shape(mined.n_tracks, mined.n_playlists)
+    bt = pc.bitpack_by_track(mined.playlist_rows, mined.track_ids,
+                             n_playlists=mined.n_playlists, n_tracks=mined.n_tracks,
+                             v_pad=v_pad, w_pad=w_pad, device="cuda")
+    for _ in range(5):
+        pc.popcount_pair_counts_padded(bt)
+    torch.cuda.synchronize()
+    event_ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(bt), 200)
+    job_ms = job_kernel[0]
+    if abs(job_ms - event_ms) > 0.2 * event_ms:
+        fail(f"phase 10 (d): the profiler's CUDA time of the job's popcount launch "
+             f"{job_ms:.4f} ms is not within 20 % of the CUDA-event timing {event_ms:.4f} ms "
+             f"at ({v_pad}, {w_pad})")
+    phase_s = {k.split('"')[1]: v for k, v in prom.items()
+               if k.startswith("kmls_job_phase_duration")}
+    # the same split from the unprofiled job that published ``pvc``
+    with open(os.path.join(pvc, "pickles", "job_metrics.prom")) as fh:
+        plain_s = {line.split('"')[1]: float(line.rsplit(" ", 1)[1]) for line in fh
+                   if line.startswith("kmls_job_phase_duration")}
+    log("phase 10 (d): job_metrics.prom of the unprofiled job that published the ds2 PVC "
+        "(default dispatch): " + ", ".join(f"{k} {v:.4f} s" for k, v in sorted(plain_s.items())))
+    # the yardstick A.10 needs: support_count's full 2·p·v² product against
+    # the one triangle of int8 operations the kernel's bound counts
+    bound = popcount_bound(v_pad, w_pad)
+    kernel_flops, _ = phase_cost("support_count", p=mined.n_playlists, v=mined.n_tracks)
+    bf16_peak = dict((needle, f) for needle, f, _bw in PEAK_TABLE)["h100"]
+    log(f"phase 10 (d): job with KMLS_COUNT_PATH=bitpack, KMLS_PROFILE_DIR set: {wall:.3f} s "
+        f"wall; job_metrics.prom phases " + ", ".join(f"{k} {v:.4f} s" for k, v in
+                                                     sorted(phase_s.items()))
+        + f", count path bitpack-cuda ({paths[0].split('source=')[1][1:-2]}), mine flops "
+        f"{flops:.6g} == phase_cost('support_count', p={p}, v={v_all}); profiler CUDA time of "
+        f"the job's popcount launch {job_ms:.4f} ms vs CUDA events {event_ms:.4f} ms in "
+        f"process at ({v_pad}, {w_pad}) ({100 * (job_ms / event_ms - 1):+.1f} %)")
+    log(f"phase 10 (d) yardstick at the ds2 mine shape (p={mined.n_playlists}, "
+        f"v={mined.n_tracks}): support_count 2·p·v² = {kernel_flops:.6g}, the kernel's "
+        f"triangle {bound['int8_ops']:.6g} int8 ops at ({v_pad}, {w_pad}), ratio "
+        f"{kernel_flops / bound['int8_ops']:.4f}; over {event_ms:.4f} ms: "
+        f"{kernel_flops / (event_ms / 1e3):.6g} FLOP/s = "
+        f"{kernel_flops / (event_ms / 1e3) / bf16_peak:.4f} of the bf16 peak; job_metrics "
+        f"attributes v={v_all} (unpruned): {flops:.6g}")
+    return {"wall_s": wall, "phases_s": phase_s, "plain_phases_s": plain_s, "flops": flops,
+            "job_kernel_ms": job_ms,
+            "event_ms": event_ms, "shape": [v_pad, w_pad],
+            "yardstick": {"support_count": kernel_flops, "triangle_int8_ops": bound["int8_ops"],
+                          "ratio": kernel_flops / bound["int8_ops"]}}
+
+
+def phase_observability(work: str | None = None) -> dict:
+    """Phase 10: the observability package on the card over the ds2 PVC —
+    (a) a traced config-5 replay joined with tracejoin, (b) a stalled loop
+    escalating the admission ladder, (c) the cost model's gauges, (d) the
+    job's job_metrics.prom and profiler trace, (e) /debug/profile under
+    load."""
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.io import artifacts
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke10_")
+    t_phase = time.perf_counter()
+    try:
+        pvc = ds2_pvc(work)
+        cfg = ServingConfig(base_dir=pvc)
+        cpu = RecommendEngine(cfg, device="cpu")
+        if not cpu.load():
+            fail("phase 10: the CPU engine could not load the PVC")
+        keys = sorted(artifacts.load_pickle(os.path.join(cfg.pickles_dir,
+                                                         cfg.recommendations_file)))
+        obs_work = os.path.join(work, "observability")
+        os.makedirs(obs_work)
+        profile_root = os.path.join(obs_work, "profile_serve")
+        server, base, lines = start_server(
+            pvc, KMLS_TRACE_SAMPLE="1.0", KMLS_TRACE_BUFFER=str(2 * TRACED_REQUESTS),
+            KMLS_PROFILE_DIR=profile_root)
+        try:
+            traced = traced_replay(base, lines, keys, cpu, obs_work)
+            profiled = profile_under_load(base, keys, cpu)
+        finally:
+            code = stop_server(server)
+        if code != 0:
+            fail(f"phase 10: the traced server exited {code} after SIGTERM")
+        stall = stalled_loop(pvc, keys)
+        job = profiled_job(obs_work, pvc)
+        result = {"traced": traced, "stall": stall, "job": job, "profile": profiled,
+                  "s": time.perf_counter() - t_phase}
+        log(f"phase 10: {result['s']:.3f} s")
+        log("PHASE10 " + json.dumps(result))
+        return result
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1985,6 +2445,7 @@ def main() -> int:
         e2e = phase_end_to_end(work)
         phase_serving(work)
         resume = phase_resume(work)
+        phase_observability(work)
         scale = phase_scale(2024, work, QUICK_SCALE if quick else SCALE)
         ranks = phase_ranks(work, scale)
     finally:

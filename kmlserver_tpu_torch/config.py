@@ -201,6 +201,9 @@ class MiningConfig:
     rank_heartbeat_interval_s: float = 5.0
     # deadline of one guarded collective section (the mine); 0 = 6 x rank_timeout_s
     collective_timeout_s: float = 1800.0
+    # pickles/job_metrics.prom (textfile-collector format), rewritten as
+    # each phase completes (observability/jobmetrics.py)
+    job_metrics: bool = True
 
     @property
     def pickles_dir(self) -> str:
@@ -256,6 +259,7 @@ class MiningConfig:
             rank_timeout_s=_getenv_float("KMLS_RANK_TIMEOUT_S", 300.0),
             rank_heartbeat_interval_s=_getenv_float("KMLS_RANK_HEARTBEAT_S", 5.0),
             collective_timeout_s=_getenv_float("KMLS_COLLECTIVE_TIMEOUT_S", 1800.0),
+            job_metrics=_getenv_bool("KMLS_JOB_METRICS", True),
         )
 
 
@@ -332,6 +336,30 @@ class ServingConfig:
     request_deadline_ms: float = 0.0
     # budget for the degraded fallback answer itself (ms)
     fallback_budget_ms: float = 50.0
+    # per-device bytes the cost model's headroom gauge measures the rule
+    # tensors against (the reference's layout budget)
+    device_budget_bytes: int = 12 * (1 << 30)
+    # span tracing (observability/trace.py): baseline retention probability
+    # of OK traces; 0 disables tracing entirely. Shed, degraded and error
+    # traces and the slowest trace_slow_n OK ones are always kept, in a
+    # ring of trace_buffer entries served at GET /debug/traces
+    trace_sample: float = 0.0
+    trace_buffer: int = 512
+    trace_slow_n: int = 32
+    # half-life of the event-loop stall estimate (kmls_loop_lag_ms) the
+    # admission ladder folds into its pressure; 0 disables the collector
+    loop_lag_half_life_s: float = 1.0
+    # per-kernel cost attribution (observability/costmodel.py); off = the
+    # engine holds no cost model at all
+    costmodel_enabled: bool = True
+    # SLO burn rates (observability/slo.py): the p99 target (snapped up to
+    # a histogram bucket), the availability and quality budgets, and the
+    # fast/slow alerting windows
+    slo_p99_ms: float = 25.0
+    slo_error_budget: float = 0.001
+    slo_degrade_budget: float = 0.01
+    slo_fast_window_s: float = 300.0
+    slo_slow_window_s: float = 3600.0
 
     @property
     def pickles_dir(self) -> str:
@@ -377,4 +405,15 @@ class ServingConfig:
             redispatch_max_retries=_getenv_int("KMLS_REDISPATCH_MAX_RETRIES", 3),
             request_deadline_ms=_getenv_float("KMLS_REQUEST_DEADLINE_MS", 0.0),
             fallback_budget_ms=_getenv_float("KMLS_FALLBACK_BUDGET_MS", 50.0),
+            device_budget_bytes=_getenv_int("KMLS_DEVICE_BUDGET_BYTES", 12 * (1 << 30)),
+            trace_sample=_getenv_float("KMLS_TRACE_SAMPLE", 0.0),
+            trace_buffer=_getenv_int("KMLS_TRACE_BUFFER", 512),
+            trace_slow_n=_getenv_int("KMLS_TRACE_SLOW_N", 32),
+            loop_lag_half_life_s=_getenv_float("KMLS_LOOP_LAG_HALF_LIFE_S", 1.0),
+            costmodel_enabled=_getenv_bool("KMLS_COSTMODEL", True),
+            slo_p99_ms=_getenv_float("KMLS_SLO_P99_MS", 25.0),
+            slo_error_budget=_getenv_float("KMLS_SLO_ERROR_BUDGET", 0.001),
+            slo_degrade_budget=_getenv_float("KMLS_SLO_DEGRADE_BUDGET", 0.01),
+            slo_fast_window_s=_getenv_float("KMLS_SLO_FAST_WINDOW_S", 300.0),
+            slo_slow_window_s=_getenv_float("KMLS_SLO_SLOW_WINDOW_S", 3600.0),
         )

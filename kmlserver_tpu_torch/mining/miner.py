@@ -40,7 +40,6 @@ device work lands inside its phase.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 
@@ -53,7 +52,9 @@ from ..ops import support as support_ops
 from ..ops.support import min_count_for
 from ..parallel import layout, support
 from ..parallel.mesh import RankMesh
+from ..utils import profiling
 from ..utils.device import backend_name, resolve_device
+from ..utils.profiling import PhaseTimer, trace_session
 from . import dispatch
 from .vocab import Baskets, Vocab
 
@@ -90,29 +91,6 @@ class MiningResult:
     sparse_events: int | None = None
     # launches of the CUDA popcount kernels during this mine (this rank's)
     kernel_launches: int = 0
-
-
-class PhaseTimer:
-    """Named wall-clock phases; on a CUDA device each phase synchronises
-    at its end so asynchronous kernels are billed to the phase that
-    launched them."""
-
-    def __init__(self, device: torch.device) -> None:
-        self.device = device
-        self.phases: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
-
-
-def format_phases(phases: dict[str, float]) -> str:
-    parts = ", ".join(f"{k} {v:.3f}s" for k, v in phases.items())
-    return f"phase timings: {parts}" if parts else "phase timings: (none)"
 
 
 def bitpack_plan_bytes(
@@ -478,7 +456,19 @@ def mine(
         # setup is environment preparation, not rule generation
         popcount.kernel_lib()
         torch.cuda.synchronize(dev)
+    # so is the profiler's one-time start when KMLS_PROFILE_DIR is set
+    profiling.prime()
     t0 = time.perf_counter()
+    # a torch.profiler trace of the mine when KMLS_PROFILE_DIR is set
+    with trace_session("mine"):
+        return _mine_timed(baskets, cfg, dev, mesh, backend, timer, t0, launches0)
+
+
+def _mine_timed(
+    baskets: Baskets, cfg: MiningConfig, dev: torch.device, mesh: RankMesh | None,
+    backend: str, timer: PhaseTimer, t0: float, launches0: int,
+) -> MiningResult:
+    """The body of :func:`mine`, inside its timing bracket."""
     n_total = baskets.n_tracks
     pruned_vocab = None
     mined = baskets

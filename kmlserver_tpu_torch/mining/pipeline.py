@@ -25,7 +25,11 @@ rewrite; the manifest records the lease's fencing token, the store is
 cleared after publication, and the lease is released on every exit. Over
 a rank mesh (reference ``pipeline.py:255-266``) every rank reads the
 dataset list, the run index and the store and mines; only rank 0, the
-writer, saves checkpoints and publishes. Job metrics and the
+writer, saves checkpoints and publishes. The writer also keeps
+``pickles/job_metrics.prom`` (``observability/jobmetrics.py``), rewritten
+as each phase completes: phase durations (a resumed phase reports its
+checkpointed duration, flagged), the dataset's size, the count route, the
+mine phase's analytic FLOPs and bytes, artifact sizes and success. The
 delta/embed/eval phases are not ported yet.
 """
 
@@ -42,13 +46,16 @@ from .. import faults
 from ..config import BASE_INDEX, MiningConfig
 from ..data.csv import read_tracks
 from ..io import artifacts, registry
+from ..observability import costmodel
+from ..observability.jobmetrics import JobMetrics
 from ..parallel import layout
 from ..parallel.distributed import RankWatchdog, barrier
 from ..parallel.mesh import RankMesh, this_rank
+from ..utils.profiling import format_phases
 from ..utils.timeutil import get_current_time_str, get_current_time_str_precise
 from . import checkpoint as ckpt_mod
 from . import vocab as vocab_mod
-from .miner import MiningResult, format_phases, mine
+from .miner import MiningResult, mine
 
 
 @dataclasses.dataclass
@@ -137,6 +144,27 @@ def _report_mining(result: MiningResult, cfg: MiningConfig, launches: int) -> No
             f"K_max={cfg.k_max_consequents} consequent capacity (truncated "
             f"to the highest-support rules)"
         )
+
+
+def _note_mine_metrics(jm: JobMetrics, encoded: dict, result: MiningResult) -> None:
+    """The mine's telemetry: the dataset's size, the count route and what
+    decided it, and the analytic cost of the phase's dominant kernel — the
+    pair-support contraction over the mined shape, or the sparse route's
+    nnz-proportional work (the reference's attribution)."""
+    jm.set_dataset(rows=encoded["n_rows"], playlists=result.n_playlists,
+                   tracks=result.n_tracks)
+    if result.count_path:
+        jm.note_count_path(result.count_path, result.count_path_source or "")
+    if result.count_path and result.count_path.startswith("sparse"):
+        flops, moved = costmodel.phase_cost(
+            "sparse_count", events=result.sparse_events or 0, nnz=encoded["n_rows"],
+            v=result.pruned_vocab or result.n_tracks,
+        )
+    else:
+        flops, moved = costmodel.phase_cost(
+            "support_count", p=result.n_playlists, v=result.n_tracks
+        )
+    jm.note_phase_cost("mine", flops, moved)
 
 
 def _publish(
@@ -234,20 +262,29 @@ def run_mining_job(
     # that, but a resumed or pruned-to-nothing mine runs no collective
     barrier()
     resumed: list[str] = []
+    # pickles/job_metrics.prom, writer rank only like every volume write
+    jm = JobMetrics(cfg.pickles_dir) if is_writer and cfg.job_metrics else None
 
     def phase(name: str, compute):
         """Resume ``name`` from its checkpoint or compute and save it. The
         crash site fires after the save — where a preemption that already
-        banked the phase would land."""
+        banked the phase would land. Either way the phase's compute
+        duration reaches the telemetry file (a resumed phase's from its
+        checkpoint, flagged resumed)."""
         payload = store.load(name) if store is not None else None
         if payload is not None:
             resumed.append(name)
             print(f"Resumed phase {name!r} from checkpoint ({store.age_s(name):.0f}s old)")
+            if jm is not None:
+                jm.phase_done(name, store.duration_s(name), resumed=True)
             return payload
         t_phase = time.perf_counter()
         payload = compute()
+        duration_s = time.perf_counter() - t_phase
         if store is not None:
-            store.save(name, payload, duration_s=time.perf_counter() - t_phase)
+            store.save(name, payload, duration_s=duration_s)
+        if jm is not None:
+            jm.phase_done(name, duration_s)
         _crash_site(name)
         return payload
 
@@ -289,6 +326,8 @@ def run_mining_job(
         launches = 0 if "mine" in resumed else result.kernel_launches
         _report_mining(result, cfg, launches)
         tensors = result.tensors
+        if jm is not None:
+            _note_mine_metrics(jm, encoded, result)
         rules_dict = phase("rules", lambda: tensors.to_rules_dict(result.vocab_names))
         summary = JobSummary(
             dataset=selected,
@@ -314,9 +353,27 @@ def run_mining_job(
         if store is not None:
             # published: the next rotation run must start fresh
             store.clear()
+        if jm is not None:
+            # success telemetry LAST. Publication already succeeded, so
+            # nothing from telemetry may fail the job or skip the lease
+            # release (the abort path would record success=0)
+            try:
+                for artifact_name, artifact_path in paths.items():
+                    jm.note_artifact(artifact_name, artifact_path)
+                jm.finish(True, rule_generation_s=result.duration_s,
+                          fencing_token=lease.fencing_token if lease else None)
+            except Exception as exc:
+                print(f"WARNING: success telemetry skipped ({jm.path}): {exc!r}")
         if lease is not None:
             lease.release()
     except BaseException:
+        if jm is not None:
+            # the abort is telemetry too: success=0 beside the finished
+            # phases; nothing from it may mask the abort's cause
+            try:
+                jm.finish(False)
+            except Exception:
+                pass
         if lease is not None:
             # a Python-level abort releases: this process writes nothing
             # more, and its successor must not wait out the TTL

@@ -15,6 +15,10 @@ dispatched at once, responses are staged by sequence number, and each
 contiguous ready prefix leaves as ONE ``transport.write``. Reading pauses
 while a connection has too many requests outstanding.
 
+The loop-lag monitor's drift tick (``observability/runtime.py``) is armed
+on the serving loop, so a stall of the loop shows as ``kmls_loop_lag_ms``
+and escalates the admission ladder; the drain stops it.
+
 SIGTERM drain: the listener closes at once (racing connects are refused),
 every later response carries ``Connection: close``, in-flight requests
 settle for at most ``KMLS_DRAIN_SETTLE_S``, and then the connections still
@@ -157,6 +161,7 @@ class _Conn(asyncio.Protocol):
                 return
             content_length = 0
             close_after = False
+            trace_header: str | None = None
             budget_header: str | None = None
             for line in header_block.split(b"\r\n"):
                 key, _, value = line.partition(b":")
@@ -169,6 +174,10 @@ class _Conn(asyncio.Protocol):
                         return
                 elif lowered == b"connection":
                     close_after = value.strip().lower() == b"close"
+                elif lowered == b"x-kmls-trace":
+                    # span-trace propagation: the raw value; the recorder
+                    # validates it (charset, length) or replaces it
+                    trace_header = value.strip().decode("latin1")
                 elif lowered == b"x-kmls-deadline-budget":
                     # remaining budget (ms) forwarded by an upstream hop;
                     # the app ignores malformed values
@@ -181,7 +190,7 @@ class _Conn(asyncio.Protocol):
                 return  # body still arriving
             body = self.buf[end + 4: total] or None
             self.buf = self.buf[total:]
-            self._dispatch(method, path, body, close_after, budget_header)
+            self._dispatch(method, path, body, close_after, trace_header, budget_header)
 
     def _bad_request(self, detail: str) -> None:
         seq = self._next_seq
@@ -198,7 +207,7 @@ class _Conn(asyncio.Protocol):
 
     def _dispatch(
         self, method: str, path: str, body: bytes | None, close_after: bool,
-        budget_header: str | None,
+        trace_header: str | None, budget_header: str | None,
     ) -> None:
         state = self.state
         app = state.app
@@ -206,7 +215,7 @@ class _Conn(asyncio.Protocol):
         seq = self._next_seq
         self._next_seq += 1
         if method == "POST" and path.split("?", 1)[0] in _RECOMMEND_PATHS:
-            self._recommend(seq, path, body, close_after, budget_header)
+            self._recommend(seq, path, body, close_after, trace_header, budget_header)
             return
         try:
             response = app.handle(method, path, body, client_host=self.peer_host)
@@ -219,7 +228,7 @@ class _Conn(asyncio.Protocol):
 
     def _recommend(
         self, seq: int, path: str, body: bytes | None, close_after: bool,
-        budget_header: str | None,
+        trace_header: str | None, budget_header: str | None,
     ) -> None:
         state = self.state
         app = state.app
@@ -227,7 +236,8 @@ class _Conn(asyncio.Protocol):
             if app.batcher is None:
                 # batching disabled: the engine call stays off the loop
                 task = state.engine_pool.submit(
-                    app.handle, "POST", path, body, self.peer_host, budget_header,
+                    app.handle, "POST", path, body, self.peer_host, trace_header,
+                    budget_header,
                 )
                 task.add_done_callback(
                     lambda f: self.loop.call_soon_threadsafe(
@@ -235,19 +245,19 @@ class _Conn(asyncio.Protocol):
                     )
                 )
                 return
-            response, future, t0 = app.submit_recommend(body, budget_header)
+            response, future, t0, trace = app.submit_recommend(body, trace_header, budget_header)
             if response is None:
                 if isinstance(future, asyncio.Future):
                     # loop-native batcher: resolved ON the loop
                     future.add_done_callback(
-                        lambda f: self._finish_recommend(seq, f, t0, close_after)
+                        lambda f: self._finish_recommend(seq, f, t0, close_after, trace)
                     )
                 else:
                     # threaded batcher: its completion thread fires the
                     # callback → hop back onto the loop
                     future.add_done_callback(
                         lambda f: self.loop.call_soon_threadsafe(
-                            self._finish_recommend, seq, f, t0, close_after
+                            self._finish_recommend, seq, f, t0, close_after, trace
                         )
                     )
                 return
@@ -258,9 +268,12 @@ class _Conn(asyncio.Protocol):
         self._stage(seq, response, close_after)
         state.leave()
 
-    def _finish_recommend(self, seq: int, future, t0: float, close_after: bool) -> None:
+    def _finish_recommend(
+        self, seq: int, future, t0: float, close_after: bool, trace=None,
+    ) -> None:
         if not self.closed:
-            self._stage(seq, self.state.app.finish_recommend(future, t0), close_after)
+            self._stage(seq, self.state.app.finish_recommend(future, t0, trace=trace),
+                        close_after)
         self._after_answer()
 
     def _finish_handled(self, seq: int, task, close_after: bool) -> None:
@@ -334,7 +347,12 @@ async def run_async(app: RecommendApp, port: int, ready=None) -> int:
         # the loop-native batcher, built where the loop exists
         from .batcher import AsyncMicroBatcher
 
-        app.batcher = AsyncMicroBatcher(app.engine, **batcher_kwargs(app.cfg), metrics=app.metrics)
+        app.batcher = AsyncMicroBatcher(
+            app.engine, **batcher_kwargs(app.cfg), metrics=app.metrics, lag_monitor=app.loop_lag,
+        )
+    if app.loop_lag is not None:
+        # the drift tick: a late tick IS the time something blocked the loop
+        app.loop_lag.start_on_loop(loop)
     state = _ServerState(app)
     server = await loop.create_server(lambda: _Conn(state), "0.0.0.0", port, backlog=256)
     bound_port = server.sockets[0].getsockname()[1]
@@ -377,6 +395,8 @@ async def run_async(app: RecommendApp, port: int, ready=None) -> int:
             conn.close()
         await server.wait_closed()
     finally:
+        if app.loop_lag is not None:
+            app.loop_lag.stop()
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
                 loop.remove_signal_handler(sig)

@@ -14,6 +14,17 @@ reference's FastAPI routes rebuilt on the stdlib:
   three canned request examples (:158-174).
 - ``GET /healthz`` / ``GET /readyz`` (ready / degraded / 503, with the
   artifacts' ages); ``GET /metrics``: Prometheus text; ``GET /static/``.
+- ``GET /debug/traces`` (retained request traces), ``GET /debug/slo``
+  (burn-rate detail) and ``GET /debug/profile?seconds=N`` (a
+  ``torch.profiler`` capture into ``KMLS_PROFILE_DIR``; 409 while it is
+  unset), all loopback only.
+
+With ``KMLS_TRACE_SAMPLE`` > 0 every request carries a trace
+(``observability/trace.py``): its id comes from ``X-KMLS-Trace`` (or is
+generated) and is echoed on the response, and the cache, batcher queue,
+device and compose spans are recorded; tail-based retention decides what
+``/debug/traces`` keeps. With tracing off (the default) no request builds
+anything.
 
 ``handle()`` maps a request to ``(status, headers, body)`` independently of
 the transport; ``submit_recommend`` / ``finish_recommend`` are its
@@ -36,6 +47,8 @@ import torch
 
 from ..config import ServingConfig
 from ..io.iohealth import MONITOR
+from ..observability import LoopLagMonitor, SloTracker, SpanRecorder
+from ..utils import profiling
 from .batcher import DeadlineExceeded, NoHealthyReplicas, Overloaded, OverloadDegraded
 from .cache import RecommendCache
 from .engine import RecommendEngine
@@ -67,9 +80,9 @@ Response = tuple[int, dict[str, str], bytes]
 
 
 def is_loopback_host(client_host: str | None) -> bool:
-    """The loopback guard of ``/metrics/reset``. ``None`` is a direct
-    in-process call — inherently local. A dual-stack server reports IPv4
-    loopback in IPv6-mapped form (``::ffff:127.0.0.1``)."""
+    """The loopback guard of ``/metrics/reset`` and ``/debug/*``. ``None``
+    is a direct in-process call — inherently local. A dual-stack server
+    reports IPv4 loopback in IPv6-mapped form (``::ffff:127.0.0.1``)."""
     if client_host is None:
         return True
     host = client_host.removeprefix("::ffff:")
@@ -107,6 +120,35 @@ class RecommendApp:
         self.metrics = ServingMetrics()
         # requests whose forwarded X-KMLS-Deadline-Budget arrived spent
         self.deadline_expired_total = 0
+        # span tracing: disabled by default (KMLS_TRACE_SAMPLE=0 → the
+        # recorder is not enabled, and every call site checks that first)
+        self.recorder = SpanRecorder(
+            sample=cfg.trace_sample, capacity=cfg.trace_buffer, slow_n=cfg.trace_slow_n,
+        )
+        # the event-loop stall collector: built here (the admission ladder
+        # and /metrics read it), DRIVEN by the transports — the async one
+        # arms the loop tick, the threaded one the thread — and stopped by
+        # close(), so an in-process app spawns nothing by itself
+        self.loop_lag = (
+            LoopLagMonitor(half_life_s=cfg.loop_lag_half_life_s)
+            if cfg.loop_lag_half_life_s > 0 else None
+        )
+        # SLO burn rates, computed from the metrics only when /metrics or
+        # /debug/slo reads them
+        self.slo = SloTracker(
+            self.metrics,
+            p99_target_ms=cfg.slo_p99_ms,
+            error_budget=cfg.slo_error_budget,
+            degrade_budget=cfg.slo_degrade_budget,
+            fast_window_s=cfg.slo_fast_window_s,
+            slow_window_s=cfg.slo_slow_window_s,
+        )
+        # one /debug/profile capture at a time (one profiler per process);
+        # with KMLS_PROFILE_DIR set the profiler's slow first start is paid
+        # here, before the server answers, not inside the first capture
+        self._profile_thread: threading.Thread | None = None
+        self._profile_lock = threading.Lock()
+        profiling.prime()
         # epoch-keyed answer cache in front of the batcher: a bundle hot
         # swap invalidates it wholesale (the engine's epoch is the key
         # prefix)
@@ -121,7 +163,10 @@ class RecommendApp:
         if cfg.batch_window_ms > 0 and not defer_batcher:
             from .batcher import MicroBatcher
 
-            self.batcher = MicroBatcher(self.engine, **batcher_kwargs(cfg), metrics=self.metrics)
+            self.batcher = MicroBatcher(
+                self.engine, **batcher_kwargs(cfg), metrics=self.metrics,
+                lag_monitor=self.loop_lag,
+            )
         # the client page and static root honor APP_PATH_FROM_ROOT like the
         # reference (rest_api/app/main.py:44-48, :138): templates/static
         # there take precedence over the package's copies
@@ -143,11 +188,12 @@ class RecommendApp:
 
     def handle(
         self, method: str, path: str, body: bytes | None,
-        client_host: str | None = None, budget_header: str | None = None,
+        client_host: str | None = None, trace_header: str | None = None,
+        budget_header: str | None = None,
     ) -> Response:
-        path = path.partition("?")[0]
+        path, _, query = path.partition("?")
         if method == "POST" and path in ("/api/recommend/", "/api/recommend"):
-            return self._post_recommend(body, budget_header)
+            return self._post_recommend(body, trace_header, budget_header)
         if method == "POST" and path == "/metrics/reset":
             # windows the latency percentiles to one replay run
             if not is_loopback_host(client_host):
@@ -167,6 +213,16 @@ class RecommendApp:
                 return _json_response(200, {"status": "alive"})
             if path == "/readyz":
                 return self._get_readyz()
+            if path in ("/debug/traces", "/debug/slo", "/debug/profile"):
+                # loopback only: retained traces carry request payloads, and
+                # fleet scraping belongs to /metrics
+                if not is_loopback_host(client_host):
+                    return _json_response(403, {"detail": "localhost only"})
+                if path == "/debug/traces":
+                    return _json_response(200, self.recorder.debug_payload())
+                if path == "/debug/slo":
+                    return _json_response(200, self.slo.debug_payload())
+                return self._debug_profile(query)
             if path == "/metrics":
                 text = self.metrics.render(
                     self.engine.reload_counter, self.engine.finished_loading,
@@ -175,6 +231,8 @@ class RecommendApp:
                     robustness=self._robustness_state(),
                     artifact_ages=self._artifact_ages(),
                     io=MONITOR.snapshot(),
+                    cost=getattr(self.engine, "cost_model", None),
+                    slo=self.slo,
                 )
                 return 200, {"Content-Type": "text/plain; version=0.0.4"}, text.encode()
             if path.startswith("/static/"):
@@ -182,8 +240,10 @@ class RecommendApp:
         return _json_response(404, {"detail": "Not Found"})
 
     def close(self) -> None:
-        """Stop the threaded batcher's threads (the asyncio transport closes
-        the batcher it installed itself)."""
+        """Stop the loop-lag driver and the threaded batcher's threads (the
+        asyncio transport closes the batcher it installed itself)."""
+        if self.loop_lag is not None:
+            self.loop_lag.stop()
         close = getattr(self.batcher, "close", None)
         if callable(close):
             close()
@@ -217,12 +277,57 @@ class RecommendApp:
             # always exists
             "utilization": round(util_fn() if callable(util_fn) else 0.0, 4),
             "admission_degrade_total": getattr(self.batcher, "degrade_total", 0),
+            # the decayed stall estimate the ladder also folds in; 0.0 with
+            # the collector off, so the series always exists
+            "loop_lag_ms": (
+                round(self.loop_lag.lag_s() * 1e3, 3) if self.loop_lag is not None else 0.0
+            ),
             "deadline_expired_total": self.deadline_expired_total,
+            # began is the zero-cost proof counter: 0 while tracing is off
+            "traces_began_total": self.recorder.began,
+            "traces_retained_total": self.recorder.retained_total,
+            "trace_buffer_entries": self.recorder.retained() if self.recorder.enabled else 0,
         }
 
     def _artifact_ages(self) -> dict:
         ages_fn = getattr(self.engine, "artifact_ages", None)
         return ages_fn() if callable(ages_fn) else {}
+
+    def _debug_profile(self, query: str) -> Response:
+        """``GET /debug/profile?seconds=N``: a ``torch.profiler`` capture of
+        the live server for N seconds (clamped to [0.05, 120]) through
+        ``utils/profiling.trace_session``, on a background thread — the
+        async transport handles this route ON the loop. Refused (409) while
+        ``KMLS_PROFILE_DIR`` is unset, so production serving is never
+        profiled by accident; one capture at a time."""
+        target = profiling.profile_dir()
+        if target is None:
+            return _json_response(
+                409,
+                {"detail": "profiling disabled: set KMLS_PROFILE_DIR "
+                           "to enable /debug/profile captures"},
+            )
+        try:
+            params = dict(pair.split("=", 1) for pair in query.split("&") if "=" in pair)
+            seconds = float(params.get("seconds", "5"))
+        except ValueError:
+            seconds = float("nan")
+        if not math.isfinite(seconds):
+            # nan/inf slide through the clamp below and would kill the
+            # capture thread after the 202
+            return _json_response(422, {"detail": "seconds must be a finite number"})
+        seconds = min(max(seconds, 0.05), 120.0)
+        label = f"serve-capture-{int(time.time())}"
+        with self._profile_lock:
+            thread = self._profile_thread
+            if thread is not None and thread.is_alive():
+                return _json_response(409, {"detail": "a profile capture is already running"})
+            self._profile_thread = profiling.start_capture(label, seconds)
+        return _json_response(
+            202,
+            {"status": "capturing", "seconds": seconds, "label": label,
+             "dir": os.path.join(target, label)},
+        )
 
     _STATIC_TYPES = {
         ".css": "text/css; charset=utf-8",
@@ -274,6 +379,22 @@ class RecommendApp:
             return _json_response(400, {"detail": "Request with no songs"}), None
         return None, songs
 
+    # ---------- span tracing ----------
+
+    def _trace_begin(self, header: str | None):
+        """→ a TraceContext for this request, or None: with tracing off
+        the one ``enabled`` check is the whole per-request cost."""
+        rec = self.recorder
+        return rec.begin(header) if rec.enabled else None
+
+    def _trace_finish(self, trace, status: str, headers: dict) -> None:
+        """Close the trace (retention decides whether it is kept) and echo
+        ``X-KMLS-Trace`` so a client can join its timing to the spans."""
+        if trace is None:
+            return
+        self.recorder.finish(trace, status, time.perf_counter() - trace.t0)
+        headers["X-KMLS-Trace"] = trace.trace_id
+
     # ---------- degradation (the fault-tolerance contract) ----------
 
     def _deadline_for(self, t0: float) -> float | None:
@@ -318,7 +439,9 @@ class RecommendApp:
             return "overload"
         return None
 
-    def _degraded_response(self, t0: float, songs: list[str], reason: str) -> Response:
+    def _degraded_response(
+        self, t0: float, songs: list[str], reason: str, trace=None,
+    ) -> Response:
         """200 with the latency-budgeted popularity fallback and
         ``X-KMLS-Degraded: <reason>``: a slow device or a dead replica set
         costs answer QUALITY, never a 5xx. The fallback runs under the
@@ -334,6 +457,13 @@ class RecommendApp:
             {"songs": recs, "model_date": self.engine.cache_value, "version": self.cfg.version},
         )
         headers["X-KMLS-Degraded"] = reason
+        if trace is not None:
+            # the ladder's decision rides an attribute: "overload" is the
+            # admission controller's degrade rung
+            trace.annotate("reason", reason)
+            if reason == "overload":
+                trace.annotate("admission", "degrade")
+            self._trace_finish(trace, "degraded", headers)
         return status, headers, payload
 
     def degraded_reasons(self) -> list[str]:
@@ -354,7 +484,7 @@ class RecommendApp:
             reasons.append("storage-slow")
         return reasons
 
-    def _recommend_error_response(self, exc: Exception) -> Response:
+    def _recommend_error_response(self, exc: Exception, trace=None) -> Response:
         if isinstance(exc, Overloaded):
             # visible backpressure: tell the client when to come back
             status, headers, payload = _json_response(
@@ -365,14 +495,25 @@ class RecommendApp:
             # RFC 9110 delay-seconds is a non-negative INTEGER; ceil keeps
             # the sub-second jitter spread across whole seconds
             headers["Retry-After"] = str(math.ceil(max(exc.retry_after_s, 0.0)))
+            if trace is not None:
+                trace.annotate("admission", "shed")
+                trace.annotate("retry_after_s", round(exc.retry_after_s, 3))
+                self._trace_finish(trace, "shed", headers)
             return status, headers, payload
         logger.error("recommendation failed", exc_info=exc)
         self.metrics.record_error()
-        return _json_response(500, {"detail": "Internal Server Error"})
+        status, headers, payload = _json_response(500, {"detail": "Internal Server Error"})
+        if trace is not None:
+            trace.annotate("error", type(exc).__name__)
+            self._trace_finish(trace, "error", headers)
+        return status, headers, payload
 
     def _recommend_result_response(
-        self, t0: float, recs: list[str], source: str, cached: bool = False,
+        self, t0: float, recs: list[str], source: str, cached: bool = False, trace=None,
     ) -> Response:
+        # compose span: the answer is available (the caller comes straight
+        # from the resolved future) → the response bytes are built
+        t_compose = time.perf_counter() if trace is not None else 0.0
         self.metrics.record(source, time.perf_counter() - t0)
         status, headers, payload = _json_response(
             200,
@@ -382,10 +523,18 @@ class RecommendApp:
             # lets load harnesses split cached vs computed latency
             headers["X-KMLS-Cache"] = "hit"
         # a "degraded:<reason>" source is an answered-but-partial result
-        if source.startswith("degraded:"):
+        degraded = source.startswith("degraded:")
+        if degraded:
             reason = source.partition(":")[2] or source
             headers["X-KMLS-Degraded"] = reason
             self.metrics.record_degraded(reason)
+        if trace is not None:
+            trace.span("compose", t_compose, time.perf_counter(), {"source": source})
+            if cached:
+                trace.annotate("cached", True)
+            if degraded:
+                trace.annotate("reason", source.partition(":")[2] or source)
+            self._trace_finish(trace, "ok", headers)
         return status, headers, payload
 
     # ---------- the cache front half, shared by both transports ----------
@@ -395,7 +544,9 @@ class RecommendApp:
             return self.cache.make_key(self.engine.bundle_epoch, songs, self.cfg.max_seed_tracks)
         return RecommendCache.key(self.engine.bundle_epoch, songs, self.cfg.max_seed_tracks)
 
-    def _cache_lookup_or_lead(self, songs: list[str], deadline: float | None = None):
+    def _cache_lookup_or_lead(
+        self, songs: list[str], deadline: float | None = None, trace=None,
+    ):
         """→ ``("hit", (songs, source))`` | ``("flight", future)`` |
         ``("off", None)``. A miss joins the in-flight singleflight future
         for this key or leads a new batcher submission (the leader's
@@ -404,12 +555,20 @@ class RecommendApp:
         if self.cache is None or self.batcher is None:
             return "off", None
         key = self._cache_key(songs)
-        hit = self.cache.get(key)
+        if trace is not None:
+            t_cache = time.perf_counter()
+            hit = self.cache.get(key)
+            trace.span("cache", t_cache, time.perf_counter(), {"hit": hit is not None})
+        else:
+            hit = self.cache.get(key)
         if hit is not None:
             return "hit", hit
         future, joined = self.cache.join_or_lead(
-            key, lambda: self.batcher.submit(songs, deadline=deadline)
+            key, lambda: self.batcher.submit(songs, deadline=deadline, trace=trace)
         )
+        if joined and trace is not None:
+            # a joiner shares the leader's batch slot: no queue/device spans
+            trace.annotate("singleflight", "joined")
         if not joined:
             cache = self.cache
             future.add_done_callback(lambda f: cache.finish(key, f))
@@ -420,14 +579,14 @@ class RecommendApp:
         return "flight", future
 
     def recommend_direct(
-        self, songs: list[str], deadline: float | None = None,
+        self, songs: list[str], trace=None, deadline: float | None = None,
     ) -> tuple[list[str], str, bool]:
         """Blocking cached recommend → ``(songs, source, cache_hit)``; raises
         (Overloaded, DeadlineExceeded, NoHealthyReplicas included) like the
         underlying batcher/engine. ``deadline`` None computes the local one."""
         if deadline is None:
             deadline = self._deadline_for(time.perf_counter())
-        state, payload = self._cache_lookup_or_lead(songs, deadline)
+        state, payload = self._cache_lookup_or_lead(songs, deadline, trace)
         if state == "hit":
             return payload[0], payload[1], True
         if state == "flight":
@@ -444,65 +603,83 @@ class RecommendApp:
                 raise
             return recs, source, False
         if self.batcher is not None:
-            recs, source = self.batcher.recommend(songs, deadline=deadline)
+            recs, source = self.batcher.recommend(songs, deadline=deadline, trace=trace)
         else:
             recs, source = self.engine.recommend(songs)
         if self.cache is not None:
             self.cache.put(self._cache_key(songs), (recs, source))
         return recs, source, False
 
-    def _post_recommend(self, body: bytes | None, budget_header: str | None = None) -> Response:
+    def _post_recommend(
+        self, body: bytes | None, trace_header: str | None = None,
+        budget_header: str | None = None,
+    ) -> Response:
         t0 = time.perf_counter()
         err, songs = self._validate_recommend(body)
         if err is not None:
             return err
-        deadline, _budget_ms, expired = self._effective_deadline(t0, budget_header)
+        # the trace begins after validation: a malformed body builds none
+        trace = self._trace_begin(trace_header)
+        deadline, budget_ms, expired = self._effective_deadline(t0, budget_header)
+        if budget_ms is not None and trace is not None:
+            trace.annotate("deadline_budget_ms", round(budget_ms, 3))
         if expired:
             # the budget arrived spent: answer the fallback, compute nothing
             self.deadline_expired_total += 1
-            return self._degraded_response(t0, songs, "deadline-expired")
+            return self._degraded_response(t0, songs, "deadline-expired", trace=trace)
         try:
-            recs, source, cached = self.recommend_direct(songs, deadline=deadline)
+            recs, source, cached = self.recommend_direct(songs, trace=trace, deadline=deadline)
         except Exception as exc:
             reason = self._degrade_reason(exc)
             if reason is not None:
-                return self._degraded_response(t0, songs, reason)
-            return self._recommend_error_response(exc)
-        return self._recommend_result_response(t0, recs, source, cached=cached)
+                return self._degraded_response(t0, songs, reason, trace=trace)
+            return self._recommend_error_response(exc, trace=trace)
+        return self._recommend_result_response(t0, recs, source, cached=cached, trace=trace)
 
     # ---------- async-transport entry points ----------
 
-    def submit_recommend(self, body: bytes | None, budget_header: str | None = None):
+    def submit_recommend(
+        self, body: bytes | None, trace_header: str | None = None,
+        budget_header: str | None = None,
+    ):
         """Non-blocking twin of :meth:`_post_recommend` for the asyncio
-        transport: → ``(response, None, t0)`` when the answer is immediate
-        (validation error, cache hit, shed, degraded, or the unbatched
-        path), else ``(None, future, t0)`` — resolve the future and build
-        the reply with :meth:`finish_recommend`."""
+        transport: → ``(response, None, t0, None)`` when the answer is
+        immediate (validation error, cache hit, shed, degraded, or the
+        unbatched path), else ``(None, future, t0, trace)`` — resolve the
+        future and build the reply with :meth:`finish_recommend`. The
+        trace rides the tuple, not the future: identical seed sets share
+        one future, and each connection's trace is its own."""
         t0 = time.perf_counter()
         err, songs = self._validate_recommend(body)
         if err is not None:
-            return err, None, t0
-        deadline, _budget_ms, expired = self._effective_deadline(t0, budget_header)
+            return err, None, t0, None
+        if self.batcher is None:
+            return self._post_recommend(body, trace_header, budget_header), None, t0, None
+        trace = self._trace_begin(trace_header)
+        deadline, budget_ms, expired = self._effective_deadline(t0, budget_header)
+        if budget_ms is not None and trace is not None:
+            trace.annotate("deadline_budget_ms", round(budget_ms, 3))
         if expired:
             self.deadline_expired_total += 1
-            return self._degraded_response(t0, songs, "deadline-expired"), None, t0
-        if self.batcher is None:
-            return self._post_recommend(body, budget_header), None, t0
+            return self._degraded_response(t0, songs, "deadline-expired", trace=trace), None, t0, None
         try:
-            state, payload = self._cache_lookup_or_lead(songs, deadline)
+            state, payload = self._cache_lookup_or_lead(songs, deadline, trace)
             if state == "off":
-                payload = self.batcher.submit(songs, deadline=deadline)
+                payload = self.batcher.submit(songs, deadline=deadline, trace=trace)
                 payload._kmls_seeds = songs
         except Exception as exc:  # Overloaded / OverloadDegraded / NoHealthyReplicas
             reason = self._degrade_reason(exc)
             if reason is not None:
-                return self._degraded_response(t0, songs, reason), None, t0
-            return self._recommend_error_response(exc), None, t0
+                return self._degraded_response(t0, songs, reason, trace=trace), None, t0, None
+            return self._recommend_error_response(exc, trace=trace), None, t0, None
         if state == "hit":
-            return self._recommend_result_response(t0, payload[0], payload[1], cached=True), None, t0
-        return None, payload, t0
+            response = self._recommend_result_response(
+                t0, payload[0], payload[1], cached=True, trace=trace,
+            )
+            return response, None, t0, None
+        return None, payload, t0, trace
 
-    def finish_recommend(self, future, t0: float) -> Response:
+    def finish_recommend(self, future, t0: float, trace=None) -> Response:
         """Build the response for a DONE :meth:`submit_recommend` future; a
         future resolved to a degradable exception answers the fallback for
         the seeds that rode in on it."""
@@ -512,9 +689,9 @@ class RecommendApp:
             reason = self._degrade_reason(exc)
             if reason is not None:
                 songs = getattr(future, "_kmls_seeds", None) or []
-                return self._degraded_response(t0, songs, reason)
-            return self._recommend_error_response(exc)
-        return self._recommend_result_response(t0, recs, source)
+                return self._degraded_response(t0, songs, reason, trace=trace)
+            return self._recommend_error_response(exc, trace=trace)
+        return self._recommend_result_response(t0, recs, source, trace=trace)
 
     # ---------- pages ----------
 
@@ -624,6 +801,9 @@ document.getElementById('send').addEventListener('click', async function () {{
 <li><code>GET /test</code> — redirect here</li>
 <li><code>GET /healthz</code>, <code>GET /readyz</code> — probes</li>
 <li><code>GET /metrics</code> — Prometheus text metrics</li>
+<li><code>GET /debug/traces</code>, <code>GET /debug/slo</code>,
+<code>GET /debug/profile?seconds=N</code> — loopback-only debug views
+(retained traces, SLO burn rates, on-demand profiler capture)</li>
 </ul></body></html>"""
         return _html_response(200, html)
 
@@ -722,6 +902,7 @@ def make_handler(app: RecommendApp):
                     status, headers, payload = app.handle(
                         method, self.path, body,
                         client_host=self.client_address[0],
+                        trace_header=self.headers.get("X-KMLS-Trace"),
                         budget_header=self.headers.get("X-KMLS-Deadline-Budget"),
                     )
                 except Exception:

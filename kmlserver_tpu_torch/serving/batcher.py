@@ -31,7 +31,12 @@ Three tail-latency disciplines:
   sheds.
 
 Per-request enqueue/dispatch/complete timestamps are reported to
-:class:`~.metrics.ServingMetrics` as ``queue_wait`` / ``device`` / ``e2e``.
+:class:`~.metrics.ServingMetrics` as ``queue_wait`` / ``device`` / ``e2e``,
+and a traced request (``submit(..., trace=...)``) gets the same two
+intervals as its ``queue`` and ``device`` spans, recorded before its
+future resolves. With a ``lag_monitor`` (observability/runtime.py) the
+decayed event-loop stall joins the admission pressure: a wedged loop
+escalates the ladder as a saturated queue would.
 A failure is propagated to every waiting request — the batcher threads
 themselves never die.
 
@@ -123,9 +128,12 @@ class AdmissionController:
     - ``p >= hard_ratio``           → shed
 
     ``soft_ratio >= 1`` disables the degrade band and ``hard_ratio <= 1``
-    makes the shed band a cliff at the budget. All state is plain floats,
-    single writer per field, no locks — the loop-confined async twin
-    shares the class unchanged."""
+    makes the shed band a cliff at the budget. ``lag_source``, a zero-arg
+    callable returning the current event-loop stall estimate in seconds
+    (``LoopLagMonitor.lag_s``), is an effective-wait floor: requests are
+    already waiting that long in the socket backlog, where the projection
+    cannot see them. All state is plain floats, single writer per field, no
+    locks — the loop-confined async twin shares the class unchanged."""
 
     def __init__(
         self,
@@ -136,6 +144,7 @@ class AdmissionController:
         retry_after_s: float = 1.0,
         retry_jitter: float = 0.5,
         rng: random.Random | None = None,
+        lag_source=None,
     ):
         self.budget_s = budget_s
         self.soft_ratio = max(0.0, soft_ratio)
@@ -148,6 +157,7 @@ class AdmissionController:
         # decay half-life: one budget width (floored so a sub-ms budget
         # doesn't make the memory vanish between completions)
         self._half_life_s = max(budget_s, 0.25)
+        self._lag_source = lag_source
 
     def note_queue_wait(self, wait_s: float, now: float | None = None) -> None:
         """Completion-side: fold an admitted request's MEASURED queue wait
@@ -168,11 +178,16 @@ class AdmissionController:
         return self._wait_ewma * math.exp(-age * math.log(2) / self._half_life_s)
 
     def pressure(self, projected_s: float, now: float | None = None) -> float:
-        """Effective queue wait over the budget (0 with shedding off)."""
+        """Effective queue wait over the budget (0 with shedding off): the
+        max of the projection, the measured-wait EWMA and, when wired, the
+        loop stall estimate."""
         if self.budget_s <= 0.0:
             return 0.0
         now = time.perf_counter() if now is None else now
-        return max(projected_s, self._decayed_wait(now)) / self.budget_s
+        wait = max(projected_s, self._decayed_wait(now))
+        if self._lag_source is not None:
+            wait = max(wait, self._lag_source())
+        return wait / self.budget_s
 
     def decide(self, projected_s: float) -> tuple[str, float]:
         """→ ``(decision, pressure)`` with decision ``"admit"`` |
@@ -218,6 +233,9 @@ class _Pending:
     # request has been re-dispatched after a replica failure
     deadline: float | None = None
     retries: int = 0
+    # the request's TraceContext (observability/trace.py), or None: an
+    # untraced request (tracing off, the default) never builds one
+    trace: object | None = None
 
 
 class _ReplicaPolicy:
@@ -231,6 +249,7 @@ class _ReplicaPolicy:
         self, engine, *, max_size, window_ms, max_inflight, adaptive, window_min_ms,
         shed_queue_budget_ms, shed_retry_after_s, shed_soft_ratio, shed_hard_ratio,
         shed_retry_jitter, eject_threshold, probe_interval_s, redispatch_max, metrics,
+        lag_monitor,
     ) -> None:
         self.engine = engine
         self.max_size = max_size
@@ -239,10 +258,14 @@ class _ReplicaPolicy:
         self.window_min_s = min(window_min_ms / 1e3, self.window_s)
         self.shed_budget_s = shed_queue_budget_ms / 1e3
         self.shed_retry_after_s = shed_retry_after_s
+        # the event-loop stall estimate (observability/runtime.py), folded
+        # into admission pressure
+        self.lag_monitor = lag_monitor
         self._admission = AdmissionController(
             self.shed_budget_s,
             soft_ratio=shed_soft_ratio, hard_ratio=shed_hard_ratio,
             retry_after_s=shed_retry_after_s, retry_jitter=shed_retry_jitter,
+            lag_source=lag_monitor.lag_s if lag_monitor is not None else None,
         )
         self.metrics = metrics
         self.shed_total = 0
@@ -467,10 +490,16 @@ class _ReplicaPolicy:
         if lane:
             lane.pop()
 
-    def _record_done(self, batch: list[_Pending], results, t_dispatch: float,
+    def _record_done(self, batch: list[_Pending], results, idx: int, t_dispatch: float,
                      t_complete: float) -> None:
-        """Resolve a finished batch's futures and record its attribution."""
+        """Record a finished batch's spans, resolve its futures and record
+        its attribution. Spans come first: the thread that finishes a
+        trace must see a complete span list when the result lands."""
         self._admission.note_queue_wait(t_dispatch - batch[0].t_enqueue, now=t_complete)
+        for pending in batch:
+            if pending.trace is not None:
+                pending.trace.span("queue", pending.t_enqueue, t_dispatch, {"batch": len(batch)})
+                pending.trace.span("device", t_dispatch, t_complete, {"replica": idx})
         for pending, result in zip(batch, results):
             if not pending.future.done():  # a deadline may have expired it
                 pending.future.set_result(result)
@@ -525,6 +554,7 @@ class MicroBatcher(_ReplicaPolicy):
         probe_interval_s: float = 5.0,
         redispatch_max: int = 2,
         metrics=None,
+        lag_monitor=None,
     ):
         self._init_policy(
             engine, max_size=max_size, window_ms=window_ms, max_inflight=max_inflight,
@@ -533,6 +563,7 @@ class MicroBatcher(_ReplicaPolicy):
             shed_soft_ratio=shed_soft_ratio, shed_hard_ratio=shed_hard_ratio,
             shed_retry_jitter=shed_retry_jitter, eject_threshold=eject_threshold,
             probe_interval_s=probe_interval_s, redispatch_max=redispatch_max, metrics=metrics,
+            lag_monitor=lag_monitor,
         )
         # priority queue of (priority, seq, pending): re-dispatched requests
         # ride at 0, ahead of fresh arrivals at 1; seq keeps FIFO order.
@@ -600,10 +631,11 @@ class MicroBatcher(_ReplicaPolicy):
 
     # ---------- admission ----------
 
-    def submit(self, seeds: list[str], deadline: float | None = None) -> Future:
+    def submit(self, seeds: list[str], deadline: float | None = None, trace=None) -> Future:
         """Non-blocking admission: shed-or-enqueue → the request's Future
         (the async transport resolves it via a done-callback; the threaded
-        transport blocks on it in :meth:`recommend`)."""
+        transport blocks on it in :meth:`recommend`). ``trace`` rides the
+        request so completion records its queue/device spans."""
         now = time.perf_counter()
         with self._rate_lock:
             self._arrivals.append(now)
@@ -620,14 +652,16 @@ class MicroBatcher(_ReplicaPolicy):
             projected = self.projected_queue_wait_s()
             with self._rate_lock:  # the counters += from request threads
                 self._admit(projected)
-        pending = _Pending(seeds=seeds, future=Future(), t_enqueue=now, deadline=deadline)
+        pending = _Pending(seeds=seeds, future=Future(), t_enqueue=now, deadline=deadline,
+                           trace=trace)
         self._queue.put((1, next(self._seq), pending))
         return pending.future
 
     def recommend(
         self, seeds: list[str], timeout: float = 30.0, deadline: float | None = None,
+        trace=None,
     ) -> tuple[list[str], str]:
-        future = self.submit(seeds, deadline=deadline)
+        future = self.submit(seeds, deadline=deadline, trace=trace)
         if deadline is not None:
             timeout = max(deadline - time.perf_counter(), 0.0)
         try:
@@ -734,7 +768,7 @@ class MicroBatcher(_ReplicaPolicy):
             if err is not None:
                 self._on_replica_failure(idx, batch, err)
                 continue
-            self._record_done(batch, results, t_dispatch, t_complete)
+            self._record_done(batch, results, idx, t_dispatch, t_complete)
 
     # ---------- replica health ----------
 
@@ -790,6 +824,7 @@ class AsyncMicroBatcher(_ReplicaPolicy):
         probe_interval_s: float = 5.0,
         redispatch_max: int = 2,
         metrics=None,
+        lag_monitor=None,
     ):
         self._init_policy(
             engine, max_size=max_size, window_ms=window_ms, max_inflight=max_inflight,
@@ -798,6 +833,7 @@ class AsyncMicroBatcher(_ReplicaPolicy):
             shed_soft_ratio=shed_soft_ratio, shed_hard_ratio=shed_hard_ratio,
             shed_retry_jitter=shed_retry_jitter, eject_threshold=eject_threshold,
             probe_interval_s=probe_interval_s, redispatch_max=redispatch_max, metrics=metrics,
+            lag_monitor=lag_monitor,
         )
         self._pending: list[_Pending] = []
         self._flush_handle: asyncio.TimerHandle | None = None
@@ -819,7 +855,9 @@ class AsyncMicroBatcher(_ReplicaPolicy):
 
     # ---------- admission (loop thread only) ----------
 
-    def submit(self, seeds: list[str], deadline: float | None = None) -> asyncio.Future:
+    def submit(
+        self, seeds: list[str], deadline: float | None = None, trace=None,
+    ) -> asyncio.Future:
         loop = asyncio.get_running_loop()
         now = time.perf_counter()
         self._arrivals.append(now)
@@ -833,7 +871,8 @@ class AsyncMicroBatcher(_ReplicaPolicy):
         if self.shed_budget_s > 0:
             self._admit(self.projected_queue_wait_s())
         future = loop.create_future()
-        pending = _Pending(seeds=seeds, future=future, t_enqueue=now, deadline=deadline)
+        pending = _Pending(seeds=seeds, future=future, t_enqueue=now, deadline=deadline,
+                           trace=trace)
         self._pending.append(pending)
         if deadline is not None:
             # in-flight overruns included: the timer fires wherever the
@@ -917,7 +956,7 @@ class AsyncMicroBatcher(_ReplicaPolicy):
         if err is not None:
             self._on_replica_failure(idx, batch, err, loop)
         else:
-            self._record_done(batch, results, t_dispatch, t_complete)
+            self._record_done(batch, results, idx, t_dispatch, t_complete)
         if self._pending and self._flush_handle is None:
             # a freed pipeline slot dispatches the waiting batch now
             self._flush(loop)

@@ -26,6 +26,12 @@ vocabulary are dropped on the host before any upload, as the reference's
 XLA scatter drops them, so a crafted or stale npz cannot raise a
 device-side assert that would poison the CUDA context.
 
+Cost attribution (``observability/costmodel.py``, on unless
+``KMLS_COSTMODEL=0``): each finished batch reports its dispatch → CUDA
+event seconds and its bucket's shape as a ``serve_rules`` observation,
+each publication the rule tensors' bytes and the allocator's watermark,
+and the unwarmed dispatches are watched as ``kmls_compiles_total``.
+
 The native host kernel, the vocab-sharded layout, the serve mesh,
 embeddings and deltas are not part of this package.
 """
@@ -50,6 +56,7 @@ from ..config import ServingConfig
 from ..io import artifacts, registry
 from ..io.artifacts import ArtifactIntegrityError
 from ..io.iohealth import MONITOR
+from ..observability import costmodel as costmodel_mod
 from ..ops.serve import recommend_batch
 from ..ops.support import min_count_for
 from ..utils.device import resolve_device
@@ -168,6 +175,14 @@ class RecommendEngine:
         # dispatches whose (batch, length) shape was never warmed; stays 0
         # unless a caller passes more rows than batch_max_size
         self.unwarmed_dispatches = 0
+        # per-kernel cost attribution; None with KMLS_COSTMODEL=0, making
+        # every call site one attribute check
+        self.cost_model = (
+            costmodel_mod.CostModel(device=self.device) if cfg.costmodel_enabled else None
+        )
+        # the first-shape probe the cost model watches: one stable callable,
+        # since the watcher re-baselines on a new one
+        self._unwarmed_probe = lambda: self.unwarmed_dispatches
         # per-artifact publication stamps (wall clock), for /readyz and
         # kmls_artifact_age_seconds; empty before the first load
         self._artifact_written_at: dict[str, float] = {}
@@ -225,6 +240,10 @@ class RecommendEngine:
         with self._reload_lock:
             if self.finished_loading and not self.is_data_stale():
                 return True
+            if self.cost_model is not None:
+                # a publication starts: bank the unwarmed dispatches served
+                # so far, so its warm-up is never billed as serving-path
+                self.cost_model.note_prepublish()
             cfg = self.cfg
             best_path = os.path.join(cfg.pickles_dir, cfg.best_tracks_file)
             rec_path = os.path.join(cfg.pickles_dir, cfg.recommendations_file)
@@ -275,6 +294,8 @@ class RecommendEngine:
                 "rules": rules_at,
                 "popularity": self._file_written_at(best_path, rules_at),
             }
+            if self.cost_model is not None:
+                self._note_publish_cost(replicas)
             self.finished_loading = True
             self.reload_counter += 1
             self.consecutive_reload_failures = 0
@@ -288,6 +309,21 @@ class RecommendEngine:
                 ", ".join(str(b.device) for b in replicas), replicas[0].model_token,
             )
             return True
+
+    def _note_publish_cost(self, replicas: list[RuleBundle]) -> None:
+        """Publish-time cost-model bookkeeping (caller holds
+        ``_reload_lock``): the rule tensors' bytes against the budget, the
+        allocator's bytes-in-use watermark, and the first-shape snapshot,
+        taken after warm-up so later growth is a serving-path dispatch."""
+        cm = self.cost_model
+        bundle = replicas[0]
+        cm.note_publish(
+            {"rule_ids": int(bundle.rule_ids.nbytes), "rule_confs": int(bundle.rule_confs.nbytes)},
+            self.cfg.device_budget_bytes,
+            watermark_bytes=costmodel_mod.device_watermark_bytes(bundle.device),
+        )
+        cm.watch_compiles("serve_rules", self._unwarmed_probe)
+        cm.mark_published()
 
     def _verify_before_load(self, best_path: str, rec_path: str, npz_path: str) -> bool:
         """Check the artifact set against the mining job's manifest before
@@ -633,6 +669,8 @@ class RecommendEngine:
         length = self._bucket_len(max((len(s) for s in seed_sets), default=1))
         n_rows = self._bucket_batch(max(len(seed_sets), 1))
         seeds, known_rows = self._stage_seeds(bundle, seed_sets, n_rows, length)
+        cm = self.cost_model
+        t_kernel = time.perf_counter()
         wait = self._launch(bundle, seeds) if known_rows.any() else None
         self._note_dispatch(idx)
 
@@ -641,6 +679,15 @@ class RecommendEngine:
             # failure or stall surfaces
             faults.fire("replica.kernel", replica=idx)
             host_ids = wait() if wait is not None else None
+            if cm is not None and wait is not None:
+                # dispatch → the batch's CUDA event (the wait above is its
+                # fence): the same span kmls_device_ms reports, an upper
+                # bound on device time, so the MFU is a lower bound
+                cm.observe_kernel(
+                    "serve_rules", time.perf_counter() - t_kernel,
+                    b=n_rows, l=length, k_max=bundle.rule_ids.shape[1],
+                    v=len(bundle.vocab), k_best=self.cfg.k_best_tracks,
+                )
             return [
                 self._compose_answer(
                     bundle, s, bool(known_rows[r]),

@@ -6,8 +6,11 @@ micro-batcher threads through (``kmls_queue_wait_ms`` / ``kmls_device_ms``
 instead of only that one exists.
 
 Series names, types and label sets are the reference's; this module
-renders the subset the port's serving front end produces (no cost model,
-SLO, serve-mesh, shard or storage-health sections).
+renders the subset the port's serving front end produces (no serve-mesh,
+shard, delta or forecast sections). The cost-model and SLO blocks come
+from ``observability/costmodel.py`` and ``observability/slo.py``; the
+mining job's ``job_metrics.prom`` (``observability/jobmetrics.py``) looks
+its series up in the same registry.
 """
 
 from __future__ import annotations
@@ -70,10 +73,58 @@ METRIC_REGISTRY: dict[str, str] = {
     "kmls_storage_slow": "gauge:serving",
     # --- artifact freshness ---
     "kmls_artifact_age_seconds": "gauge:serving",
+    # --- observability: the decayed event-loop stall estimate the
+    # admission ladder also folds in, and span-tracing bookkeeping
+    # (began is the zero-cost proof counter) ---
+    "kmls_loop_lag_ms": "gauge:serving",
+    "kmls_traces_began_total": "counter:serving",
+    "kmls_traces_retained_total": "counter:serving",
+    "kmls_trace_buffer_entries": "gauge:serving",
+    # --- cost attribution (observability/costmodel.py): per-kernel
+    # device time + analytic FLOPs/bytes → achieved rates, MFU against
+    # the peak table and the roofline class (1 = compute-bound) ---
+    "kmls_kernel_device_seconds": "counter:serving",
+    "kmls_kernel_dispatches_total": "counter:serving",
+    "kmls_kernel_flops_per_second": "gauge:serving",
+    "kmls_kernel_bytes_per_second": "gauge:serving",
+    "kmls_mfu": "gauge:serving",
+    "kmls_kernel_compute_bound": "gauge:serving",
+    # first-shape dispatches after publication (unwarmed buckets)
+    "kmls_compiles_total": "counter:serving",
+    "kmls_costmodel_observations_total": "counter:serving",
+    "kmls_costmodel_unspecced_total": "counter:serving",
+    # memory: live allocator gauges per card, and the per-artifact tensor
+    # residency against the budget
+    "kmls_device_bytes_in_use": "gauge:serving",
+    "kmls_device_bytes_limit": "gauge:serving",
+    "kmls_model_tensor_bytes": "gauge:serving",
+    "kmls_device_budget_bytes": "gauge:serving",
+    "kmls_device_headroom_bytes": "gauge:serving",
+    "kmls_publish_watermark_bytes": "gauge:serving",
+    # --- SLO burn rates (observability/slo.py; slo ∈ latency_p99/
+    # availability/quality, window ∈ fast/slow) ---
+    "kmls_slo_burn_rate": "gauge:serving",
     # --- lifecycle ---
     "kmls_reloads_total": "counter:serving",
     "kmls_finished_loading": "gauge:serving",
     "kmls_uptime_seconds": "gauge:serving",
+    # --- mining: the job_metrics.prom textfile (gauges: a batch job's
+    # file restarts from scratch every run) ---
+    "kmls_job_phase_duration_seconds": "gauge:mining",
+    "kmls_job_phase_resumed": "gauge:mining",
+    "kmls_job_rows": "gauge:mining",
+    "kmls_job_playlists": "gauge:mining",
+    "kmls_job_tracks": "gauge:mining",
+    "kmls_job_artifact_bytes": "gauge:mining",
+    "kmls_job_rule_generation_seconds": "gauge:mining",
+    "kmls_job_fencing_token": "gauge:mining",
+    "kmls_job_duration_seconds": "gauge:mining",
+    "kmls_job_success": "gauge:mining",
+    "kmls_job_last_success_timestamp_seconds": "gauge:mining",
+    "kmls_job_phase_flops": "gauge:mining",
+    "kmls_job_phase_bytes_moved": "gauge:mining",
+    # which pair-count family the dispatch chose, {path, source}; always 1
+    "kmls_job_count_path": "gauge:mining",
 }
 
 # The autoscaling signal: max of pipeline occupancy and admission queue
@@ -274,15 +325,16 @@ class ServingMetrics:
     def render(
         self, reload_counter: int, finished_loading: bool,
         cache=None, dispatch_counts=None, robustness=None, artifact_ages=None,
-        io=None,
+        io=None, cost=None, slo=None,
     ) -> str:
         """Prometheus text. ``cache`` (a serving.cache.RecommendCache),
         ``dispatch_counts`` (the engine's per-replica dispatch counters),
         ``robustness`` (a flat dict of engine/batcher state — names ending
         in ``_total`` render as counters, the rest as gauges, all under a
         ``kmls_`` prefix), ``artifact_ages`` (artifact → seconds since
-        publication) and ``io`` (the IO-health monitor's snapshot) are
-        optional."""
+        publication), ``io`` (the IO-health monitor's snapshot), ``cost``
+        (an observability.costmodel.CostModel) and ``slo`` (an
+        observability.slo.SloTracker) are optional."""
         p50, p95, p99 = self.latency.percentiles(0.50, 0.95, 0.99)
         uptime = time.time() - self.started_at
         lines = [
@@ -363,6 +415,10 @@ class ServingMetrics:
             "# TYPE kmls_uptime_seconds gauge",
             f"kmls_uptime_seconds {uptime:.1f}",
         ]
+        if cost is not None:
+            lines += cost.render_lines()
+        if slo is not None:
+            lines += slo.render_lines()
         if artifact_ages:
             lines.append("# TYPE kmls_artifact_age_seconds gauge")
             lines += [

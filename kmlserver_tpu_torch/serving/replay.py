@@ -5,7 +5,7 @@ understate tail latency because a slow server throttles its own load —
 reporting achieved QPS and latency percentiles.
 
     python -m kmlserver_tpu_torch.serving.replay --url http://127.0.0.1:8000 \\
-        --qps 1000 --requests 8000 [--zipf-s 1.1]
+        --qps 1000 --requests 8000 [--zipf-s 1.1] [--trace-log client.jsonl]
 
 Seed sets are sampled from the served vocabulary (read from the artifacts
 under ``BASE_DIR``, when it points at the server's PVC): mostly known
@@ -13,7 +13,9 @@ tracks and a slice of unknown ones, so both the rules path and the static
 fallback run. ``--zipf-s`` repeats a payload pool with Zipf-skewed
 frequencies — the head-heavy mix real playlist-seed traffic has, which
 the answer cache feeds on. The draws are the reference's for the same
-arguments.
+arguments. ``--trace-log`` writes a :class:`ClientTraceLog` — the echoed
+``X-KMLS-Trace`` ids with the client's send and receive clocks — for
+``python -m kmlserver_tpu_torch.observability.tracejoin``.
 """
 
 from __future__ import annotations
@@ -65,6 +67,51 @@ class ReplayReport:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))
+
+
+class ClientTraceLog:
+    """The client half of the trace join: one record per request whose
+    response echoed an ``X-KMLS-Trace`` id, with the send/receive wall
+    clocks the server's retained spans (``GET /debug/traces``) cannot
+    know. Bounded and thread-safe; ``observability/tracejoin.py`` merges
+    the two halves into one per-request timeline."""
+
+    def __init__(self, capacity: int = 100_000):
+        self.capacity = max(1, capacity)
+        self._entries: list[dict] = []
+        self._lock = threading.Lock()
+        self.dropped = 0
+
+    def record(
+        self, trace_id: str, send_unix: float, recv_unix: float, status: int = 200,
+    ) -> None:
+        if not trace_id:
+            return
+        entry = {
+            "trace_id": trace_id,
+            "client_send_unix": round(send_unix, 6),
+            "client_recv_unix": round(recv_unix, 6),
+            "client_rtt_ms": round((recv_unix - send_unix) * 1e3, 4),
+            "status": int(status),
+        }
+        with self._lock:
+            if len(self._entries) >= self.capacity:
+                self.dropped += 1
+                return
+            self._entries.append(entry)
+
+    def entries(self) -> list[dict]:
+        with self._lock:
+            return list(self._entries)
+
+    def write_jsonl(self, path: str) -> int:
+        """Dump the log → records written (a client-side scratch file,
+        not a volume artifact)."""
+        entries = self.entries()
+        with open(path, "w", encoding="utf-8") as fh:
+            for e in entries:
+                fh.write(json.dumps(e) + "\n")
+        return len(entries)
 
 
 def _percentile(sorted_ms: list[float], q: float) -> float:
@@ -254,6 +301,7 @@ def replay_async_http(
     pipeline: int = 16,
     max_queue: int = 4096,
     responses: list | None = None,
+    trace_log: ClientTraceLog | None = None,
 ) -> ReplayReport:
     """Open-loop HTTP replay on ONE event loop with request pipelining:
     arrivals are Poisson-paced into a queue, each of ``n_conns``
@@ -263,7 +311,8 @@ def replay_async_http(
     overloaded server (or client) shows as latency/drops, never as reduced
     offered load. Every non-200 answer counts as an error. ``responses``,
     when given, receives ``(request index, status, lowercased head, body)``
-    per answer."""
+    per answer; ``trace_log`` records each echoed ``X-KMLS-Trace`` id with
+    the request's scheduled arrival and completion as wall clocks."""
     u = urllib.parse.urlsplit(url)
     host, port = u.hostname or "127.0.0.1", u.port or 80
     # pre-encode every request: the loadgen's job is pacing, not cooking
@@ -281,6 +330,9 @@ def replay_async_http(
     lat_uncached: list[float] = []
     by_source: dict[str, int] = {}
     errors = 0
+    # perf_counter → unix offset, taken once: trace-log records carry wall
+    # clocks so tracejoin can line them up with the spans' start_unix
+    wall_off = time.time() - time.perf_counter()
 
     async def _run() -> None:
         nonlocal errors
@@ -320,6 +372,14 @@ def replay_async_http(
                         t_done = time.perf_counter()
                         if responses is not None:
                             responses.append((i, status, head_lower, body))
+                        if trace_log is not None:
+                            for line in head_lower.split(b"\r\n"):
+                                if line.startswith(b"x-kmls-trace:"):
+                                    trace_log.record(
+                                        line.split(b":", 1)[1].strip().decode("ascii", "replace"),
+                                        wall_off + t_arr, wall_off + t_done, status,
+                                    )
+                                    break
                         if status != 200:
                             errors += 1
                             continue
@@ -396,13 +456,24 @@ def main() -> int:
              "payloads (0 = off, all distinct; 1.1 models real playlist-seed "
              "traffic and feeds the answer cache)",
     )
+    parser.add_argument(
+        "--trace-log", default=None, metavar="PATH",
+        help="write echoed X-KMLS-Trace ids + client send/recv wall clocks as "
+             "JSONL (requires the server's KMLS_TRACE_SAMPLE > 0); join with the "
+             "server's /debug/traces via python -m "
+             "kmlserver_tpu_torch.observability.tracejoin",
+    )
     args = parser.parse_args()
     vocab = _local_vocab()
     if not vocab:
         print("NOTE: no local artifacts found (BASE_DIR); all seeds are "
               "unknown — this measures the static-fallback path only")
     payloads = sample_seed_sets(vocab, args.requests, zipf_s=args.zipf_s)
-    report = replay_async_http(args.url, payloads, qps=args.qps)
+    trace_log = ClientTraceLog() if args.trace_log else None
+    report = replay_async_http(args.url, payloads, qps=args.qps, trace_log=trace_log)
+    if trace_log is not None:
+        n_traced = trace_log.write_jsonl(args.trace_log)
+        print(f"trace log: {n_traced} client records -> {args.trace_log}")
     print(report.to_json())
     return 0
 

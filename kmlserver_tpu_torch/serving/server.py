@@ -9,7 +9,9 @@ reference's environment variables (``BASE_DIR``, ``K_BEST_TRACKS``,
 
 Transports: the asyncio front end with the loop-native
 ``AsyncMicroBatcher`` by default; ``KMLS_HTTP_IMPL=threaded`` selects the
-stdlib ``ThreadingHTTPServer`` with the threaded ``MicroBatcher``.
+stdlib ``ThreadingHTTPServer`` with the threaded ``MicroBatcher``. Either
+transport drives the app's loop-lag monitor (a drift tick on the loop, a
+drift thread beside the threaded server) and forwards ``X-KMLS-Trace``.
 ``KMLS_GIL_SWITCH_S`` sets the interpreter's thread switch interval. Logs
 ``serving on <host>:<port>`` once bound.
 
@@ -51,6 +53,11 @@ def serve_threaded(app: RecommendApp, port: int | None = None, ready=None) -> in
     can block forever, so they are not joined)."""
     server = serve(app, port)
     host, bound = server.server_address[:2]
+    if app.loop_lag is not None:
+        # the sleep-drift thread: host-scheduling stalls (CPU starvation, a
+        # GIL convoy) show as kmls_loop_lag_ms, as loop stalls do on the
+        # async transport; app.close() below stops it
+        app.loop_lag.start_thread()
     log.info("serving on %s:%d (version %s, threaded, device %s)", host, bound,
              app.cfg.version, app.engine.device)
 

@@ -170,9 +170,14 @@ def test_series_catalog_is_the_references():
 
 def test_render_names_only_catalog_series():
     """Everything the port's render() emits — with a cache, dispatch
-    counts, a robustness dict, artifact ages and an IO-health snapshot — is
-    a registered series,
-    and the shared sections render identically to the reference's."""
+    counts, a robustness dict, artifact ages, an IO-health snapshot, a cost
+    model and an SLO tracker — is a registered serving series, every
+    serving series but the per-card memory gauges (rendered only where a
+    card is initialised) is emitted, and the shared sections render
+    identically to the reference's."""
+    from kmlserver_tpu_torch.observability.costmodel import CostModel
+    from kmlserver_tpu_torch.observability.slo import SloTracker
+
     port_m, ref_m = metrics.ServingMetrics(), ref_metrics.ServingMetrics()
     for m in (port_m, ref_m):
         m.record("rules", 0.002)
@@ -186,19 +191,28 @@ def test_render_names_only_catalog_series():
     cache.put((1, 0, ("a",)), (["x"], "rules"))
     cache.get((1, 0, ("a",)))
     robust = {"replicas_ejected": 0, "utilization": 0.25, "admission_degrade_total": 2,
-              "deadline_expired_total": 1, "artifact_quarantines_total": 1,
+              "loop_lag_ms": 0.0, "deadline_expired_total": 1,
+              "traces_began_total": 0, "traces_retained_total": 0, "trace_buffer_entries": 0,
+              "artifact_quarantines_total": 1,
               "reload_failures_total": 2, "reload_consecutive_failures": 1}
     io = {"latency_s": {"read": 0.002}, "errors": {("read", 5): 1}, "retries": 1,
           "storage_slow": False, "disk_free_bytes": 1 << 30}
+    cost = CostModel(peak_flops=1e12, peak_bytes_s=1e11)
+    cost.observe_kernel("serve_rules", 0.001, b=8, l=8, k_max=16, v=100, k_best=10)
+    cost.watch_compiles("serve_rules", lambda: 0)
+    cost.note_publish({"rule_ids": 6400, "rule_confs": 6400}, 1 << 30)
     text = port_m.render(3, True, cache=cache, dispatch_counts=[4, 5], robustness=robust,
-                         artifact_ages={"rules": 1.0, "popularity": 2.0}, io=io)
+                         artifact_ages={"rules": 1.0, "popularity": 2.0}, io=io,
+                         cost=cost, slo=SloTracker(port_m))
     names = set()
     for line in text.splitlines():
         if line.startswith("# TYPE "):
             _, _, name, kind = line.split()
             names.add(name)
-            assert metrics.METRIC_REGISTRY[name].split(":")[0] == kind, name
-    assert names == set(metrics.METRIC_REGISTRY)
+            assert metrics.METRIC_REGISTRY[name] == f"{kind}:serving", name
+    card_only = {"kmls_device_bytes_in_use", "kmls_device_bytes_limit"}
+    serving = {n for n, k in metrics.METRIC_REGISTRY.items() if k.endswith(":serving")}
+    assert names == serving - card_only
     want = ref_m.render(3, True, cache=cache, dispatch_counts=[4, 5])
     # the summaries, histograms, counters and cache lines agree line for line
     # (uptime aside); the reference's requests_by_source also lists the

@@ -32,7 +32,10 @@ def test_every_module_imports_without_jax_or_the_reference():
             kmlserver_tpu_torch.__path__, prefix="kmlserver_tpu_torch."
         )
     ]
-    for name in ("ops.popcount", "faults", "io.iohealth", "io.artifacts", "mining.checkpoint"):
+    for name in ("ops.popcount", "faults", "io.iohealth", "io.artifacts", "mining.checkpoint",
+                 "observability.trace", "observability.runtime", "observability.slo",
+                 "observability.costmodel", "observability.jobmetrics",
+                 "observability.tracejoin", "utils.profiling"):
         assert f"kmlserver_tpu_torch.{name}" in names, name
     proc = _run(
         f"""
