@@ -6,8 +6,9 @@ Drives ``kmlserver_tpu_torch`` (and nothing of the JAX package) through its
 main loop on the card and fails loudly on any mismatch:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compiles every CUDA kernel of the path from ``ops/csrc`` and logs
-   ptxas's registers and spills;
+2. build: compiles every CUDA kernel of the path from ``ops/csrc``
+   (``popcount.cu``, ``segsum.cu``; one ``nvcc`` each, all started
+   together) and logs ptxas's registers and spills;
 3. kernels against plain: the tensor-core kernel and the SWAR kernel
    (``swar=True``) against their plain PyTorch version at several padded
    shapes — default and non-default tiles, ragged V and P before padding,
@@ -74,7 +75,11 @@ main loop on the card and fails loudly on any mismatch:
    then the engine on the card against the corrupt-artifact ladder (a
    flipped npz byte, a truncated pickle, the quarantine and the recovery,
    an npz with rule ids >= V under verification off), every answer held
-   against the CPU engine; checkpoint save/load seconds and bytes logged.
+   against the CPU engine; checkpoint save/load seconds and bytes logged;
+   (e) the job with ``KMLS_EMBED_ENABLED=1`` and ``KMLS_ALS_SPARSE=always``
+   (the segsum kernel, 16 launches) killed after ``embed`` and resumed on
+   the card: the same bytes, embeddings.npz included, with no ALS sweep and
+   no segsum launch.
 10. observability (``observability/``, ``utils/profiling.py``; run right
    after phase 9 on phase 4's PVC; alone: ``python -c "import chip_smoke
    as c; c.phase_observability()"``): (a) the async server with
@@ -94,6 +99,23 @@ main loop on the card and fails loudly on any mismatch:
    profiler's CUDA time of the popcount launch within 20 % of a CUDA-event
    timing of the same launch; (e) ``/debug/profile?seconds=2`` under load
    writes a trace naming the lookup's kernels.
+11. embeddings (``mining/als.py``, ``ops/segsum.py`` + ``csrc/segsum.cu``,
+   ``ops/embed.py``, the engine's hybrid serving; run last, on phase 4's
+   CSV and phase 5's scale baskets; alone: ``python -c "import chip_smoke
+   as c; c.phase_embeddings()"``): (a) the ds2 job with
+   ``KMLS_EMBED_ENABLED=1`` twice (dense ALS, 2,246 x 2,171, R = 32, 8
+   iterations): byte-equal ``embeddings.npz``, the embed phase's flops
+   equal to ``phase_cost("als_sweep")``, the card's training against the
+   CPU plain run (normalized factors within 1e-4, final loss within 1e-5
+   relative); (b) that PVC served in blend mode under 2,000 distinct
+   config-5 draws over the embedding vocabulary at 1,000 QPS: every answer
+   the CPU engine's except those decided by a near-tie (two candidate
+   scores within 1e-6), counted; sources counted; zero 5xx; no unwarmed
+   dispatch; (c) sparse ALS on the scale baskets: ``auto`` picks sparse,
+   one accumulate each way held bit for bit against the CPU plain version
+   and timed beside ``index_add_`` on the card and its bound, two full
+   trainings (counters set to 0 just before the first) bit-identical,
+   peak device memory, ``embed_topk`` at V = 1M against the CPU.
 Then the kernels line is printed.
 
 ``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
@@ -135,6 +157,9 @@ POPC_PER_CLOCK_PER_SM = 16
 KERNEL_DESIGN = ("int8 wgmma m64n128k32, bits unpacked in the operand load (A in "
                  "registers, B by a producer warpgroup into shared memory), upper "
                  "triangle of 128 x 128 tiles, mbarrier stage ring")
+
+# the hand-written CUDA sources the smoke builds (ops/csrc/<name>.cu)
+KERNEL_SOURCES = ("popcount", "segsum")
 
 SCALE = dict(n_playlists=1_000_000, n_tracks=1_000_000, target_rows=50_000_000)
 QUICK_SCALE = dict(n_playlists=100_000, n_tracks=100_000, target_rows=5_000_000)
@@ -1748,8 +1773,10 @@ def phase_resume(work: str | None = None) -> dict:
     from kmlserver_tpu_torch.data.csv import write_tracks_csv
     from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_table
     from kmlserver_tpu_torch.io import artifacts, registry
+    from kmlserver_tpu_torch.mining import als
     from kmlserver_tpu_torch.mining.pipeline import run_mining_job
     from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.ops import segsum
     from kmlserver_tpu_torch.serving.engine import RecommendEngine
 
     own = work is None
@@ -1875,6 +1902,48 @@ def phase_resume(work: str | None = None) -> dict:
             log(f"phase 9 (b) killed after 'mine' on the card, resumed on the CPU "
                 f"({wall_cpu:.3f} s); killed after 'encode' on the CPU, resumed on the card "
                 f"({wall_card:.3f} s, 1 launch): both publish the baseline's bytes")
+
+            # ---- (e) the embed phase (sparse storage pinned, so the
+            # uninterrupted job runs the segsum kernel): killed after
+            # 'embed', resumed on the card with no ALS sweep
+            embed_knobs = dict(embed_enabled=True, als_sparse="always")
+            emb_cfg = new_pvc("embed_baseline", **embed_knobs)
+            segsum.LAUNCHES["segsum"] = 0
+            _, _, emb_wall, _ = job(emb_cfg)
+            emb_base_launches = segsum.LAUNCHES["segsum"]
+            emb_bytes = publication(emb_cfg.base_dir)
+            if "embeddings.npz" not in emb_bytes or emb_base_launches != 2 * emb_cfg.als_iters:
+                fail(f"phase 9 (e) baseline: {emb_base_launches} segsum launches, published "
+                     f"{sorted(emb_bytes)}")
+            cfg = new_pvc("crash_embed", **embed_knobs)
+            crash(cfg, "embed")
+            sweeps = []
+            real_sweeps = (als._als_sweep, als._sparse_als_sweep)
+
+            def counted(fn):
+                def sweep(*args):
+                    sweeps.append(1)
+                    return fn(*args)
+                return sweep
+
+            als._als_sweep, als._sparse_als_sweep = (counted(f) for f in real_sweeps)
+            segsum.LAUNCHES["segsum"] = 0
+            try:
+                summary, _, emb_resume_s, _ = job(cfg)
+            finally:
+                als._als_sweep, als._sparse_als_sweep = real_sweeps
+            check_resume("resume after embed", summary, ("encode", "mine", "rules", "embed"),
+                         emb_bytes)
+            if sweeps or segsum.LAUNCHES["segsum"]:
+                fail(f"phase 9 (e): the resume after 'embed' ran {len(sweeps)} ALS sweeps, "
+                     f"{segsum.LAUNCHES['segsum']} segsum launches")
+            embed_case = {"baseline_wall_s": emb_wall, "wall_s": emb_resume_s,
+                          "baseline_segsum_launches": emb_base_launches,
+                          "segsum_launches": segsum.LAUNCHES["segsum"], "sweeps": len(sweeps)}
+            log(f"phase 9 (e) KMLS_EMBED_ENABLED=1, KMLS_ALS_SPARSE=always: the job "
+                f"{emb_wall:.3f} s with {emb_base_launches} segsum launches; killed after "
+                f"'embed', resumed on the card in {emb_resume_s:.3f} s: 0 ALS sweeps, 0 segsum "
+                f"launches, the baseline's bytes (embeddings.npz included)")
         ckpt = {
             phase: {
                 "save_s": ckpt_log.saves[phase][0][0], "bytes": ckpt_log.saves[phase][0][1],
@@ -1973,8 +2042,8 @@ def phase_resume(work: str | None = None) -> dict:
         log(f"phase 9 (c) npz with {int((ids >= v).sum())} rule ids >= V ({v}), "
             f"KMLS_VERIFY_MANIFEST=0: published on the card, answers == CPU, and a later "
             f"lookup on the same process succeeds")
-        return {"resumes": resumes, "checkpoints": ckpt, "job_s_checkpoints_on": on_s,
-                "job_s_checkpoints_off": off_s}
+        return {"resumes": resumes, "embed": embed_case, "checkpoints": ckpt,
+                "job_s_checkpoints_on": on_s, "job_s_checkpoints_off": off_s}
     finally:
         faults.clear()
         if own:
@@ -2409,6 +2478,486 @@ def phase_observability(work: str | None = None) -> dict:
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 11
+
+EMBED_REQUESTS = 2000  # distinct config-5 draws over the embedding vocabulary
+EMBED_QPS = 1000.0
+NEAR_TIE = 1e-6  # a score gap at most this wide may order two packages' floats apart
+# card vs CPU plain run of the same ALS training: the products sum in
+# another order, and each sweep's solve carries the difference forward
+ALS_FACTOR_TOL = 1e-4  # max |Δ| of the normalized factors
+ALS_LOSS_RTOL = 1e-5  # relative difference of the final loss
+EMBED_SIM_TOL = 1e-6  # embed_topk similarities, card vs CPU
+EMBED_TOPK_SHAPES = ((1, 8), (32, 8))  # (batch, seed slots) buckets timed at V = 1M
+FP32_PEAK_OPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
+
+
+def decisive_near_tie(engine, seeds: list, eps: float = NEAR_TIE) -> bool:
+    """True when the answer the engine composes for ``seeds`` rests on two
+    candidate scores within ``eps`` of each other: the embedding top-(k+1)
+    similarities, or the blended scores of the union. Another package or
+    device may order such a pair the other way and answer differently."""
+    import torch
+
+    from kmlserver_tpu_torch.ops.embed import embed_topk
+    from kmlserver_tpu_torch.ops.serve import recommend_batch
+
+    bundle = engine.bundle
+    k, cap = engine.cfg.k_best_tracks, engine.cfg.max_seed_tracks
+    emb = [bundle.emb_index[s] for s in seeds if s in (bundle.emb_index or {})][:cap]
+    if bundle.emb_factors is None or not emb:
+        return False
+    ids, sims = embed_topk(bundle.emb_factors, torch.tensor([emb], dtype=torch.int32),
+                           k_best=k + 1)
+    live = sims[0][ids[0] >= 0].tolist()
+    if any(a - b <= eps for a, b in zip(live, live[1:])):
+        return True
+    rule = [bundle.index[s] for s in seeds
+            if s in bundle.index and bundle.known_mask[bundle.index[s]]][:cap]
+    if not rule or engine.cfg.hybrid_mode != "blend":
+        return False
+    r_ids, r_confs = recommend_batch(bundle.rule_ids, bundle.rule_confs,
+                                     torch.tensor([rule], dtype=torch.int32), k_best=k)
+    w = min(max(engine.blend_weight, 0.0), 1.0)
+    scores: dict = {}
+    for i, c in zip(r_ids[0].tolist(), r_confs[0].tolist()):
+        if i >= 0:
+            scores[bundle.vocab[i]] = (1.0 - w) * c
+    for i, s in zip(ids[0][:k].tolist(), sims[0][:k].tolist()):
+        if i >= 0:
+            scores[bundle.emb_vocab[i]] = scores.get(bundle.emb_vocab[i], 0.0) + w * s
+    ranked = sorted(scores.values(), reverse=True)[: k + 1]
+    return any(a - b <= eps for a, b in zip(ranked, ranked[1:]))
+
+
+def als_check(label: str, got: dict, want: dict) -> dict:
+    """Two ``train_embeddings`` payloads (card, CPU plain) within the stated
+    tolerances → the differences."""
+    d_factors = float(np.abs(got["item_factors"] - want["item_factors"]).max())
+    d_loss = abs(got["final_loss"] - want["final_loss"]) / abs(want["final_loss"])
+    if d_factors > ALS_FACTOR_TOL or d_loss > ALS_LOSS_RTOL:
+        fail(f"phase 11 {label}: card vs CPU plain run: factors max |Δ| {d_factors:.3g} "
+             f"(limit {ALS_FACTOR_TOL}), loss relative {d_loss:.3g} (limit {ALS_LOSS_RTOL})")
+    return {"factors_max_abs": d_factors, "loss_rel": d_loss}
+
+
+def embed_job(pvc: str, label: str) -> tuple[float, float]:
+    """The ds2 job with ``KMLS_EMBED_ENABLED=1`` on the card → (its wall s,
+    the embed phase's training s from its log)."""
+    out, _, wall = run_job(pvc, label, KMLS_EMBED_ENABLED="1")
+    trained = [line for line in out.splitlines() if line.startswith("ALS embeddings trained:")]
+    if not trained or "rank 32, 8 iters" not in trained[0]:
+        fail(f"phase 11 (a) {label}: no 'ALS embeddings trained: rank 32, 8 iters' line")
+    return wall, float(trained[0].rsplit("(", 1)[1].rstrip("s)"))
+
+
+def phase_embed_ds2(work: str) -> dict:
+    """Phase 11 (a) and (b): the ds2 job with the embed phase, twice, the
+    embeddings held byte for byte and against the CPU plain run; then the
+    PVC served in blend mode under 2,000 distinct config-5 draws."""
+    import torch
+
+    from kmlserver_tpu_torch.config import MiningConfig, ServingConfig
+    from kmlserver_tpu_torch.data.csv import read_tracks
+    from kmlserver_tpu_torch.io import artifacts
+    from kmlserver_tpu_torch.mining import als
+    from kmlserver_tpu_torch.mining.vocab import build_baskets
+    from kmlserver_tpu_torch.observability.costmodel import phase_cost
+    from kmlserver_tpu_torch.ops.embed import embed_topk
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.replay import replay_async_http
+
+    csv_src = os.path.join(ds2_pvc(work), "datasets", "2023_spotify_ds2_synthetic.csv")
+    pvcs = []
+    for name in ("pvc_embed", "pvc_embed_again"):
+        pvc = os.path.join(work, name)
+        os.makedirs(os.path.join(pvc, "datasets"))
+        shutil.copy(csv_src, os.path.join(pvc, "datasets"))
+        pvcs.append(pvc)
+    (wall_a, train_a), (wall_b, train_b) = (embed_job(p, f"embed {i + 1}") for i, p in enumerate(pvcs))
+    emb_bytes = []
+    for pvc in pvcs:
+        with open(artifacts.embeddings_artifact_path(os.path.join(pvc, "pickles")), "rb") as fh:
+            emb_bytes.append(fh.read())
+    if emb_bytes[0] != emb_bytes[1]:
+        fail("phase 11 (a): two card jobs published different embeddings.npz bytes")
+    pickles = os.path.join(pvcs[0], "pickles")
+    prom = {}
+    with open(os.path.join(pickles, "job_metrics.prom")) as fh:
+        for line in fh:
+            if line and not line.startswith("#"):
+                key, _, value = line.rpartition(" ")
+                prom[key] = float(value)
+    baskets = build_baskets(read_tracks(csv_src))
+    p, v = baskets.n_playlists, baskets.n_tracks
+    flops, _ = phase_cost("als_sweep", p=p, v=v, r=32, iters=8)
+    if prom.get('kmls_job_phase_flops{phase="embed"}') != flops:
+        fail(f"phase 11 (a): embed flops {prom.get('kmls_job_phase_flops{phase=\"embed\"}')} "
+             f"!= phase_cost('als_sweep') {flops} (the dense storage)")
+    # in process: the card's training (warm) against the CPU plain run
+    cfg = MiningConfig(embed_enabled=True)
+    als.train_embeddings(baskets, cfg, device="cuda")  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = als.train_embeddings(baskets, cfg, device="cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_run = als.train_embeddings(baskets, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if card["storage"] != "dense" or cpu_run["storage"] != "dense":
+        fail(f"phase 11 (a): ds2 storage {card['storage']}/{cpu_run['storage']}, want dense")
+    published = artifacts.load_embeddings(artifacts.embeddings_artifact_path(pickles))
+    if not np.array_equal(published["item_factors"], card["item_factors"]):
+        fail("phase 11 (a): the job's factors differ from an in-process card training")
+    diff = als_check("(a) ds2 dense", card, cpu_run)
+    log(f"phase 11 (a) ds2 (P={p}, V={v}, nnz={len(baskets.track_ids)}, R=32, 8 iters, "
+        f"dense): jobs {wall_a:.3f} / {wall_b:.3f} s wall, embed phase {train_a:.3f} / "
+        f"{train_b:.3f} s (the first pays the process's first solve); embeddings.npz "
+        f"byte-equal ({len(emb_bytes[0])} bytes); embed flops == phase_cost('als_sweep'); "
+        f"in process warm {card_s:.4f} s on the card, {cpu_s:.3f} s CPU plain; card vs CPU "
+        f"factors max |Δ| {diff['factors_max_abs']:.3g}, loss {card['final_loss']:.6f} vs "
+        f"{cpu_run['final_loss']:.6f} (relative {diff['loss_rel']:.3g})")
+
+    # ---- (b) blend-mode serving over the embed PVC
+    scfg = ServingConfig(base_dir=pvcs[0])
+    cpu = RecommendEngine(scfg, device="cpu")
+    if not cpu.load() or not cpu.embedding_active:
+        fail("phase 11 (b): the CPU engine did not load the embeddings")
+    rule_keys = {n for n, k in zip(cpu.bundle.vocab, cpu.bundle.known_mask) if k}
+    payloads = distinct_sets(list(cpu.bundle.emb_vocab), EMBED_REQUESTS, 41)
+    want = engine_answers(cpu, payloads)
+    cold = sum(not any(s in rule_keys for s in p_) for p_ in payloads)
+    topk_ms = {}
+    for b, length in EMBED_TOPK_SHAPES:
+        seeds = torch.randint(0, v, (b, length), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(b)).cuda()
+        factors = torch.as_tensor(published["item_factors"], device="cuda")
+        embed_topk(factors, seeds, k_best=scfg.k_best_tracks)
+        torch.cuda.synchronize()
+        topk_ms[f"{b}x{length}"] = {
+            "ms": cuda_ms(lambda: embed_topk(factors, seeds, k_best=scfg.k_best_tracks), 50),
+            **embed_topk_bound(b, length, v, factors.shape[1], scfg.k_best_tracks)}
+    server, base, lines = start_server(pvcs[0])
+    try:
+        post(base + "/metrics/reset", b"")
+        before = scrape_metrics(base)
+        if before.get("kmls_embedding_active") != 1.0:
+            fail(f"phase 11 (b): kmls_embedding_active {before.get('kmls_embedding_active')}")
+        responses: list = []
+        report = replay_async_http(base, payloads, qps=EMBED_QPS, n_conns=CONFIG5_CONNS,
+                                   responses=responses)
+        window = server_window(base)
+        after = scrape_metrics(base)
+    finally:
+        code = stop_server(server)
+    if len(responses) != len(payloads):
+        fail(f"phase 11 (b): {len(payloads) - len(responses)} requests got no answer")
+    near_ties, by_source = 0, {}
+    for i, status, head, body in responses:
+        if status != 200 or b"x-kmls-degraded:" in head:
+            fail(f"phase 11 (b): HTTP {status} for {payloads[i]}: {head[:200]!r} {body[:200]!r}")
+        songs, source = want[i]
+        by_source[source] = by_source.get(source, 0) + 1
+        if json.loads(body)["songs"] != songs:
+            if not decisive_near_tie(cpu, payloads[i]):
+                fail(f"phase 11 (b): answer for {payloads[i]} != the CPU engine's and no "
+                     f"near-tie decides it: {body[:300]!r} vs {songs}")
+            near_ties += 1
+    served = {s: after.get(f'kmls_requests_by_source{{source="{s}"}}', 0.0)
+              - before.get(f'kmls_requests_by_source{{source="{s}"}}', 0.0)
+              for s in ("rules", "embed", "hybrid", "fallback", "empty")}
+    if not by_source.get("embed") or not by_source.get("hybrid"):
+        fail(f"phase 11 (b): the draws exercised {by_source}; want embed and hybrid answers")
+    unwarmed = sum("unwarmed" in line for line in lines)
+    emb_dispatches = after.get('kmls_kernel_dispatches_total{kernel="embed_topk"}', 0.0)
+    emb_device_s = after.get('kmls_kernel_device_seconds{kernel="embed_topk"}', 0.0)
+    if (code != 0 or unwarmed or emb_dispatches <= 0
+            or after.get('kmls_compiles_total{kernel="embed_topk"}') != 0):
+        fail(f"phase 11 (b): exit {code}, {unwarmed} unwarmed dispatches, embed_topk "
+             f"dispatches {emb_dispatches}, compiles "
+             f"{after.get('kmls_compiles_total{kernel=\"embed_topk\"}')}")
+    log(f"phase 11 (b) blend mode: {len(payloads)} distinct config-5 draws over the "
+        f"{len(cpu.bundle.emb_vocab)}-track embedding vocabulary ({cold} with no seed in the "
+        f"{len(rule_keys)}-track rule vocabulary) at {EMBED_QPS:.0f} QPS → achieved "
+        f"{report.achieved_qps:.1f} QPS, client p50/p99 {report.p50_ms:.3f}/{report.p99_ms:.3f} "
+        f"ms, server p50/p99 {window['server_p50_ms']:.3f}/{window['server_p99_ms']:.3f} ms, "
+        f"device p50/p99 {window['device_p50_ms']:.3f}/{window['device_p99_ms']:.3f} ms; "
+        f"0 5xx; sources (CPU engine) {by_source}, served (/metrics) {served}; answers == the "
+        f"CPU engine's but {near_ties} decided by a near-tie (|Δ| <= {NEAR_TIE}); embed_topk "
+        f"{emb_dispatches:.0f} dispatches, {emb_device_s:.6f} device s; embed_topk at V={v} "
+        + ", ".join(f"B x L {k_} {t['ms']:.4f} ms (bound {t['ms_bound']:.6f}, {t['bound_by']})"
+                    for k_, t in topk_ms.items()))
+    return {"wall_s": [wall_a, wall_b], "embed_phase_s": [train_a, train_b],
+            "train_warm_s": card_s, "cpu_train_s": cpu_s, **diff,
+            "serve": {"achieved_qps": report.achieved_qps, "p50_ms": report.p50_ms,
+                      "p99_ms": report.p99_ms, **window, "sources": by_source,
+                      "served": served, "near_ties": near_ties, "cold_draws": cold,
+                      "embed_dispatches": emb_dispatches, "embed_device_s": emb_device_s},
+            "embed_topk_ms_v_ds2": topk_ms}
+
+
+class StageTimes:
+    """Seconds spent in named functions of ``module`` while the context is
+    open, each call fenced by ``torch.cuda.synchronize()`` on both sides
+    (so the stages add up to the wall clock; the fences cost a little)."""
+
+    def __init__(self, module, names: tuple[str, ...]):
+        self.module, self.names = module, names
+        self.seconds = dict.fromkeys(names, 0.0)
+        self.calls = dict.fromkeys(names, 0)
+        self.real = {n: getattr(module, n) for n in names}
+
+    def __enter__(self):
+        import torch
+
+        for name, fn in self.real.items():
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[_name] += time.perf_counter() - t0
+                self.calls[_name] += 1
+                return out
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.module, name, fn)
+        return False
+
+
+def embed_topk_bound(b: int, length: int, v: int, rank: int, k: int) -> dict:
+    """The least time of one ``embed_topk`` on this card: the factor matrix
+    and the seeds read once, the top-k ids and sims written once, over the
+    HBM rate; and its B·L·V·R multiply-adds (two operations each) over the
+    fp32 peak (the products run outside the tensor cores: TF32 is off)."""
+    nbytes = 4 * v * rank + 4 * b * length + 8 * b * k
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * 2 * b * length * v * rank / FP32_PEAK_OPS
+    return {"ms_bound": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def segsum_bound(csr, rank: int) -> dict:
+    """The least time of one accumulate on this card: each input read once
+    (the factor matrix, offsets, indices), the output written once, over
+    the HBM rate; and its nnz·R fp32 adds over the fp32 peak."""
+    n_in, n_out, nnz = csr.n_in, csr.n_out, csr.nnz
+    nbytes = 4 * n_in * rank + 8 * (n_out + 1) + 4 * nnz + 4 * n_out * rank
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * nnz * rank / FP32_PEAK_OPS
+    gather_ms = 1e3 * (4 * nnz * rank + 4 * nnz + 8 * (n_out + 1) + 4 * n_out * rank) / PEAK_BYTES_PER_S
+    return {"bytes": nbytes, "ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "gathered_rows_ms": gather_ms}
+
+
+def phase_embed_scale(work: str) -> dict:
+    """Phase 11 (c): sparse ALS at phase 5's scale baskets (1M x 1M, ~50M
+    memberships), loaded from phase 5's arrays: the storage decision, one
+    accumulate each way against the CPU plain version, two full trainings
+    (launch counters set to 0 just before the first, read just after),
+    the kernel and ``index_add_`` timed per half-sweep, ``embed_topk`` at
+    V = 1M. → the kernels line's segsum entry."""
+    import torch
+
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.mining import als
+    from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
+    from kmlserver_tpu_torch.ops import segsum
+    from kmlserver_tpu_torch.ops.embed import embed_topk
+
+    with open(os.path.join(work, "scale_shape.json")) as fh:
+        shape = json.load(fh)
+    rows = np.load(os.path.join(work, "scale_rows.npy"))
+    tids = np.load(os.path.join(work, "scale_tids.npy"))
+    p, v, nnz = shape["n_playlists"], shape["n_tracks"], len(rows)
+    names = [f"Track {i:07d}" for i in range(v)]
+    baskets = Baskets(playlist_rows=rows, track_ids=tids, n_playlists=p,
+                      vocab=Vocab(names=names, index={}))
+    cfg = MiningConfig(embed_enabled=True)
+    rank = cfg.als_rank
+    dense_b = 5 * p * v + 8 * rank * (p + v)
+    sparse_b = als.sparse_als_bytes(nnz, p, v, rank)
+
+    # ---- one accumulate each way at full size, kernel vs the CPU plain version
+    rows_d = torch.as_tensor(rows, device="cuda")
+    cols_d = torch.as_tensor(tids, device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    user_h = torch.randn(p, rank, generator=gen) / rank ** 0.5
+    item_h = torch.randn(v, rank, generator=gen) / rank ** 0.5
+    t0 = time.perf_counter()
+    by_user = segsum.build_csr(rows_d, cols_d, p, v)
+    by_item = segsum.build_csr(cols_d, rows_d, v, p)
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    sides = {"X F": (by_user, item_h, rows, tids, p), "Xt U": (by_item, user_h, tids, rows, v)}
+    entry_sides, max_err = {}, 0.0
+    for label, (csr, mat_h, seg_h, gidx_h, n_out) in sides.items():
+        mat = mat_h.cuda()
+        got = segsum.segment_sum(mat, csr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = segsum.segment_sum_plain(mat_h, torch.from_numpy(seg_h), torch.from_numpy(gidx_h),
+                                         n_out)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        got_h = got.cpu()
+        err = float((got_h - plain).abs().max())
+        ulps = int((got_h.view(torch.int32).long() - plain.view(torch.int32).long()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got_h, plain):
+            fail(f"phase 11 (c) {label}: kernel != CPU plain version: max |Δ| {err}, "
+                 f"{ulps} ulps")
+        ms = cuda_ms(lambda: segsum.segment_sum(mat, csr), 10)
+        seg_d = (rows_d if label == "X F" else cols_d).long()
+        gidx_d = (cols_d if label == "X F" else rows_d).long()
+        out = torch.zeros(n_out, rank, device="cuda")
+
+        def library():
+            out.zero_()
+            out.index_add_(0, seg_d, mat[gidx_d])
+
+        library()
+        lib_ms = cuda_ms(library, 10)
+        del seg_d, gidx_d, out
+        lengths = csr.offsets[1:] - csr.offsets[:-1]
+        bound = segsum_bound(csr, rank)
+        entry_sides[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "bound_ms": bound["ms"], "bound_by": bound["bound_by"],
+                              "bytes": bound["bytes"],
+                              "gathered_rows_ms": bound["gathered_rows_ms"],
+                              "max_row_events": int(lengths.max()), "ulps": ulps}
+        log(f"phase 11 (c) accumulate {label} (out {n_out} x {rank}, {nnz} events, longest row "
+            f"{int(lengths.max())} events): kernel == CPU plain version bit for bit; kernel "
+            f"{ms:.3f} ms, index_add_ on the card {lib_ms:.3f} ms (gather included), CPU plain "
+            f"{plain_ms:.1f} ms; bound {bound['ms']:.4f} ms ({bound['bound_by']}: each input "
+            f"once, {bound['bytes']} bytes; the gathered rows once would be "
+            f"{bound['gathered_rows_ms']:.3f} ms)")
+    del rows_d, cols_d, by_user, by_item, sides, csr, mat, got
+
+    # ---- the main path: two full sparse trainings, counters set to 0 just before
+    segsum.LAUNCHES["segsum"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = als.train_embeddings(baskets, cfg, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = segsum.LAUNCHES["segsum"]
+    peak = torch.cuda.max_memory_allocated()
+    # the second training, its stages timed (where the wall clock goes)
+    stage_names = ("build_csr", "_sparse_als_sweep", "_sparse_als_loss", "normalize_factors")
+    t0 = time.perf_counter()
+    with StageTimes(als, stage_names) as stages:
+        second = als.train_embeddings(baskets, cfg, device="cuda")
+    stages_wall = time.perf_counter() - t0
+    if first["storage"] != "sparse" or launches != 2 * cfg.als_iters:
+        fail(f"phase 11 (c): storage {first['storage']}, {launches} segsum launches, want "
+             f"sparse and {2 * cfg.als_iters}")
+    if not np.array_equal(first["item_factors"], second["item_factors"]) or (
+            first["final_loss"] != second["final_loss"]):
+        fail("phase 11 (c): two sparse trainings on the card gave different factors")
+    if not np.isfinite(first["item_factors"]).all():
+        fail("phase 11 (c): non-finite factors")
+    log(f"phase 11 (c) sparse ALS at {p} x {v}, {nnz} memberships, R={rank}, "
+        f"{cfg.als_iters} iters: auto picked {first['storage']} (dense ~{dense_b:.4g} B, "
+        f"sparse ~{sparse_b:.4g} B against hbm_budget_bytes {cfg.hbm_budget_bytes}); "
+        f"{train_s:.3f} s ({launches} segsum launches), CSR + CSC build {csr_s:.3f} s; the "
+        f"second training bit-identical (loss {first['final_loss']:.6f}); peak device memory "
+        f"{peak} B ({peak / 2**30:.3f} GiB); the second's stages (synchronized, "
+        f"{stages_wall:.3f} s): "
+        + ", ".join(f"{n} {stages.seconds[n]:.3f} s x{stages.calls[n]}" for n in stage_names)
+        + f", the rest (host init, uploads, solves' setup, copy back) "
+        f"{stages_wall - sum(stages.seconds.values()):.3f} s")
+
+    # ---- embed_topk at V = 1M, card vs CPU
+    factors_h = torch.as_tensor(first["item_factors"])
+    factors = factors_h.cuda()
+    topk = {}
+    for b, length in EMBED_TOPK_SHAPES:
+        seeds_h = torch.randint(-1, v, (b, length), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(b))
+        seeds = seeds_h.cuda()
+        ids, sims = embed_topk(factors, seeds, k_best=10)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: embed_topk(factors, seeds, k_best=10), 20)
+        t0 = time.perf_counter()
+        c_ids, c_sims = embed_topk(factors_h, seeds_h, k_best=10)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        d_sims = float((sims.cpu() - c_sims).abs().max())
+        id_rows = int((ids.cpu() != c_ids).any(dim=1).sum())
+        if d_sims > EMBED_SIM_TOL:
+            fail(f"phase 11 (c) embed_topk {b}x{length}: sims max |Δ| {d_sims} > {EMBED_SIM_TOL}")
+        ties = 0
+        for r in range(b):
+            if torch.equal(ids[r].cpu(), c_ids[r]):
+                continue
+            s = c_sims[r].tolist()
+            if not any(x - y <= NEAR_TIE for x, y in zip(s, s[1:])):
+                ids11, sims11 = embed_topk(factors_h, seeds_h[r:r + 1], k_best=11)
+                s = sims11[0].tolist()
+                if not any(x - y <= NEAR_TIE for x, y in zip(s, s[1:])):
+                    fail(f"phase 11 (c) embed_topk {b}x{length}: row {r} ids differ, no near-tie")
+            ties += 1
+        bound = embed_topk_bound(b, length, v, rank, 10)
+        topk[f"{b}x{length}"] = {"ms": ms, "cpu_ms": cpu_ms, "sims_max_abs": d_sims,
+                                 "rows_ids_differ": id_rows, "near_ties": ties, **bound}
+        log(f"phase 11 (c) embed_topk B x L = {b} x {length} at V={v}: {ms:.4f} ms on the "
+            f"card (bound {bound['ms_bound']:.4f} ms, {bound['bound_by']}), {cpu_ms:.1f} ms CPU "
+            f"plain; sims max |Δ| {d_sims:.3g}, {id_rows} rows' ids differ, each at a near-tie")
+    one = {k: sum(s[k] for s in entry_sides.values())
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gathered_rows_ms")}
+    entry = {
+        "name": "segsum",
+        "route": "cuda",
+        "source": "kmlserver_tpu_torch/ops/csrc/segsum.cu",
+        "replaces": "kmlserver_tpu/mining/als.py:158",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": one["ms"],
+        "plain_ms": one["plain_ms"],
+        "bound_ms": one["bound_ms"],
+        "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in entry_sides.values())
+        else "operations",
+        "library_ms": one["library_ms"],
+        "per_sweep": "X F + Xt U (both accumulates of one sweep)",
+        "sides": entry_sides,
+        "gathered_rows_ms": one["gathered_rows_ms"],
+        "shape": [p, v, nnz, rank],
+    }
+    return {"entry": entry, "train_s": train_s, "csr_s": csr_s, "peak_bytes": peak,
+            "stages_s": {**stages.seconds, "wall": stages_wall},
+            "embed_topk_v1m": topk, "final_loss": first["final_loss"]}
+
+
+def phase_embeddings(work: str | None = None, shape: dict | None = None) -> dict:
+    """Phase 11 on phase 4's ds2 CSV and phase 5's scale baskets (alone:
+    ``python -c "import chip_smoke as c; c.phase_embeddings()"`` mines its
+    own ds2 PVC and generates the scale baskets at ``shape``, default the
+    full scale shape)."""
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke11_")
+    try:
+        if not os.path.exists(os.path.join(work, "scale_rows.npy")):
+            from kmlserver_tpu_torch.data.synthetic import synthetic_baskets
+
+            shape = shape or SCALE
+            baskets = synthetic_baskets(**shape, seed=2024)
+            np.save(os.path.join(work, "scale_rows.npy"), baskets.playlist_rows)
+            np.save(os.path.join(work, "scale_tids.npy"), baskets.track_ids)
+            with open(os.path.join(work, "scale_shape.json"), "w") as fh:
+                json.dump({"n_playlists": baskets.n_playlists, "n_tracks": baskets.n_tracks}, fh)
+            log(f"phase 11: scale baskets {shape} generated (seed 2024)")
+        result = {"ds2": phase_embed_ds2(work), "scale": phase_embed_scale(work)}
+        log("PHASE11 " + json.dumps(result))
+        return result
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2429,15 +2978,21 @@ def main() -> int:
     if quick:
         log(f"reduced: --quick cuts the scale shape from {SCALE} to {QUICK_SCALE}")
 
+    # every kernel source at once, one nvcc each
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    cuda_build.build("popcount")
-    log(f"build: popcount.cu in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {cuda_build.BUILD_LOG['popcount']['seconds']:.3f} s)")
-    ptxas = cuda_build.BUILD_LOG["popcount"]["ptxas"]
-    for line in ptxas.splitlines():
-        if any(k in line for k in ("registers", "spill", "entry function", "C7513")):
-            log(f"  ptxas | {line.strip()}")
-    registers = ptxas_registers(ptxas)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(cuda_build.build, KERNEL_SOURCES))
+    log(f"build: {', '.join(f'{n}.cu' for n in KERNEL_SOURCES)} in "
+        f"{time.perf_counter() - t0:.3f} s (nvcc "
+        + ", ".join(f"{n} {cuda_build.BUILD_LOG[n]['seconds']:.3f} s" for n in KERNEL_SOURCES)
+        + ")")
+    for name in KERNEL_SOURCES:
+        for line in cuda_build.BUILD_LOG[name]["ptxas"].splitlines():
+            if any(k in line for k in ("registers", "spill", "entry function", "C7513")):
+                log(f"  ptxas {name} | {line.strip()}")
+    registers = ptxas_registers(cuda_build.BUILD_LOG["popcount"]["ptxas"])
 
     small_err = phase_kernel_vs_plain()
     work = tempfile.mkdtemp(prefix="kmls_smoke_")
@@ -2448,6 +3003,7 @@ def main() -> int:
         phase_observability(work)
         scale = phase_scale(2024, work, QUICK_SCALE if quick else SCALE)
         ranks = phase_ranks(work, scale)
+        embed = phase_embeddings(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     routes = phase_routes()
@@ -2463,7 +3019,11 @@ def main() -> int:
     for entry in (kernel, ranks["kernel"]):
         entry["ptxas_registers"] = registers
     log(f"total smoke time {time.perf_counter() - t_all:.3f} s")
-    print(json.dumps({"kernels": [kernel, ranks["kernel"]]}))
+    segsum_entry = embed["scale"]["entry"]
+    segsum_entry["launches_resume_after_embed"] = resume["embed"]["segsum_launches"]
+    segsum_entry["launches_ds2_sparse_job"] = resume["embed"]["baseline_segsum_launches"]
+    segsum_entry["ptxas_registers"] = ptxas_registers(cuda_build.BUILD_LOG["segsum"]["ptxas"])
+    print(json.dumps({"kernels": [kernel, ranks["kernel"], segsum_entry]}))
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -53,6 +53,47 @@ def _getenv_bitpack_threshold() -> int | str | None:
     return int(raw)
 
 
+def _getenv_hybrid_mode() -> str:
+    """``KMLS_HYBRID_MODE``: ``rules``, ``embed`` or ``blend`` (the
+    default), case-insensitive. An unrecognized value falls back to
+    ``rules`` with a warning — the fail-safe direction: a typo while
+    pinning the legacy path must never turn on the hybrid merge."""
+    raw = os.getenv("KMLS_HYBRID_MODE")
+    if raw in (None, ""):
+        return "blend"
+    word = raw.strip().lower()
+    if word in ("rules", "embed", "blend"):
+        return word
+    import logging
+
+    logging.getLogger("kmlserver_tpu_torch.serving").warning(
+        "KMLS_HYBRID_MODE=%r is not one of rules/embed/blend; serving rules-only", raw,
+    )
+    return "rules"
+
+
+def _getenv_blend_weight() -> tuple[float, bool]:
+    """``KMLS_HYBRID_BLEND_WEIGHT``: a float, or ``measured`` (serve the
+    blend optimum published in ``quality.report.json``) → ``(weight,
+    measured)``. An explicit float wins over a report; anything
+    unparseable falls back to the default 0.5 with a warning."""
+    raw = os.getenv("KMLS_HYBRID_BLEND_WEIGHT")
+    if raw in (None, ""):
+        return 0.5, False
+    if raw.strip().lower() == "measured":
+        return 0.5, True
+    try:
+        return float(raw), False
+    except ValueError:
+        import logging
+
+        logging.getLogger("kmlserver_tpu_torch.serving").warning(
+            "KMLS_HYBRID_BLEND_WEIGHT=%r is neither a float nor 'measured'; "
+            "using the default 0.5", raw,
+        )
+        return 0.5, False
+
+
 def _getenv_model_layout() -> str:
     """``KMLS_MODEL_LAYOUT``: ``replicated`` (default), ``sharded`` or
     ``auto``, validated by ``parallel.layout.validate_layout`` (a typo
@@ -164,6 +205,18 @@ class MiningConfig:
     sparse_long_basket: int = 0
     write_tensor_artifact: bool = True
     write_manifest: bool = True
+    # the optional ``embed`` phase after ``rules`` (mining/als.py): ALS item
+    # embeddings over the playlist x track matrix, published as
+    # embeddings.npz beside the rule tensors; off by default
+    embed_enabled: bool = False
+    # factorization rank, alternating sweeps, L2 regularization
+    als_rank: int = 32
+    als_iters: int = 8
+    als_reg: float = 0.1
+    # interaction-matrix storage of the half-sweeps: "auto" (dense while the
+    # dense f32 matrix fits hbm_budget_bytes, compressed when it does not),
+    # "always" or "never"; a typo resolves to "auto" (als.resolve_als_sparse)
+    als_sparse: str = "auto"
     # rank mesh for the multi-rank job: "auto" (every rank when the job is
     # distributed, none in a single process), "1x1"/"" (none), "DPxTP",
     # or "hybrid"/"hybrid:tpN" (tp = the ranks of one host)
@@ -246,6 +299,11 @@ class MiningConfig:
             sparse_long_basket=_getenv_int("KMLS_SPARSE_LONG_BASKET", 0),
             write_tensor_artifact=_getenv_bool("KMLS_WRITE_TENSOR_ARTIFACT", True),
             write_manifest=_getenv_bool("KMLS_WRITE_MANIFEST", True),
+            embed_enabled=_getenv_bool("KMLS_EMBED_ENABLED", False),
+            als_rank=_getenv_int("KMLS_ALS_RANK", 32),
+            als_iters=_getenv_int("KMLS_ALS_ITERS", 8),
+            als_reg=_getenv_float("KMLS_ALS_REG", 0.1),
+            als_sparse=os.getenv("KMLS_ALS_SPARSE", "auto"),
             mesh_shape=os.getenv("KMLS_MESH_SHAPE", "auto"),
             model_layout=_getenv_model_layout(),
             checkpoint_enabled=_getenv_bool("KMLS_CKPT_ENABLED", True),
@@ -360,6 +418,16 @@ class ServingConfig:
     slo_degrade_budget: float = 0.01
     slo_fast_window_s: float = 300.0
     slo_slow_window_s: float = 3600.0
+    # hybrid rule ∪ embedding serving when embeddings.npz is published:
+    # "rules" ignores it, "embed" answers from the embedding top-k (rules
+    # only for seeds the embedding vocabulary lacks), "blend" unions both
+    # candidate lists. Without a usable artifact every mode serves rules.
+    hybrid_mode: str = "blend"
+    # blend score = (1 - w)·rule confidence + w·cosine similarity
+    hybrid_blend_weight: float = 0.5
+    # KMLS_HYBRID_BLEND_WEIGHT=measured: the weight comes from
+    # quality.report.json when one is published (else the weight above)
+    hybrid_blend_measured: bool = False
 
     @property
     def pickles_dir(self) -> str:
@@ -369,6 +437,7 @@ class ServingConfig:
     def from_env(dotenv_path: str | None = ".env") -> "ServingConfig":
         if dotenv_path:
             load_dotenv(dotenv_path)
+        blend_weight, blend_measured = _getenv_blend_weight()
         return ServingConfig(
             version=os.getenv("VERSION", "V1.1"),
             base_dir=os.getenv("BASE_DIR", "./api-data/"),
@@ -416,4 +485,7 @@ class ServingConfig:
             slo_degrade_budget=_getenv_float("KMLS_SLO_DEGRADE_BUDGET", 0.01),
             slo_fast_window_s=_getenv_float("KMLS_SLO_FAST_WINDOW_S", 300.0),
             slo_slow_window_s=_getenv_float("KMLS_SLO_SLOW_WINDOW_S", 3600.0),
+            hybrid_mode=_getenv_hybrid_mode(),
+            hybrid_blend_weight=blend_weight,
+            hybrid_blend_measured=blend_measured,
         )

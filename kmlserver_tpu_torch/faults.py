@@ -16,8 +16,12 @@ Sites wired in this package:
   circuit breaker and re-dispatch), a delay fault sleeps (the deadline
   degradation).
 - ``"mine.crash.<phase>"`` — by the mining pipeline right after the
-  phase's checkpoint is saved (``encode``/``mine``/``rules``): the
-  restarted job must resume from it and publish the same bytes.
+  phase's checkpoint is saved (``encode``/``mine``/``rules``/``embed``):
+  the restarted job must resume from it and publish the same bytes.
+- ``"embed.artifact"`` — inside the engine's embedding-artifact load: a
+  fail fault makes ``embeddings.npz`` unloadable like a torn file, and the
+  reload still publishes, serving rules only (never a failed reload,
+  never a 5xx).
 - ``"ckpt.corrupt"`` — inside :meth:`CheckpointStore.save`: the store
   truncates the bytes it writes (digest over the corrupt bytes), so the
   next load verifies but fails to parse — the two-strike quarantine.
@@ -30,12 +34,12 @@ Sites wired in this package:
   bytes to the temp file, then raise :class:`TornWrite`), ``stall`` (the
   caller sleeps) and ``fail`` for fsync (never retried).
 
-The reference's other sites — ``embed.artifact``, ``delta.apply``,
-``mesh.peer`` and ``fleet.peer`` — belong to modules this package does not
-have yet (embeddings, delta freshness, the serve mesh, the fleet router).
-Their knobs (``KMLS_FAULT_EMBED_CORRUPT``, ``KMLS_FAULT_DELTA_CORRUPT``,
-``KMLS_FAULT_MESH_PEER_DELAY_MS``, ``KMLS_FAULT_FLEET_PEER_DELAY_MS``)
-parse as in the reference and arm faults that nothing fires yet.
+The reference's other sites — ``delta.apply``, ``mesh.peer`` and
+``fleet.peer`` — belong to modules this package does not have yet (delta
+freshness, the serve mesh, the fleet router). Their knobs
+(``KMLS_FAULT_DELTA_CORRUPT``, ``KMLS_FAULT_MESH_PEER_DELAY_MS``,
+``KMLS_FAULT_FLEET_PEER_DELAY_MS``) parse as in the reference and arm
+faults that nothing fires yet.
 
 Arming, two ways:
 
@@ -56,7 +60,9 @@ Arming, two ways:
     payloads at save time;
   - ``KMLS_FAULT_RANK_DEAD=rank`` — silence rank ``rank``'s watchdog
     heartbeats permanently;
-  - ``KMLS_FAULT_EMBED_CORRUPT=N``, ``KMLS_FAULT_DELTA_CORRUPT=N``,
+  - ``KMLS_FAULT_EMBED_CORRUPT=N`` — fail the next N embedding-artifact
+    loads;
+  - ``KMLS_FAULT_DELTA_CORRUPT=N``,
     ``KMLS_FAULT_MESH_PEER_DELAY_MS=rank:ms[:N]``,
     ``KMLS_FAULT_FLEET_PEER_DELAY_MS=idx:ms[:N]`` — parsed, not fired
     (see above);

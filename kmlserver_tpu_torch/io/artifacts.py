@@ -48,9 +48,11 @@ from .iohealth import MONITOR
 TENSOR_ARTIFACT_SUFFIX = ".tensors.npz"
 MANIFEST_FILENAME = "artifacts.manifest.json"
 QUARANTINE_DIRNAME = "quarantine"
+# the embed phase's artifact (ALS item factors) and its format version
+EMBEDDINGS_FILENAME = "embeddings.npz"
+EMBEDDINGS_VERSION = 1
 # artifacts of features this package does not publish; a full publication
 # retires any left on the PVC so the new manifest cannot re-bless them
-EMBEDDINGS_FILENAME = "embeddings.npz"
 QUALITY_REPORT_FILENAME = "quality.report.json"
 DELTA_STATE_FILENAME = "delta.state.json"
 
@@ -753,16 +755,17 @@ class PublicationLease:
 
 
 def retire_unpublished(pickles_dir: str) -> None:
-    """Remove the artifacts of features this slice does not publish
-    (embeddings, quality report, delta chain) — the reference job does the
-    same when those features are off, so neither package's manifest can
-    bless a previous generation's leftovers."""
+    """Remove the artifacts of features this package does not publish
+    (quality report, delta chain) — the reference job does the same when
+    those features are off, so neither package's manifest can bless a
+    previous generation's leftovers. An embed-disabled publication retires
+    ``embeddings.npz`` with :func:`remove_embeddings`."""
     try:
         names = os.listdir(pickles_dir)
     except OSError:
         return
     for name in names:
-        if name in (EMBEDDINGS_FILENAME, QUALITY_REPORT_FILENAME, DELTA_STATE_FILENAME) or (
+        if name in (QUALITY_REPORT_FILENAME, DELTA_STATE_FILENAME) or (
             name.startswith("delta-") and name.endswith(".bundle")
         ):
             try:
@@ -874,3 +877,98 @@ def tensors_from_rules_dict(
             rule_ids[i, k] = j
             rule_confs[i, k] = conf
     return rule_ids, rule_confs, known_mask
+
+
+def embeddings_artifact_path(pickles_dir: str) -> str:
+    return os.path.join(pickles_dir, EMBEDDINGS_FILENAME)
+
+
+def save_embeddings(
+    path: str,
+    *,
+    vocab: list[str],
+    item_factors: np.ndarray,
+    rank: int,
+    iters: int,
+    reg: float,
+    final_loss: float | None = None,
+) -> None:
+    """Write the embedding artifact as one atomic ``.npz``, byte-compatible
+    with the reference's: ``item_factors`` f32 (V, rank), rows
+    L2-normalized, over the full encode-phase vocabulary (broader than the
+    pruned rule vocabulary: the two families merge by name)."""
+    if item_factors.ndim != 2 or item_factors.shape[0] != len(vocab):
+        raise ValueError(
+            f"item_factors {item_factors.shape} does not match vocab size {len(vocab)}"
+        )
+    arrays = dict(
+        version=np.int64(EMBEDDINGS_VERSION),
+        vocab=np.asarray(vocab, dtype=object),
+        item_factors=item_factors.astype(np.float32),
+        rank=np.int64(rank),
+        iters=np.int64(iters),
+        reg=np.float64(reg),
+    )
+    if final_loss is not None:
+        arrays["final_loss"] = np.float64(final_loss)
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    _atomic_write_bytes(path, buf.getvalue())
+
+
+def remove_embeddings(pickles_dir: str) -> bool:
+    """Retire the embedding artifact (an embed-disabled publication must
+    not leave a previous generation's on disk for the new manifest to
+    bless). → True if removed."""
+    try:
+        os.unlink(embeddings_artifact_path(pickles_dir))
+        return True
+    except FileNotFoundError:
+        return False
+
+
+def load_embeddings(path: str, *, deadline_s: float | None = None) -> dict[str, Any]:
+    """Load and validate the embedding artifact. Raises ``ValueError`` on
+    any structural problem (not an embedding artifact, another format
+    version, a shape that disagrees with the vocabulary, non-finite or
+    rank-0 factors): the engine treats every raise as corrupt and serves
+    rules only."""
+    raw = io.BytesIO(_read_bytes(path, deadline_s=deadline_s))
+    with np.load(raw, allow_pickle=True) as npz:
+        if "item_factors" not in npz.files or "vocab" not in npz.files:
+            raise ValueError(f"{path}: not an embedding artifact")
+        version = int(npz["version"]) if "version" in npz.files else 0
+        if version != EMBEDDINGS_VERSION:
+            raise ValueError(
+                f"{path}: embedding artifact version {version} != {EMBEDDINGS_VERSION}"
+            )
+        vocab = [str(s) for s in npz["vocab"]]
+        factors = np.asarray(npz["item_factors"], dtype=np.float32)
+        if factors.ndim != 2 or factors.shape[0] != len(vocab):
+            raise ValueError(
+                f"{path}: item_factors {factors.shape} does not match vocab size {len(vocab)}"
+            )
+        if factors.shape[1] < 1 or not np.isfinite(factors).all():
+            raise ValueError(f"{path}: non-finite or rank-0 item factors")
+        return {
+            "vocab": vocab,
+            "item_factors": factors,
+            "rank": int(npz["rank"]) if "rank" in npz.files else factors.shape[1],
+            "iters": int(npz["iters"]) if "iters" in npz.files else 0,
+            "reg": float(npz["reg"]) if "reg" in npz.files else 0.0,
+        }
+
+
+def quality_report_path(pickles_dir: str) -> str:
+    return os.path.join(pickles_dir, QUALITY_REPORT_FILENAME)
+
+
+def load_quality_report(pickles_dir: str) -> dict[str, Any] | None:
+    """The parsed quality report a reference job published, or None when
+    absent or unreadable (the measured blend weight then falls back to its
+    default)."""
+    try:
+        data = json.loads(_read_bytes(quality_report_path(pickles_dir)).decode("utf-8"))
+    except (OSError, ValueError):
+        return None
+    return data if isinstance(data, dict) else None

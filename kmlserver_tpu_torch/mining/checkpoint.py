@@ -51,12 +51,18 @@ from ..io.artifacts import _atomic_write_bytes, file_digest, quarantine_file
 # encode — CSV read + vocab/aux maps + basket encoding
 # mine   — pair counting + rule-tensor extraction (the device compute)
 # rules  — expansion of the rule tensors into the reference's pickle dict
-# embed, eval — the reference's optional phases (ALS embeddings, offline
-#          evaluation); they keep their slots in the canonical order, but
-#          this package runs neither yet
+# embed  — ALS item embeddings (mining/als.py), with KMLS_EMBED_ENABLED
+# eval   — the reference's offline evaluation; it keeps its slot in the
+#          canonical order, but this package does not run it yet
 PHASES = ("encode", "mine", "rules", "embed", "eval")
-# the phases this package's pipeline runs
+# the phases this package's pipeline runs at the default config
 RUN_PHASES = PHASES[:3]
+
+
+def run_phases(cfg: MiningConfig) -> tuple[str, ...]:
+    """The phases the pipeline runs under ``cfg``: :data:`RUN_PHASES`,
+    then ``embed`` when the embed phase is enabled."""
+    return RUN_PHASES + (("embed",) if cfg.embed_enabled else ())
 
 STATE_FILENAME = "state.json"
 # the reference's checkpoint format version (its v6 identity fields)
@@ -90,14 +96,8 @@ _FINGERPRINT_FIELDS = (
     "eval_max_playlists",
 )
 # fields of the reference's identity this package has no knob for yet
-# (embeddings, delta freshness, the quality loop): they enter at the
-# reference's defaults
+# (delta freshness, the quality loop): they enter at the reference's defaults
 _UNPORTED_DEFAULTS = {
-    "embed_enabled": False,
-    "als_rank": 32,
-    "als_iters": 8,
-    "als_reg": 0.1,
-    "als_sparse": "auto",
     "delta_enabled": False,
     "eval_enabled": False,
     "eval_holdout_n": 1,

@@ -11,7 +11,9 @@ The run is split into the reference's checkpointed phases
 
 - **encode** — CSV read, vocab validation and aux maps, basket encoding;
 - **mine**   — pair counting and rule-tensor extraction on the device;
-- **rules**  — expansion into the reference's pickle dict.
+- **rules**  — expansion into the reference's pickle dict;
+- **embed**  — with ``KMLS_EMBED_ENABLED``: ALS item embeddings over the
+  same baskets (``mining/als.py``), published as ``embeddings.npz``.
 
 After each phase the writer rank saves a sha256-manifested checkpoint
 keyed by a config + dataset fingerprint; a restarted job resumes from the
@@ -29,8 +31,8 @@ writer, saves checkpoints and publishes. The writer also keeps
 ``pickles/job_metrics.prom`` (``observability/jobmetrics.py``), rewritten
 as each phase completes: phase durations (a resumed phase reports its
 checkpointed duration, flagged), the dataset's size, the count route, the
-mine phase's analytic FLOPs and bytes, artifact sizes and success. The
-delta/embed/eval phases are not ported yet.
+mine and embed phases' analytic FLOPs and bytes, artifact sizes and
+success. The delta and eval phases are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ class JobSummary:
     resumed_phases: tuple[str, ...] = ()
     # the publication lease's fencing token (None: lease disabled / reader)
     fencing_token: int | None = None
+    # the embed phase's training seconds (None: phase off or skipped)
+    als_train_s: float | None = None
 
 
 def manifest_filenames(cfg: MiningConfig) -> list[str]:
@@ -167,11 +171,41 @@ def _note_mine_metrics(jm: JobMetrics, encoded: dict, result: MiningResult) -> N
     jm.note_phase_cost("mine", flops, moved)
 
 
+def _run_embed_phase(phase, cfg: MiningConfig, baskets, device, mesh,
+                     jm: JobMetrics | None) -> dict | None:
+    """The checkpointed ``embed`` phase → its payload, or None when the
+    HBM-fit guard declined to train (a rules-only generation, said so)."""
+    from . import als
+
+    payload = phase("embed", lambda: als.train_embeddings(baskets, cfg, mesh=mesh, device=device))
+    if payload.get("item_factors") is None:
+        print(f"ALS embed phase skipped: {payload.get('skipped')}")
+        return None
+    print(
+        f"ALS embeddings trained: rank {payload['rank']}, {payload['iters']} iters, "
+        f"final loss {payload['final_loss']:.3f} ({payload['duration_s']:.2f}s)"
+    )
+    if jm is not None:
+        # the phase's analytic cost: the half-sweep loop over the dense
+        # matrix or over its nnz events (the reference's attribution)
+        dims = dict(p=baskets.n_playlists, v=baskets.n_tracks, r=payload["rank"],
+                    iters=payload["iters"])
+        if payload.get("storage") == "sparse":
+            flops, moved = costmodel.phase_cost(
+                "als_sweep_sparse", nnz=payload.get("nnz", len(baskets.playlist_rows)), **dims
+            )
+        else:
+            flops, moved = costmodel.phase_cost("als_sweep", **dims)
+        jm.note_phase_cost("embed", flops, moved)
+    return payload
+
+
 def _publish(
     cfg: MiningConfig,
     encoded: dict,
     result: MiningResult,
     rules_dict: dict,
+    emb_payload: dict | None,
     run_index: int,
     selected: str,
     lease: artifacts.PublicationLease | None,
@@ -218,6 +252,21 @@ def _publish(
             mode=tensors.mode,
             min_confidence=tensors.min_confidence,
             rule_confs64=tensors.rule_confs64,
+        )
+    if emb_payload is None:
+        # embed phase off or skipped: a previous generation's embeddings
+        # must not survive into this manifest, against other rules
+        artifacts.remove_embeddings(cfg.pickles_dir)
+    else:
+        paths["embeddings"] = artifacts.embeddings_artifact_path(cfg.pickles_dir)
+        artifacts.save_embeddings(
+            paths["embeddings"],
+            vocab=encoded["baskets"].vocab.names,
+            item_factors=emb_payload["item_factors"],
+            rank=emb_payload["rank"],
+            iters=emb_payload["iters"],
+            reg=emb_payload["reg"],
+            final_loss=emb_payload["final_loss"],
         )
     artifacts.retire_unpublished(cfg.pickles_dir)
     if cfg.write_manifest:
@@ -329,6 +378,9 @@ def run_mining_job(
         if jm is not None:
             _note_mine_metrics(jm, encoded, result)
         rules_dict = phase("rules", lambda: tensors.to_rules_dict(result.vocab_names))
+        emb_payload = (
+            _run_embed_phase(phase, cfg, baskets, device, mesh, jm) if cfg.embed_enabled else None
+        )
         summary = JobSummary(
             dataset=selected,
             run_index=run_index,
@@ -344,12 +396,15 @@ def run_mining_job(
             kernel_launches=launches,
             resumed_phases=tuple(resumed),
             fencing_token=lease.fencing_token if lease else None,
+            als_train_s=emb_payload["duration_s"] if emb_payload is not None else None,
         )
         if not is_writer:
             print(f"Rank {this_rank()}: not the writer; rank 0 publishes")
             print(f"Job finished at {get_current_time_str()}")
             return summary
-        token, paths = _publish(cfg, encoded, result, rules_dict, run_index, selected, lease)
+        token, paths = _publish(
+            cfg, encoded, result, rules_dict, emb_payload, run_index, selected, lease
+        )
         if store is not None:
             # published: the next rotation run must start fresh
             store.clear()

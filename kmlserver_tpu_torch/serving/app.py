@@ -272,6 +272,13 @@ class RecommendApp:
             "reload_consecutive_failures": getattr(
                 self.engine, "consecutive_reload_failures", 0
             ),
+            # hybrid serving: is the embedding merge live, how many
+            # embedding loads degraded to rules only, the effective weight
+            "embedding_active": int(getattr(self.engine, "embedding_active", False)),
+            "embedding_load_failures_total": getattr(self.engine, "embedding_load_failures", 0),
+            "hybrid_blend_weight": round(
+                getattr(self.engine, "blend_weight", self.cfg.hybrid_blend_weight), 4
+            ),
             "replicas_ejected": len(ejected_fn()) if callable(ejected_fn) else 0,
             # the autoscaling signal; 0.0 without a batcher so the series
             # always exists
@@ -476,6 +483,10 @@ class RecommendApp:
         consec = getattr(self.engine, "consecutive_reload_failures", 0)
         if consec > 0:
             reasons.append(f"reload failing x{consec} (serving last-good bundle)")
+        if getattr(self.engine, "embedding_degraded", False):
+            # a published embeddings.npz failed its checks: answered from
+            # the rules, but flagged so the operator sees the dark family
+            reasons.append("embedding artifact unusable (serving rules-only)")
         ejected_fn = getattr(self.batcher, "ejected_replicas", None)
         ejected = ejected_fn() if callable(ejected_fn) else []
         if ejected:

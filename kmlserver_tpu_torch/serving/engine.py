@@ -26,14 +26,26 @@ vocabulary are dropped on the host before any upload, as the reference's
 XLA scatter drops them, so a crafted or stale npz cannot raise a
 device-side assert that would poison the CUDA context.
 
+Hybrid serving (the reference's second model family): when the PVC
+carries an ``embeddings.npz`` (ALS item factors, ``mining/als.py``), every
+replica also holds the factors, and a batch dispatches two lookups — the
+rule max-merge and the embedding cosine top-k (``ops/embed.py``) — whose
+per-request lists merge at finish per ``KMLS_HYBRID_MODE`` (``rules`` |
+``embed`` | ``blend``, weight ``KMLS_HYBRID_BLEND_WEIGHT``). A seed unknown
+to the rules but known to the embedding vocabulary is answered from the
+embedding space instead of the popularity fallback. An absent, torn or
+checksum-failing embedding artifact degrades to rules only; the reload
+never fails for it.
+
 Cost attribution (``observability/costmodel.py``, on unless
 ``KMLS_COSTMODEL=0``): each finished batch reports its dispatch → CUDA
-event seconds and its bucket's shape as a ``serve_rules`` observation,
-each publication the rule tensors' bytes and the allocator's watermark,
-and the unwarmed dispatches are watched as ``kmls_compiles_total``.
+event seconds and its bucket's shape as a ``serve_rules`` observation
+(and the embedding lookup's as ``embed_topk``), each publication the
+tensors' bytes and the allocator's watermark, and the unwarmed dispatches
+of each lookup are watched as ``kmls_compiles_total``.
 
-The native host kernel, the vocab-sharded layout, the serve mesh,
-embeddings and deltas are not part of this package.
+The native host kernel, the vocab-sharded layout, the serve mesh and
+deltas are not part of this package.
 """
 
 from __future__ import annotations
@@ -57,11 +69,31 @@ from ..io import artifacts, registry
 from ..io.artifacts import ArtifactIntegrityError
 from ..io.iohealth import MONITOR
 from ..observability import costmodel as costmodel_mod
+from ..ops.embed import embed_topk
 from ..ops.serve import recommend_batch
 from ..ops.support import min_count_for
 from ..utils.device import resolve_device
 
 logger = logging.getLogger("kmlserver_tpu_torch.serving")
+
+
+def blend_candidates(
+    rule_pairs: list[tuple[str, float]],
+    emb_pairs: list[tuple[str, float]],
+    weight: float,
+    k_best: int,
+) -> list[str]:
+    """The hybrid blend merge: the union of both families' (name, score)
+    candidates scored ``(1-w)·conf + w·sim``, ranked by (score desc, name
+    asc) so every replica and epoch composes the same answer."""
+    w = min(max(weight, 0.0), 1.0)
+    scores: dict[str, float] = {}
+    for name, conf in rule_pairs:
+        scores[name] = (1.0 - w) * float(conf)
+    for name, sim in emb_pairs:
+        scores[name] = scores.get(name, 0.0) + w * float(sim)
+    ranked = sorted(scores.items(), key=lambda kv: (-kv[1], kv[0]))
+    return [n for n, _ in ranked[:k_best]]
 
 
 def stable_seed(seed_tracks: list[str]) -> int:
@@ -92,6 +124,15 @@ class RuleBundle:
     # every (batch, length) seed shape run before publication — a dispatch
     # outside it is counted in unwarmed_dispatches
     warmed_shapes: set = dataclasses.field(default_factory=set)
+    # ALS item factors, f32 (V_emb, rank) rows L2-normalized, on this
+    # replica's device, with their own vocabulary (the full encode
+    # vocabulary, broader than the pruned rule one; the hybrid merge is by
+    # name). None = no embeddings: rules only
+    emb_factors: torch.Tensor | None = None
+    emb_vocab: list[str] | None = None
+    emb_index: dict[str, int] | None = None
+    # the (batch, length) shapes the embedding lookup ran before publication
+    emb_warmed_shapes: set = dataclasses.field(default_factory=set)
 
 
 def _host_rule_arrays(arrays: Mapping[str, Any]) -> tuple[list[str], np.ndarray, np.ndarray, np.ndarray]:
@@ -172,17 +213,31 @@ class RecommendEngine:
         self.cache_value: str | None = None  # the reference's app.cache_value
         self.finished_loading = False
         self.reload_counter = 0
-        # dispatches whose (batch, length) shape was never warmed; stays 0
-        # unless a caller passes more rows than batch_max_size
+        # dispatches whose (batch, length) shape was never warmed, of either
+        # lookup (the embedding lookup's also counted on their own); stays
+        # 0 unless a caller passes more rows than batch_max_size
         self.unwarmed_dispatches = 0
+        self.unwarmed_embed_dispatches = 0
         # per-kernel cost attribution; None with KMLS_COSTMODEL=0, making
         # every call site one attribute check
         self.cost_model = (
             costmodel_mod.CostModel(device=self.device) if cfg.costmodel_enabled else None
         )
-        # the first-shape probe the cost model watches: one stable callable,
+        # the first-shape probes the cost model watches: stable callables,
         # since the watcher re-baselines on a new one
-        self._unwarmed_probe = lambda: self.unwarmed_dispatches
+        self._unwarmed_rules_probe = (
+            lambda: self.unwarmed_dispatches - self.unwarmed_embed_dispatches
+        )
+        self._unwarmed_embed_probe = lambda: self.unwarmed_embed_dispatches
+        # embedding-artifact failures are survivable (the bundle publishes
+        # rules-only), so they have counters of their own; degraded = the
+        # last publication wanted embeddings but serves rules only
+        self.embedding_load_failures = 0
+        self.last_embedding_error: str | None = None
+        self.embedding_degraded = False
+        # the blend optimum read from quality.report.json at load
+        # (KMLS_HYBRID_BLEND_WEIGHT=measured), committed with the bundle
+        self.measured_blend_weight: float | None = None
         # per-artifact publication stamps (wall clock), for /readyz and
         # kmls_artifact_age_seconds; empty before the first load
         self._artifact_written_at: dict[str, float] = {}
@@ -253,9 +308,13 @@ class RecommendEngine:
                 # the reload like a torn artifact: same rollback and backoff
                 faults.fire("engine.load")
                 token = self._read_token() or ""
-                use_npz = self._verify_before_load(best_path, rec_path, npz_path)
+                use_npz, use_emb = self._verify_before_load(best_path, rec_path, npz_path)
                 best = artifacts.load_pickle(best_path, deadline_s=self._read_deadline())
                 replicas = self._build_replicas(rec_path, npz_path, token, use_npz=use_npz)
+                # the second model family, fail-soft: a bad embeddings.npz
+                # costs the embedding path, never the reload. Its status
+                # stays local until the swap commits below
+                emb_degraded, emb_error = self._attach_embeddings(replicas, use_emb=use_emb)
                 # every bucket on every replica BEFORE publishing: a shape's
                 # first launch grows the caching allocators and the sort's
                 # scratch space, and must not land inside a request
@@ -294,6 +353,16 @@ class RecommendEngine:
                 "rules": rules_at,
                 "popularity": self._file_written_at(best_path, rules_at),
             }
+            if replicas[0].emb_factors is not None:
+                self._artifact_written_at["embeddings"] = self._file_written_at(
+                    artifacts.embeddings_artifact_path(cfg.pickles_dir), rules_at
+                )
+            self.measured_blend_weight = self._read_measured_blend_weight()
+            # the embedding status commits with the bundle it describes
+            self.embedding_degraded = emb_degraded
+            self.last_embedding_error = emb_error
+            if emb_degraded:
+                self.embedding_load_failures += 1
             if self.cost_model is not None:
                 self._note_publish_cost(replicas)
             self.finished_loading = True
@@ -303,10 +372,13 @@ class RecommendEngine:
             self._backoff_until = 0.0
             logger.info(
                 "reload #%d complete (epoch %d): %d tracks, %d rule keys, "
-                "%d replica(s) on %s, token %r",
+                "%d replica(s) on %s, embeddings %s, token %r",
                 self.reload_counter, epoch, len(replicas[0].vocab),
                 int(replicas[0].known_mask.sum()), len(replicas),
-                ", ".join(str(b.device) for b in replicas), replicas[0].model_token,
+                ", ".join(str(b.device) for b in replicas),
+                (f"on ({len(replicas[0].emb_vocab)} tracks)"
+                 if replicas[0].emb_factors is not None else "off"),
+                replicas[0].model_token,
             )
             return True
 
@@ -317,27 +389,38 @@ class RecommendEngine:
         taken after warm-up so later growth is a serving-path dispatch."""
         cm = self.cost_model
         bundle = replicas[0]
+        tensor_bytes = {
+            "rule_ids": int(bundle.rule_ids.nbytes), "rule_confs": int(bundle.rule_confs.nbytes),
+        }
+        if bundle.emb_factors is not None:
+            tensor_bytes["embeddings"] = int(bundle.emb_factors.nbytes)
         cm.note_publish(
-            {"rule_ids": int(bundle.rule_ids.nbytes), "rule_confs": int(bundle.rule_confs.nbytes)},
+            tensor_bytes,
             self.cfg.device_budget_bytes,
             watermark_bytes=costmodel_mod.device_watermark_bytes(bundle.device),
         )
-        cm.watch_compiles("serve_rules", self._unwarmed_probe)
+        cm.watch_compiles("serve_rules", self._unwarmed_rules_probe)
+        if bundle.emb_factors is not None:
+            cm.watch_compiles("embed_topk", self._unwarmed_embed_probe)
         cm.mark_published()
 
-    def _verify_before_load(self, best_path: str, rec_path: str, npz_path: str) -> bool:
+    def _verify_before_load(
+        self, best_path: str, rec_path: str, npz_path: str
+    ) -> tuple[bool, bool]:
         """Check the artifact set against the mining job's manifest before
         any bytes are trusted. A mismatched best-tracks or recommendations
         pickle aborts the reload (raise → last-good keeps serving); a
         mismatched npz only turns off the tensor fast path for this reload,
-        since the pickle carries the same generation. The current token
+        since the pickle carries the same generation, and a mismatched
+        embeddings.npz only turns off the embedding path. The current token
         gates the check: a manifest stamped for another generation steps
-        aside. → whether the npz may be used."""
+        aside. → (use_npz, use_emb)."""
         if not self.cfg.verify_manifest:
-            return True
+            return True, True
+        emb_path = artifacts.embeddings_artifact_path(self.cfg.pickles_dir)
         bad = artifacts.verify_files(
             self.cfg.pickles_dir,
-            [os.path.basename(p) for p in (best_path, rec_path, npz_path)],
+            [os.path.basename(p) for p in (best_path, rec_path, npz_path, emb_path)],
             token=self._read_token(),
         )
         use_npz = npz_path not in bad
@@ -347,9 +430,53 @@ class RecommendEngine:
                 "to the pickle", npz_path,
             )
             bad.remove(npz_path)
+        use_emb = emb_path not in bad
+        if not use_emb:
+            logger.warning(
+                "embedding artifact %s fails its manifest checksum; serving "
+                "rules-only this generation", emb_path,
+            )
+            bad.remove(emb_path)
         if bad:
             raise ArtifactIntegrityError(f"artifact checksum mismatch vs manifest: {bad}", bad)
-        return use_npz
+        return use_npz, use_emb
+
+    def _attach_embeddings(
+        self, replicas: list[RuleBundle], use_emb: bool = True
+    ) -> tuple[bool, str | None]:
+        """Load ``embeddings.npz`` if published and put the item factors on
+        every replica's device. Never raises: a bad second-model artifact
+        degrades to rules-only serving. Fires the ``embed.artifact`` chaos
+        site. → ``(degraded, error)`` for the caller to commit with the
+        swap."""
+        if self.cfg.hybrid_mode == "rules":
+            return False, None  # pinned rules-only: the file is not read
+        emb_path = artifacts.embeddings_artifact_path(self.cfg.pickles_dir)
+        if not os.path.exists(emb_path):
+            return False, None  # no second model published: not degraded
+        try:
+            if not use_emb:
+                raise ArtifactIntegrityError(f"{emb_path} fails its manifest checksum", [emb_path])
+            faults.fire("embed.artifact")
+            loaded = artifacts.load_embeddings(emb_path, deadline_s=self._read_deadline())
+        except FileNotFoundError:
+            # raced a writer retiring it (an embed-disabled publication
+            # removes it before the token rewrite): absent, not corrupt
+            logger.info(
+                "embedding artifact %s vanished mid-load (retired by the "
+                "miner); serving rules-only", emb_path,
+            )
+            return False, None
+        except Exception as exc:
+            logger.exception("embedding artifact %s unusable; serving rules-only", emb_path)
+            return True, f"{type(exc).__name__}: {exc}"
+        emb_vocab = loaded["vocab"]
+        emb_index = {n: i for i, n in enumerate(emb_vocab)}
+        for bundle in replicas:
+            bundle.emb_vocab = emb_vocab
+            bundle.emb_index = emb_index
+            bundle.emb_factors = torch.as_tensor(loaded["item_factors"], device=bundle.device)
+        return False, None
 
     def _note_reload_failure(
         self, exc: Exception, best_path: str, rec_path: str, npz_path: str
@@ -468,14 +595,51 @@ class RecommendEngine:
     def _warmup(self, bundle: RuleBundle) -> None:
         """Run EVERY (batch-bucket, length-bucket) shape through the
         dispatch path on ``bundle`` before it publishes, the copies and
-        the pinned host buffers included."""
-        if not bundle.vocab:
-            return  # nothing can be known: every answer is the fallback
+        the pinned host buffers included — the rule lookup, and the
+        embedding lookup when factors are attached."""
         for length in self._len_buckets():
             for batch in self._batch_buckets():
-                seeds = self._staging((batch, length), bundle.device)
-                self._launch(bundle, seeds)()
-                bundle.warmed_shapes.add((batch, length))
+                shape = (batch, length)
+                if bundle.vocab:  # an empty rule vocabulary knows no seed
+                    self._launch(bundle, self._staging(shape, bundle.device))()
+                    bundle.warmed_shapes.add(shape)
+                if bundle.emb_factors is not None:
+                    self._launch_embed(bundle, self._staging(shape, bundle.device))()
+                    bundle.emb_warmed_shapes.add(shape)
+
+    def _read_measured_blend_weight(self) -> float | None:
+        """The published blend optimum (``quality.report.json``) under
+        ``KMLS_HYBRID_BLEND_WEIGHT=measured``, else None. Fail-soft: no
+        report, or one without a usable weight, serves the configured
+        weight with a warning."""
+        if not self.cfg.hybrid_blend_measured:
+            return None
+        report = artifacts.load_quality_report(self.cfg.pickles_dir)
+        weight = report.get("measured_blend_weight") if report else None
+        if isinstance(weight, (int, float)) and 0.0 <= float(weight) <= 1.0:
+            return float(weight)
+        logger.warning(
+            "KMLS_HYBRID_BLEND_WEIGHT=measured but no usable quality.report.json "
+            "on the PVC (report %s); serving the default weight %.2f",
+            "absent" if report is None else "carries no measured weight",
+            self.cfg.hybrid_blend_weight,
+        )
+        return None
+
+    @property
+    def blend_weight(self) -> float:
+        """The effective blend weight: the measured optimum when one was
+        published under ``measured``, else the configured float."""
+        if self.measured_blend_weight is not None:
+            return self.measured_blend_weight
+        return self.cfg.hybrid_blend_weight
+
+    @property
+    def embedding_active(self) -> bool:
+        """True when the published bundle carries item factors (the hybrid
+        merge is live)."""
+        bundle = self.bundle
+        return bundle is not None and bundle.emb_factors is not None
 
     @staticmethod
     def _file_written_at(path: str, fallback: float) -> float:
@@ -590,52 +754,122 @@ class RecommendEngine:
             )
         return seeds, known_rows
 
-    def _launch(self, bundle: RuleBundle, seeds: torch.Tensor) -> Callable[[], np.ndarray]:
-        """Start the lookup of the host ``seeds`` on ``bundle``'s device →
-        ``wait()``, which returns the (rows, k_best) host ids.
+    @staticmethod
+    def _enqueue(
+        lookup: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
+        seeds: torch.Tensor, dev: torch.device,
+    ) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
+        """Start ``lookup`` on the host ``seeds`` on ``dev`` → ``wait()``,
+        which returns the (rows, k_best) host ids and scores.
 
-        On a card the seed copy, the lookup and the copy of the ids into a
-        pinned host tensor are enqueued on the replica's current stream
-        with a CUDA event after them, and ``wait()`` synchronizes on that
-        event only (releasing the GIL). On the CPU the lookup runs inside
-        ``wait()``, so a dispatch never computes on the caller's thread."""
-        k_best = self.cfg.k_best_tracks
-        dev = bundle.device
+        On a card the seed copy, the lookup and the copies of its two
+        outputs into pinned host tensors are enqueued on the device's
+        current stream with a CUDA event after them, and ``wait()``
+        synchronizes on that event only (releasing the GIL). On the CPU the
+        lookup runs inside ``wait()``, so a dispatch never computes on the
+        caller's thread."""
         if dev.type != "cuda":
-            def wait_cpu() -> np.ndarray:
-                ids, _ = recommend_batch(bundle.rule_ids, bundle.rule_confs, seeds, k_best=k_best)
-                return ids.numpy()
+            def wait_cpu() -> tuple[np.ndarray, np.ndarray]:
+                ids, scores = lookup(seeds)
+                return ids.numpy(), scores.numpy()
 
             return wait_cpu
         with torch.cuda.device(dev):
             seeds_dev = seeds.to(dev, non_blocking=True)
-            top_ids, _ = recommend_batch(bundle.rule_ids, bundle.rule_confs, seeds_dev,
-                                         k_best=k_best)
-            host_ids = torch.empty(top_ids.shape, dtype=torch.int32, pin_memory=True)
-            host_ids.copy_(top_ids, non_blocking=True)
+            outs = lookup(seeds_dev)
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+            for h, t in zip(host, outs):
+                h.copy_(t, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
 
-        # _staged keeps the pinned seed tensor alive until the copy that
-        # reads it has provably finished
-        def wait_cuda(_staged: torch.Tensor = seeds) -> np.ndarray:
+        # _staged keeps the fresh pinned seed tensor alive until the copy
+        # that reads it has provably finished
+        def wait_cuda(_staged: torch.Tensor = seeds) -> tuple[np.ndarray, np.ndarray]:
             done.synchronize()
-            return host_ids.numpy()
+            return host[0].numpy(), host[1].numpy()
 
         return wait_cuda
 
+    def _launch(self, bundle: RuleBundle, seeds: torch.Tensor):
+        """The rule lookup of ``seeds`` on ``bundle`` → ``wait()`` for the
+        host (ids, confidences)."""
+        k_best = self.cfg.k_best_tracks
+        return self._enqueue(
+            lambda s: recommend_batch(bundle.rule_ids, bundle.rule_confs, s, k_best=k_best),
+            seeds, bundle.device,
+        )
+
+    def _launch_embed(self, bundle: RuleBundle, seeds: torch.Tensor):
+        """The embedding lookup of ``seeds`` (embedding ids) on ``bundle``
+        → ``wait()`` for the host (ids, similarities)."""
+        k_best = self.cfg.k_best_tracks
+        return self._enqueue(
+            lambda s: embed_topk(bundle.emb_factors, s, k_best=k_best), seeds, bundle.device,
+        )
+
+    def _dispatch_embed(
+        self, bundle: RuleBundle, seed_sets: list[list[str]], n_rows: int, length: int,
+    ) -> tuple[Callable[[], tuple[np.ndarray, np.ndarray]], np.ndarray] | None:
+        """Stage and enqueue the embedding lookup for a batch → ``(wait,
+        per-row embed-known mask)``, or None when the bundle has no
+        factors, the mode is ``rules``, or no row has a seed the embedding
+        vocabulary knows (the full-vocabulary product would be thrown away).
+        Its seeds go into a fresh pinned tensor of their own, kept alive
+        until the lookup's CUDA event."""
+        if bundle.emb_factors is None or self.cfg.hybrid_mode == "rules":
+            return None
+        shape = (n_rows, length)
+        seeds = self._staging(shape, bundle.device)
+        arr = seeds.numpy()
+        known = np.zeros(len(seed_sets), dtype=bool)
+        index = bundle.emb_index or {}
+        for r, names in enumerate(seed_sets):
+            ids = [index[s] for s in names if s in index][:length]
+            arr[r, : len(ids)] = ids
+            known[r] = len(ids) > 0
+        if not known.any():
+            return None
+        if shape not in bundle.emb_warmed_shapes:
+            self.unwarmed_dispatches += 1
+            self.unwarmed_embed_dispatches += 1
+            logger.warning(
+                "unwarmed embedding seed shape %s dispatched; warmed buckets: "
+                "batches %s x lengths %s", shape, self._batch_buckets(), self._len_buckets(),
+            )
+        return self._launch_embed(bundle, seeds), known
+
     def _compose_answer(
-        self, bundle: RuleBundle, seeds: list[str], rule_known: bool, ids_row,
+        self, bundle: RuleBundle, seeds: list[str], rule_known: bool,
+        ids_row, confs_row, emb_row,
     ) -> tuple[list[str], str]:
-        """One request's answer → (songs, source ∈ {"rules", "fallback",
-        "empty"})."""
-        if not rule_known:
+        """Merge the two families' top-k for one request → (songs, source
+        ∈ {"rules", "embed", "hybrid", "fallback", "empty"}). ``emb_row``
+        is ``(ids, sims, known)`` or None (no embeddings, or rules mode),
+        which gives the rules-only answer bit for bit. The merge is host
+        float arithmetic with a fixed tie order (score desc, name asc)."""
+        emb_known = emb_row is not None and bool(emb_row[2])
+        if not rule_known and not emb_known:
             return self.static_recommendation(seeds), "fallback"
-        songs = [bundle.vocab[int(i)] for i in ids_row if i >= 0]
-        return songs, ("rules" if songs else "empty")
+        if not emb_known:
+            songs = [bundle.vocab[int(i)] for i in ids_row if i >= 0]
+            return songs, ("rules" if songs else "empty")
+        emb_pairs = [
+            (bundle.emb_vocab[int(i)], float(s)) for i, s in zip(emb_row[0], emb_row[1]) if i >= 0
+        ]
+        if self.cfg.hybrid_mode == "embed" or not rule_known:
+            # embed mode, or a cold-start seed the rules never saw
+            songs = [n for n, _ in emb_pairs]
+            return songs, ("embed" if songs else "empty")
+        rule_pairs = [
+            (bundle.vocab[int(i)], float(c)) for i, c in zip(ids_row, confs_row) if i >= 0
+        ]
+        songs = blend_candidates(rule_pairs, emb_pairs, self.blend_weight, self.cfg.k_best_tracks)
+        return songs, ("hybrid" if songs else "empty")
 
     def recommend(self, seed_tracks: list[str]) -> tuple[list[str], str]:
-        """→ ``(songs, source)``, source ∈ {"rules", "fallback", "empty"}."""
+        """→ ``(songs, source)``, source ∈ {"rules", "embed", "hybrid",
+        "fallback", "empty"}."""
         return self.recommend_many_async([seed_tracks])()[0]
 
     def recommend_many(
@@ -653,8 +887,9 @@ class RecommendEngine:
         for this batch's result and builds the answers). ``replica``
         selects the replica that runs the batch (the batcher's least-loaded
         pick); None uses the primary. The batch is padded up to its
-        (batch, length) bucket; a batch with no known seed in any row
-        launches nothing."""
+        (batch, length) bucket; each lookup is launched only when some row
+        has a seed its vocabulary knows. Both lookups are enqueued before
+        either is awaited."""
         replicas = self.replicas
         idx = replica % len(replicas) if (replica is not None and replicas) else 0
         bundle = replicas[idx] if replicas else self.bundle
@@ -672,26 +907,44 @@ class RecommendEngine:
         cm = self.cost_model
         t_kernel = time.perf_counter()
         wait = self._launch(bundle, seeds) if known_rows.any() else None
+        emb = self._dispatch_embed(bundle, seed_sets, n_rows, length)
         self._note_dispatch(idx)
 
         def finish() -> list[tuple[list[str], str]]:
             # chaos site on the completion path, where a real device
             # failure or stall surfaces
             faults.fire("replica.kernel", replica=idx)
-            host_ids = wait() if wait is not None else None
-            if cm is not None and wait is not None:
-                # dispatch → the batch's CUDA event (the wait above is its
-                # fence): the same span kmls_device_ms reports, an upper
-                # bound on device time, so the MFU is a lower bound
-                cm.observe_kernel(
-                    "serve_rules", time.perf_counter() - t_kernel,
-                    b=n_rows, l=length, k_max=bundle.rule_ids.shape[1],
-                    v=len(bundle.vocab), k_best=self.cfg.k_best_tracks,
-                )
+            host_ids = host_confs = None
+            t_rules = time.perf_counter()
+            if wait is not None:
+                host_ids, host_confs = wait()
+                t_rules = time.perf_counter()
+                if cm is not None:
+                    # dispatch → the batch's CUDA event (the wait above is
+                    # its fence): the same span kmls_device_ms reports, an
+                    # upper bound on device time, so the MFU is a lower bound
+                    cm.observe_kernel(
+                        "serve_rules", t_rules - t_kernel,
+                        b=n_rows, l=length, k_max=bundle.rule_ids.shape[1],
+                        v=len(bundle.vocab), k_best=self.cfg.k_best_tracks,
+                    )
+            emb_ids = emb_sims = emb_known = None
+            if emb is not None:
+                (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
+                if cm is not None:
+                    # the rule lookup is fenced already and the stream runs
+                    # in order, so this span bills the embedding lookup
+                    cm.observe_kernel(
+                        "embed_topk", time.perf_counter() - t_rules,
+                        b=n_rows, l=length, v=len(bundle.emb_vocab or ()),
+                        r=int(bundle.emb_factors.shape[1]), k_best=self.cfg.k_best_tracks,
+                    )
             return [
                 self._compose_answer(
                     bundle, s, bool(known_rows[r]),
                     host_ids[r] if host_ids is not None else None,
+                    host_confs[r] if host_confs is not None else None,
+                    None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
                 )
                 for r, s in enumerate(seed_sets)
             ]

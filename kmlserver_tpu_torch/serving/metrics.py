@@ -65,6 +65,11 @@ METRIC_REGISTRY: dict[str, str] = {
     "kmls_artifact_quarantines_total": "counter:serving",
     "kmls_reload_failures_total": "counter:serving",
     "kmls_reload_consecutive_failures": "gauge:serving",
+    # --- hybrid serving: is the embedding merge live, how many embedding
+    # loads degraded to rules only, and the effective blend weight ---
+    "kmls_embedding_active": "gauge:serving",
+    "kmls_embedding_load_failures_total": "counter:serving",
+    "kmls_hybrid_blend_weight": "gauge:serving",
     # --- storage health (io/iohealth.py) ---
     "kmls_io_latency_seconds": "gauge:serving",
     "kmls_io_errors_total": "counter:serving",
@@ -238,7 +243,11 @@ class ServingMetrics:
     def __init__(self):
         self.started_at = time.time()
         self.requests_total = 0
-        self.requests_by_source = {"rules": 0, "fallback": 0, "empty": 0}
+        # "embed" / "hybrid" are the second model family's sources, present
+        # from the start so the series always exist
+        self.requests_by_source = {
+            "rules": 0, "embed": 0, "hybrid": 0, "fallback": 0, "empty": 0,
+        }
         self.errors_total = 0
         self.shed_total = 0
         # degraded answers by reason, plus the batcher's circuit-breaker

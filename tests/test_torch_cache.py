@@ -194,7 +194,9 @@ def test_render_names_only_catalog_series():
               "loop_lag_ms": 0.0, "deadline_expired_total": 1,
               "traces_began_total": 0, "traces_retained_total": 0, "trace_buffer_entries": 0,
               "artifact_quarantines_total": 1,
-              "reload_failures_total": 2, "reload_consecutive_failures": 1}
+              "reload_failures_total": 2, "reload_consecutive_failures": 1,
+              "embedding_active": 0, "embedding_load_failures_total": 0,
+              "hybrid_blend_weight": 0.5}
     io = {"latency_s": {"read": 0.002}, "errors": {("read", 5): 1}, "retries": 1,
           "storage_slow": False, "disk_free_bytes": 1 << 30}
     cost = CostModel(peak_flops=1e12, peak_bytes_s=1e11)
@@ -215,11 +217,9 @@ def test_render_names_only_catalog_series():
     assert names == serving - card_only
     want = ref_m.render(3, True, cache=cache, dispatch_counts=[4, 5])
     # the summaries, histograms, counters and cache lines agree line for line
-    # (uptime aside); the reference's requests_by_source also lists the
-    # embedding family's sources, which the port never produces
-    strip = ("kmls_uptime_seconds ", 'kmls_requests_by_source{source="embed"',
-             'kmls_requests_by_source{source="hybrid"')
-    ref_lines = [line for line in want.splitlines() if not line.startswith(strip)]
+    # (uptime aside), the embedding family's sources included
+    ref_lines = [line for line in want.splitlines()
+                 if not line.startswith("kmls_uptime_seconds ")]
     port_lines = [line for line in text.splitlines() if not line.startswith("kmls_uptime_seconds ")]
     assert port_lines[: len(ref_lines)] == ref_lines
     # the storage-health section renders as the reference's does

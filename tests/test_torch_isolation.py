@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_the_reference():
     for name in ("ops.popcount", "faults", "io.iohealth", "io.artifacts", "mining.checkpoint",
                  "observability.trace", "observability.runtime", "observability.slo",
                  "observability.costmodel", "observability.jobmetrics",
-                 "observability.tracejoin", "utils.profiling"):
+                 "observability.tracejoin", "utils.profiling", "ops.embed", "ops.segsum",
+                 "mining.als", "models", "models.embedding_model", "models.rule_model"):
         assert f"kmlserver_tpu_torch.{name}" in names, name
     proc = _run(
         f"""

@@ -1,7 +1,7 @@
 """The batch side of the port's chaos suite — twin of
-``tests/test_mining_chaos.py`` with the ``embed`` and ``eval`` phases off
-(the port has neither yet), held against the JAX package on the same
-seeded inputs.
+``tests/test_mining_chaos.py``, held against the JAX package on the same
+seeded inputs: with the ``eval`` phase off (the port has none yet), and
+with the ``embed`` phase off and on.
 
 A job killed after each checkpointed phase resumes and publishes the same
 bytes as an uninterrupted run, and what it publishes equals the reference
@@ -31,6 +31,7 @@ from kmlserver_tpu.mining.pipeline import run_mining_job as ref_run_mining_job
 from kmlserver_tpu.mining.vocab import DuplicateArtistURIError as RefDuplicateArtistURIError
 from kmlserver_tpu_torch import faults
 from kmlserver_tpu_torch.io import artifacts
+from kmlserver_tpu_torch.mining import als
 from kmlserver_tpu_torch.mining import checkpoint as ckpt_mod
 from kmlserver_tpu_torch.mining import pipeline
 from kmlserver_tpu_torch.mining.job import (
@@ -117,6 +118,31 @@ def port_publication(tmp_path_factory):
     return cfg
 
 
+EMBED_KNOBS = dict(embed_enabled=True, als_rank=8, als_iters=4)
+
+
+@pytest.fixture(scope="module")
+def embed_publication(tmp_path_factory):
+    """The port's uninterrupted publication with the embed phase on → its
+    bytes (embeddings.npz included) and manifest files; its factors are
+    held against the reference job's."""
+    cfg = _pvc(tmp_path_factory.mktemp("port_embed_pvc"), **EMBED_KNOBS)
+    faults.clear()
+    run_mining_job(cfg, device="cpu")
+    emb = artifacts.EMBEDDINGS_FILENAME
+    with open(os.path.join(cfg.pickles_dir, emb), "rb") as fh:
+        blob = fh.read()
+    ref_base = str(tmp_path_factory.mktemp("ref_embed_pvc"))
+    write_dataset(ref_base)
+    ref_faults.clear()
+    ref_run_mining_job(ref_mining_cfg(ref_base, **EMBED_KNOBS))
+    ours = artifacts.load_embeddings(os.path.join(cfg.pickles_dir, emb))
+    theirs = ref_artifacts.load_embeddings(os.path.join(ref_base, "pickles", emb))
+    assert ours["vocab"] == theirs["vocab"]
+    assert np.abs(ours["item_factors"] - theirs["item_factors"]).max() <= 1e-4
+    return {"bytes": {**_artifact_bytes(cfg), emb: blob}, "manifest": _manifest_files(cfg)}
+
+
 class TestResumeEquivalence:
     @pytest.mark.parametrize("crash_phase", ckpt_mod.RUN_PHASES)
     def test_kill_at_phase_then_resume_bit_identical(
@@ -157,6 +183,35 @@ class TestResumeEquivalence:
         assert len(calls) == (1 if crash_phase == "encode" else 0)
         assert summary.kernel_launches == 0
 
+    @pytest.mark.parametrize(
+        "crash_phase", ckpt_mod.run_phases(port_mining_cfg(".", embed_enabled=True))
+    )
+    def test_kill_at_phase_with_embed_then_resume_bit_identical(
+        self, tmp_path, crash_phase, embed_publication, monkeypatch
+    ):
+        """With the embed phase on, a kill after each phase (embed included)
+        resumes and publishes the uninterrupted run's bytes, embeddings.npz
+        included; a resume after ``embed`` trains nothing."""
+        cfg = _pvc(tmp_path, **EMBED_KNOBS)
+        _crashed_run(cfg, crash_phase)
+        trainings = []
+        real = als.train_embeddings
+
+        def counting(*args, **kwargs):
+            trainings.append(1)
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(als, "train_embeddings", counting)
+        summary = run_mining_job(cfg, device="cpu")
+        want = ckpt_mod.PHASES[: ckpt_mod.PHASES.index(crash_phase) + 1]
+        assert summary.resumed_phases == want
+        assert len(trainings) == (0 if crash_phase == "embed" else 1)
+        emb = artifacts.EMBEDDINGS_FILENAME
+        with open(os.path.join(cfg.pickles_dir, emb), "rb") as fh:
+            got = {**_artifact_bytes(cfg), emb: fh.read()}
+        assert got == embed_publication["bytes"]
+        assert _manifest_files(cfg) == embed_publication["manifest"]
+
     def test_checkpoint_payloads_are_host_objects(self, tmp_path):
         """The mine payload is host numpy, not torch tensors: a checkpoint
         written on the card resumes on the CPU and the other way round."""
@@ -182,6 +237,15 @@ class TestResumeEquivalence:
             walk(store.load(phase))
         assert np.ndarray in seen
         assert not [t for t in seen if issubclass(t, torch.Tensor)]
+
+    def test_embed_payload_is_host_objects(self, tmp_path):
+        """The embed payload is host numpy too: factors, floats, ints."""
+        cfg = _crashed_run(_pvc(tmp_path, **EMBED_KNOBS), "embed")
+        store = ckpt_mod.open_store(cfg, os.path.join(cfg.datasets_dir, DATASET), 1, writer=True)
+        payload = store.load("embed")
+        assert isinstance(payload["item_factors"], np.ndarray)
+        assert payload["item_factors"].dtype == np.float32
+        assert not [k for k, v in payload.items() if isinstance(v, torch.Tensor)]
 
     def test_checkpoint_retired_after_publication(self, tmp_path):
         cfg = _pvc(tmp_path)
@@ -389,12 +453,13 @@ class TestLeaseFencing:
         cfg = _pvc(tmp_path, lease_ttl_s=30.0)
         real_publish = pipeline._publish
 
-        def usurped(cfg_, encoded, result, rules_dict, run_index, selected, lease):
+        def usurped(cfg_, *args):
+            lease = args[-1]
             lease.stop_heartbeat()
             newer = artifacts.PublicationLease(cfg_.pickles_dir, "newer", lease.fencing_token + 1,
                                                ttl_s=30.0)
             newer._write()
-            return real_publish(cfg_, encoded, result, rules_dict, run_index, selected, lease)
+            return real_publish(cfg_, *args)
 
         monkeypatch.setattr(pipeline, "_publish", usurped)
         with pytest.raises(artifacts.LeaseLostError) as exc_info:
