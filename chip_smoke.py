@@ -113,10 +113,18 @@ main loop on the card and fails loudly on any mismatch:
    scores within 1e-6), counted; sources counted; zero 5xx; no unwarmed
    dispatch; (c) sparse ALS on the scale baskets: ``auto`` picks sparse,
    one accumulate each way held bit for bit against the CPU plain version
-   and timed beside ``index_add_`` on the card and its bound, two full
+   and timed beside ``index_add_`` on the card and its bound (bytes,
+   operations, or the longest row's chain of dependent adds), the same
+   accumulate at every ``LONG_ROW_EVENTS`` candidate (each bit-equal, each
+   timed: the measurement the constant is set from), one synthetic row of
+   2,000,000 events held against the plain version and timed, two full
    trainings (counters set to 0 just before the first) bit-identical,
    peak device memory, ``embed_topk`` at V = 1M against the CPU.
 Then the kernels line is printed.
+
+Not part of the run: :func:`probe_segsum_ring` builds ``segsum.cu`` with
+its adds, its copies or both taken out and times one long row with each
+(where a long row's time goes).
 
 ``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
 5M rows (a shorter check; prints a ``reduced`` line). The script starts
@@ -129,6 +137,7 @@ non-zero, printing no result, without CUDA or outside a checkout.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -248,24 +257,37 @@ def check_share(name: str, ms: float, bound: dict) -> float:
     return share
 
 
-def ptxas_registers(log: str) -> dict[str, int]:
-    """Registers per kernel entry from nvcc's ``-Xptxas=-v`` report, keyed
-    ``popcount_pairs_tc_kernel<true>`` and the like."""
-    regs: dict[str, int] = {}
+PTXAS_KERNELS = ("popcount_pairs_tc_kernel", "popcount_pairs_swar_kernel", "segsum_kernel")
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spilled bytes per kernel entry from nvcc's
+    ``-Xptxas=-v`` report, keyed ``popcount_pairs_tc_kernel<true>``,
+    ``segsum_kernel<false>`` and the like."""
+    report: dict[str, dict[str, int]] = {}
     entry = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            entry = next((k for k in ("popcount_pairs_tc_kernel", "popcount_pairs_swar_kernel")
-                          if k in mangled), mangled)
+            entry = next((k for k in PTXAS_KERNELS if k in mangled), mangled)
             if "ILb1E" in mangled:
                 entry += "<true>"
             elif "ILb0E" in mangled:
                 entry += "<false>"
+            report[entry] = {}
+        elif entry and "spill stores" in line:
+            words = line.replace(",", "").split()
+            report[entry]["spill_store_bytes"] = int(words[words.index("spill") - 2])
+            report[entry]["spill_load_bytes"] = int(words[-4])
         elif entry and "Used" in line and "registers" in line:
-            regs[entry] = int(line.split("Used", 1)[1].split()[0])
+            report[entry]["registers"] = int(line.split("Used", 1)[1].split()[0])
             entry = None
-    return regs
+    return report
+
+
+def ptxas_registers(log: str) -> dict[str, int]:
+    """Registers per kernel entry (:func:`ptxas_report`)."""
+    return {k: r["registers"] for k, r in ptxas_report(log).items() if "registers" in r}
 
 
 def int_mm_ms(bt, want) -> float:
@@ -2490,6 +2512,12 @@ ALS_LOSS_RTOL = 1e-5  # relative difference of the final loss
 EMBED_SIM_TOL = 1e-6  # embed_topk similarities, card vs CPU
 EMBED_TOPK_SHAPES = ((1, 8), (32, 8))  # (batch, seed slots) buckets timed at V = 1M
 FP32_PEAK_OPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
+# cycles from one dependent fp32 add to the next on one lane (the segsum
+# kernel's chain; Hopper's fp32 pipeline latency)
+SEGSUM_ADD_CYCLES = 4
+# the threshold sweep of phase 11 (c): LONG_ROW_EVENTS candidates
+SEGSUM_THRESHOLDS = (128, 256, 512, 1024, 2048, 4096, 16384, 1 << 62)
+SEGSUM_LONG_ROW = 2_000_000  # phase 11 (c)'s one synthetic row
 
 
 def decisive_near_tie(engine, seeds: list, eps: float = NEAR_TIE) -> bool:
@@ -2610,6 +2638,12 @@ def phase_embed_ds2(work: str) -> dict:
     if not np.array_equal(published["item_factors"], card["item_factors"]):
         fail("phase 11 (a): the job's factors differ from an in-process card training")
     diff = als_check("(a) ds2 dense", card, cpu_run)
+    dense_bound = als_dense_bound(p, v, 32, 8)
+    log(f"phase 11 (a) dense ALS training bound (the _als_sweep / _als_loss row): "
+        f"{dense_bound['ms']:.4f} ms ({dense_bound['bound_by']}: operations "
+        f"{dense_bound['operations_ms']:.4f} ms = {dense_bound['operations']:.4g} fp32 operations "
+        f"at {FP32_PEAK_OPS:.3g}/s, bytes {dense_bound['bytes_ms']:.4f} ms) against "
+        f"{1e3 * card_s:.3f} ms warm on the card")
     log(f"phase 11 (a) ds2 (P={p}, V={v}, nnz={len(baskets.track_ids)}, R=32, 8 iters, "
         f"dense): jobs {wall_a:.3f} / {wall_b:.3f} s wall, embed phase {train_a:.3f} / "
         f"{train_b:.3f} s (the first pays the process's first solve); embeddings.npz "
@@ -2688,7 +2722,7 @@ def phase_embed_ds2(work: str) -> dict:
         + ", ".join(f"B x L {k_} {t['ms']:.4f} ms (bound {t['ms_bound']:.6f}, {t['bound_by']})"
                     for k_, t in topk_ms.items()))
     return {"wall_s": [wall_a, wall_b], "embed_phase_s": [train_a, train_b],
-            "train_warm_s": card_s, "cpu_train_s": cpu_s, **diff,
+            "train_warm_s": card_s, "train_bound": dense_bound, "cpu_train_s": cpu_s, **diff,
             "serve": {"achieved_qps": report.achieved_qps, "p50_ms": report.p50_ms,
                       "p99_ms": report.p99_ms, **window, "sources": by_source,
                       "served": served, "near_ties": near_ties, "cold_draws": cold,
@@ -2740,27 +2774,56 @@ def embed_topk_bound(b: int, length: int, v: int, rank: int, k: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def segsum_bound(csr, rank: int) -> dict:
-    """The least time of one accumulate on this card: each input read once
-    (the factor matrix, offsets, indices), the output written once, over
-    the HBM rate; and its nnz·R fp32 adds over the fp32 peak."""
+def als_dense_bound(p: int, v: int, rank: int, iters: int) -> dict:
+    """The least time of one dense ALS training (``iters`` sweeps and the
+    final loss) on this card: the sweeps' operations as the cost model
+    counts them (``phase_cost("als_sweep")``: the two products, Gramians
+    and solves per sweep) and the loss's ``U Fᵀ`` product, over the fp32
+    peak (TF32 is off, so no tensor cores); or the one-hot X read once and
+    both factor matrices read and written once, over the HBM rate."""
+    from kmlserver_tpu_torch.observability.costmodel import phase_cost
+
+    flops = phase_cost("als_sweep", p=p, v=v, r=rank, iters=iters)[0] + 2.0 * p * v * rank
+    nbytes = 4 * p * v + 2 * 4 * rank * (p + v)
+    ops_ms = 1e3 * flops / FP32_PEAK_OPS
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"ms": max(ops_ms, bytes_ms), "operations": flops, "bytes": nbytes,
+            "operations_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def segsum_bound(csr, rank: int, clock_hz: float) -> dict:
+    """The least time of one accumulate on this card, the largest of three:
+    each input read once (the factor matrix, offsets, indices) and the
+    output written once, over the HBM rate; its nnz·R fp32 adds over the
+    fp32 peak; and the longest row's chain of dependent fp32 adds (each
+    column's sum is one chain in event order, which no schedule may split:
+    the result would change its bits), ``SEGSUM_ADD_CYCLES`` per event at
+    the SM's top clock. ``bound_by`` says bytes or operations (the chain is
+    operations: dependent adds), ``bound_term`` which of the three."""
     n_in, n_out, nnz = csr.n_in, csr.n_out, csr.nnz
     nbytes = 4 * n_in * rank + 8 * (n_out + 1) + 4 * nnz + 4 * n_out * rank
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     ops_ms = 1e3 * nnz * rank / FP32_PEAK_OPS
+    longest = int((csr.offsets[1:] - csr.offsets[:-1]).max()) if n_out else 0
+    chain_ms = 1e3 * longest * SEGSUM_ADD_CYCLES / clock_hz
     gather_ms = 1e3 * (4 * nnz * rank + 4 * nnz + 8 * (n_out + 1) + 4 * n_out * rank) / PEAK_BYTES_PER_S
-    return {"bytes": nbytes, "ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "gathered_rows_ms": gather_ms}
+    terms = {"bytes": bytes_ms, "operations": ops_ms, "chain": chain_ms}
+    term = max(terms, key=terms.get)
+    return {"bytes": nbytes, "ms": terms[term], "bound_term": term,
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms, "chain_ms": chain_ms,
+            "longest_row": longest, "gathered_rows_ms": gather_ms}
 
 
 def phase_embed_scale(work: str) -> dict:
     """Phase 11 (c): sparse ALS at phase 5's scale baskets (1M x 1M, ~50M
     memberships), loaded from phase 5's arrays: the storage decision, one
-    accumulate each way against the CPU plain version, two full trainings
+    accumulate each way against the CPU plain version, the kernel and
+    ``index_add_`` timed per half-sweep beside the bound, the
+    ``LONG_ROW_EVENTS`` sweep, one 2,000,000-event row, two full trainings
     (launch counters set to 0 just before the first, read just after),
-    the kernel and ``index_add_`` timed per half-sweep, ``embed_topk`` at
-    V = 1M. → the kernels line's segsum entry."""
+    ``embed_topk`` at V = 1M. → the kernels line's segsum entry."""
     import torch
 
     from kmlserver_tpu_torch.config import MiningConfig
@@ -2788,13 +2851,26 @@ def phase_embed_scale(work: str) -> dict:
     gen = torch.Generator().manual_seed(5)
     user_h = torch.randn(p, rank, generator=gen) / rank ** 0.5
     item_h = torch.randn(v, rank, generator=gen) / rank ** 0.5
+    clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
+    plan = segsum.kernel_plan(rank)
     t0 = time.perf_counter()
     by_user = segsum.build_csr(rows_d, cols_d, p, v)
     by_item = segsum.build_csr(cols_d, rows_d, v, p)
     torch.cuda.synchronize()
     csr_s = time.perf_counter() - t0
+    # the schedule's share of that build: one stable sort of the row lengths each
+    order_s = 0.0
+    for csr in (by_user, by_item):
+        lengths = csr.offsets[1:] - csr.offsets[:-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        order = torch.sort(-lengths, stable=True).indices.to(torch.int32)
+        torch.cuda.synchronize()
+        order_s += time.perf_counter() - t0
+        if not torch.equal(order, csr.order):
+            fail("phase 11 (c): the CSR's schedule is not the stable sort of its lengths")
     sides = {"X F": (by_user, item_h, rows, tids, p), "Xt U": (by_item, user_h, tids, rows, v)}
-    entry_sides, max_err = {}, 0.0
+    entry_sides, max_err, sweep = {}, 0.0, {}
     for label, (csr, mat_h, seg_h, gidx_h, n_out) in sides.items():
         mat = mat_h.cuda()
         got = segsum.segment_sum(mat, csr)
@@ -2823,19 +2899,61 @@ def phase_embed_scale(work: str) -> dict:
         lib_ms = cuda_ms(library, 10)
         del seg_d, gidx_d, out
         lengths = csr.offsets[1:] - csr.offsets[:-1]
-        bound = segsum_bound(csr, rank)
+        # LONG_ROW_EVENTS: the same CSR with the long-row count each candidate
+        # gives; every one must give the same bits
+        sweep[label] = {}
+        for threshold in SEGSUM_THRESHOLDS:
+            cand = dataclasses.replace(csr, n_long=int((lengths >= threshold).sum()))
+            if not torch.equal(segsum.segment_sum(mat, cand), got):
+                fail(f"phase 11 (c) {label}: LONG_ROW_EVENTS={threshold} changed the bits")
+            sweep[label][threshold] = {"n_long": cand.n_long,
+                                       "ms": cuda_ms(lambda: segsum.segment_sum(mat, cand), 5)}
+        bound = segsum_bound(csr, rank, clock_hz)
         entry_sides[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                               "bound_ms": bound["ms"], "bound_by": bound["bound_by"],
-                              "bytes": bound["bytes"],
+                              "bound_term": bound["bound_term"], "bytes": bound["bytes"],
+                              "bytes_ms": bound["bytes_ms"], "chain_ms": bound["chain_ms"],
                               "gathered_rows_ms": bound["gathered_rows_ms"],
-                              "max_row_events": int(lengths.max()), "ulps": ulps}
+                              "max_row_events": bound["longest_row"], "long_rows": csr.n_long,
+                              "ulps": ulps}
         log(f"phase 11 (c) accumulate {label} (out {n_out} x {rank}, {nnz} events, longest row "
-            f"{int(lengths.max())} events): kernel == CPU plain version bit for bit; kernel "
-            f"{ms:.3f} ms, index_add_ on the card {lib_ms:.3f} ms (gather included), CPU plain "
-            f"{plain_ms:.1f} ms; bound {bound['ms']:.4f} ms ({bound['bound_by']}: each input "
-            f"once, {bound['bytes']} bytes; the gathered rows once would be "
-            f"{bound['gathered_rows_ms']:.3f} ms)")
-    del rows_d, cols_d, by_user, by_item, sides, csr, mat, got
+            f"{bound['longest_row']} events, {csr.n_long} rows of >= {segsum.LONG_ROW_EVENTS} "
+            f"through the ring): kernel == CPU plain version bit for bit; kernel {ms:.3f} ms, "
+            f"index_add_ on the card {lib_ms:.3f} ms (gather included), CPU plain "
+            f"{plain_ms:.1f} ms; bound {bound['ms']:.4f} ms ({bound['bound_term']}: bytes "
+            f"{bound['bytes_ms']:.4f}, chain {bound['chain_ms']:.4f} = longest row x "
+            f"{SEGSUM_ADD_CYCLES} cycles at {clock_hz / 1e6:.0f} MHz; the gathered rows once "
+            f"would be {bound['gathered_rows_ms']:.3f} ms); LONG_ROW_EVENTS sweep (long rows, "
+            f"ms): " + ", ".join(f"{t if t < 1 << 40 else 'none'} ({r['n_long']}, "
+                                 f"{r['ms']:.3f})" for t, r in sweep[label].items()))
+    del rows_d, cols_d, by_user, by_item, sides, csr, mat, got, cand
+
+    # ---- one synthetic row of SEGSUM_LONG_ROW events over the playlist factors
+    rng = np.random.default_rng(17)
+    one_gidx = rng.integers(0, p, SEGSUM_LONG_ROW)
+    one_seg = np.zeros(SEGSUM_LONG_ROW, np.int64)
+    one = segsum.build_csr(torch.as_tensor(one_seg, device="cuda"),
+                           torch.as_tensor(one_gidx, device="cuda"), 1, p)
+    mat = user_h.cuda()
+    got = segsum.segment_sum(mat, one)
+    torch.cuda.synchronize()
+    plain = segsum.segment_sum_plain(user_h, torch.from_numpy(one_seg),
+                                     torch.from_numpy(one_gidx), 1)
+    if not torch.equal(got.cpu(), plain):
+        fail(f"phase 11 (c): the {SEGSUM_LONG_ROW}-event row != CPU plain version: max |Δ| "
+             f"{float((got.cpu() - plain).abs().max())}")
+    one_ms = cuda_ms(lambda: segsum.segment_sum(mat, one), 5)
+    one_bound = segsum_bound(one, rank, clock_hz)
+    long_row = {"events": SEGSUM_LONG_ROW, "ms": one_ms, "bound_ms": one_bound["ms"],
+                "bound_term": one_bound["bound_term"], "chain_ms": one_bound["chain_ms"],
+                "ns_per_event": 1e6 * one_ms / SEGSUM_LONG_ROW}
+    log(f"phase 11 (c) one row of {SEGSUM_LONG_ROW} events (uniform over the {p} playlist "
+        f"factors, R={rank}): kernel == CPU plain version bit for bit; {one_ms:.3f} ms "
+        f"({long_row['ns_per_event']:.3f} ns per event), chain bound {one_bound['chain_ms']:.3f} "
+        f"ms, bytes {one_bound['bytes_ms']:.3f} ms; ring {plan['stages']} stages x "
+        f"{plan['stage_events']} events, {plan['smem_bytes']} B dynamic shared memory per block, "
+        f"{plan['blocks_per_sm']} blocks per SM x {plan['sms']} SMs")
+    del mat, got, one
 
     # ---- the main path: two full sparse trainings, counters set to 0 just before
     segsum.LAUNCHES["segsum"] = 0
@@ -2864,7 +2982,8 @@ def phase_embed_scale(work: str) -> dict:
     log(f"phase 11 (c) sparse ALS at {p} x {v}, {nnz} memberships, R={rank}, "
         f"{cfg.als_iters} iters: auto picked {first['storage']} (dense ~{dense_b:.4g} B, "
         f"sparse ~{sparse_b:.4g} B against hbm_budget_bytes {cfg.hbm_budget_bytes}); "
-        f"{train_s:.3f} s ({launches} segsum launches), CSR + CSC build {csr_s:.3f} s; the "
+        f"{train_s:.3f} s ({launches} segsum launches), CSR + CSC build {csr_s:.3f} s (their "
+        f"schedules' sorts {order_s:.4f} s of it); the "
         f"second training bit-identical (loss {first['final_loss']:.6f}); peak device memory "
         f"{peak} B ({peak / 2**30:.3f} GiB); the second's stages (synchronized, "
         f"{stages_wall:.3f} s): "
@@ -2908,7 +3027,7 @@ def phase_embed_scale(work: str) -> dict:
             f"card (bound {bound['ms_bound']:.4f} ms, {bound['bound_by']}), {cpu_ms:.1f} ms CPU "
             f"plain; sims max |Δ| {d_sims:.3g}, {id_rows} rows' ids differ, each at a near-tie")
     one = {k: sum(s[k] for s in entry_sides.values())
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gathered_rows_ms")}
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gathered_rows_ms", "chain_ms")}
     entry = {
         "name": "segsum",
         "route": "cuda",
@@ -2925,11 +3044,114 @@ def phase_embed_scale(work: str) -> dict:
         "per_sweep": "X F + Xt U (both accumulates of one sweep)",
         "sides": entry_sides,
         "gathered_rows_ms": one["gathered_rows_ms"],
+        "chain_bound_ms": one["chain_ms"],
+        "long_rows": {k: s["long_rows"] for k, s in entry_sides.items()},
+        "long_row_events": segsum.LONG_ROW_EVENTS,
+        "threshold_sweep_ms": {k: {str(t): r["ms"] for t, r in rows_.items()}
+                               for k, rows_ in sweep.items()},
+        "one_long_row": long_row,
+        "smem_bytes_per_block": plan["smem_bytes"],
+        "ring": {k: plan[k] for k in ("stages", "stage_events", "consumer_warps",
+                                      "producer_warps", "blocks_per_sm", "sms")},
         "shape": [p, v, nnz, rank],
     }
-    return {"entry": entry, "train_s": train_s, "csr_s": csr_s, "peak_bytes": peak,
+    return {"entry": entry, "train_s": train_s, "csr_s": csr_s, "order_s": order_s,
+            "peak_bytes": peak,
             "stages_s": {**stages.seconds, "wall": stages_wall},
             "embed_topk_v1m": topk, "final_loss": first["final_loss"]}
+
+
+# segsum.cu built with one change each, for probe_segsum_ring: (what it
+# shows, [(text in the source, its replacement)])
+SEGSUM_PROBES = {
+    "as built": [],
+    "no adds (the copies alone)": [
+        ("acc = w == 32   ? add_full_stage<32>(st, acc)", "acc = true ? acc"),
+        ("acc = add_stage(st, w, n, acc);", ";")],
+    "no copies (the adds alone)": [
+        ("fill_stage<32>(dst0, src0, rank, idx, n, lane);", ";")],
+    "neither (the handshake alone)": [
+        ("acc = w == 32   ? add_full_stage<32>(st, acc)", "acc = true ? acc"),
+        ("acc = add_stage(st, w, n, acc);", ";"),
+        ("fill_stage<32>(dst0, src0, rank, idx, n, lane);", ";")],
+    "4 blocks per SM, 6 stages": [
+        ("constexpr int kMinBlocksPerSm = 3;", "constexpr int kMinBlocksPerSm = 4;"),
+        ("constexpr int kStages = 8;", "constexpr int kStages = 6;")],
+}
+
+
+def probe_segsum_ring(events: int = SEGSUM_LONG_ROW, rank: int = 32) -> dict:
+    """Where a long row's time goes in the segsum kernel: ``segsum.cu``
+    built as it is and with the adds, the copies or both taken out (the
+    rest unchanged), and once at 4 blocks per SM; each times one row of
+    ``events`` events over a 1M-row factor matrix, its indices uniform
+    (DRAM) or within 4,096 rows (L2). Only the build as it is must equal
+    the CPU plain version. Not part of ``main``; alone: ``python -c
+    "import chip_smoke as c; c.probe_segsum_ring()"``."""
+    import ctypes
+
+    import torch
+
+    from kmlserver_tpu_torch.ops import cuda_build, segsum
+
+    src = (cuda_build.CSRC_DIR / "segsum.cu").read_text()
+    out_dir = os.path.join(ROOT, "build", "segsum_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    builds = {}
+    for i, (name, edits) in enumerate(SEGSUM_PROBES.items()):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                fail(f"probe_segsum_ring: {old!r} is not in segsum.cu once")
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, f"probe{i}.cu")
+        with open(cu, "w") as fh:
+            fh.write(text)
+        so = os.path.join(out_dir, f"libprobe{i}.so")
+        builds[name] = (so, subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    n_in = 1_000_000
+    rng = np.random.default_rng(17)
+    mat_h = torch.randn(n_in, rank, generator=torch.Generator().manual_seed(5)) / rank ** 0.5
+    mat = mat_h.cuda()
+    rows = {"uniform": rng.integers(0, n_in, events), "L2-hot": rng.integers(0, 4096, events)}
+    csrs = {k: segsum.build_csr(torch.zeros(events, dtype=torch.int64, device="cuda"),
+                                torch.as_tensor(g, device="cuda"), 1, n_in)
+            for k, g in rows.items()}
+    plain = segsum.segment_sum_plain(
+        mat_h, torch.zeros(events, dtype=torch.int64), torch.as_tensor(rows["uniform"]), 1)
+    clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
+    result = {}
+    built = cuda_build._loaded.pop("segsum", None)
+    try:
+        for name, (so, proc) in builds.items():
+            report = proc.communicate()[0]
+            if proc.returncode != 0:
+                fail(f"probe_segsum_ring: {name} does not build:\n{report}")
+            cuda_build._loaded["segsum"] = ctypes.CDLL(so)
+            plan = segsum.kernel_plan(rank)
+            result[name] = {"blocks_per_sm": plan["blocks_per_sm"],
+                            "ptxas": ptxas_report(report)}
+            for label, csr in csrs.items():
+                got = segsum.segment_sum(mat, csr)
+                if name == "as built" and label == "uniform" and not torch.equal(
+                        got.cpu(), plain):
+                    fail("probe_segsum_ring: the build as it is != CPU plain version")
+                ms = cuda_ms(lambda: segsum.segment_sum(mat, csr), 5)
+                result[name][label] = {"ms": ms, "ns_per_event": 1e6 * ms / events,
+                                       "cycles_per_event": ms * 1e-3 * clock_hz / events}
+            log(f"probe segsum ring, {name}: {plan['blocks_per_sm']} blocks per SM; one row of "
+                f"{events} events, R={rank}: " + ", ".join(
+                    f"{k} {r['ms']:.3f} ms ({r['ns_per_event']:.3f} ns, "
+                    f"{r['cycles_per_event']:.2f} cycles at {clock_hz / 1e6:.0f} MHz per event)"
+                    for k, r in result[name].items() if isinstance(r, dict) and "ms" in r))
+    finally:
+        cuda_build._loaded.pop("segsum", None)
+        if built is not None:
+            cuda_build._loaded["segsum"] = built
+    log("PROBE_SEGSUM " + json.dumps(result))
+    return result
 
 
 def phase_embeddings(work: str | None = None, shape: dict | None = None) -> dict:
@@ -3022,7 +3244,11 @@ def main() -> int:
     segsum_entry = embed["scale"]["entry"]
     segsum_entry["launches_resume_after_embed"] = resume["embed"]["segsum_launches"]
     segsum_entry["launches_ds2_sparse_job"] = resume["embed"]["baseline_segsum_launches"]
-    segsum_entry["ptxas_registers"] = ptxas_registers(cuda_build.BUILD_LOG["segsum"]["ptxas"])
+    segsum_ptxas = ptxas_report(cuda_build.BUILD_LOG["segsum"]["ptxas"])
+    segsum_entry["ptxas_registers"] = {k: r["registers"] for k, r in segsum_ptxas.items()}
+    segsum_entry["ptxas_spill_bytes"] = {
+        k: {"stores": r.get("spill_store_bytes"), "loads": r.get("spill_load_bytes")}
+        for k, r in segsum_ptxas.items()}
     print(json.dumps({"kernels": [kernel, ranks["kernel"], segsum_entry]}))
     print(smi)
     print(json.dumps({

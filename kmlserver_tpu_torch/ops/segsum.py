@@ -8,16 +8,20 @@ scatter-add. The reference promises that two trainings give bit-identical
 factors (its embed checkpoint resume and the manifest sha256 rely on it);
 ``index_add_`` / ``scatter_add_`` on a CUDA tensor accumulate floats with
 atomics in an order that changes from run to run, so the card runs a
-hand-written kernel instead: ``ops/csrc/segsum.cu``, one warp per output
-row, each lane summing its column over the row's events in event order.
+hand-written kernel instead: ``ops/csrc/segsum.cu``, one persistent launch
+that takes the rows longest first — a long row (at least
+:data:`LONG_ROW_EVENTS` events) summed by a whole block through a
+shared-memory gather ring, a short row by one warp — each lane summing its
+column over the row's events in event order.
 
 The events are handed over once per training as a :class:`Csr`: a stable
 sort by segment (:func:`build_csr`), which keeps each row's events in
-their original order. On a CUDA tensor :func:`segment_sum` launches the
-kernel or raises; on a CPU tensor it runs :func:`segment_sum_plain`,
-``index_add_`` over the events in order — the same additions in the same
-order per (row, column), so the kernel agrees with it bit for bit.
-Launches count in ``LAUNCHES["segsum"]``.
+their original order, and the rows' schedule (lengths descending, ties by
+row index; the count of long rows at its head). On a CUDA tensor
+:func:`segment_sum` launches the kernel or raises; on a CPU tensor it runs
+:func:`segment_sum_plain`, ``index_add_`` over the events in order — the
+same additions in the same order per (row, column), so the kernel agrees
+with it bit for bit. Launches count in ``LAUNCHES["segsum"]``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,11 @@ LAUNCHES = {"segsum": 0}
 # (chunk, R) temporary; chunks run in event order, so the sum is unchanged
 PLAIN_CHUNK = 1 << 20
 
+# rows of at least this many events are summed by a whole block through the
+# kernel's shared-memory ring, shorter ones by one warp each; set from the
+# threshold sweep of ``chip_smoke.py`` phase 11 (c) on an H100 (PERF.md)
+LONG_ROW_EVENTS = 2048
+
 
 @dataclasses.dataclass(frozen=True)
 class Csr:
@@ -43,6 +52,9 @@ class Csr:
     offsets: torch.Tensor  # int64 (n_out + 1,)
     gidx: torch.Tensor  # int32 (nnz,), every entry in [0, n_in)
     n_in: int
+    # the kernel's schedule: rows by length descending, ties by row index
+    order: torch.Tensor  # int32 (n_out,), a permutation of [0, n_out)
+    n_long: int  # rows at the head of ``order`` with >= LONG_ROW_EVENTS events
 
     @property
     def n_out(self) -> int:
@@ -62,7 +74,8 @@ class Csr:
 
 def build_csr(seg: torch.Tensor, gidx: torch.Tensor, n_out: int, n_in: int) -> Csr:
     """Stable sort of the events ``(seg[e], gidx[e])`` by ``seg`` on their
-    device → :class:`Csr`. Raises ``ValueError`` on an id outside
+    device, and one stable sort of the ``n_out`` row lengths for the
+    schedule → :class:`Csr`. Raises ``ValueError`` on an id outside
     ``[0, n_out)`` / ``[0, n_in)``: the kernel reads unchecked."""
     if seg.shape != gidx.shape or seg.dim() != 1:
         raise ValueError(f"seg {tuple(seg.shape)} and gidx {tuple(gidx.shape)} must be equal 1-D")
@@ -79,7 +92,10 @@ def build_csr(seg: torch.Tensor, gidx: torch.Tensor, n_out: int, n_in: int) -> C
     counts = torch.bincount(seg64, minlength=n_out)
     offsets = torch.zeros(n_out + 1, dtype=torch.int64, device=seg.device)
     torch.cumsum(counts, 0, out=offsets[1:])
-    return Csr(offsets=offsets, gidx=gidx.to(torch.int32)[order].contiguous(), n_in=n_in)
+    rows = torch.sort(-counts, stable=True).indices.to(torch.int32)
+    n_long = int((counts >= LONG_ROW_EVENTS).sum())
+    return Csr(offsets=offsets, gidx=gidx.to(torch.int32)[order].contiguous(), n_in=n_in,
+               order=rows, n_long=n_long)
 
 
 def segment_sum_plain(
@@ -103,10 +119,24 @@ def kernel_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("segsum")
     if lib.kmls_segsum.argtypes is None:
-        ptr = ctypes.c_void_p
-        lib.kmls_segsum.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int, ptr]
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.kmls_segsum.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int, ptr]
         lib.kmls_segsum.restype = ctypes.c_int
+        lib.kmls_segsum_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.kmls_segsum_plan.restype = ctypes.c_int
     return lib
+
+
+def kernel_plan(rank: int) -> dict:
+    """The kernel's launch plan at ``rank`` on the current CUDA device (the
+    ring's geometry and the grid), as ``kmls_segsum_plan`` reports it."""
+    plan = (ctypes.c_int * 7)()
+    rc = kernel_lib().kmls_segsum_plan(rank, plan)
+    if rc != 0:
+        raise RuntimeError(f"kmls_segsum_plan failed: CUDA error {rc}")
+    keys = ("stage_events", "stages", "smem_bytes", "blocks_per_sm", "sms",
+            "consumer_warps", "producer_warps")
+    return dict(zip(keys, plan))
 
 
 def segment_sum(mat: torch.Tensor, csr: Csr) -> torch.Tensor:
@@ -117,8 +147,14 @@ def segment_sum(mat: torch.Tensor, csr: Csr) -> torch.Tensor:
         raise ValueError(f"mat {tuple(mat.shape)} must be ({csr.n_in}, R)")
     if mat.dtype != torch.float32:
         raise TypeError(f"mat must be float32, got {mat.dtype}")
-    if mat.device != csr.gidx.device or mat.device != csr.offsets.device:
+    if mat.device != csr.gidx.device or mat.device != csr.offsets.device or (
+            mat.device != csr.order.device):
         raise ValueError(f"mat on {mat.device}, CSR on {csr.gidx.device}")
+    if csr.order.dtype != torch.int32 or tuple(csr.order.shape) != (csr.n_out,):
+        raise ValueError(f"order {csr.order.dtype} {tuple(csr.order.shape)} must be "
+                         f"int32 ({csr.n_out},)")
+    if not 0 <= csr.n_long <= csr.n_out:
+        raise ValueError(f"n_long {csr.n_long} outside [0, {csr.n_out}]")
     if mat.device.type == "cpu":
         return segment_sum_plain(mat, csr.segments(), csr.gidx, csr.n_out)
     if mat.device.type != "cuda":
@@ -131,11 +167,13 @@ def segment_sum(mat: torch.Tensor, csr: Csr) -> torch.Tensor:
     if csr.n_out == 0:
         return out
     lib = kernel_lib()
+    counter = torch.zeros(1, dtype=torch.int32, device=mat.device)
     with torch.cuda.device(mat.device):
         stream = torch.cuda.current_stream(mat.device).cuda_stream
         rc = lib.kmls_segsum(
             mat.data_ptr(), csr.offsets.data_ptr(), csr.gidx.data_ptr(),
-            out.data_ptr(), csr.n_out, rank, stream,
+            csr.order.data_ptr(), out.data_ptr(), counter.data_ptr(),
+            csr.n_out, csr.n_long, rank, stream,
         )
     if rc != 0:
         raise RuntimeError(
