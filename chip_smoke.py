@@ -120,6 +120,29 @@ main loop on the card and fails loudly on any mismatch:
    2,000,000 events held against the plain version and timed, two full
    trainings (counters set to 0 just before the first) bit-identical,
    peak device memory, ``embed_topk`` at V = 1M against the CPU.
+12. continuous freshness (``freshness/``, ``quality/lifecycle.py``, the
+   engine's in-place apply, ``parallel/support.py::restricted_pair_counts``;
+   run after phase 11 on phase 4's CSV and phase 5's scale baskets; alone:
+   ``python -c "import chip_smoke as c; c.phase_freshness()"``): (a) the
+   job with ``KMLS_DELTA_ENABLED=1`` and ``KMLS_DELTA_COMPACT_AFTER=3`` and
+   the server with ``KMLS_DELTA_ENABLED=1`` on a ds2 PVC: the full path
+   (the job with deltas off + the server's reload) three times, then four
+   cycles of the reference bench's append (24 playlists × 90 rows over a
+   128-track slice, plus a new track) → the job → applied in the server —
+   cycle 1 moves ``min_count`` 113 → 114, cycle 3 compacts the chain and
+   the server hot-swaps it under a replay, cycle 4 publishes in the middle
+   of config 5's replay (every answer the CPU engine's over the PVC before
+   or after it, the post-delta one for every request sent after the
+   server showed the apply, zero 5xx); the cache hit ratio around cycle
+   2's apply; the job's step split and the apply's ms; no unwarmed
+   dispatch; then a full re-mine of the final CSV on the card in a
+   pristine PVC, whose npz tensors, rule pickle and answers equal base ∘
+   chain's, and a compaction of the chain equal to it too;
+   ``fleet_multiplier`` at 3 replicas; (b) the recount's card route at
+   phase 5's shape after the prune (1M playlists × 8,124 tracks) for the
+   rows of every track in 1,000 new Zipf playlists, equal to the same rows
+   of the popcount kernel's C, the product timed beside its bound and
+   ``int8_gram_plain``, peak device memory.
 Then the kernels line is printed.
 
 Not part of the run: :func:`probe_segsum_ring` builds ``segsum.cu`` with
@@ -530,9 +553,9 @@ def stop_server(server: subprocess.Popen) -> int:
         return -9
 
 
-def run_job(pvc: str, label: str, **extra: str) -> tuple[str, int, float]:
+def job_process(pvc: str, label: str, **extra: str) -> tuple[str, float]:
     """``python -m kmlserver_tpu_torch.mining.job`` on the card over
-    ``pvc``; echoes its log. → (stdout, popcount launches it logged, wall s)."""
+    ``pvc``; echoes its log and fails on a non-zero exit. → (stdout, wall s)."""
     t0 = time.perf_counter()
     job = subprocess.run(
         [sys.executable, "-m", "kmlserver_tpu_torch.mining.job"],
@@ -545,13 +568,20 @@ def run_job(pvc: str, label: str, **extra: str) -> tuple[str, int, float]:
     if job.returncode != 0:
         log(job.stderr[-4000:])
         fail(f"mining job ({label}) exited {job.returncode}")
+    return job.stdout, wall
+
+
+def run_job(pvc: str, label: str, **extra: str) -> tuple[str, int, float]:
+    """A full mining job (:func:`job_process`) → (stdout, popcount launches
+    it logged, wall s)."""
+    stdout, wall = job_process(pvc, label, **extra)
     launches = [
-        int(line.rsplit(":", 1)[1]) for line in job.stdout.splitlines()
+        int(line.rsplit(":", 1)[1]) for line in stdout.splitlines()
         if line.startswith("Popcount kernel launches:")
     ]
     if not launches:
         fail(f"job ({label}) logged no popcount launch count")
-    return job.stdout, launches[0], wall
+    return stdout, launches[0], wall
 
 
 def same_publication(pvc_a: str, pvc_b: str) -> bool:
@@ -1760,9 +1790,9 @@ class CheckpointLog:
                     (time.perf_counter() - t0, os.path.getsize(path)))
             return path
 
-        def load(store, phase):
+        def load(store, phase, require=()):
             t0 = time.perf_counter()
-            payload = real_load(store, phase)
+            payload = real_load(store, phase, require)
             if payload is not None:
                 log_.loads.setdefault(phase, []).append(
                     (time.perf_counter() - t0, store._state["phases"][phase]["bytes"]))
@@ -3180,6 +3210,549 @@ def phase_embeddings(work: str | None = None, shape: dict | None = None) -> dict
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 12
+
+FRESH_CSV = "2023_spotify_ds2_synthetic.csv"
+FRESH_COMPACT_AFTER = 3  # KMLS_DELTA_COMPACT_AFTER of the phase's job
+FRESH_POLL = "0.0005"  # the server's POLLING_WAIT_IN_MINUTES (the engine polls every 50 ms at least)
+FRESH_PROBES = 500  # config-5 draws checked against the CPU engine after an idle cycle
+FRESH_HIT_DRAWS = 2000  # Zipf draws replayed around cycle 2's apply (the hit ratio)
+FRESH_METRICS_EVERY_S = 0.02  # /metrics scrape period while waiting for an apply
+RECOUNT_PLAYLISTS = 1000  # phase 12 (b): the playlists a 0.1 % append adds
+RECOUNT_PLAIN_CHUNK = 32768  # playlists per float64 chunk of int8_gram_plain on the card
+
+
+def append_bench_rows(csv_path: str, rng, first_pid: int, lo: int, new_track: int) -> int:
+    """The reference bench's append (``bench.py:1580-1615``): 24 new
+    playlists × 90 rows drawn over the 128 tracks from ``lo``, plus one
+    brand-new track → rows appended."""
+    lines = []
+    for p in range(24):
+        for t in lo + rng.integers(0, 128, size=90):
+            t = int(t)
+            lines.append(f"{first_pid + p},Track {t:07d},spotify:track:{t:07d},"
+                         f"Artist {t % 997:04d},spotify:artist:{t % 997:04d},Album {t // 12:06d}")
+    lines.append(f"{first_pid},Track {new_track:07d},spotify:track:{new_track:07d},"
+                 f"Artist 0000,spotify:artist:0000,Album 000000")
+    with open(csv_path, "a") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return len(lines)
+
+
+def wait_metrics(base: str, ready, timeout_s: float, label: str) -> tuple[dict, float]:
+    """Scrape ``/metrics`` every :data:`FRESH_METRICS_EVERY_S` until
+    ``ready(metrics)`` → (those metrics, the perf_counter after the scrape
+    that showed it)."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        m = scrape_metrics(base)
+        if ready(m):
+            return m, time.perf_counter()
+        time.sleep(FRESH_METRICS_EVERY_S)
+    fail(f"phase 12 (a): {label} not seen within {timeout_s:.0f} s: {m.get('kmls_delta_seq')}, "
+         f"reloads {m.get('kmls_reloads_total')}")
+
+
+def job_split(out: str, label: str) -> dict:
+    """The delta job's step seconds from its ``Delta phase timings:`` line."""
+    line = next((ln for ln in out.splitlines() if ln.startswith("Delta phase timings:")), None)
+    if line is None:
+        fail(f"phase 12 (a) {label}: the job took no delta route")
+    return {k: float(v.rstrip("s")) for k, v in
+            (part.split() for part in line.split(":", 1)[1].split(","))}
+
+
+def job_duration_s(pvc: str) -> float:
+    """``kmls_job_duration_seconds`` of the job that last wrote the PVC's
+    ``job_metrics.prom``: its own run, without the process's start-up."""
+    with open(os.path.join(pvc, "pickles", "job_metrics.prom")) as fh:
+        for line in fh:
+            if line.startswith("kmls_job_duration_seconds "):
+                return float(line.split()[1])
+    fail(f"phase 12 (a): no kmls_job_duration_seconds in {pvc}'s job_metrics.prom")
+
+
+def timed_checks(label: str, responses: list, payloads: list, pre: list, post: list,
+                 tokens: set, after: float | None, cpu) -> dict:
+    """Answers of a replay that ran through an apply or a swap: each is the
+    CPU engine's over the PVC before (``pre``) or after (``post``) it, the
+    model date one of ``tokens``; a request scheduled after ``after``
+    (perf_counter, ``responses`` entries carry their scheduled time) must
+    be the post answer. No 5xx, nothing unanswered, a degraded answer the
+    popularity fallback (the admission ladder's). → counts."""
+    head_k = [b["track_name"] for b in cpu.best_tracks][: cpu.cfg.k_best_tracks]
+    counts = {"pre_only": 0, "post": 0, "both": 0, "after_apply": 0, "degraded": 0, "shed": 0,
+              "changed_payloads": sum(a[0] != b[0] for a, b in zip(pre, post))}
+    if len(responses) != len(payloads):
+        fail(f"phase 12 (a) {label}: {len(payloads) - len(responses)} requests got no answer")
+    for i, status, head, body, t_sched in responses:
+        if status >= 500:
+            fail(f"phase 12 (a) {label}: HTTP {status} for {payloads[i]}")
+        if status == 429:
+            counts["shed"] += 1
+            continue
+        got = json.loads(body)
+        if b"x-kmls-degraded:" in head:
+            counts["degraded"] += 1
+            if got["songs"] not in (cpu.static_recommendation(payloads[i]), head_k):
+                fail(f"phase 12 (a) {label}: degraded answer for {payloads[i]} is not the fallback")
+            continue
+        if status != 200 or got["model_date"] not in tokens:
+            fail(f"phase 12 (a) {label}: {status} {body[:200]!r}")
+        is_pre, is_post = got["songs"] == pre[i][0], got["songs"] == post[i][0]
+        if not (is_pre or is_post):
+            fail(f"phase 12 (a) {label}: answer for {payloads[i]} is neither the pre- nor "
+                 f"the post-delta CPU engine's: {body[:300]!r}")
+        if after is not None and t_sched >= after:
+            counts["after_apply"] += 1
+            if not is_post:
+                fail(f"phase 12 (a) {label}: a request sent after the apply answered the "
+                     f"pre-delta rules for {payloads[i]}")
+        key = "both" if is_pre and is_post else ("post" if is_post else "pre_only")
+        counts[key] += 1
+    return counts
+
+
+class ScheduledResponses(list):
+    """``replay_async_http``'s ``responses`` sink that stamps each answer
+    with its request's scheduled send time: the replay's start (taken
+    before the call, so no later than the replay's own) plus its arrival
+    offset, which ``replay._poisson_arrivals`` draws from a fixed seed."""
+
+    def __init__(self, n: int, qps: float):
+        from kmlserver_tpu_torch.serving.replay import _poisson_arrivals
+
+        super().__init__()
+        self.arrival = _poisson_arrivals(n, qps)
+        self.t0 = time.perf_counter()
+
+    def append(self, item) -> None:
+        super().append((*item, self.t0 + float(self.arrival[item[0]])))
+
+
+def freshness_ds2(work: str) -> dict:
+    """Phase 12 (a): the ds2 CSV through both entry points with deltas on —
+    the full path three times, then four append → job → applied cycles
+    (the third compacts the chain and the server hot-swaps the snapshot
+    under a replay; the fourth publishes in the middle of config 5's
+    replay), then a full re-mine of the final CSV in a pristine PVC, equal
+    to the chain bit for bit."""
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.data.csv import write_tracks_csv
+    from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_table
+    from kmlserver_tpu_torch.freshness import delta as delta_mod
+    from kmlserver_tpu_torch.freshness.ring import fleet_multiplier, seeds_key
+    from kmlserver_tpu_torch.io import artifacts
+    from kmlserver_tpu_torch.ops.support import min_count_for
+    from kmlserver_tpu_torch.quality import lifecycle
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.replay import replay_async_http, sample_seed_sets
+
+    pvc = os.path.join(work, "pvc_fresh")
+    pickles = os.path.join(pvc, "pickles")
+    os.makedirs(os.path.join(pvc, "datasets"))
+    csv_path = os.path.join(pvc, "datasets", FRESH_CSV)
+    src = os.path.join(work, "pvc", "datasets", FRESH_CSV)
+    if os.path.exists(src):
+        shutil.copy(src, csv_path)  # phase 4's CSV
+    else:
+        write_tracks_csv(csv_path, synthetic_table(**DS2_SHAPE, seed=7))
+    delta_env = dict(KMLS_DELTA_ENABLED="1", KMLS_DELTA_COMPACT_AFTER=str(FRESH_COMPACT_AFTER))
+    job_process(pvc, "fresh base", **delta_env)
+    cpu = RecommendEngine(ServingConfig(base_dir=pvc, delta_enabled=True), device="cpu")
+    if not cpu.load():
+        fail("phase 12 (a): the CPU engine could not load the base")
+    keys = sorted(n for n, k in zip(cpu.bundle.vocab, cpu.bundle.known_mask) if k)
+    probes = sample_seed_sets(keys, FRESH_PROBES, rng_seed=21)
+    config5 = sample_seed_sets(keys, CONFIG5_REQUESTS)
+    hit_draws = sample_seed_sets(keys, FRESH_HIT_DRAWS, rng_seed=11, zipf_s=1.1)
+    rng = np.random.default_rng(7)
+    server, base, lines = start_server(pvc, KMLS_DELTA_ENABLED="1",
+                                       POLLING_WAIT_IN_MINUTES=FRESH_POLL)
+
+    def probe(label: str) -> None:
+        """Every probe answer over HTTP equals the CPU engine's, which
+        follows the PVC through its own poll."""
+        cpu.reload_if_required()
+        responses: list = []
+        replay_async_http(base, probes, qps=2000.0, n_conns=16, responses=responses)
+        check_responses(f"phase 12 (a) {label}", responses, probes,
+                        engine_answers(cpu, probes), cpu)
+
+    def apply_ms(seq: int) -> float:
+        """The server's ``delta <seq> applied in place ... in <ms> ms`` line."""
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            found = [ln for ln in lines if f"delta {seq} applied in place" in ln]
+            if found:
+                return float(found[-1].split(") in ", 1)[1].split(" ms", 1)[0])
+            time.sleep(0.05)
+        fail(f"phase 12 (a): the server logged no apply of delta {seq}")
+
+    try:
+        # ---- the full path: the job with deltas off + the server's reload, x3
+        full_runs, full_in_process = [], []
+        for i in range(3):
+            reloads = scrape_metrics(base)["kmls_reloads_total"]
+            t0 = time.perf_counter()
+            job_process(pvc, f"full {i + 1}")
+            wait_metrics(base, lambda m: m["kmls_reloads_total"] > reloads, 60, "full reload")
+            full_runs.append(time.perf_counter() - t0)
+            full_in_process.append(job_duration_s(pvc))
+        # re-arm: the base state's generation was replaced, so this delta-on
+        # run re-mines in full and saves a new base (not timed)
+        reloads = scrape_metrics(base)["kmls_reloads_total"]
+        out, _ = job_process(pvc, "re-arm", **delta_env)
+        if "Freshness base state saved" not in out:
+            fail("phase 12 (a): the re-arming job saved no base state")
+        wait_metrics(base, lambda m: m["kmls_reloads_total"] > reloads, 60, "re-arm reload")
+        probe("base")
+        min_counts = [min_count_for(DS2_MIN_SUPPORT, delta_mod.load_base_state(pickles)["n_playlists"])]
+        token0 = cpu.cache_value
+
+        cycles: list[dict] = []
+        for cycle in range(1, 5):
+            compacts = cycle == FRESH_COMPACT_AFTER
+            m0 = scrape_metrics(base)
+            run: dict = {}
+
+            def publish(cycle=cycle, m0=m0, run=run, compacts=compacts) -> None:
+                """Append, run the job, wait until the server serves it;
+                a failure is kept for the caller (this may run on a
+                thread)."""
+                try:
+                    t1 = time.perf_counter()
+                    append_bench_rows(csv_path, rng, 10_000_000 + cycle * 1_000,
+                                      96 + (cycle - 1) * 160, 9_000_000 + cycle)
+                    out, run["job_s"] = job_process(pvc, f"delta {cycle}", **delta_env)
+                    run["in_process_s"] = job_duration_s(pvc)
+                    run["split"] = job_split(out, f"cycle {cycle}")
+                    run["log"] = [ln for ln in out.splitlines() if ln.startswith("Delta ")]
+                    if compacts:
+                        if f"Delta chain compacted: {FRESH_COMPACT_AFTER} bundles" not in out:
+                            fail("phase 12 (a): the third delta did not compact the chain")
+                        ready = (lambda m: m["kmls_reloads_total"] > m0["kmls_reloads_total"]
+                                 and m["kmls_delta_seq"] == 0
+                                 and m["kmls_delta_chain_length"] == 0)
+                    else:
+                        # applied, and the touched seeds invalidated after it
+                        ready = (lambda m: m["kmls_delta_seq"] > m0["kmls_delta_seq"]
+                                 and m["kmls_cache_selective_invalidations_total"]
+                                 > m0["kmls_cache_selective_invalidations_total"])
+                    run["metrics"], run["t_seen"] = wait_metrics(base, ready, 60, f"cycle {cycle}")
+                    run["applied_s"] = run["t_seen"] - t1
+                except BaseException as exc:  # noqa: BLE001  (re-raised by the caller)
+                    run["error"] = exc
+
+            if cycle == 2:
+                # the Zipf head in the cache, then the hit ratio of the same
+                # draws before the apply
+                replay_async_http(base, hit_draws, qps=CONFIG5_QPS, n_conns=CONFIG5_CONNS)
+                hit_before = replay_async_http(base, hit_draws, qps=CONFIG5_QPS,
+                                               n_conns=CONFIG5_CONNS).cache_hit_ratio
+                entries_before = scrape_metrics(base)["kmls_cache_entries"]
+            if cycle < 3:
+                publish()
+                if "error" in run:
+                    raise run["error"]
+            else:
+                # under load: cycle 3's compaction swap and cycle 4's apply
+                # land mid-replay; the job starts first, the replay so that
+                # the publication falls 40 % into it (from earlier jobs' walls)
+                payloads = config5 if cycle == 4 else sample_seed_sets(
+                    keys, CONFIG5_REQUESTS, rng_seed=33)
+                pre, pre_token = engine_answers(cpu, payloads), cpu.cache_value
+                job_est = float(np.median([c["job_s"] for c in cycles]))
+                lead = max(job_est - 0.4 * CONFIG5_REQUESTS / CONFIG5_QPS, 0.0)
+                if post(base + "/metrics/reset", b"")[0] != 200:
+                    fail("phase 12 (a): /metrics/reset refused")
+                before_replay = scrape_metrics(base)
+                publisher = threading.Thread(target=publish, daemon=True)
+                publisher.start()
+                time.sleep(lead)
+                responses = ScheduledResponses(len(payloads), CONFIG5_QPS)
+                report = replay_async_http(base, payloads, qps=CONFIG5_QPS,
+                                           n_conns=CONFIG5_CONNS, responses=responses)
+                t_end = time.perf_counter()
+                publisher.join(120)
+                if "error" in run:
+                    raise run["error"]
+                if "t_seen" not in run:
+                    fail(f"phase 12 (a): cycle {cycle}'s publication did not finish")
+                if not responses.t0 <= run["t_seen"] <= t_end:
+                    fail(f"phase 12 (a): cycle {cycle} was served {run['t_seen'] - responses.t0:.3f} "
+                         f"s into a {t_end - responses.t0:.3f} s replay, not during it")
+                window = server_window(base)
+                after_replay = scrape_metrics(base)
+                # which rung of the admission ladder degraded or shed, and why
+                ladder = {k.split('"')[1]: v - before_replay.get(k, 0.0)
+                          for k, v in after_replay.items()
+                          if k.startswith("kmls_degraded_by_reason{") and v > before_replay.get(k, 0.0)}
+                ladder["shed"] = (after_replay["kmls_requests_shed_total"]
+                                  - before_replay["kmls_requests_shed_total"])
+                cpu.reload_if_required()
+                counts = timed_checks(f"cycle {cycle}", responses, payloads, pre,
+                                      engine_answers(cpu, payloads),
+                                      {pre_token, cpu.cache_value}, run["t_seen"], cpu)
+                if not counts["after_apply"]:
+                    fail(f"phase 12 (a): no request of cycle {cycle}'s replay came after it")
+                run["replay"] = {"achieved_qps": report.achieved_qps, "p50_ms": report.p50_ms,
+                                 "p99_ms": report.p99_ms, "errors": report.n_errors,
+                                 "served_at_s": run["t_seen"] - responses.t0, **counts,
+                                 "ladder": ladder,
+                                 "server_p50_ms": window["server_p50_ms"],
+                                 "server_p99_ms": window["server_p99_ms"]}
+            probe(f"cycle {cycle}")
+            metrics = run.pop("metrics")
+            run.pop("t_seen")
+            run["delta_seq"] = metrics["kmls_delta_seq"]
+            run["apply_ms"] = None if compacts else apply_ms(int(metrics["kmls_delta_seq"]))
+            if cycle == 2:
+                # selective invalidation at work: the entries of untouched
+                # seed sets survive the apply; a wholesale flush would leave
+                # the replay only its repeats (1 - distinct / draws)
+                touched = delta_mod.touched_names(artifacts.load_delta_bundle(
+                    os.path.join(pickles, artifacts.delta_bundle_filename(2))))
+                invalidated = (metrics["kmls_cache_invalidated_keys_total"]
+                               - m0["kmls_cache_invalidated_keys_total"])
+                distinct = len({tuple(sorted(d)) for d in hit_draws})
+                run["hit_ratio"] = {
+                    "before": hit_before,
+                    "after": replay_async_http(base, hit_draws, qps=CONFIG5_QPS,
+                                               n_conns=CONFIG5_CONNS).cache_hit_ratio,
+                    "after_if_wholesale": 1.0 - distinct / len(hit_draws),
+                    "entries_before": entries_before, "entries_invalidated": invalidated,
+                    "touched_names": len(touched),
+                    "untouched_draws": sum(not set(d) & touched for d in hit_draws) / len(hit_draws)}
+            min_counts.append(min_count_for(DS2_MIN_SUPPORT,
+                                            delta_mod.load_base_state(pickles)["n_playlists"]))
+            log(f"phase 12 (a) cycle {cycle}: append → applied {run['applied_s']:.3f} s (job "
+                f"{run['job_s']:.3f} s wall, {run['in_process_s']:.3f} s its own run; split "
+                + ", ".join(f"{k} {v:.4f}" for k, v in run["split"].items())
+                + f" s); apply {run['apply_ms']} ms; min_count {min_counts[-2]} -> "
+                f"{min_counts[-1]}; {' | '.join(run['log'])}"
+                + (f"; replay {run['replay']}" if "replay" in run else "")
+                + (f"; hit ratio {run['hit_ratio']}" if "hit_ratio" in run else ""))
+            cycles.append(run)
+        if min_counts[:2] != [113, 114]:
+            fail(f"phase 12 (a): cycle 1 moved min_count {min_counts[:2]}, want 113 -> 114")
+        final = scrape_metrics(base)
+    finally:
+        code = stop_server(server)
+    unwarmed = sum("unwarmed" in line for line in lines)
+    compiles = final.get('kmls_compiles_total{kernel="serve_rules"}')
+    if code != 0 or unwarmed or compiles != 0 or final["kmls_delta_rejected_total"] != 0:
+        fail(f"phase 12 (a): exit {code}, {unwarmed} unwarmed dispatches, serve_rules "
+             f"compiles {compiles}, rejected {final['kmls_delta_rejected_total']}")
+    if token0 == cpu.cache_value:
+        fail("phase 12 (a): the compaction published no new token")
+
+    # ---- the final check: a pristine full mine of the final CSV on the card
+    pristine = os.path.join(work, "pvc_fresh_pristine")
+    os.makedirs(os.path.join(pristine, "datasets"))
+    shutil.copy(csv_path, os.path.join(pristine, "datasets"))
+    run_job(pristine, "pristine")
+    npz_name = "recommendations.pickle" + artifacts.TENSOR_ARTIFACT_SUFFIX
+    full = artifacts.load_rule_tensors(os.path.join(pristine, "pickles", npz_name))
+    chain = artifacts.load_rule_tensors(os.path.join(pickles, npz_name))
+    for entry in artifacts.read_delta_state(pickles)["entries"]:
+        chain = delta_mod.apply_delta_to_tensors(chain, artifacts.load_delta_bundle(
+            os.path.join(pickles, entry["file"]), expect_sha256=entry["sha256"]))
+    fields = ("vocab", "rule_ids", "rule_counts", "item_counts", "n_playlists", "min_support",
+              "mode", "min_confidence")
+    if not all(np.array_equal(np.asarray(chain[k]), np.asarray(full[k])) for k in fields):
+        fail("phase 12 (a): base ∘ chain tensors differ from the pristine re-mine")
+    full_pickle = artifacts.load_pickle(os.path.join(pristine, "pickles", "recommendations.pickle"))
+    if artifacts.rules_dict_from_tensors({**chain, "rule_confs64": None}) != full_pickle:
+        fail("phase 12 (a): the chain's rule pickle differs from the pristine re-mine's")
+    pristine_engine = RecommendEngine(ServingConfig(base_dir=pristine), device="cuda")
+    if not pristine_engine.load():
+        fail("phase 12 (a): the card engine could not load the pristine PVC")
+    # the live server's answers equalled the CPU engine's over the chain
+    # (the probes after cycle 4); that engine's equal the pristine PVC's
+    if engine_answers(pristine_engine, config5) != engine_answers(cpu, config5):
+        fail("phase 12 (a): the pristine re-mine answers differently from the chain")
+    compacted = lifecycle.compact_delta_chain(lifecycle_cfg(pvc))
+    snap = artifacts.load_rule_tensors(os.path.join(pickles, npz_name))
+    if not all(np.array_equal(np.asarray(snap[k]), np.asarray(full[k])) for k in fields) or (
+            artifacts.load_pickle(os.path.join(pickles, "recommendations.pickle")) != full_pickle):
+        fail("phase 12 (a): the compacted snapshot differs from the pristine re-mine")
+    # the reference bench's stream: Zipf 1.1 draws over a pool of seed sets
+    fleet = fleet_multiplier(
+        [seeds_key(p) for p in sample_seed_sets(keys, CONFIG5_REQUESTS, rng_seed=11, zipf_s=1.1)],
+        n_replicas=3, capacity=512)
+    full_s = float(np.median(full_runs))
+    delta_s = float(np.median([c["applied_s"] for c in cycles[:3]]))
+    # the jobs' own runs (job_metrics.prom), without the process start-up
+    full_job_s = float(np.median(full_in_process))
+    delta_job_s = float(np.median([c["in_process_s"] for c in cycles[:3]]))
+    result = {"full_path_s": full_runs, "full_path_median_s": full_s,
+              "delta_path_s": [c["applied_s"] for c in cycles], "delta_path_median_s": delta_s,
+              "speedup": full_s / delta_s, "full_job_in_process_s": full_in_process,
+              "delta_job_in_process_median_s": delta_job_s,
+              "in_process_speedup": full_job_s / delta_job_s,
+              "min_counts": min_counts, "cycles": cycles,
+              "fleet": fleet, "final_compaction_s": compacted.duration_s, "rule_keys": len(keys),
+              "freshness_lag_s": final["kmls_freshness_lag_seconds"]}
+    log(f"phase 12 (a) ds2 freshness: full path (job + reload) "
+        + ", ".join(f"{x:.3f}" for x in full_runs) + f" s, median {full_s:.3f}; delta path "
+        f"(append → applied, cycles 1-3) "
+        + ", ".join(f"{c['applied_s']:.3f}" for c in cycles[:3])
+        + f" s, median {delta_s:.3f} ({full_s / delta_s:.2f}x); the jobs' own runs (no "
+        f"start-up) full {full_job_s:.3f} s vs delta {delta_job_s:.3f} s "
+        f"({full_job_s / delta_job_s:.2f}x); cycle 4 (mid-replay) "
+        f"{cycles[3]['applied_s']:.3f} s; min_count {min_counts}; 0 5xx through the compaction "
+        f"swap and the mid-replay apply; no unwarmed dispatch, serve_rules compiles 0; base ∘ "
+        f"chain == compacted snapshot == the pristine card re-mine (npz tensors, rule pickle, "
+        f"{len(config5)} answers); fleet_multiplier (3 replicas, 512 entries) {fleet}")
+    return result
+
+
+def lifecycle_cfg(pvc: str):
+    from kmlserver_tpu_torch.config import MiningConfig
+
+    return MiningConfig(base_dir=pvc, datasets_dir=os.path.join(pvc, "datasets"),
+                        min_support=DS2_MIN_SUPPORT, delta_enabled=True)
+
+
+def recount_bound(r: int, v: int, p: int) -> dict:
+    """The least time for rows ``R`` of ``C = XᵀX`` at (R, V, P): ``2·R·V·P``
+    int8 operations at the tensor cores' peak, or the bytes ``(R + V)·P``
+    read and ``4·R·V`` written at the memory rate, whichever is larger."""
+    ops = 2 * r * v * p
+    nbytes = (r + v) * p + 4 * r * v
+    t_ops, t_bytes = 1e3 * ops / INT8_TC_OPS_PER_S, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "operations": ops, "operations_ms": t_ops, "bytes": nbytes, "bytes_ms": t_bytes}
+
+
+def freshness_scale(work: str) -> dict:
+    """Phase 12 (b): the card's restricted recount at phase 5's shape after
+    the prune, the rows a 0.1 % append touches, against the popcount
+    kernel's full C; timed beside its bound and its plain version."""
+    import torch
+
+    from kmlserver_tpu_torch.data.synthetic import synthetic_memberships
+    from kmlserver_tpu_torch.mining.miner import prune_infrequent
+    from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
+    from kmlserver_tpu_torch.ops import encode
+    from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.ops.support import int8_gram, int8_gram_plain, min_count_for
+    from kmlserver_tpu_torch.parallel import support
+    from kmlserver_tpu_torch.parallel.mesh import round_up
+
+    torch.cuda.empty_cache()
+    with open(os.path.join(work, "scale_shape.json")) as fh:
+        shape = json.load(fh)
+    rows = np.load(os.path.join(work, "scale_rows.npy"))
+    tids = np.load(os.path.join(work, "scale_tids.npy"))
+    n_tracks = shape["n_tracks"]
+    names = [f"Track {i:07d}" for i in range(n_tracks)]
+    baskets = Baskets(playlist_rows=rows, track_ids=tids, n_playlists=shape["n_playlists"],
+                      vocab=Vocab(names=names, index={}))
+    reduced, keep_ids = prune_infrequent(baskets, min_count_for(SCALE_MIN_SUPPORT,
+                                                                baskets.n_playlists))
+    del baskets, rows
+    p, v = reduced.n_playlists, reduced.n_tracks
+    # the full C by the popcount kernel (a comparison launch)
+    v_pad, w_pad = pc.padded_shape(v, p)
+    bt = pc.bitpack_by_track(reduced.playlist_rows, reduced.track_ids, n_playlists=p,
+                             n_tracks=v, v_pad=v_pad, w_pad=w_pad, device="cuda")
+    full = pc.popcount_pair_counts_padded(bt)[:v, :v].contiguous()
+    del bt
+    # R: the pruned ids of every track in 1,000 new playlists of the same
+    # Zipf generator (a new seed), at the same density
+    per_playlist = len(tids) / shape["n_playlists"]
+    _, new_tids = synthetic_memberships(RECOUNT_PLAYLISTS, n_tracks,
+                                        int(round(RECOUNT_PLAYLISTS * per_playlist)), seed=2025)
+    del tids
+    remap = np.full(n_tracks, -1, dtype=np.int64)
+    remap[keep_ids] = np.arange(len(keep_ids))
+    r_ids = np.unique(remap[new_tids])
+    r_ids = r_ids[r_ids >= 0].astype(np.int32)
+    r = len(r_ids)
+    log(f"phase 12 (b): R = {r} pruned ids (of {len(np.unique(new_tids))} distinct tracks in "
+        f"{RECOUNT_PLAYLISTS} new playlists, seed 2025) x V = {v} x P = {p}: P·V = {p * v:.4g} "
+        f"(host threshold {support.HOST_RECOUNT_ELEMS:.4g})")
+
+    # the main path: counters to 0, the recount, the counters read
+    support.LAUNCHES["restricted_recount"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = support.restricted_pair_counts(reduced, r_ids, device="cuda")
+    wall_s = time.perf_counter() - t0
+    launches = support.LAUNCHES["restricted_recount"]
+    peak = torch.cuda.max_memory_allocated()
+    want = full[torch.as_tensor(r_ids, device="cuda").long()].cpu().numpy()
+    if launches != 1 or not np.array_equal(got, want):
+        fail(f"phase 12 (b): {launches} card recounts; rows equal to the kernel's C: "
+             f"{np.array_equal(got, want)}")
+    # the product alone, and its plain version, on the operands the route builds
+    xt = encode.onehot_matrix(torch.as_tensor(reduced.track_ids, device="cuda"),
+                              torch.as_tensor(reduced.playlist_rows, device="cuda"),
+                              n_playlists=round_up(v, 8), n_tracks=round_up(p, 8))
+    a = torch.zeros((round_up(max(r, 17), 8), xt.shape[1]), dtype=torch.int8, device="cuda")
+    torch.index_select(xt, 0, torch.as_tensor(r_ids, device="cuda").long(), out=a[:r])
+    int8_gram(a, xt)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: int8_gram(a, xt), 3)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = torch.zeros((a.shape[0], xt.shape[0]), dtype=torch.int32, device="cuda")
+    for c0 in range(0, xt.shape[1], RECOUNT_PLAIN_CHUNK):
+        plain += int8_gram_plain(a[:, c0:c0 + RECOUNT_PLAIN_CHUNK], xt[:, c0:c0 + RECOUNT_PLAIN_CHUNK])
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    max_err = int((plain[:r, :v].cpu().long() - torch.as_tensor(got).long()).abs().max())
+    if max_err:
+        fail(f"phase 12 (b): int8_gram_plain differs from the recount by {max_err}")
+    del xt, a, plain, full
+    torch.cuda.empty_cache()
+    bound = recount_bound(r, v, p)
+    if bound["ms"] > ms:
+        fail(f"phase 12 (b): {ms:.3f} ms is below its bound {bound['ms']:.3f} ms")
+    result = {"r": r, "v": v, "p": p, "launches": launches, "wall_s": wall_s, "ms": ms,
+              "library_ms": ms, "plain_ms": plain_ms, "bound": bound, "max_abs_err": max_err,
+              "peak_device_bytes": peak}
+    log(f"phase 12 (b) restricted_pair_counts on the card: rows == the popcount kernel's C "
+        f"exactly, {launches} card recount; whole call {wall_s:.3f} s wall (one-hot build, "
+        f"gather, product, copy back); the product int8_gram(Xᵀ[R], Xᵀ) = torch._int_mm "
+        f"{ms:.3f} ms against its bound {bound['ms']:.3f} ms ({bound['bound_by']}: "
+        f"{bound['operations']:.4g} int8 operations {bound['operations_ms']:.3f} ms, "
+        f"{bound['bytes']:.4g} bytes {bound['bytes_ms']:.3f} ms; {100 * bound['ms'] / ms:.1f} %); "
+        f"int8_gram_plain {plain_ms:.3f} ms (float64 over {RECOUNT_PLAIN_CHUNK}-playlist "
+        f"chunks, exact); peak device memory {peak} B")
+    return result
+
+
+def phase_freshness(work: str | None = None, shape: dict | None = None) -> dict:
+    """Phase 12 on phase 4's ds2 CSV and phase 5's scale baskets (alone:
+    ``python -c "import chip_smoke as c; c.phase_freshness()"`` writes its
+    own ds2 CSV and generates the scale baskets at ``shape``, default the
+    full scale shape)."""
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke12_")
+    try:
+        if not os.path.exists(os.path.join(work, "scale_rows.npy")):
+            from kmlserver_tpu_torch.data.synthetic import synthetic_baskets
+
+            shape = shape or SCALE
+            baskets = synthetic_baskets(**shape, seed=2024)
+            np.save(os.path.join(work, "scale_rows.npy"), baskets.playlist_rows)
+            np.save(os.path.join(work, "scale_tids.npy"), baskets.track_ids)
+            with open(os.path.join(work, "scale_shape.json"), "w") as fh:
+                json.dump({"n_playlists": baskets.n_playlists, "n_tracks": baskets.n_tracks}, fh)
+            log(f"phase 12: scale baskets {shape} generated (seed 2024)")
+        result = {"ds2": freshness_ds2(work), "scale": freshness_scale(work)}
+        log("PHASE12 " + json.dumps(result))
+        return result
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3225,7 +3798,11 @@ def main() -> int:
         phase_observability(work)
         scale = phase_scale(2024, work, QUICK_SCALE if quick else SCALE)
         ranks = phase_ranks(work, scale)
+        # phase 5's tensors on the card are spent: phase 12 (b) needs the room
+        for key in ("slabs", "slab_plain", "tensors"):
+            scale.pop(key)
         embed = phase_embeddings(work)
+        phase_freshness(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     routes = phase_routes()

@@ -257,6 +257,15 @@ class MiningConfig:
     # pickles/job_metrics.prom (textfile-collector format), rewritten as
     # each phase completes (observability/jobmetrics.py)
     job_metrics: bool = True
+    # continuous freshness (freshness/delta.py): after a full publication
+    # the writer saves a base state; a later run over an append-only CSV
+    # publishes a delta-<seq>.bundle instead of re-mining everything
+    delta_enabled: bool = False
+    # at this many bundles on one base the next run re-mines in full; 0 = no cap
+    delta_max_chain: int = 16
+    # fold the chain into a new base once it holds this many bundles
+    # (quality/lifecycle.py); 0 disables compaction
+    delta_compact_after: int = 0
 
     @property
     def pickles_dir(self) -> str:
@@ -318,6 +327,9 @@ class MiningConfig:
             rank_heartbeat_interval_s=_getenv_float("KMLS_RANK_HEARTBEAT_S", 5.0),
             collective_timeout_s=_getenv_float("KMLS_COLLECTIVE_TIMEOUT_S", 1800.0),
             job_metrics=_getenv_bool("KMLS_JOB_METRICS", True),
+            delta_enabled=_getenv_bool("KMLS_DELTA_ENABLED", False),
+            delta_max_chain=_getenv_int("KMLS_DELTA_MAX_CHAIN", 16),
+            delta_compact_after=_getenv_int("KMLS_DELTA_COMPACT_AFTER", 0),
         )
 
 
@@ -428,6 +440,15 @@ class ServingConfig:
     # KMLS_HYBRID_BLEND_WEIGHT=measured: the weight comes from
     # quality.report.json when one is published (else the weight above)
     hybrid_blend_measured: bool = False
+    # apply the delta bundles published between full re-mines in place
+    # (engine.apply_pending_deltas); off = a chain on the PVC is ignored
+    delta_enabled: bool = False
+    # rendezvous-hash affinity accounting (freshness/ring.py): count the
+    # requests this replica would own among the peers (comma-separated
+    # identities; this replica's own, default the hostname, is added)
+    cache_affinity: bool = False
+    cache_affinity_peers: str = ""
+    cache_affinity_self: str = ""
 
     @property
     def pickles_dir(self) -> str:
@@ -488,4 +509,8 @@ class ServingConfig:
             hybrid_mode=_getenv_hybrid_mode(),
             hybrid_blend_weight=blend_weight,
             hybrid_blend_measured=blend_measured,
+            delta_enabled=_getenv_bool("KMLS_DELTA_ENABLED", False),
+            cache_affinity=_getenv_bool("KMLS_CACHE_AFFINITY", False),
+            cache_affinity_peers=os.getenv("KMLS_CACHE_AFFINITY_PEERS", ""),
+            cache_affinity_self=os.getenv("KMLS_CACHE_AFFINITY_SELF", ""),
         )

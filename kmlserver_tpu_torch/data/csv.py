@@ -18,6 +18,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import re
+from collections.abc import Iterable
 
 import numpy as np
 
@@ -71,11 +72,21 @@ def read_tracks(path: str, sample_ratio: float = 1.0) -> TrackTable:
     the rows, and drop ``duration_ms`` (reference: read_tracks
     main.py:152-166 + clean_df main.py:148-150)."""
     with open(path, newline="", encoding="utf-8", errors="replace") as fh:
-        reader = csv.reader(fh)
-        header = next(reader, None)
-        if header is None:
-            raise ValueError(f"{path}: empty file, no header")
-        rows = [row for row in reader if row]
+        return parse_tracks(fh, path, sample_ratio)
+
+
+def parse_tracks(
+    fh: Iterable[str], path: str, sample_ratio: float = 1.0
+) -> TrackTable:
+    """:func:`read_tracks` over an open text stream (opened with
+    ``newline=""``): a header line, then the rows. ``path`` names the
+    source in errors. The delta route parses appended rows through this
+    one parser, so they read exactly as a full read of the file would."""
+    reader = csv.reader(fh)
+    header = next(reader, None)
+    if header is None:
+        raise ValueError(f"{path}: empty file, no header")
+    rows = [row for row in reader if row]
     missing = [c for c in REQUIRED_COLUMNS if c not in header]
     if missing:
         raise ValueError(f"{path}: missing required columns {missing}; has {header}")

@@ -27,6 +27,10 @@ Sites wired in this package:
   next load verifies but fails to parse — the two-strike quarantine.
 - ``"rank.heartbeat"`` (keyed by rank) — in the dead-rank watchdog's beat
   loop: a fail fault silences that rank's heartbeats for good.
+- ``"delta.apply"`` — in :meth:`RecommendEngine.apply_pending_deltas`,
+  before a chain entry's bundle is read: a fail fault rejects the bundle
+  like a torn one (the base generation keeps serving, the poll backs off,
+  and a later apply lands the same bundle).
 - ``"io.write"`` / ``"io.read"`` / ``"io.fsync"`` — the storage plane,
   consumed through :func:`take_io` inside ``io/artifacts.py``'s one writer
   and reader, path-scoped (each armed fault carries an optional path
@@ -34,10 +38,9 @@ Sites wired in this package:
   bytes to the temp file, then raise :class:`TornWrite`), ``stall`` (the
   caller sleeps) and ``fail`` for fsync (never retried).
 
-The reference's other sites — ``delta.apply``, ``mesh.peer`` and
-``fleet.peer`` — belong to modules this package does not have yet (delta
-freshness, the serve mesh, the fleet router). Their knobs
-(``KMLS_FAULT_DELTA_CORRUPT``, ``KMLS_FAULT_MESH_PEER_DELAY_MS``,
+The reference's other sites — ``mesh.peer`` and ``fleet.peer`` — belong
+to modules this package does not have yet (the serve mesh, the fleet
+router). Their knobs (``KMLS_FAULT_MESH_PEER_DELAY_MS``,
 ``KMLS_FAULT_FLEET_PEER_DELAY_MS``) parse as in the reference and arm
 faults that nothing fires yet.
 
@@ -62,8 +65,8 @@ Arming, two ways:
     heartbeats permanently;
   - ``KMLS_FAULT_EMBED_CORRUPT=N`` — fail the next N embedding-artifact
     loads;
-  - ``KMLS_FAULT_DELTA_CORRUPT=N``,
-    ``KMLS_FAULT_MESH_PEER_DELAY_MS=rank:ms[:N]``,
+  - ``KMLS_FAULT_DELTA_CORRUPT=N`` — reject the next N delta applies;
+  - ``KMLS_FAULT_MESH_PEER_DELAY_MS=rank:ms[:N]``,
     ``KMLS_FAULT_FLEET_PEER_DELAY_MS=idx:ms[:N]`` — parsed, not fired
     (see above);
   - ``KMLS_FAULT_IO_WRITE=kind[:N][:substr]`` — next N artifact-plane

@@ -20,9 +20,13 @@ either package is served by the other:
   :func:`ensure_free_space` preflight and the resumable exit own it) and
   neither does a failed fsync (:class:`FsyncFailedError`). Every byte in
   or out passes the path-scoped fault gate (``faults.take_io``) and feeds
-  the IO-health monitor (``io/iohealth.py``).
-
-Embeddings and delta bundles are not part of this package yet.
+  the IO-health monitor (``io/iohealth.py``);
+- the embedding artifact ``embeddings.npz`` (ALS item factors);
+- the continuous-freshness delta bundles ``delta-<seq>.bundle`` and their
+  chain file ``delta.state.json`` (:func:`save_delta_bundle`,
+  :func:`load_delta_bundle` with its strict validation,
+  :func:`write_delta_state`, :func:`retire_delta_chain`), in the
+  reference's format: either package reads the other's bundles.
 """
 
 from __future__ import annotations
@@ -51,10 +55,24 @@ QUARANTINE_DIRNAME = "quarantine"
 # the embed phase's artifact (ALS item factors) and its format version
 EMBEDDINGS_FILENAME = "embeddings.npz"
 EMBEDDINGS_VERSION = 1
-# artifacts of features this package does not publish; a full publication
-# retires any left on the PVC so the new manifest cannot re-bless them
+# the quality report, which this package reads but does not publish; a full
+# publication retires one left on the PVC so the new manifest cannot
+# re-bless it
 QUALITY_REPORT_FILENAME = "quality.report.json"
+# continuous freshness (freshness/delta.py): the chain file listing the
+# delta bundles of one base generation in application order, and the
+# bundles' format version. Deltas never rewrite the invalidation token:
+# the engine applies them in place
 DELTA_STATE_FILENAME = "delta.state.json"
+DELTA_BUNDLE_VERSION = 1
+
+
+def delta_bundle_filename(seq: int) -> str:
+    return f"delta-{int(seq):06d}.bundle"
+
+
+def delta_state_path(pickles_dir: str) -> str:
+    return os.path.join(pickles_dir, DELTA_STATE_FILENAME)
 
 
 class ArtifactIntegrityError(RuntimeError):
@@ -755,23 +773,16 @@ class PublicationLease:
 
 
 def retire_unpublished(pickles_dir: str) -> None:
-    """Remove the artifacts of features this package does not publish
-    (quality report, delta chain) — the reference job does the same when
-    those features are off, so neither package's manifest can bless a
-    previous generation's leftovers. An embed-disabled publication retires
-    ``embeddings.npz`` with :func:`remove_embeddings`."""
+    """Remove the quality report, which this package does not publish —
+    the reference job does the same with eval off, so neither package's
+    manifest can bless a previous generation's measurements. An
+    embed-disabled publication retires ``embeddings.npz`` with
+    :func:`remove_embeddings`, and every full publication the delta chain
+    with :func:`retire_delta_chain`."""
     try:
-        names = os.listdir(pickles_dir)
-    except OSError:
-        return
-    for name in names:
-        if name in (QUALITY_REPORT_FILENAME, DELTA_STATE_FILENAME) or (
-            name.startswith("delta-") and name.endswith(".bundle")
-        ):
-            try:
-                os.unlink(os.path.join(pickles_dir, name))
-            except FileNotFoundError:
-                pass
+        os.unlink(quality_report_path(pickles_dir))
+    except FileNotFoundError:
+        pass
 
 
 def save_rule_tensors(
@@ -853,6 +864,24 @@ def load_rule_tensors(
             "mode": mode,
             "min_confidence": float(npz["min_confidence"]),
         }
+
+
+def rules_dict_from_tensors(loaded: dict[str, Any]) -> dict[str, dict[str, float]]:
+    """A :func:`load_rule_tensors`-shaped dict → the reference's pickle
+    object ``{song: {other_song: confidence}}`` through the one expansion
+    in ``ops/rules.py``, so an npz and its pickle twin cannot drift."""
+    from ..ops.rules import expand_rules_dict
+
+    return expand_rules_dict(
+        loaded["vocab"],
+        loaded["rule_ids"],
+        loaded["rule_counts"],
+        loaded["item_counts"],
+        n_playlists=loaded["n_playlists"],
+        min_support=loaded["min_support"],
+        mode=loaded["mode"],
+        rule_confs64=loaded.get("rule_confs64"),
+    )
 
 
 def tensors_from_rules_dict(
@@ -972,3 +1001,175 @@ def load_quality_report(pickles_dir: str) -> dict[str, Any] | None:
     except (OSError, ValueError):
         return None
     return data if isinstance(data, dict) else None
+
+
+# ---------- continuous-freshness delta bundles ----------
+
+_DELTA_KEYS = (
+    "version", "seq", "base_token", "base_npz_sha256", "n_playlists",
+    "min_count", "vocab", "changed_rows", "changed_rule_ids",
+    "changed_rule_counts", "changed_item_counts", "tombstones",
+)
+
+
+def save_delta_bundle(
+    path: str,
+    *,
+    seq: int,
+    base_token: str,
+    base_npz_sha256: str,
+    n_playlists: int,
+    min_count: int,
+    vocab: list[str],
+    changed_rows: np.ndarray,
+    changed_rule_ids: np.ndarray,
+    changed_rule_counts: np.ndarray,
+    changed_item_counts: np.ndarray,
+    tombstones: list[str],
+) -> None:
+    """Write one delta bundle atomically, in the reference's format.
+
+    ``vocab`` is the complete new (possibly pruned) row space; row identity
+    travels by name, so an apply re-maps unchanged base rows into it and
+    overwrites ``changed_rows`` (indices into ``vocab``). ``tombstones``
+    are base names absent from ``vocab``. ``base_npz_sha256`` binds the
+    bundle to the exact base artifact bytes it patches."""
+    if changed_rule_ids.shape != changed_rule_counts.shape:
+        raise ValueError(
+            f"changed_rule_ids {changed_rule_ids.shape} != "
+            f"changed_rule_counts {changed_rule_counts.shape}"
+        )
+    if not len(changed_rows) == changed_rule_ids.shape[0] == len(changed_item_counts):
+        raise ValueError(
+            f"changed row count mismatch: {len(changed_rows)} rows vs "
+            f"{changed_rule_ids.shape[0]} id rows / {len(changed_item_counts)} item counts"
+        )
+    arrays = dict(
+        version=np.int64(DELTA_BUNDLE_VERSION),
+        seq=np.int64(seq),
+        base_token=np.asarray(base_token),
+        base_npz_sha256=np.asarray(base_npz_sha256),
+        n_playlists=np.int64(n_playlists),
+        min_count=np.int64(min_count),
+        vocab=np.asarray(vocab, dtype=object),
+        changed_rows=np.asarray(changed_rows, dtype=np.int32),
+        changed_rule_ids=changed_rule_ids.astype(np.int32),
+        changed_rule_counts=changed_rule_counts.astype(np.int32),
+        changed_item_counts=np.asarray(changed_item_counts, dtype=np.int32),
+        tombstones=np.asarray(list(tombstones), dtype=object),
+    )
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    _atomic_write_bytes(path, buf.getvalue())
+
+
+def load_delta_bundle(path: str, expect_sha256: str | None = None) -> dict[str, Any]:
+    """Load and strictly validate a delta bundle. Raises ``ValueError`` on
+    any structural problem — a digest that disagrees with the chain entry,
+    a missing key, another version, malformed or out-of-range rows or ids,
+    duplicate rows — which the engine treats as a rejection: the base keeps
+    serving."""
+    if expect_sha256 is not None:
+        digest = file_digest(path)["sha256"]
+        if digest != expect_sha256:
+            raise ValueError(
+                f"{path}: bundle sha256 {digest} != chain entry "
+                f"{expect_sha256} (torn or tampered delta)"
+            )
+    raw = io.BytesIO(_read_bytes(path))
+    with np.load(raw, allow_pickle=True) as npz:
+        missing = [k for k in _DELTA_KEYS if k not in npz.files]
+        if missing:
+            raise ValueError(f"{path}: not a delta bundle (missing {missing})")
+        version = int(npz["version"])
+        if version != DELTA_BUNDLE_VERSION:
+            raise ValueError(
+                f"{path}: delta bundle version {version} != {DELTA_BUNDLE_VERSION}"
+            )
+        vocab = [str(s) for s in npz["vocab"]]
+        rows = np.asarray(npz["changed_rows"], dtype=np.int32)
+        ids = np.asarray(npz["changed_rule_ids"], dtype=np.int32)
+        counts = np.asarray(npz["changed_rule_counts"], dtype=np.int32)
+        items = np.asarray(npz["changed_item_counts"], dtype=np.int32)
+        if ids.shape != counts.shape or ids.ndim != 2:
+            raise ValueError(f"{path}: malformed changed-row tensors")
+        if len(rows) != ids.shape[0] or len(rows) != len(items):
+            raise ValueError(f"{path}: changed-row count mismatch")
+        if len(rows) and (rows.min() < 0 or rows.max() >= len(vocab)):
+            raise ValueError(f"{path}: changed_rows outside the new vocab")
+        if len(rows) != len(set(rows.tolist())):
+            raise ValueError(f"{path}: duplicate changed_rows")
+        if ids.size and ids.max() >= len(vocab):
+            raise ValueError(f"{path}: rule ids outside the new vocab")
+        return {
+            "version": version,
+            "seq": int(npz["seq"]),
+            "base_token": str(npz["base_token"]),
+            "base_npz_sha256": str(npz["base_npz_sha256"]),
+            "n_playlists": int(npz["n_playlists"]),
+            "min_count": int(npz["min_count"]),
+            "vocab": vocab,
+            "changed_rows": rows,
+            "changed_rule_ids": ids,
+            "changed_rule_counts": counts,
+            "changed_item_counts": items,
+            "tombstones": [str(s) for s in npz["tombstones"]],
+        }
+
+
+def read_delta_state(pickles_dir: str) -> dict[str, Any] | None:
+    """The parsed chain file, or None when absent or unreadable (no chain
+    is the normal state between full publications)."""
+    try:
+        data = json.loads(_read_bytes(delta_state_path(pickles_dir)).decode("utf-8"))
+    except (OSError, ValueError):
+        return None
+    if not isinstance(data, dict) or not isinstance(data.get("entries"), list):
+        return None
+    return data
+
+
+def write_delta_state(
+    pickles_dir: str,
+    base_token: str,
+    base_npz_sha256: str,
+    entries: list[dict[str, Any]],
+) -> str:
+    """Atomically (re)write the chain file, after the bundle bytes it lists
+    (the manifest-then-token order): a reader that sees an entry can find
+    its bundle."""
+    out = delta_state_path(pickles_dir)
+    _atomic_write_bytes(
+        out,
+        json.dumps(
+            {
+                "version": 1,
+                "base_token": base_token,
+                "base_npz_sha256": base_npz_sha256,
+                "entries": entries,
+            },
+            indent=1, sort_keys=True,
+        ).encode("utf-8"),
+    )
+    return out
+
+
+def retire_delta_chain(pickles_dir: str) -> int:
+    """Remove the chain file and every bundle: a full publication
+    supersedes every delta of the previous generation. Never raises. →
+    files removed."""
+    removed = 0
+    try:
+        names = os.listdir(pickles_dir)
+    except OSError:
+        return 0
+    for name in names:
+        if name == DELTA_STATE_FILENAME or (
+            name.startswith("delta-") and name.endswith(".bundle")
+        ):
+            try:
+                os.unlink(os.path.join(pickles_dir, name))
+                removed += 1
+            except OSError:
+                pass
+    return removed

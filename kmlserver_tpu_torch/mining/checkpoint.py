@@ -96,9 +96,8 @@ _FINGERPRINT_FIELDS = (
     "eval_max_playlists",
 )
 # fields of the reference's identity this package has no knob for yet
-# (delta freshness, the quality loop): they enter at the reference's defaults
+# (the quality loop): they enter at the reference's defaults
 _UNPORTED_DEFAULTS = {
-    "delta_enabled": False,
     "eval_enabled": False,
     "eval_holdout_n": 1,
     "eval_k": 10,
@@ -246,12 +245,14 @@ class CheckpointStore:
 
     # ---------- the phase API ----------
 
-    def load(self, phase: str) -> Any | None:
+    def load(self, phase: str, require: tuple[str, ...] = ()) -> Any | None:
         """The phase's verified payload, or None → recompute.
 
         None paths: never completed; digest mismatch (torn/rotted bytes —
         phase retires immediately); unpickle failure (strike; quarantined
-        after ``quarantine_after`` consecutive strikes)."""
+        after ``quarantine_after`` consecutive strikes); a dict payload
+        lacking a key of ``require`` (written by an older format of the
+        phase — retired to recompute, like torn bytes)."""
         if phase not in self.completed:
             return None
         entry = self._state["phases"].get(phase)
@@ -293,6 +294,14 @@ class CheckpointStore:
                         "recomputing"
                     )
                 self._write_state()
+            return None
+        missing = [k for k in require if not (isinstance(payload, dict) and k in payload)]
+        if missing:
+            print(
+                f"Checkpoint phase {phase!r} lacks {missing} (an older "
+                "payload format) — retiring to recompute"
+            )
+            self._drop_phase(phase)
             return None
         return payload
 

@@ -32,7 +32,16 @@ writer, saves checkpoints and publishes. The writer also keeps
 as each phase completes: phase durations (a resumed phase reports its
 checkpointed duration, flagged), the dataset's size, the count route, the
 mine and embed phases' analytic FLOPs and bytes, artifact sizes and
-success. The delta and eval phases are not ported yet.
+success.
+
+With ``KMLS_DELTA_ENABLED`` the job first tries the delta route
+(``freshness/delta.py``): over an append-only CSV it publishes a
+``delta-<seq>.bundle`` instead of running the phases, records a ``delta``
+phase in ``job_metrics.prom`` and compacts the chain once it reaches
+``KMLS_DELTA_COMPACT_AFTER`` bundles (``quality/lifecycle.py``). Anything
+ineligible falls through to the full pipeline, whose publication retires
+the chain and saves the next delta's base state. The eval phase is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from ..observability.jobmetrics import JobMetrics
 from ..parallel import layout
 from ..parallel.distributed import RankWatchdog, barrier
 from ..parallel.mesh import RankMesh, this_rank
+from ..quality.lifecycle import manifest_filenames
 from ..utils.profiling import format_phases
 from ..utils.timeutil import get_current_time_str, get_current_time_str_precise
 from . import checkpoint as ckpt_mod
@@ -82,20 +92,9 @@ class JobSummary:
     fencing_token: int | None = None
     # the embed phase's training seconds (None: phase off or skipped)
     als_train_s: float | None = None
-
-
-def manifest_filenames(cfg: MiningConfig) -> list[str]:
-    """The manifest file set of a full publication (the reference's set)."""
-    return [
-        cfg.best_tracks_file,
-        cfg.recommendations_file,
-        cfg.recommendations_file + artifacts.TENSOR_ARTIFACT_SUFFIX,
-        cfg.artists_mapping_file,
-        cfg.track_info_file,
-        cfg.repeated_tracks_file,
-        artifacts.EMBEDDINGS_FILENAME,
-        artifacts.QUALITY_REPORT_FILENAME,
-    ]
+    # the chain sequence number when this run published a delta bundle
+    # instead of a full artifact set (None: a full publication)
+    delta_seq: int | None = None
 
 
 def _crash_site(phase: str) -> None:
@@ -119,7 +118,103 @@ def _run_encode_phase(cfg: MiningConfig, selected: str) -> dict:
         "info": vocab_mod.map_track_ids_to_info(table),
         "best": vocab_mod.most_frequent_tracks(table, cfg.top_tracks_save_percentile),
         "baskets": vocab_mod.build_baskets(table),
+        # the pid values behind playlist_rows: the delta base state
+        # extends them with appended pids without re-reading the CSV
+        "pid_values": np.unique(table.pid),
     }
+
+
+# a stored encode payload without these keys predates the delta route and
+# is re-encoded (checkpoint.CheckpointStore.load's ``require``)
+ENCODE_KEYS = ("baskets", "pid_values")
+
+
+def _run_delta_route(cfg: MiningConfig, device) -> JobSummary | None:
+    """The delta route (``KMLS_DELTA_ENABLED``) → its summary, or None when
+    the run is ineligible and the full pipeline must run. A delta
+    publication refreshes ``job_metrics.prom`` (a ``delta`` phase, the
+    recount's analytic cost, the bundle's size) and triggers the
+    compaction check."""
+    from ..freshness import delta as delta_mod
+    from ..quality import lifecycle
+
+    # built before the run so an abort still records success=0; it writes
+    # nothing until a phase completes, so an ineligible run leaves no trace
+    jm = JobMetrics(cfg.pickles_dir) if cfg.job_metrics and this_rank() == 0 else None
+    try:
+        res = delta_mod.run_delta_job(cfg, device=device)
+    except delta_mod.DeltaIneligible as exc:
+        print(f"Delta mining ineligible ({exc}); running the full pipeline")
+        return None
+    except BaseException:
+        if jm is not None:
+            try:
+                jm.finish(False)
+            except Exception:
+                pass
+        raise
+    if res.phase_timings:
+        print("Delta " + format_phases(res.phase_timings))
+    if jm is not None:
+        try:
+            jm.phase_done("delta", res.duration_s)
+            if res.bundle_path:
+                flops, moved = costmodel.phase_cost(
+                    "delta_recount", p=res.n_playlists, v=res.n_tracks, rows=res.n_touched,
+                )
+                jm.note_phase_cost("delta", flops, moved)
+                jm.note_artifact("delta", res.bundle_path)
+            jm.finish(True, rule_generation_s=res.duration_s, fencing_token=res.fencing_token)
+        except Exception as exc:
+            # the bundle is published: telemetry must not fail the job
+            print(f"WARNING: success telemetry skipped ({jm.path}): {exc!r}")
+    if res.bundle_path:
+        lifecycle.maybe_compact(cfg)
+    print(f"Job finished at {get_current_time_str()}")
+    return JobSummary(
+        dataset=res.dataset,
+        run_index=res.run_index,
+        n_rows=res.n_new_rows,
+        n_playlists=0,
+        n_tracks=0,
+        n_songs_missing=0,
+        rule_generation_s=res.duration_s,
+        token=res.base_token,
+        artifact_paths={"delta": res.bundle_path} if res.bundle_path else {},
+        fencing_token=res.fencing_token,
+        delta_seq=res.seq if res.bundle_path else None,
+    )
+
+
+def _save_freshness_state(cfg: MiningConfig, encoded: dict, result: MiningResult,
+                          paths: dict[str, str], token: str, run_index: int,
+                          selected: str) -> None:
+    """After a full publication: retire the chain of the previous
+    generation and, with the delta route armed, save the base state the
+    next delta extends. Best-effort: the artifacts are already published,
+    so a failure here only means the next run re-mines in full."""
+    artifacts.retire_delta_chain(cfg.pickles_dir)
+    if not cfg.delta_enabled:
+        return
+    from ..freshness import delta as delta_mod
+
+    try:
+        npz_sha = None
+        if "rule_tensors" in paths:
+            npz_sha = artifacts.file_digest(paths["rule_tensors"])["sha256"]
+        delta_mod.save_base_state(
+            cfg,
+            token=token,
+            run_index=run_index,
+            dataset_path=selected,
+            baskets=encoded["baskets"],
+            pid_values=encoded["pid_values"],
+            published=delta_mod.published_from_tensors(result.tensors, result.vocab_names),
+            npz_sha256=npz_sha,
+        )
+        print("Freshness base state saved (delta mining armed)")
+    except Exception as exc:
+        print(f"WARNING: freshness base state skipped: {exc!r}")
 
 
 def _report_mining(result: MiningResult, cfg: MiningConfig, launches: int) -> None:
@@ -294,6 +389,10 @@ def run_mining_job(
     raises when no card is present and ``device`` is not ``"cpu"``). With a
     ``mesh`` every rank of it runs this; ``watchdog`` guards the mine."""
     print(f"Job starting at {get_current_time_str()}")
+    if cfg.delta_enabled:
+        summary = _run_delta_route(cfg, device)
+        if summary is not None:
+            return summary
     mesh = layout.mining_mesh(cfg, mesh)
     # every rank takes part in the collectives, but only rank 0 touches the
     # shared volume: duplicate history appends would corrupt the rotation
@@ -314,13 +413,13 @@ def run_mining_job(
     # pickles/job_metrics.prom, writer rank only like every volume write
     jm = JobMetrics(cfg.pickles_dir) if is_writer and cfg.job_metrics else None
 
-    def phase(name: str, compute):
+    def phase(name: str, compute, require: tuple[str, ...] = ()):
         """Resume ``name`` from its checkpoint or compute and save it. The
         crash site fires after the save — where a preemption that already
         banked the phase would land. Either way the phase's compute
         duration reaches the telemetry file (a resumed phase's from its
         checkpoint, flagged resumed)."""
-        payload = store.load(name) if store is not None else None
+        payload = store.load(name, require) if store is not None else None
         if payload is not None:
             resumed.append(name)
             print(f"Resumed phase {name!r} from checkpoint ({store.age_s(name):.0f}s old)")
@@ -360,7 +459,7 @@ def run_mining_job(
             lease.start_heartbeat()
             print(f"Publication lease acquired (fencing token {lease.fencing_token})")
     try:
-        encoded = phase("encode", lambda: _run_encode_phase(cfg, selected))
+        encoded = phase("encode", lambda: _run_encode_phase(cfg, selected), ENCODE_KEYS)
         baskets = encoded["baskets"]
 
         def _mine() -> MiningResult:
@@ -405,6 +504,7 @@ def run_mining_job(
         token, paths = _publish(
             cfg, encoded, result, rules_dict, emb_payload, run_index, selected, lease
         )
+        _save_freshness_state(cfg, encoded, result, paths, token, run_index, selected)
         if store is not None:
             # published: the next rotation run must start fresh
             store.clear()

@@ -20,8 +20,9 @@ reference's exact float64 contraction.
 
 The host functions (:func:`sparse_pair_counts_np`, :func:`sparse_rule_rows`)
 are copies of the reference's; :func:`sparse_pair_counts_device` scatter-adds
-the same event stream into the counts on the device. Not ported yet:
-``sparse_restricted_pair_counts_np`` (the delta recount).
+the same event stream into the counts on the device.
+:func:`sparse_restricted_pair_counts_np` is the reference's host route of
+the delta recount: only the rows of the requested antecedents.
 """
 
 from __future__ import annotations
@@ -357,4 +358,57 @@ def sparse_pair_counts_device(
     u = upper.view(n_tracks, n_tracks)
     out += u
     out += u.t()
+    return out
+
+
+def sparse_restricted_pair_counts_np(
+    playlist_rows: np.ndarray,
+    track_ids: np.ndarray,
+    row_ids: np.ndarray,
+    *,
+    n_playlists: int,
+    n_tracks: int,
+    event_chunk: int = EVENT_CHUNK,
+) -> np.ndarray:
+    """Rows ``row_ids`` of ``C = XᵀX`` → ``(R, V) int32`` — the sparse
+    route of the delta recount (``parallel.support.restricted_pair_counts``):
+    only baskets holding a requested antecedent generate events, ``hits_b ·
+    k_b`` each, instead of the dense route's full ``P × R`` contraction.
+    Integer accumulation, so the rows equal the full count's."""
+    row_ids = np.asarray(row_ids, dtype=np.int64)
+    r = len(row_ids)
+    out = np.zeros((r, n_tracks), dtype=np.int32)
+    if r == 0:
+        return out
+    rank = np.full(n_tracks, -1, dtype=np.int64)
+    rank[row_ids] = np.arange(r, dtype=np.int64)
+    rows, tids = _sorted_by_playlist(playlist_rows, track_ids)
+    if rows.size == 0:
+        return out
+    starts, counts = _segments(rows)
+    # per-element basket handle: which segment each membership row lives in
+    seg_of = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+    hits = np.flatnonzero(rank[tids] >= 0)  # membership rows that are antecedents
+    if hits.size == 0:
+        return out
+    v = np.int64(n_tracks)
+    rep_all = counts[seg_of[hits]]
+    cum = np.cumsum(rep_all)
+    lo = 0
+    n_hits = len(hits)
+    while lo < n_hits:
+        target = (cum[lo - 1] if lo else 0) + event_chunk
+        hi = int(np.searchsorted(cum, target, side="left")) + 1
+        hi = min(max(hi, lo + 1), n_hits)
+        h = hits[lo:hi]
+        rep = rep_all[lo:hi]
+        n_events = int(rep.sum())
+        off = np.concatenate([[0], np.cumsum(rep[:-1])])
+        within = np.arange(n_events, dtype=np.int64) - np.repeat(off, rep)
+        left = np.repeat(rank[tids[h]], rep)
+        right = tids[np.repeat(starts[seg_of[h]], rep) + within]
+        out += np.bincount(
+            left * v + right, minlength=r * n_tracks
+        ).reshape(r, n_tracks).astype(np.int32, copy=False)
+        lo = hi
     return out

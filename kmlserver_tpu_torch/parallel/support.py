@@ -12,21 +12,34 @@ are summed with ``torch.distributed.all_reduce`` over the mesh's group
 (the reference's ``psum`` over ``dp``), so every rank holds the full
 padded counts. The sum is exact: every count is at most P < 2³¹.
 
+:func:`restricted_pair_counts` is the delta recount (reference
+``:342-398``) on one rank: rows ``R`` of ``C`` against every basket, on the
+host below the reference's size threshold and through ``torch._int_mm``
+on the card above it.
+
 Not ported: the dense sharded implementations (``gspmd``, ``allgather``,
 ``ring``, ``:62-127``) and the vocab-sharded emission (``:270-322``),
-which are XLA; ``restricted_pair_counts``; and the reference's
-``impl="mxu"`` unpack-matmul, which is XLA too.
+which are XLA; the mesh-sharded restricted recount (``:326``); and the
+reference's ``impl="mxu"`` unpack-matmul, which is XLA too.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..mining.vocab import Baskets
 from ..ops import encode
 from ..ops import popcount as pc
+from ..ops.support import int8_gram, int8_gram_plain
 from ..utils.device import resolve_device
 from .mesh import AXIS_DP, AXIS_TP, RankMesh, round_up, this_rank
+
+# P·V at or below which the restricted recount runs on the host in float64
+# (the reference's threshold, so the same inputs take the same route)
+HOST_RECOUNT_ELEMS = 16_000_000
+# restricted recounts that ran the int8 product on a device
+LAUNCHES = {"restricted_recount": 0}
 
 
 def _require_dp_only(mesh: RankMesh, name: str) -> None:
@@ -115,3 +128,61 @@ def sharded_counts_plain(slabs: list[torch.Tensor]) -> torch.Tensor:
     for slab in slabs[1:]:
         total += pc.popcount_pair_counts_plain(slab)
     return total
+
+
+def restricted_pair_counts(
+    baskets: Baskets,
+    row_ids,
+    count_path: str | None = None,
+    device: str | torch.device = "cuda",
+) -> np.ndarray:
+    """Rows ``row_ids`` of ``C = XᵀX`` → host ``(R, V)`` int32, each equal
+    to that row of the full count matrix: the delta recount, the affected
+    columns against every basket. Routes, as in the reference:
+
+    - ``count_path="sparse"``: the host event expansion
+      (``ops/sparse.py::sparse_restricted_pair_counts_np``);
+    - ``P·V <= HOST_RECOUNT_ELEMS``: the one-hot in float64 on the host
+      (exact: every count is at most P < 2**53);
+    - above it, on ``device``: the padded one-hot built transposed,
+      ``Xᵀ (V_pad, P_pad)`` int8, its rows ``R`` gathered into an operand
+      that is already padded, and ``int8_gram(Xᵀ[R], Xᵀ)`` with int32
+      accumulation (``int8_gram_plain`` on the CPU).
+
+    One rank: the reference's mesh-sharded form is not ported."""
+    row_ids = np.asarray(row_ids, dtype=np.int32)
+    v = baskets.n_tracks
+    if row_ids.size == 0:
+        return np.zeros((0, v), dtype=np.int32)
+    if np.any(row_ids < 0) or np.any(row_ids >= v):
+        raise ValueError(f"row_ids outside the vocabulary (V={v})")
+    if count_path == "sparse":
+        from ..ops import sparse as sparse_mod
+
+        return sparse_mod.sparse_restricted_pair_counts_np(
+            baskets.playlist_rows, baskets.track_ids, row_ids,
+            n_playlists=baskets.n_playlists, n_tracks=v,
+        )
+    p = baskets.n_playlists
+    if p * v <= HOST_RECOUNT_ELEMS:
+        x = np.zeros((p, v), dtype=np.float64)
+        x[baskets.playlist_rows, baskets.track_ids] = 1.0
+        return (x[:, row_ids].T @ x).astype(np.int32)
+    dev = resolve_device(device)
+    v_pad, p_pad = round_up(v, 8), round_up(max(p, 1), 8)
+    # the transposed one-hot, built at the padded shape int8_gram wants, so
+    # no second copy of the largest tensor is ever made
+    xt = encode.onehot_matrix(
+        torch.as_tensor(baskets.track_ids, device=dev),
+        torch.as_tensor(baskets.playlist_rows, device=dev),
+        n_playlists=v_pad, n_tracks=p_pad,
+    )
+    r = len(row_ids)
+    a = torch.zeros((round_up(max(r, 17), 8), p_pad), dtype=torch.int8, device=dev)
+    torch.index_select(xt, 0, torch.as_tensor(row_ids, device=dev, dtype=torch.int64),
+                       out=a[:r])
+    gram = int8_gram if dev.type == "cuda" else int8_gram_plain
+    counts = gram(a, xt)[:r, :v]
+    if dev.type == "cuda":
+        LAUNCHES["restricted_recount"] += 1
+    return counts.cpu().numpy()

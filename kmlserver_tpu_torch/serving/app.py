@@ -19,6 +19,12 @@ reference's FastAPI routes rebuilt on the stdlib:
   ``torch.profiler`` capture into ``KMLS_PROFILE_DIR``; 409 while it is
   unset), all loopback only.
 
+With ``KMLS_DELTA_ENABLED`` the engine applies delta bundles in place and
+calls back :meth:`RecommendApp._on_delta_applied`, which invalidates the
+cached answers of the touched seeds only. With ``KMLS_CACHE_AFFINITY=1``
+the app counts the requests its replica would own on a rendezvous ring of
+``KMLS_CACHE_AFFINITY_PEERS`` (``freshness/ring.py``).
+
 With ``KMLS_TRACE_SAMPLE`` > 0 every request carries a trace
 (``observability/trace.py``): its id comes from ``X-KMLS-Trace`` (or is
 generated) and is echoed on the response, and the cache, batcher queue,
@@ -157,6 +163,28 @@ class RecommendApp:
             if cfg.cache_enabled and cfg.cache_max_entries > 0
             else None
         )
+        # a delta applied in place keeps the epoch: only the keys whose
+        # seeds it touched may be stale. The engine calls back after the
+        # patched replicas are live (getattr: engine doubles stay usable)
+        listeners = getattr(self.engine, "delta_listeners", None)
+        if listeners is not None:
+            listeners.append(self._on_delta_applied)
+        # rendezvous-ring affinity accounting (counters only, no routing)
+        self.ring = None
+        self._ring_self = ""
+        self.affinity_local_total = 0
+        self.affinity_remote_total = 0
+        if cfg.cache_affinity:
+            import socket
+
+            from ..freshness.ring import RendezvousRing
+
+            me = cfg.cache_affinity_self or socket.gethostname()
+            peers = [p.strip() for p in cfg.cache_affinity_peers.split(",") if p.strip()]
+            if me not in peers:
+                peers.append(me)
+            self.ring = RendezvousRing(peers)
+            self._ring_self = me
         # defer_batcher: the asyncio transport installs its loop-native
         # AsyncMicroBatcher instead of the threaded pipeline
         self.batcher = None
@@ -294,6 +322,20 @@ class RecommendApp:
             "traces_began_total": self.recorder.began,
             "traces_retained_total": self.recorder.retained_total,
             "trace_buffer_entries": self.recorder.retained() if self.recorder.enabled else 0,
+            # continuous freshness: bundles applied in place vs rejected,
+            # the chain position serving, the serving generation's chain
+            # length, and the age of the newest applied generation
+            "delta_applied_total": getattr(self.engine, "delta_applied_total", 0),
+            "delta_rejected_total": getattr(self.engine, "delta_rejected_total", 0),
+            "delta_seq": getattr(self.engine, "delta_seq", 0),
+            "delta_chain_length": getattr(self.engine, "delta_chain_length", 0),
+            "freshness_lag_seconds": round(
+                getattr(self.engine, "freshness_lag_s", lambda: 0.0)(), 3
+            ),
+            # the requests a rendezvous router would keep on this replica
+            # (0/0 with KMLS_CACHE_AFFINITY off)
+            "cache_affinity_local_total": self.affinity_local_total,
+            "cache_affinity_remote_total": self.affinity_remote_total,
         }
 
     def _artifact_ages(self) -> dict:
@@ -548,6 +590,18 @@ class RecommendApp:
             self._trace_finish(trace, "ok", headers)
         return status, headers, payload
 
+    def _on_delta_applied(self, touched: set, wholesale: bool) -> None:
+        """Engine callback after a delta swapped in: invalidate the cached
+        answers of the touched seeds (a wholesale apply bumped the epoch,
+        which already invalidated every key)."""
+        if self.cache is None or wholesale:
+            return
+        dropped = self.cache.invalidate_seeds(set(touched))
+        logger.info(
+            "delta applied: %d touched names, %d cache entries invalidated "
+            "selectively", len(touched), dropped,
+        )
+
     # ---------- the cache front half, shared by both transports ----------
 
     def _cache_key(self, songs: list[str]) -> tuple:
@@ -562,7 +616,15 @@ class RecommendApp:
         ``("off", None)``. A miss joins the in-flight singleflight future
         for this key or leads a new batcher submission (the leader's
         done-callback stores the answer); raises what ``batcher.submit``
-        raises. "off": cache disabled, or no batcher."""
+        raises. "off": cache disabled, or no batcher. With the ring armed
+        it first counts whether this replica owns the request's key."""
+        if self.ring is not None:
+            from ..freshness.ring import seeds_key
+
+            if self.ring.owner(seeds_key(songs)) == self._ring_self:
+                self.affinity_local_total += 1
+            else:
+                self.affinity_remote_total += 1
         if self.cache is None or self.batcher is None:
             return "off", None
         key = self._cache_key(songs)

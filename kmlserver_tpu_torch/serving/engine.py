@@ -44,8 +44,18 @@ event seconds and its bucket's shape as a ``serve_rules`` observation
 tensors' bytes and the allocator's watermark, and the unwarmed dispatches
 of each lookup are watched as ``kmls_compiles_total``.
 
-The native host kernel, the vocab-sharded layout, the serve mesh and
-deltas are not part of this package.
+Continuous freshness (``KMLS_DELTA_ENABLED``): the poll also reads the
+delta chain of the serving generation and applies each new
+``delta-<seq>.bundle`` in place (:meth:`RecommendEngine.apply_pending_deltas`)
+through ``freshness/delta.py``'s one application. The replicas are rebuilt
+from the patched host tensors through the load path's own steps and warmed
+before the swap; the epoch stays (the app's cache invalidates the touched
+seeds only) unless a blend-mode hybrid bundle's ``n_playlists`` moved. A
+torn, mis-bound or out-of-order bundle is rejected, and the base keeps
+serving.
+
+The native host kernel, the vocab-sharded layout and the serve mesh are not
+part of this package.
 """
 
 from __future__ import annotations
@@ -252,6 +262,32 @@ class RecommendEngine:
         # monotonic deadline before which reload_if_required() won't retry
         # a failed load (direct load() calls always go through)
         self._backoff_until = 0.0
+        # continuous freshness: the chain position applied on top of the
+        # base generation (the serving epoch is the pair (bundle_epoch,
+        # delta_seq); a full load resets it to 0)
+        self.delta_seq = 0
+        self.delta_applied_total = 0
+        self.delta_rejected_total = 0
+        self.last_delta_error: str | None = None
+        # bundles in the serving generation's chain file, applied or not
+        # (the compaction trigger's gauge)
+        self.delta_chain_length = 0
+        # called as fn(touched_names, wholesale) after a delta swap commits
+        self.delta_listeners: list[Callable[[set, bool], None]] = []
+        # the logical tensors deltas patch (the npz load's counts); None
+        # when the bundle came from the pickle or carries merged float64
+        # confidences — such a generation serves with deltas off
+        self._host_state: dict | None = None
+        # sha256 of the npz the host state came from: a bundle's
+        # base_npz_sha256 must match it
+        self._base_npz_sha: str | None = None
+        # wall-clock publication stamp of the newest applied generation
+        # (base manifest or chain entry): the freshness lag
+        self._applied_written_at = 0.0
+        # rejection backoff of the polling path (direct applies go through)
+        self._delta_backoff_until = 0.0
+        # seconds of the last apply: read, patch, upload, warm-up, swap
+        self.last_delta_apply_s = 0.0
         # the free-space gauge follows the artifact volume, and every read
         # below feeds the latency EWMAs behind the storage-slow conviction
         MONITOR.watch_disk(cfg.pickles_dir)
@@ -310,7 +346,9 @@ class RecommendEngine:
                 token = self._read_token() or ""
                 use_npz, use_emb = self._verify_before_load(best_path, rec_path, npz_path)
                 best = artifacts.load_pickle(best_path, deadline_s=self._read_deadline())
-                replicas = self._build_replicas(rec_path, npz_path, token, use_npz=use_npz)
+                replicas, host_state, npz_sha = self._build_replicas(
+                    rec_path, npz_path, token, use_npz=use_npz
+                )
                 # the second model family, fail-soft: a bad embeddings.npz
                 # costs the embedding path, never the reload. Its status
                 # stays local until the swap commits below
@@ -344,11 +382,23 @@ class RecommendEngine:
                 while len(self.dispatch_counts) < len(replicas):
                     self.dispatch_counts.append(0)
             self.cache_value = replicas[0].model_token or self.cache_value
+            # a full load starts the chain over at seq 0; a pending chain of
+            # this generation applies right after (reload_if_required)
+            self.delta_seq = 0
+            self._host_state = host_state
+            self._base_npz_sha = npz_sha
+            self._delta_backoff_until = 0.0
+            self.delta_chain_length = 0
+            if cfg.delta_enabled:
+                chain = artifacts.read_delta_state(cfg.pickles_dir)
+                if chain is not None and chain.get("base_token") == self.cache_value:
+                    self.delta_chain_length = len(chain.get("entries", ()))
             manifest = artifacts.load_manifest(cfg.pickles_dir, deadline_s=self._read_deadline())
             if manifest is not None and manifest.get("token") == self.cache_value:
                 rules_at = float(manifest.get("written_at") or time.time())
             else:
                 rules_at = time.time()
+            self._applied_written_at = rules_at
             self._artifact_written_at = {
                 "rules": rules_at,
                 "popularity": self._file_written_at(best_path, rules_at),
@@ -528,11 +578,14 @@ class RecommendEngine:
 
     def _build_replicas(
         self, rec_path: str, npz_path: str, token: str, use_npz: bool = True
-    ) -> list[RuleBundle]:
+    ) -> tuple[list[RuleBundle], dict | None, str | None]:
         """Load the rule tensors once (the npz twin when present and
         verified — counts → float64 → float32 confs — else the reference
-        pickle dict), then copy them onto every serving device. Host state
-        is shared."""
+        pickle dict), then copy them onto every serving device. → (the
+        replica set, the candidate host state a delta can patch, the npz's
+        sha256), the last two committed with the swap; both None unless
+        deltas are on and the npz carries plain counts (no pickle, no
+        merged ``rule_confs64``, which a patch cannot re-derive)."""
         arrays = None
         if self.cfg.prefer_tensor_artifact and use_npz and os.path.exists(npz_path):
             try:
@@ -554,6 +607,25 @@ class RecommendEngine:
             )
             arrays = {"vocab": vocab, "rule_ids": rule_ids, "rule_confs": rule_confs,
                       "known_mask": known}
+        host_state = npz_sha = None
+        if self.cfg.delta_enabled and "rule_counts" in arrays and arrays.get("rule_confs64") is None:
+            host_state = {
+                "vocab": list(arrays["vocab"]),
+                "rule_ids": np.asarray(arrays["rule_ids"], dtype=np.int32),
+                "rule_counts": np.asarray(arrays["rule_counts"], dtype=np.int32),
+                "item_counts": np.asarray(arrays["item_counts"], dtype=np.int32),
+                "n_playlists": int(arrays["n_playlists"]),
+                "min_support": float(arrays["min_support"]),
+                "mode": str(arrays["mode"]),
+                "min_confidence": float(arrays["min_confidence"]),
+            }
+            npz_sha = artifacts.file_digest(npz_path)["sha256"]
+        return self._replicas_from_arrays(arrays, token), host_state, npz_sha
+
+    def _replicas_from_arrays(self, arrays: Mapping[str, Any], token: str) -> list[RuleBundle]:
+        """Host rule arrays (:func:`_host_rule_arrays`' dicts) → one bundle
+        per serving device — the one upload path a load and a delta apply
+        share, the out-of-range id mapping included."""
         vocab, known, ids, confs = _host_rule_arrays(arrays)
         index = {n: i for i, n in enumerate(vocab)}
         return [
@@ -652,8 +724,9 @@ class RecommendEngine:
 
     def artifact_ages(self) -> dict[str, float]:
         """Seconds since publication of every artifact the server answers
-        from. ``delta-chain`` is the newest applied generation's age; with
-        no delta path it equals ``rules``. Empty before the first load."""
+        from. ``delta-chain`` is the newest applied generation's age (base
+        or delta): with no delta applied it equals ``rules``, and an apply
+        shrinks it. Empty before the first load."""
         if not self._artifact_written_at:
             return {}
         now = time.time()
@@ -661,7 +734,7 @@ class RecommendEngine:
             name: max(now - stamp, 0.0)
             for name, stamp in self._artifact_written_at.items()
         }
-        out["delta-chain"] = out["rules"]
+        out["delta-chain"] = self.freshness_lag_s()
         return out
 
     def reload_if_required(self) -> None:
@@ -669,11 +742,155 @@ class RecommendEngine:
         (reference: rest_api/app/main.py:110-114). After a failed reload
         this retries on the backoff ladder instead of every poll; the
         staleness signal survives (is_data_stale is pure), so the retry
-        always comes."""
+        always comes. With deltas on, a load is followed by the pending
+        chain, and a generation that is not stale checks its chain (a
+        rejection backs off on its own deadline)."""
         if time.monotonic() < self._backoff_until:
             return
         if self.is_data_stale() or not self.finished_loading:
-            self.load()
+            if self.load():
+                self.apply_pending_deltas()
+        elif self.cfg.delta_enabled and time.monotonic() >= self._delta_backoff_until:
+            self.apply_pending_deltas()
+
+    # ---------- continuous freshness: in-place delta application ----------
+
+    def freshness_lag_s(self) -> float:
+        """Seconds since the newest applied generation (base publication or
+        chain entry) was published; 0.0 before the first load."""
+        if not self._applied_written_at:
+            return 0.0
+        return max(time.time() - self._applied_written_at, 0.0)
+
+    def _note_delta_rejection(self, seq: int, message: str) -> None:
+        self.delta_rejected_total += 1
+        self.last_delta_error = message
+        self._delta_backoff_until = time.monotonic() + self.cfg.reload_backoff_base_s
+        logger.warning(
+            "delta bundle %d REJECTED (%s); base generation keeps serving, "
+            "retry after %.1fs", seq, message, self.cfg.reload_backoff_base_s,
+        )
+
+    def apply_pending_deltas(self) -> int:
+        """Apply every bundle of the serving generation's chain newer than
+        ``delta_seq``, in place → bundles applied.
+
+        Each apply patches the host tensors (``apply_delta_to_tensors``),
+        rebuilds the replicas through the load's upload path, carries the
+        embedding factors over, warms every bucket on the new replicas and
+        then swaps the references — so requests in flight finish on the
+        bundle they started with (their ``finish()`` holds it until the
+        batch's CUDA event) and an apply adds no ``kmls_compiles_total``.
+        The epoch stays: the listeners invalidate the touched seeds only,
+        except for a blend-mode hybrid bundle whose ``n_playlists`` moved
+        (every blended ranking shifts), whose epoch is bumped. A chain gap,
+        a bundle bound to another token or npz, torn bytes or the
+        ``delta.apply`` fault reject the bundle: the current state keeps
+        serving and the poll backs off."""
+        if not self.cfg.delta_enabled or not self.finished_loading:
+            return 0
+        state = artifacts.read_delta_state(self.cfg.pickles_dir)
+        if state is None:
+            return 0
+        from ..freshness import delta as delta_mod
+
+        applied = 0
+        with self._reload_lock:
+            if state.get("base_token") != self.cache_value:
+                return 0  # a chain of another generation: inert here
+            self.delta_chain_length = len(state.get("entries", ()))
+            pending = [
+                e for e in sorted(state.get("entries", []), key=lambda e: e.get("seq", 0))
+                if e.get("seq", 0) > self.delta_seq
+            ]
+            if not pending:
+                return 0
+            if self._host_state is None:
+                logger.warning(
+                    "delta chain present but this bundle has no patchable host "
+                    "tensors (pickle-only load or merged-confidence artifact); "
+                    "serving the base generation"
+                )
+                return 0
+            if self.cost_model is not None:
+                # as in load(): the re-warm below is publication, not serving
+                self.cost_model.note_prepublish()
+            for entry in pending:
+                seq = int(entry.get("seq", 0))
+                if seq != self.delta_seq + 1:
+                    self._note_delta_rejection(seq, f"chain gap: expected seq {self.delta_seq + 1}")
+                    break
+                path = os.path.join(self.cfg.pickles_dir, str(entry.get("file", "")))
+                t_apply = time.perf_counter()
+                try:
+                    # KMLS_FAULT_DELTA_CORRUPT rejects here
+                    faults.fire("delta.apply")
+                    bundle = artifacts.load_delta_bundle(path, expect_sha256=entry.get("sha256"))
+                    if bundle["base_token"] != self.cache_value:
+                        raise ValueError("bundle base token != serving generation")
+                    if self._base_npz_sha is not None and (
+                        bundle["base_npz_sha256"] != self._base_npz_sha
+                    ):
+                        raise ValueError("bundle bound to different base artifact bytes")
+                    patched = delta_mod.apply_delta_to_tensors(self._host_state, bundle)
+                    vocab, rule_ids, rule_confs, known = delta_mod.derive_serving_arrays(patched)
+                    old_replicas = self.replicas
+                    replicas = self._replicas_from_arrays(
+                        {"vocab": vocab, "rule_ids": rule_ids, "rule_confs": rule_confs,
+                         "known_mask": known},
+                        self.cache_value or "",
+                    )
+                    # the second model family rides along: its factors are
+                    # on each device already and their shapes stay warmed
+                    for nb, src in zip(replicas, old_replicas):
+                        nb.emb_factors = src.emb_factors
+                        nb.emb_vocab = src.emb_vocab
+                        nb.emb_index = src.emb_index
+                        nb.emb_warmed_shapes = src.emb_warmed_shapes
+                    for nb in replicas:
+                        self._warmup(nb)
+                except Exception as exc:
+                    self._note_delta_rejection(seq, f"{type(exc).__name__}: {exc}")
+                    break
+                wholesale = (
+                    self.cfg.hybrid_mode == "blend"
+                    and any(r.emb_factors is not None for r in replicas)
+                    and patched["n_playlists"] != self._host_state["n_playlists"]
+                )
+                epoch = self.bundle_epoch + (1 if wholesale else 0)
+                for nb in replicas:
+                    nb.epoch = epoch
+                # the replica references land BEFORE the invalidation signal
+                # (the epoch bump or the listeners), so an answer cached
+                # under a post-invalidation key comes from the patched rules
+                self.replicas = replicas
+                self.bundle = replicas[0]
+                if wholesale:
+                    self.bundle_epoch = epoch
+                self._host_state = patched
+                self.delta_seq = seq
+                self.delta_applied_total += 1
+                self.last_delta_error = None
+                self._applied_written_at = float(entry.get("written_at") or time.time())
+                self.last_delta_apply_s = time.perf_counter() - t_apply
+                if self.cost_model is not None:
+                    self._note_publish_cost(replicas)
+                applied += 1
+                touched = delta_mod.touched_names(bundle)
+                logger.info(
+                    "delta %d applied in place (epoch %d/%d) in %.3f ms: %d changed "
+                    "rows, %d tombstones, %d touched names%s",
+                    seq, self.bundle_epoch, self.delta_seq, 1e3 * self.last_delta_apply_s,
+                    len(bundle["changed_rows"]),
+                    len(bundle["tombstones"]), len(touched),
+                    " [wholesale invalidation]" if wholesale else "",
+                )
+                for fn in list(self.delta_listeners):
+                    try:
+                        fn(touched, wholesale)
+                    except Exception:
+                        logger.exception("delta listener failed")
+        return applied
 
     # ---------- lookups ----------
 

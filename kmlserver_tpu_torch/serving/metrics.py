@@ -7,7 +7,7 @@ instead of only that one exists.
 
 Series names, types and label sets are the reference's; this module
 renders the subset the port's serving front end produces (no serve-mesh,
-shard, delta or forecast sections). The cost-model and SLO blocks come
+shard or forecast sections). The cost-model and SLO blocks come
 from ``observability/costmodel.py`` and ``observability/slo.py``; the
 mining job's ``job_metrics.prom`` (``observability/jobmetrics.py``) looks
 its series up in the same registry.
@@ -50,6 +50,10 @@ METRIC_REGISTRY: dict[str, str] = {
     "kmls_cache_hit_ratio": "gauge:serving",
     "kmls_cache_selective_invalidations_total": "counter:serving",
     "kmls_cache_invalidated_keys_total": "counter:serving",
+    # --- fleet cache affinity (freshness/ring.py): would a rendezvous
+    # router have kept the request on this replica ---
+    "kmls_cache_affinity_local_total": "counter:serving",
+    "kmls_cache_affinity_remote_total": "counter:serving",
     # --- dispatch ---
     "kmls_device_dispatch_total": "counter:serving",
     # --- fault tolerance / overload ---
@@ -76,8 +80,15 @@ METRIC_REGISTRY: dict[str, str] = {
     "kmls_io_retries_total": "counter:serving",
     "kmls_disk_free_bytes": "gauge:serving",
     "kmls_storage_slow": "gauge:serving",
-    # --- artifact freshness ---
+    # --- artifact freshness; continuous freshness: delta bundles applied
+    # in place vs rejected, the chain position serving, the serving
+    # generation's chain length, the newest applied generation's age ---
     "kmls_artifact_age_seconds": "gauge:serving",
+    "kmls_delta_applied_total": "counter:serving",
+    "kmls_delta_rejected_total": "counter:serving",
+    "kmls_delta_seq": "gauge:serving",
+    "kmls_freshness_lag_seconds": "gauge:serving",
+    "kmls_delta_chain_length": "gauge:serving",
     # --- observability: the decayed event-loop stall estimate the
     # admission ladder also folds in, and span-tracing bookkeeping
     # (began is the zero-cost proof counter) ---

@@ -196,7 +196,10 @@ def test_render_names_only_catalog_series():
               "artifact_quarantines_total": 1,
               "reload_failures_total": 2, "reload_consecutive_failures": 1,
               "embedding_active": 0, "embedding_load_failures_total": 0,
-              "hybrid_blend_weight": 0.5}
+              "hybrid_blend_weight": 0.5,
+              "delta_applied_total": 1, "delta_rejected_total": 0, "delta_seq": 1,
+              "delta_chain_length": 1, "freshness_lag_seconds": 0.5,
+              "cache_affinity_local_total": 3, "cache_affinity_remote_total": 4}
     io = {"latency_s": {"read": 0.002}, "errors": {("read", 5): 1}, "retries": 1,
           "storage_slow": False, "disk_free_bytes": 1 << 30}
     cost = CostModel(peak_flops=1e12, peak_bytes_s=1e11)

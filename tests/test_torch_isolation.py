@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_the_reference():
                  "observability.trace", "observability.runtime", "observability.slo",
                  "observability.costmodel", "observability.jobmetrics",
                  "observability.tracejoin", "utils.profiling", "ops.embed", "ops.segsum",
-                 "mining.als", "models", "models.embedding_model", "models.rule_model"):
+                 "mining.als", "models", "models.embedding_model", "models.rule_model",
+                 "freshness", "freshness.delta", "freshness.ring", "quality",
+                 "quality.lifecycle"):
         assert f"kmlserver_tpu_torch.{name}" in names, name
     proc = _run(
         f"""
