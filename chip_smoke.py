@@ -143,6 +143,29 @@ main loop on the card and fails loudly on any mismatch:
    rows of every track in 1,000 new Zipf playlists, equal to the same rows
    of the popcount kernel's C, the product timed beside its bound and
    ``int8_gram_plain``, peak device memory.
+13. the quality loop (``quality/``, the eval phase, ``/readyz``'s staleness
+   bound, the delta route over ranks of one host; run last, on phase 4's
+   CSV and phase 12 (a)'s PVC; alone: ``python -c "import chip_smoke as c;
+   c.phase_quality()"``): (a) the job with ``KMLS_EVAL_ENABLED=1``,
+   ``KMLS_EMBED_ENABLED=1``, ``KMLS_COUNT_PATH=bitpack`` and
+   ``KMLS_ALS_SPARSE=always``, its kernel launches counted (2 popcount: the
+   job's mine and eval's; 32 segsum: embed's and eval's trainings), its
+   ``quality.report.json`` in the manifest and held against the same job on
+   the CPU (split, rules and popularity equal; the eval's factors within
+   1e-4; on one trained model the card's lookups equal their plain versions
+   but at counted near-ties within 1e-6; every metric difference between
+   the two jobs' reports explained by counted differing answers); (b) a
+   second card run and a job killed after ``eval`` then resumed (0
+   launches) publish the same sha256; (c) the server with
+   ``KMLS_HYBRID_BLEND_WEIGHT=measured`` serves the report's weight and
+   answers 2,000 config-5 draws over the embedding vocabulary as the CPU
+   engine does, but at counted near-ties, with no 5xx; (d) with
+   ``KMLS_ARTIFACT_MAX_AGE_S`` below the artifacts' age ``/readyz`` is
+   degraded naming each and every ``kmls_artifact_stale`` reads 1, and with
+   0 every flag reads 0 and ``/readyz`` is ready; (e) two ranks sharing the
+   card over gloo on phase 12 (a)'s PVC after one append publish one delta
+   bundle from rank 0, whose members equal a one-rank job's, and neither
+   enters the full mine. The phase prints its own seconds.
 Then the kernels line is printed.
 
 Not part of the run: :func:`probe_segsum_ring` builds ``segsum.cu`` with
@@ -3753,6 +3776,455 @@ def phase_freshness(work: str | None = None, shape: dict | None = None) -> dict:
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 13
+
+QUALITY_ENV = dict(KMLS_EVAL_ENABLED="1", KMLS_EMBED_ENABLED="1", KMLS_COUNT_PATH="bitpack",
+                   KMLS_ALS_SPARSE="always")
+# launches of one quality job: the job's mine and eval's mine (popcount),
+# 8 sweeps x 2 sides for embed and again for eval's training (segsum)
+QUALITY_LAUNCHES = {"popcount_pairs": 2, "popcount_pairs_swar": 0, "segsum": 32}
+QUALITY_DRAWS = 2000  # (c)'s config-5 draws over the embedding vocabulary
+QUALITY_QPS = 1000.0
+QUALITY_STALE_S = 1.0  # (d)'s KMLS_ARTIFACT_MAX_AGE_S, below every artifact's age
+
+# the job's entry point as ``python -m`` runs it, with the launch counters
+# of both kernels printed after it (they start at 0 in the new process)
+_COUNTED_JOB = r"""
+import json, runpy, sys
+from kmlserver_tpu_torch.ops import popcount, segsum
+try:
+    runpy.run_module("kmlserver_tpu_torch.mining.job", run_name="__main__")
+    code = 0
+except SystemExit as exc:
+    code = exc.code
+print("LAUNCHES " + json.dumps({**popcount.LAUNCHES, **segsum.LAUNCHES}), flush=True)
+sys.exit(code)
+"""
+
+
+def counted_job(pvc: str, label: str, want_exit: int = 0, **extra: str) -> tuple[str, dict, float]:
+    """``python -m kmlserver_tpu_torch.mining.job`` over ``pvc`` (through
+    :data:`_COUNTED_JOB`) → (stdout, kernel launches, wall s); fails unless
+    it exits ``want_exit``."""
+    t0 = time.perf_counter()
+    job = subprocess.run(
+        [sys.executable, "-c", _COUNTED_JOB], cwd=ROOT, capture_output=True, text=True,
+        timeout=600,
+        env=subproc_env(BASE_DIR=pvc, DATASETS_DIR=os.path.join(pvc, "datasets"), **extra),
+    )
+    wall = time.perf_counter() - t0
+    for line in job.stdout.splitlines():
+        log(f"  job {label} | {line}")
+    if job.returncode != want_exit:
+        log(job.stderr[-4000:])
+        fail(f"phase 13 {label}: the job exited {job.returncode}, want {want_exit}")
+    counts = [json.loads(line[len("LAUNCHES "):]) for line in job.stdout.splitlines()
+              if line.startswith("LAUNCHES ")]
+    if not counts:
+        fail(f"phase 13 {label}: the job printed no launch counts")
+    return job.stdout, counts[0], wall
+
+
+def read_prom(pvc: str) -> dict:
+    out = {}
+    with open(os.path.join(pvc, "pickles", "job_metrics.prom")) as fh:
+        for line in fh:
+            if line.strip() and not line.startswith("#"):
+                key, _, value = line.rstrip().rpartition(" ")
+                out[key] = float(value)
+    return out
+
+
+def report_bytes(pvc: str) -> bytes:
+    """The published quality report, checked against the manifest."""
+    from kmlserver_tpu_torch.io import artifacts
+
+    pickles = os.path.join(pvc, "pickles")
+    path = os.path.join(pickles, artifacts.QUALITY_REPORT_FILENAME)
+    if not os.path.exists(path):
+        fail(f"phase 13: no {artifacts.QUALITY_REPORT_FILENAME} published in {pvc}")
+    manifest = artifacts.load_manifest(pickles) or {}
+    listed = manifest.get("files", {}).get(artifacts.QUALITY_REPORT_FILENAME) or {}
+    if listed.get("sha256") != artifacts.file_digest(path)["sha256"]:
+        fail(f"phase 13: the report is not in the manifest with its sha256: {listed}")
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def scored(pairs: list, weight: float | None) -> dict:
+    """name → the score an answer ranks it by: the family's own score, or
+    with ``weight`` the blend's ``(1-w)·conf + w·sim`` over (rule pairs,
+    embedding pairs)."""
+    if weight is None:
+        return dict(pairs)
+    rule_pairs, emb_pairs = pairs
+    w = min(max(weight, 0.0), 1.0)
+    out = {n: (1.0 - w) * c for n, c in rule_pairs}
+    for n, s in emb_pairs:
+        out[n] = out.get(n, 0.0) + w * s
+    return out
+
+
+def answer_gap(names_a: list, scores_a: dict, names_b: list, scores_b: dict) -> float:
+    """The largest difference between two answers' score profiles, rank by
+    rank: two answers that differ only by an order of candidates whose
+    scores lie within ``g`` of each other have a gap of about ``g``."""
+    if len(names_a) != len(names_b):
+        return float("inf")
+    return max((abs(scores_a[a] - scores_b[b]) for a, b in zip(names_a, names_b)), default=0.0)
+
+
+def answer_diffs(split, fam_a, cands_a, fam_b, cands_b, k: int) -> dict:
+    """Per mode and sweep weight: the evaluated playlists whose answers
+    differ between two candidate sets, and the largest score-profile gap
+    among them (``compose_answer`` on each side)."""
+    from kmlserver_tpu_torch.quality.eval import compose_answer
+    from kmlserver_tpu_torch.quality.sweep import DEFAULT_BLEND_WEIGHT, WEIGHT_GRID
+
+    out = {}
+    cases = [("rules", None), ("embed", None), ("blend", DEFAULT_BLEND_WEIGHT)]
+    cases += [("sweep", w) for w in WEIGHT_GRID]
+    for mode, weight in cases:
+        differ, gap = 0, 0.0
+        for e in range(len(split.eval_rows)):
+            real = "blend" if mode == "sweep" else mode
+            w = DEFAULT_BLEND_WEIGHT if weight is None else weight
+            a, _ = compose_answer(split, fam_a, cands_a, k, real, w, e)
+            b, _ = compose_answer(split, fam_b, cands_b, k, real, w, e)
+            if a == b:
+                continue
+            differ += 1
+            if real == "rules":
+                sa, sb = scored(cands_a.rule_pairs[e], None), scored(cands_b.rule_pairs[e], None)
+            elif real == "embed":
+                sa, sb = scored(cands_a.emb_pairs[e], None), scored(cands_b.emb_pairs[e], None)
+            else:
+                sa = scored((cands_a.rule_pairs[e], cands_a.emb_pairs[e]), w)
+                sb = scored((cands_b.rule_pairs[e], cands_b.emb_pairs[e]), w)
+            if not (set(a) <= set(sa) and set(b) <= set(sb)):
+                gap = float("inf")  # a fallback on one side only
+            else:
+                gap = max(gap, answer_gap(a, sa, b, sb))
+        out[f"w={weight}" if mode == "sweep" else mode] = {"differ": differ, "max_gap": gap}
+    return out
+
+
+def metric_deltas(got: dict, want: dict) -> dict:
+    """Per mode (and sweep point): the largest |Δ| of recall@k and MRR."""
+    out = {m: max(abs(got["modes"][m][f] - want["modes"][m][f]) for f in ("recall_at_k", "mrr"))
+           for m in ("rules", "popularity", "embed", "blend")}
+    for i, w in enumerate(got["sweep"]["weights"]):
+        out[f"w={w}"] = max(abs(got["sweep"][f][i] - want["sweep"][f][i])
+                            for f in ("recall_at_k", "mrr"))
+    return out
+
+
+def check_explained(label: str, deltas: dict, diffs: dict, n_eval: int, eps: float | None) -> None:
+    """Every metric difference between two reports rests on counted answer
+    differences (one playlist moves a mean by at most 1/n_eval), and with
+    ``eps`` each of those answers is decided at a score gap of at most
+    ``eps``."""
+    for key, delta in deltas.items():
+        counted = diffs.get(key, {"differ": 0})["differ"]
+        if delta > counted / n_eval + 1e-6:
+            fail(f"phase 13 (a) {label}: {key} moved by {delta} with {counted} differing "
+                 f"answers of {n_eval}")
+    if eps is not None:
+        bad = {k: d for k, d in diffs.items() if d["differ"] and d["max_gap"] > eps}
+        if bad:
+            fail(f"phase 13 (a) {label}: answers differ beyond a near-tie (|Δ| > {eps}): {bad}")
+
+
+def quality_eval(work: str, csv_src: str) -> dict:
+    """Phase 13 (a) and (b): the quality job on the card, its launches, its
+    report against the CPU job's and the in-process decomposition; two card
+    runs and a resume after ``eval`` publish the same bytes."""
+    import hashlib
+
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.data.csv import read_tracks
+    from kmlserver_tpu_torch.mining.vocab import build_baskets
+    from kmlserver_tpu_torch.quality import eval as qeval
+
+    def new_pvc(name: str) -> str:
+        pvc = os.path.join(work, name)
+        os.makedirs(os.path.join(pvc, "datasets"))
+        shutil.copy(csv_src, os.path.join(pvc, "datasets"))
+        return pvc
+
+    # ---- (a) the job on the card, counted
+    pvc = new_pvc("pvc_quality")
+    out, launches, wall = counted_job(pvc, "quality 1", **QUALITY_ENV)
+    if launches != QUALITY_LAUNCHES:
+        fail(f"phase 13 (a): launches {launches}, want {QUALITY_LAUNCHES}")
+    card_bytes = report_bytes(pvc)
+    report = json.loads(card_bytes)
+    prom = read_prom(pvc)
+    eval_s = prom.get('kmls_job_phase_duration_seconds{phase="eval"}')
+    timings = next((ln for ln in out.splitlines() if ln.startswith("Eval phase timings:")), "")
+    lookups = next((ln for ln in out.splitlines() if ln.startswith("Eval lookups:")), "")
+    if eval_s is None or not timings:
+        fail("phase 13 (a): no eval phase in job_metrics.prom or the job's log")
+
+    # the same job on the CPU, the plain versions
+    pvc_cpu = new_pvc("pvc_quality_cpu")
+    _, cpu_launches, cpu_wall = counted_job(pvc_cpu, "quality CPU", KMLS_TORCH_DEVICE="cpu",
+                                            **QUALITY_ENV)
+    if any(cpu_launches.values()):
+        fail(f"phase 13 (a): the CPU job launched kernels: {cpu_launches}")
+    cpu_report = json.loads(report_bytes(pvc_cpu))
+    for key in ("version", "split", "k"):
+        if report[key] != cpu_report[key]:
+            fail(f"phase 13 (a): {key} {report[key]} != the CPU job's {cpu_report[key]}")
+    for mode in ("rules", "popularity"):
+        if report["modes"][mode] != cpu_report["modes"][mode]:
+            fail(f"phase 13 (a): mode {mode} {report['modes'][mode]} != the CPU job's "
+                 f"{cpu_report['modes'][mode]}")
+
+    # in process: the split, both families trained on the card and on the
+    # CPU, the lookups of each on both devices
+    cfg = MiningConfig(embed_enabled=True, eval_enabled=True, count_path="bitpack",
+                       als_sparse="always")
+    baskets = build_baskets(read_tracks(csv_src))
+    split = qeval.holdout_split(baskets, n_holdout=cfg.eval_holdout_n,
+                                max_playlists=cfg.eval_max_playlists)
+    k = cfg.eval_k
+    fam_card = qeval.train_families(cfg, split, "cuda")
+    fam_cpu = qeval.train_families(cfg, split, "cpu")
+    train = {"factors_max_abs": float(np.abs(fam_card.emb_factors - fam_cpu.emb_factors).max())}
+    if train["factors_max_abs"] > ALS_FACTOR_TOL:
+        fail(f"phase 13 (a): eval's factors card vs CPU max |Δ| {train['factors_max_abs']}")
+    if not same_tensors(fam_card.result.tensors, fam_cpu.result.tensors):
+        fail("phase 13 (a): eval's rule tensors differ between the card and the CPU")
+    cands_card = qeval.lookup_candidates(split, fam_card, k, "cuda")
+    cands_cpu_same = qeval.lookup_candidates(split, fam_card, k, "cpu")
+    cands_cpu = qeval.lookup_candidates(split, fam_cpu, k, "cpu")
+
+    def build(fam, cands) -> dict:
+        rep = {**{key: report[key] for key in ("version", "split", "k")}, "modes": {},
+               "sweep": None, "measured_blend_weight": None}
+        qeval.score_modes(rep, split, fam, cands)
+        return rep
+
+    in_process = build(fam_card, cands_card)
+    if json.dumps(in_process, indent=1, sort_keys=True).encode() != card_bytes:
+        fail("phase 13 (a): the in-process card evaluation differs from the job's report")
+    n_eval = report["split"]["n_eval_playlists"]
+    # the lookups on the card against their plain versions, one model
+    lookup_diffs = answer_diffs(split, fam_card, cands_card, fam_card, cands_cpu_same, k)
+    if lookup_diffs["rules"]["differ"]:
+        fail(f"phase 13 (a): rule answers differ between the card and the CPU: "
+             f"{lookup_diffs['rules']}")
+    check_explained("lookups, card vs CPU", metric_deltas(in_process,
+                    build(fam_card, cands_cpu_same)), lookup_diffs, n_eval, NEAR_TIE)
+    # the CPU job's report: its own training on the CPU
+    job_diffs = answer_diffs(split, fam_card, cands_card, fam_cpu, cands_cpu, k)
+    job_deltas = metric_deltas(report, cpu_report)
+    if build(fam_cpu, cands_cpu) != cpu_report:
+        fail("phase 13 (a): the in-process CPU evaluation differs from the CPU job's report")
+    check_explained("card job vs CPU job", job_deltas, job_diffs, n_eval, None)
+    near = {key: d for key, d in job_diffs.items() if d["differ"]}
+    log(f"phase 13 (a) quality job on the card: {wall:.3f} s wall (CPU {cpu_wall:.3f} s), eval "
+        f"phase {eval_s:.3f} s (job_metrics.prom); {timings}; {lookups}; launches {launches}; "
+        f"split {report['split']}; "
+        + "; ".join(f"{m} recall@{k} {s['recall_at_k']}, MRR {s['mrr']}, coverage {s['coverage']}"
+                    for m, s in report["modes"].items())
+        + f"; measured w={report['measured_blend_weight']}")
+    log(f"phase 13 (a) against the CPU: split, k, rules and popularity equal the CPU job's; "
+        f"eval's factors card vs CPU max |Δ| {train['factors_max_abs']:.3g}; the lookups on "
+        f"one model, card vs plain: answers differing {lookup_diffs} (near-tie bar {NEAR_TIE}); "
+        f"card job vs CPU job: metric |Δ| {job_deltas}, answers differing {near}")
+
+    # ---- (b) a second card run, and a kill after eval then the resume
+    digest = hashlib.sha256(card_bytes).hexdigest()
+    pvc_b = new_pvc("pvc_quality_again")
+    _, again_launches, again_wall = counted_job(pvc_b, "quality 2", **QUALITY_ENV)
+    pvc_c = new_pvc("pvc_quality_crash")
+    counted_job(pvc_c, "quality killed after eval", want_exit=75,
+                KMLS_FAULT_MINE_CRASH_PHASE="eval", **QUALITY_ENV)
+    if os.path.exists(os.path.join(pvc_c, "pickles", "quality.report.json")):
+        fail("phase 13 (b): the job killed after eval published a report")
+    resume_out, resume_launches, resume_wall = counted_job(pvc_c, "quality resumed",
+                                                           **QUALITY_ENV)
+    if "Resumed phase 'eval'" not in resume_out or any(resume_launches.values()):
+        fail(f"phase 13 (b): the resume after eval launched {resume_launches}")
+    digests = {label: hashlib.sha256(report_bytes(p)).hexdigest()
+               for label, p in (("again", pvc_b), ("resumed", pvc_c))}
+    if set(digests.values()) != {digest} or again_launches != QUALITY_LAUNCHES:
+        fail(f"phase 13 (b): report sha256 {digest} vs {digests}; launches {again_launches}")
+    log(f"phase 13 (b) report sha256 {digest}: a second card run ({again_wall:.3f} s, "
+        f"launches {again_launches}) and a job killed after 'eval' then resumed "
+        f"({resume_wall:.3f} s, launches {resume_launches}) publish the same bytes")
+    return {"pvc": pvc, "report": report, "wall_s": wall, "cpu_wall_s": cpu_wall,
+            "eval_phase_s": eval_s, "timings": timings, "lookups": lookups,
+            "launches": launches, "resume_launches": resume_launches,
+            "resume_wall_s": resume_wall, "sha256": digest, **train,
+            "lookup_diffs": lookup_diffs, "job_metric_deltas": job_deltas,
+            "job_answer_diffs": near}
+
+
+def quality_serving(pvc: str, report: dict) -> dict:
+    """Phase 13 (c) and (d): the server in measured blend mode under 2,000
+    config-5 draws, then the staleness bound in process."""
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.serving.app import RecommendApp
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.replay import replay_async_http
+
+    weight = report["measured_blend_weight"]
+    cpu = RecommendEngine(ServingConfig(base_dir=pvc, hybrid_blend_measured=True), device="cpu")
+    if not cpu.load() or cpu.blend_weight != weight:
+        fail(f"phase 13 (c): the CPU engine serves w={cpu.blend_weight}, the report {weight}")
+    payloads = distinct_sets(list(cpu.bundle.emb_vocab), QUALITY_DRAWS, 43)
+    want = engine_answers(cpu, payloads)
+    server, base, lines = start_server(pvc, KMLS_HYBRID_BLEND_WEIGHT="measured")
+    try:
+        served_w = scrape_metrics(base).get("kmls_hybrid_blend_weight")
+        responses: list = []
+        run = replay_async_http(base, payloads, qps=QUALITY_QPS, n_conns=CONFIG5_CONNS,
+                                responses=responses)
+    finally:
+        code = stop_server(server)
+    if served_w != weight or code != 0:
+        fail(f"phase 13 (c): kmls_hybrid_blend_weight {served_w}, report {weight}; exit {code}")
+    if len(responses) != len(payloads):
+        fail(f"phase 13 (c): {len(payloads) - len(responses)} requests got no answer")
+    near_ties = 0
+    for i, status, head, body in responses:
+        if status != 200 or b"x-kmls-degraded:" in head:
+            fail(f"phase 13 (c): HTTP {status} for {payloads[i]}: {head[:200]!r}")
+        if json.loads(body)["songs"] != want[i][0]:
+            if not decisive_near_tie(cpu, payloads[i]):
+                fail(f"phase 13 (c): answer for {payloads[i]} != the CPU engine's, no near-tie")
+            near_ties += 1
+    log(f"phase 13 (c) KMLS_HYBRID_BLEND_WEIGHT=measured: kmls_hybrid_blend_weight {served_w} "
+        f"== the report's; {len(payloads)} draws at {QUALITY_QPS:.0f} QPS → {run.achieved_qps:.1f} "
+        f"QPS, client p50/p99 {run.p50_ms:.3f}/{run.p99_ms:.3f} ms, 0 5xx; answers == the CPU "
+        f"engine's at w={weight} but {near_ties} near-ties (|Δ| <= {NEAR_TIE})")
+
+    # ---- (d) the staleness bound, in process on the card
+    stale = {}
+    for bound in (QUALITY_STALE_S, 0.0):
+        app = RecommendApp(ServingConfig(base_dir=pvc, artifact_max_age_s=bound), device="cuda")
+        try:
+            if not app.engine.load():
+                fail("phase 13 (d): the card engine did not load the PVC")
+            ages = app._artifact_ages()
+            while min(ages.values()) <= QUALITY_STALE_S:
+                time.sleep(0.1)
+                ages = app._artifact_ages()
+            status, _, body = app.handle("GET", "/readyz", None)
+            ready = json.loads(body)
+            _, _, text = app.handle("GET", "/metrics", None)
+        finally:
+            app.close()
+        flags = {line.split('"')[1]: float(line.rsplit(" ", 1)[1])
+                 for line in text.decode().splitlines()
+                 if line.startswith("kmls_artifact_stale{")}
+        if bound > 0:
+            reason = next((r for r in ready.get("reasons", []) if r.startswith("artifacts stale")),
+                          "")
+            named = all(f"{name} (" in reason for name in ages)
+            if status != 200 or ready["status"] != "degraded" or not named or (
+                    set(flags) != set(ages) or set(flags.values()) != {1.0}):
+                fail(f"phase 13 (d) bound {bound}: {status} {ready}, flags {flags}")
+        elif status != 200 or ready["status"] != "ready" or set(flags.values()) != {0.0} or (
+                set(flags) != set(ages)):
+            fail(f"phase 13 (d) bound 0: {status} {ready}, flags {flags}")
+        stale[str(bound)] = {"readyz": ready, "flags": flags}
+    log(f"phase 13 (d) KMLS_ARTIFACT_MAX_AGE_S={QUALITY_STALE_S}: /readyz 200 "
+        f"{stale[str(QUALITY_STALE_S)]['readyz']['reasons']}, kmls_artifact_stale "
+        f"{stale[str(QUALITY_STALE_S)]['flags']}; bound 0: /readyz "
+        f"{stale['0.0']['readyz']['status']}, flags {stale['0.0']['flags']}")
+    return {"served_weight": served_w, "achieved_qps": run.achieved_qps, "p50_ms": run.p50_ms,
+            "p99_ms": run.p99_ms, "near_ties": near_ties, "stale": stale}
+
+
+def bundle_members(path: str) -> dict:
+    """A delta bundle's zip members → their bytes (the zip's own member
+    timestamps aside, the bundle's bytes)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return {info.filename: zf.read(info) for info in zf.infolist()}
+
+
+def quality_ranks(work: str, csv_src: str) -> dict:
+    """Phase 13 (e): two ranks sharing the card over gloo on a delta-armed
+    PVC after one append publish one bundle, from rank 0, equal to a
+    one-rank job's; neither enters the full mine."""
+    src = os.path.join(work, "pvc_fresh")
+    staged = os.path.join(work, "pvc_delta_staged")
+    if os.path.exists(os.path.join(src, "last_execution.txt")):
+        shutil.copytree(src, staged)  # phase 12 (a)'s PVC
+    else:
+        os.makedirs(os.path.join(staged, "datasets"))
+        shutil.copy(csv_src, os.path.join(staged, "datasets", FRESH_CSV))
+        job_process(staged, "phase 13 delta base", KMLS_DELTA_ENABLED="1")
+    append_bench_rows(os.path.join(staged, "datasets", FRESH_CSV), np.random.default_rng(13),
+                      10_000_000 + 5_000, 96 + 4 * 160, 9_000_005)
+    before = {n for n in os.listdir(os.path.join(staged, "pickles")) if n.endswith(".bundle")}
+    one, two = (os.path.join(work, name) for name in ("pvc_delta_one", "pvc_delta_two"))
+    shutil.copytree(staged, one)
+    shutil.copytree(staged, two)
+    t0 = time.perf_counter()
+    one_out, _ = job_process(one, "delta one rank", KMLS_DELTA_ENABLED="1")
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logs = run_ranks([[sys.executable, "-m", "kmlserver_tpu_torch.mining.job"]] * RANKS,
+                     rank_envs(free_port(), BASE_DIR=two, DATASETS_DIR=os.path.join(two, "datasets"),
+                               KMLS_DELTA_ENABLED="1"),
+                     300, "phase 13 (e)")
+    two_s = time.perf_counter() - t0
+    for rank, out in enumerate(logs):
+        for line in out.splitlines():
+            log(f"  rank {rank} | {line}")
+    new = {n for p in (one, two) for n in os.listdir(os.path.join(p, "pickles"))
+           if n.endswith(".bundle")} - before
+    published = [ln for ln in logs[0].splitlines() if ln.startswith("Delta ") and "published" in ln]
+    full_mine = [i for i, out in enumerate(logs) if "Loaded " in out or "Pair-count path" in out]
+    if (len(new) != 1 or not published or "rank 0 ran the delta route" not in logs[1]
+            or full_mine or "published" not in one_out):
+        fail(f"phase 13 (e): new bundles {sorted(new)}, rank 0 {published}, full mine on ranks "
+             f"{full_mine}, rank 1 log tail {logs[1].splitlines()[-5:]}")
+    name = new.pop()
+    a, b = (bundle_members(os.path.join(p, "pickles", name)) for p in (one, two))
+    if a != b:
+        fail(f"phase 13 (e): {name} of the two-rank job differs from the one-rank job's: "
+             f"{sorted(k for k in a if a.get(k) != b.get(k))}")
+    log(f"phase 13 (e) two ranks on one host (gloo, sharing cuda:0): rank 0 {published[0]!r}; "
+        f"rank 1 took the broadcast outcome; neither ran the full mine; {name}'s members == the "
+        f"one-rank job's; two ranks {two_s:.3f} s, one rank {one_s:.3f} s wall")
+    return {"bundle": name, "two_ranks_s": two_s, "one_rank_s": one_s}
+
+
+def phase_quality(work: str | None = None) -> dict:
+    """Phase 13: the quality loop on the card (alone: ``python -c "import
+    chip_smoke as c; c.phase_quality()"`` writes its own ds2 CSV)."""
+    from kmlserver_tpu_torch.data.csv import write_tracks_csv
+    from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_table
+
+    t0 = time.perf_counter()
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke13_")
+    try:
+        csv_src = os.path.join(work, "pvc", "datasets", FRESH_CSV)  # phase 4's
+        if not os.path.exists(csv_src):
+            csv_src = os.path.join(work, FRESH_CSV)
+            write_tracks_csv(csv_src, synthetic_table(**DS2_SHAPE, seed=7))
+        evaluated = quality_eval(work, csv_src)
+        serving = quality_serving(evaluated.pop("pvc"), evaluated["report"])
+        ranks = quality_ranks(work, csv_src)
+        result = {"eval": evaluated, "serving": serving, "ranks": ranks,
+                  "seconds": time.perf_counter() - t0}
+        log(f"phase 13 seconds {result['seconds']:.3f}")
+        log("PHASE13 " + json.dumps(result, default=str))
+        return result
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3803,6 +4275,7 @@ def main() -> int:
             scale.pop(key)
         embed = phase_embeddings(work)
         phase_freshness(work)
+        quality = phase_quality(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     routes = phase_routes()
@@ -3821,6 +4294,10 @@ def main() -> int:
     segsum_entry = embed["scale"]["entry"]
     segsum_entry["launches_resume_after_embed"] = resume["embed"]["segsum_launches"]
     segsum_entry["launches_ds2_sparse_job"] = resume["embed"]["baseline_segsum_launches"]
+    # phase 13: the quality job (embed + eval) and its resume after eval
+    for entry, key in ((kernel, "popcount_pairs"), (segsum_entry, "segsum")):
+        entry["launches_quality_job"] = quality["eval"]["launches"][key]
+        entry["launches_resume_after_eval"] = quality["eval"]["resume_launches"][key]
     segsum_ptxas = ptxas_report(cuda_build.BUILD_LOG["segsum"]["ptxas"])
     segsum_entry["ptxas_registers"] = {k: r["registers"] for k, r in segsum_ptxas.items()}
     segsum_entry["ptxas_spill_bytes"] = {

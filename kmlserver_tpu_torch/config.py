@@ -266,6 +266,17 @@ class MiningConfig:
     # fold the chain into a new base once it holds this many bundles
     # (quality/lifecycle.py); 0 disables compaction
     delta_compact_after: int = 0
+    # the optional ``eval`` phase after ``embed`` (quality/eval.py): both
+    # model families retrained on a deterministic held-out split, every
+    # serving mode scored, the blend weight swept; published as
+    # quality.report.json. Off by default: it roughly doubles the job
+    eval_enabled: bool = False
+    # tracks held out per playlist (shorter playlists than holdout + 2
+    # are not evaluated), recall depth, and the hash-selected cap on the
+    # evaluated playlists (0 = all)
+    eval_holdout_n: int = 1
+    eval_k: int = 10
+    eval_max_playlists: int = 2048
 
     @property
     def pickles_dir(self) -> str:
@@ -330,6 +341,10 @@ class MiningConfig:
             delta_enabled=_getenv_bool("KMLS_DELTA_ENABLED", False),
             delta_max_chain=_getenv_int("KMLS_DELTA_MAX_CHAIN", 16),
             delta_compact_after=_getenv_int("KMLS_DELTA_COMPACT_AFTER", 0),
+            eval_enabled=_getenv_bool("KMLS_EVAL_ENABLED", False),
+            eval_holdout_n=_getenv_int("KMLS_EVAL_HOLDOUT_N", 1),
+            eval_k=_getenv_int("KMLS_EVAL_K", 10),
+            eval_max_playlists=_getenv_int("KMLS_EVAL_MAX_PLAYLISTS", 2048),
         )
 
 
@@ -440,6 +455,10 @@ class ServingConfig:
     # KMLS_HYBRID_BLEND_WEIGHT=measured: the weight comes from
     # quality.report.json when one is published (else the weight above)
     hybrid_blend_measured: bool = False
+    # an artifact served longer than this many seconds after its
+    # publication turns /readyz ready-but-degraded, naming it, and its
+    # kmls_artifact_stale gauge to 1; 0 keeps the ages observational
+    artifact_max_age_s: float = 0.0
     # apply the delta bundles published between full re-mines in place
     # (engine.apply_pending_deltas); off = a chain on the PVC is ignored
     delta_enabled: bool = False
@@ -509,6 +528,7 @@ class ServingConfig:
             hybrid_mode=_getenv_hybrid_mode(),
             hybrid_blend_weight=blend_weight,
             hybrid_blend_measured=blend_measured,
+            artifact_max_age_s=_getenv_float("KMLS_ARTIFACT_MAX_AGE_S", 0.0),
             delta_enabled=_getenv_bool("KMLS_DELTA_ENABLED", False),
             cache_affinity=_getenv_bool("KMLS_CACHE_AFFINITY", False),
             cache_affinity_peers=os.getenv("KMLS_CACHE_AFFINITY_PEERS", ""),

@@ -39,8 +39,8 @@ input:
   recomputed.
 
 Anything outside that — a rewritten or truncated prefix, ``sample_ratio``
-head-slicing, ``max_itemset_len >= 3``, more than one rank, a chain at its
-cap, an appended row the full parser refuses — raises
+head-slicing, ``max_itemset_len >= 3``, ranks on more than one host, a
+chain at its cap, an appended row the full parser refuses — raises
 :class:`DeltaIneligible`, and the pipeline re-mines in full: the delta
 route never publishes an approximation.
 
@@ -387,9 +387,11 @@ def _read_suffix_table(path: str, offset: int, limit: int | None = None):
 
 
 def _check_eligibility(cfg: MiningConfig, base: dict[str, Any] | None) -> None:
-    from ..parallel.mesh import world_ranks
+    from ..parallel import distributed
 
-    if len(world_ranks()) > 1:
+    # by host, as the reference decides (one JAX process per host): the
+    # ranks of one host leave the route to rank 0 (mining/pipeline.py)
+    if len(set(distributed.hostnames())) > 1:
         raise DeltaIneligible("multi-host gang (delta mining is single-host)")
     if base is None:
         raise DeltaIneligible("no freshness base state on the PVC")
@@ -518,7 +520,8 @@ def _shrink(
 
 def run_delta_job(cfg: MiningConfig, device: str | torch.device = "cuda") -> DeltaResult:
     """The ``delta`` route of the mining job, its recount on ``device``
-    above the host threshold; one rank only (more are ineligible). Raises
+    above the host threshold; run by one rank (rank 0 of a one-host world;
+    ranks on several hosts are ineligible). Raises
     :class:`DeltaIneligible` whenever a full re-mine is the only correct
     answer."""
     from ..mining import dispatch as dispatch_mod

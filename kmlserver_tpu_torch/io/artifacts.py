@@ -55,9 +55,10 @@ QUARANTINE_DIRNAME = "quarantine"
 # the embed phase's artifact (ALS item factors) and its format version
 EMBEDDINGS_FILENAME = "embeddings.npz"
 EMBEDDINGS_VERSION = 1
-# the quality report, which this package reads but does not publish; a full
-# publication retires one left on the PVC so the new manifest cannot
-# re-bless it
+# the eval phase's quality report (quality/eval.py): held-out recall@k /
+# MRR / coverage per serving mode and the blend sweep whose argmax the
+# engine serves under KMLS_HYBRID_BLEND_WEIGHT=measured. Deterministic
+# content, so a resumed publication writes the same bytes
 QUALITY_REPORT_FILENAME = "quality.report.json"
 # continuous freshness (freshness/delta.py): the chain file listing the
 # delta bundles of one base generation in application order, and the
@@ -772,19 +773,6 @@ class PublicationLease:
         self._write(released=True)
 
 
-def retire_unpublished(pickles_dir: str) -> None:
-    """Remove the quality report, which this package does not publish —
-    the reference job does the same with eval off, so neither package's
-    manifest can bless a previous generation's measurements. An
-    embed-disabled publication retires ``embeddings.npz`` with
-    :func:`remove_embeddings`, and every full publication the delta chain
-    with :func:`retire_delta_chain`."""
-    try:
-        os.unlink(quality_report_path(pickles_dir))
-    except FileNotFoundError:
-        pass
-
-
 def save_rule_tensors(
     path: str,
     *,
@@ -992,9 +980,29 @@ def quality_report_path(pickles_dir: str) -> str:
     return os.path.join(pickles_dir, QUALITY_REPORT_FILENAME)
 
 
+def save_quality_report(pickles_dir: str, report: dict[str, Any]) -> str:
+    """Write the quality report atomically, keys sorted, in the reference's
+    form byte for byte: the same content gives the same bytes, so the
+    manifest's sha256 covers a resumed publication too. → its path."""
+    path = quality_report_path(pickles_dir)
+    _atomic_write_bytes(path, json.dumps(report, indent=1, sort_keys=True).encode("utf-8"))
+    return path
+
+
+def remove_quality_report(pickles_dir: str) -> bool:
+    """Retire the quality report: an eval-off publication must not leave a
+    previous generation's measurements for its manifest to re-bless. → True
+    if a file was removed."""
+    try:
+        os.unlink(quality_report_path(pickles_dir))
+        return True
+    except FileNotFoundError:
+        return False
+
+
 def load_quality_report(pickles_dir: str) -> dict[str, Any] | None:
-    """The parsed quality report a reference job published, or None when
-    absent or unreadable (the measured blend weight then falls back to its
+    """The parsed quality report (either package's), or None when absent
+    or unreadable (the measured blend weight then falls back to its
     default)."""
     try:
         data = json.loads(_read_bytes(quality_report_path(pickles_dir)).decode("utf-8"))

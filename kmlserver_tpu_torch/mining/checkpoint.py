@@ -52,8 +52,8 @@ from ..io.artifacts import _atomic_write_bytes, file_digest, quarantine_file
 # mine   — pair counting + rule-tensor extraction (the device compute)
 # rules  — expansion of the rule tensors into the reference's pickle dict
 # embed  — ALS item embeddings (mining/als.py), with KMLS_EMBED_ENABLED
-# eval   — the reference's offline evaluation; it keeps its slot in the
-#          canonical order, but this package does not run it yet
+# eval   — offline evaluation on a held-out split (quality/eval.py), with
+#          KMLS_EVAL_ENABLED; its payload is the published quality report
 PHASES = ("encode", "mine", "rules", "embed", "eval")
 # the phases this package's pipeline runs at the default config
 RUN_PHASES = PHASES[:3]
@@ -61,8 +61,12 @@ RUN_PHASES = PHASES[:3]
 
 def run_phases(cfg: MiningConfig) -> tuple[str, ...]:
     """The phases the pipeline runs under ``cfg``: :data:`RUN_PHASES`,
-    then ``embed`` when the embed phase is enabled."""
-    return RUN_PHASES + (("embed",) if cfg.embed_enabled else ())
+    then ``embed`` and ``eval`` when each is enabled."""
+    return (
+        RUN_PHASES
+        + (("embed",) if cfg.embed_enabled else ())
+        + (("eval",) if cfg.eval_enabled else ())
+    )
 
 STATE_FILENAME = "state.json"
 # the reference's checkpoint format version (its v6 identity fields)
@@ -95,14 +99,6 @@ _FINGERPRINT_FIELDS = (
     "eval_k",
     "eval_max_playlists",
 )
-# fields of the reference's identity this package has no knob for yet
-# (the quality loop): they enter at the reference's defaults
-_UNPORTED_DEFAULTS = {
-    "eval_enabled": False,
-    "eval_holdout_n": 1,
-    "eval_k": 10,
-    "eval_max_playlists": 2048,
-}
 
 
 def fingerprint_identity(
@@ -118,10 +114,7 @@ def fingerprint_identity(
         "dataset_digest": file_digest(dataset_path),
     }
     for field in _FINGERPRINT_FIELDS:
-        ident[field] = (
-            _UNPORTED_DEFAULTS[field] if field in _UNPORTED_DEFAULTS
-            else getattr(cfg, field)
-        )
+        ident[field] = getattr(cfg, field)
     if cfg.model_layout != "replicated":
         # the shard topology joins the identity as in the reference; the
         # replicated default omits it so a card-to-CPU restart resumes

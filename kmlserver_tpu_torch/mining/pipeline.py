@@ -13,7 +13,11 @@ The run is split into the reference's checkpointed phases
 - **mine**   — pair counting and rule-tensor extraction on the device;
 - **rules**  — expansion into the reference's pickle dict;
 - **embed**  — with ``KMLS_EMBED_ENABLED``: ALS item embeddings over the
-  same baskets (``mining/als.py``), published as ``embeddings.npz``.
+  same baskets (``mining/als.py``), published as ``embeddings.npz``;
+- **eval**   — with ``KMLS_EVAL_ENABLED``: both families retrained on a
+  deterministic held-out split and every serving mode scored through the
+  serving lookups, the blend weight swept (``quality/eval.py``), published
+  as ``quality.report.json``; an eval-off publication retires the report.
 
 After each phase the writer rank saves a sha256-manifested checkpoint
 keyed by a config + dataset fingerprint; a restarted job resumes from the
@@ -40,14 +44,17 @@ With ``KMLS_DELTA_ENABLED`` the job first tries the delta route
 phase in ``job_metrics.prom`` and compacts the chain once it reaches
 ``KMLS_DELTA_COMPACT_AFTER`` bundles (``quality/lifecycle.py``). Anything
 ineligible falls through to the full pipeline, whose publication retires
-the chain and saves the next delta's base state. The eval phase is not
-ported yet.
+the chain and saves the next delta's base state. Over several ranks on one
+host rank 0 alone decides and runs the route and broadcasts its outcome,
+so every rank takes the same route; several hosts are ineligible.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import pickle
 import time
 
 import numpy as np
@@ -60,7 +67,7 @@ from ..io import artifacts, registry
 from ..observability import costmodel
 from ..observability.jobmetrics import JobMetrics
 from ..parallel import layout
-from ..parallel.distributed import RankWatchdog, barrier
+from ..parallel.distributed import RankWatchdog, barrier, broadcast_from_writer
 from ..parallel.mesh import RankMesh, this_rank
 from ..quality.lifecycle import manifest_filenames
 from ..utils.profiling import format_phases
@@ -129,23 +136,71 @@ def _run_encode_phase(cfg: MiningConfig, selected: str) -> dict:
 ENCODE_KEYS = ("baskets", "pid_values")
 
 
-def _run_delta_route(cfg: MiningConfig, device) -> JobSummary | None:
+def _guarded(watchdog: RankWatchdog | None, name: str):
+    """The watchdog's deadline around a section with a collective in it: a
+    dead or hung peer turns an all-reduce or a broadcast into a forever-hang."""
+    return watchdog.guard(name) if watchdog is not None else contextlib.nullcontext()
+
+
+def _run_delta_route(cfg: MiningConfig, device,
+                     watchdog: RankWatchdog | None = None) -> JobSummary | None:
     """The delta route (``KMLS_DELTA_ENABLED``) → its summary, or None when
-    the run is ineligible and the full pipeline must run. A delta
-    publication refreshes ``job_metrics.prom`` (a ``delta`` phase, the
-    recount's analytic cost, the bundle's size) and triggers the
-    compaction check."""
+    the run is ineligible and the full pipeline must run.
+
+    Rank 0 alone decides and runs it (the one-device recount on its card,
+    the publication under the lease) and broadcasts the outcome — published,
+    ineligible, or the exception it raised — so every rank takes the same
+    route. A rank that decided for itself could read a different CSV suffix
+    while an appender writes, and a rank left in the full mine would block
+    in its all-reduce."""
+    from ..freshness import delta as delta_mod
+
+    rank = this_rank()
+    local: BaseException | None = None
+    outcome = None
+    if rank == 0:
+        try:
+            outcome = ("published", _delta_on_writer(cfg, device))
+        except delta_mod.DeltaIneligible as exc:
+            outcome = ("ineligible", str(exc))
+        except BaseException as exc:
+            local = exc
+            try:
+                pickle.loads(pickle.dumps(exc))
+                outcome = ("raised", exc)
+            except Exception:
+                outcome = ("raised", RuntimeError(f"rank 0's delta route failed: {exc!r}"))
+    with _guarded(watchdog, "delta"):
+        kind, value = broadcast_from_writer(outcome)
+    if local is not None:
+        raise local
+    if kind == "raised":
+        raise value
+    if kind == "ineligible":
+        print(f"Delta mining ineligible ({value}); running the full pipeline")
+        return None
+    if rank != 0:
+        print(f"Rank {rank}: not the writer; rank 0 ran the delta route "
+              f"(delta {value.delta_seq})")
+        print(f"Job finished at {get_current_time_str()}")
+    return value
+
+
+def _delta_on_writer(cfg: MiningConfig, device) -> JobSummary:
+    """The writer's delta route → its summary; raises ``DeltaIneligible``
+    when a full re-mine is needed. A delta publication refreshes
+    ``job_metrics.prom`` (a ``delta`` phase, the recount's analytic cost,
+    the bundle's size) and triggers the compaction check."""
     from ..freshness import delta as delta_mod
     from ..quality import lifecycle
 
     # built before the run so an abort still records success=0; it writes
     # nothing until a phase completes, so an ineligible run leaves no trace
-    jm = JobMetrics(cfg.pickles_dir) if cfg.job_metrics and this_rank() == 0 else None
+    jm = JobMetrics(cfg.pickles_dir) if cfg.job_metrics else None
     try:
         res = delta_mod.run_delta_job(cfg, device=device)
-    except delta_mod.DeltaIneligible as exc:
-        print(f"Delta mining ineligible ({exc}); running the full pipeline")
-        return None
+    except delta_mod.DeltaIneligible:
+        raise  # not an abort: the full pipeline runs next
     except BaseException:
         if jm is not None:
             try:
@@ -301,6 +356,7 @@ def _publish(
     result: MiningResult,
     rules_dict: dict,
     emb_payload: dict | None,
+    qual_report: dict | None,
     run_index: int,
     selected: str,
     lease: artifacts.PublicationLease | None,
@@ -363,7 +419,12 @@ def _publish(
             reg=emb_payload["reg"],
             final_loss=emb_payload["final_loss"],
         )
-    artifacts.retire_unpublished(cfg.pickles_dir)
+    if qual_report is None:
+        # eval phase off: a previous generation's report must not survive
+        # into this manifest, measured against models no longer served
+        artifacts.remove_quality_report(cfg.pickles_dir)
+    else:
+        paths["quality_report"] = artifacts.save_quality_report(cfg.pickles_dir, qual_report)
     if cfg.write_manifest:
         paths["manifest"] = artifacts.write_manifest(
             cfg.pickles_dir, manifest_filenames(cfg), token=token_value,
@@ -387,10 +448,11 @@ def run_mining_job(
 ) -> JobSummary:
     """One rotation run of the mining job on ``device`` (default ``cuda``;
     raises when no card is present and ``device`` is not ``"cpu"``). With a
-    ``mesh`` every rank of it runs this; ``watchdog`` guards the mine."""
+    ``mesh`` every rank of it runs this; ``watchdog`` bounds the sections
+    that wait on a peer (the delta route's outcome, the mine, the eval)."""
     print(f"Job starting at {get_current_time_str()}")
     if cfg.delta_enabled:
-        summary = _run_delta_route(cfg, device)
+        summary = _run_delta_route(cfg, device, watchdog)
         if summary is not None:
             return summary
     mesh = layout.mining_mesh(cfg, mesh)
@@ -463,12 +525,8 @@ def run_mining_job(
         baskets = encoded["baskets"]
 
         def _mine() -> MiningResult:
-            if watchdog is not None:
-                # a dead or hung peer turns the mine's all-reduce into a
-                # forever-hang: bound it
-                with watchdog.guard("mine"):
-                    return mine(baskets, cfg, device=device, mesh=mesh)
-            return mine(baskets, cfg, device=device, mesh=mesh)
+            with _guarded(watchdog, "mine"):
+                return mine(baskets, cfg, device=device, mesh=mesh)
 
         result: MiningResult = phase("mine", _mine)
         launches = 0 if "mine" in resumed else result.kernel_launches
@@ -480,6 +538,17 @@ def run_mining_job(
         emb_payload = (
             _run_embed_phase(phase, cfg, baskets, device, mesh, jm) if cfg.embed_enabled else None
         )
+        qual_report = None
+        if cfg.eval_enabled:
+            # every rank evaluates (its mine of the train split enters the
+            # all-reduce); the writer publishes the report
+            def _eval() -> dict:
+                from ..quality.eval import run_eval_phase
+
+                with _guarded(watchdog, "eval"):
+                    return run_eval_phase(cfg, baskets, device=device, mesh=mesh)
+
+            qual_report = phase("eval", _eval)
         summary = JobSummary(
             dataset=selected,
             run_index=run_index,
@@ -502,7 +571,8 @@ def run_mining_job(
             print(f"Job finished at {get_current_time_str()}")
             return summary
         token, paths = _publish(
-            cfg, encoded, result, rules_dict, emb_payload, run_index, selected, lease
+            cfg, encoded, result, rules_dict, emb_payload, qual_report, run_index, selected,
+            lease,
         )
         _save_freshness_state(cfg, encoded, result, paths, token, run_index, selected)
         if store is not None:

@@ -15,8 +15,9 @@ backend follows one rule (:func:`choose_backend`): NCCL when every rank
 has a card of its own, gloo when ranks share a card (NCCL refuses two
 ranks on one device) or run on the CPU. Gloo carries only ``all_reduce``
 and ``broadcast`` on CUDA tensors (through the host), so the port uses
-only those on the card; everything else (host names, barriers) runs over
-the gloo world group on the host. The kernels run on the card either way.
+only those on the card; everything else (host names, barriers, the delta
+route's outcome) runs over the gloo world group on the host. The kernels
+run on the card either way.
 
 Not ported: the serve-gang bootstrap (``:56-197``; the serve mesh is on
 ROADMAP).
@@ -155,6 +156,18 @@ def barrier() -> None:
         import torch.distributed as dist
 
         dist.barrier()
+
+
+def broadcast_from_writer(obj):
+    """``obj`` as rank 0 holds it, on every rank (pickled over the gloo
+    world group on the host; ``obj`` itself in a single process)."""
+    if _runtime is None:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def shutdown() -> None:

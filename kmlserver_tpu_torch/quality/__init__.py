@@ -1,5 +1,9 @@
-"""The quality loop — counterpart of ``kmlserver_tpu/quality/``. Ported so
-far: :mod:`.lifecycle` (the one manifest file set and the delta-chain
-compactor). The offline evaluation (``eval.py``) and the blend sweep
-(``sweep.py``) are not part of this package yet.
+"""The quality loop — counterpart of ``kmlserver_tpu/quality/``:
+
+- :mod:`.eval` — the deterministic held-out evaluation that the optional
+  checkpointed ``eval`` phase runs and publishes as ``quality.report.json``;
+- :mod:`.sweep` — the blend-weight sweep whose argmax the engine serves
+  under ``KMLS_HYBRID_BLEND_WEIGHT=measured``;
+- :mod:`.lifecycle` — the one manifest file set and the delta-chain
+  compactor.
 """

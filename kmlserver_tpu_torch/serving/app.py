@@ -13,7 +13,9 @@ reference's FastAPI routes rebuilt on the stdlib:
 - ``GET /docs`` + ``GET /openapi.json``: the docs with the reference's
   three canned request examples (:158-174).
 - ``GET /healthz`` / ``GET /readyz`` (ready / degraded / 503, with the
-  artifacts' ages); ``GET /metrics``: Prometheus text; ``GET /static/``.
+  artifacts' ages; degraded names each artifact older than
+  ``KMLS_ARTIFACT_MAX_AGE_S``); ``GET /metrics``: Prometheus text;
+  ``GET /static/``.
 - ``GET /debug/traces`` (retained request traces), ``GET /debug/slo``
   (burn-rate detail) and ``GET /debug/profile?seconds=N`` (a
   ``torch.profiler`` capture into ``KMLS_PROFILE_DIR``; 409 while it is
@@ -252,12 +254,16 @@ class RecommendApp:
                     return _json_response(200, self.slo.debug_payload())
                 return self._debug_profile(query)
             if path == "/metrics":
+                # one age snapshot per scrape: the ages and the stale flags
+                # describe the same instant
+                ages = self._artifact_ages()
                 text = self.metrics.render(
                     self.engine.reload_counter, self.engine.finished_loading,
                     cache=self.cache,
                     dispatch_counts=getattr(self.engine, "dispatch_counts", None),
                     robustness=self._robustness_state(),
-                    artifact_ages=self._artifact_ages(),
+                    artifact_ages=ages,
+                    artifact_stale=self._artifact_stale_flags(ages),
                     io=MONITOR.snapshot(),
                     cost=getattr(self.engine, "cost_model", None),
                     slo=self.slo,
@@ -341,6 +347,24 @@ class RecommendApp:
     def _artifact_ages(self) -> dict:
         ages_fn = getattr(self.engine, "artifact_ages", None)
         return ages_fn() if callable(ages_fn) else {}
+
+    def _stale_artifacts(self, ages: dict | None = None) -> list[tuple[str, float]]:
+        """The artifacts over ``KMLS_ARTIFACT_MAX_AGE_S``, as sorted (name,
+        age) pairs; none with the bound off (0). ``ages`` reuses a snapshot
+        the caller already took."""
+        max_age = self.cfg.artifact_max_age_s
+        if max_age <= 0:
+            return []
+        if ages is None:
+            ages = self._artifact_ages()
+        return sorted((name, age) for name, age in ages.items() if age > max_age)
+
+    def _artifact_stale_flags(self, ages: dict) -> dict:
+        """artifact → 0/1 for the ``kmls_artifact_stale`` gauge, from the
+        age snapshot the age gauges render (all 0 with the bound off, so
+        the series exists wherever an age does)."""
+        stale = {name for name, _age in self._stale_artifacts(ages)}
+        return {name: int(name in stale) for name in ages}
 
     def _debug_profile(self, query: str) -> Response:
         """``GET /debug/profile?seconds=N``: a ``torch.profiler`` capture of
@@ -518,9 +542,10 @@ class RecommendApp:
     def degraded_reasons(self) -> list[str]:
         """Why /readyz says "degraded" (empty = fully healthy), in the
         reference's order: reloads failing while the last-good bundle keeps
-        serving, replicas ejected by the batcher's circuit breaker, and the
-        artifact volume convicted as slow (degraded, not unready: serving
-        runs from memory)."""
+        serving, an unusable embedding artifact, artifacts older than
+        ``KMLS_ARTIFACT_MAX_AGE_S`` (each named), replicas ejected by the
+        batcher's circuit breaker, and the artifact volume convicted as slow
+        (degraded, not unready: serving runs from memory)."""
         reasons: list[str] = []
         consec = getattr(self.engine, "consecutive_reload_failures", 0)
         if consec > 0:
@@ -529,6 +554,12 @@ class RecommendApp:
             # a published embeddings.npz failed its checks: answered from
             # the rules, but flagged so the operator sees the dark family
             reasons.append("embedding artifact unusable (serving rules-only)")
+        stale = self._stale_artifacts()
+        if stale:
+            reasons.append(
+                f"artifacts stale (> {self.cfg.artifact_max_age_s:.0f}s): "
+                + ", ".join(f"{name} ({age:.0f}s)" for name, age in stale)
+            )
         ejected_fn = getattr(self.batcher, "ejected_replicas", None)
         ejected = ejected_fn() if callable(ejected_fn) else []
         if ejected:

@@ -84,6 +84,9 @@ METRIC_REGISTRY: dict[str, str] = {
     # in place vs rejected, the chain position serving, the serving
     # generation's chain length, the newest applied generation's age ---
     "kmls_artifact_age_seconds": "gauge:serving",
+    # 1 while the artifact's age is over KMLS_ARTIFACT_MAX_AGE_S (all 0
+    # with the bound off): the alertable twin of the age gauge
+    "kmls_artifact_stale": "gauge:serving",
     "kmls_delta_applied_total": "counter:serving",
     "kmls_delta_rejected_total": "counter:serving",
     "kmls_delta_seq": "gauge:serving",
@@ -345,14 +348,15 @@ class ServingMetrics:
     def render(
         self, reload_counter: int, finished_loading: bool,
         cache=None, dispatch_counts=None, robustness=None, artifact_ages=None,
-        io=None, cost=None, slo=None,
+        io=None, cost=None, slo=None, artifact_stale=None,
     ) -> str:
         """Prometheus text. ``cache`` (a serving.cache.RecommendCache),
         ``dispatch_counts`` (the engine's per-replica dispatch counters),
         ``robustness`` (a flat dict of engine/batcher state — names ending
         in ``_total`` render as counters, the rest as gauges, all under a
         ``kmls_`` prefix), ``artifact_ages`` (artifact → seconds since
-        publication), ``io`` (the IO-health monitor's snapshot), ``cost``
+        publication), ``artifact_stale`` (artifact → 0/1, from the same age
+        snapshot), ``io`` (the IO-health monitor's snapshot), ``cost``
         (an observability.costmodel.CostModel) and ``slo`` (an
         observability.slo.SloTracker) are optional."""
         p50, p95, p99 = self.latency.percentiles(0.50, 0.95, 0.99)
@@ -445,6 +449,12 @@ class ServingMetrics:
                 f'kmls_artifact_age_seconds{{artifact="{name}"}} '
                 f"{artifact_ages[name]:.3f}"
                 for name in sorted(artifact_ages)
+            ]
+        if artifact_stale:
+            lines.append("# TYPE kmls_artifact_stale gauge")
+            lines += [
+                f'kmls_artifact_stale{{artifact="{name}"}} {int(artifact_stale[name])}'
+                for name in sorted(artifact_stale)
             ]
         if io is not None:
             # the IO-health monitor: latency EWMAs as gauges (the

@@ -208,7 +208,8 @@ def test_render_names_only_catalog_series():
     cost.note_publish({"rule_ids": 6400, "rule_confs": 6400}, 1 << 30)
     text = port_m.render(3, True, cache=cache, dispatch_counts=[4, 5], robustness=robust,
                          artifact_ages={"rules": 1.0, "popularity": 2.0}, io=io,
-                         cost=cost, slo=SloTracker(port_m))
+                         cost=cost, slo=SloTracker(port_m),
+                         artifact_stale={"rules": 0, "popularity": 1})
     names = set()
     for line in text.splitlines():
         if line.startswith("# TYPE "):

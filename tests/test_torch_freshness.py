@@ -493,13 +493,94 @@ class TestDeltaEligibility:
         assert artifacts.read_delta_state(mining_cfg.pickles_dir) is None
 
     def test_more_than_one_rank_is_ineligible(self, delta_pvc, monkeypatch):
-        from kmlserver_tpu_torch.parallel import mesh as mesh_mod
+        """Ranks on two hosts: the delta route is single-host, decided by
+        host as the reference decides (one process per host there)."""
+        from kmlserver_tpu_torch.parallel import distributed
 
         mining_cfg, _, csv_path = delta_pvc
         _append_rows(csv_path, [(97, "s000"), (97, "s001")])
-        monkeypatch.setattr(mesh_mod, "world_ranks", lambda: [0, 1])
+        monkeypatch.setattr(distributed, "hostnames", lambda: ("host-a", "host-b"))
         with pytest.raises(delta_mod.DeltaIneligible, match="multi-host gang"):
             delta_mod.run_delta_job(mining_cfg, device="cpu")
+        assert artifacts.read_delta_state(mining_cfg.pickles_dir) is None
+
+    def test_one_host_two_ranks_is_eligible(self, delta_pvc, monkeypatch):
+        """Two ranks on one host: eligible. Rank 0 runs the route and
+        publishes, and broadcasts the outcome; the other rank runs nothing,
+        writes nothing and returns rank 0's summary."""
+        from kmlserver_tpu_torch.parallel import distributed
+
+        mining_cfg, _, csv_path = delta_pvc
+        _append_rows(csv_path, [(97, "s000"), (97, "s001")])
+        monkeypatch.setattr(distributed, "hostnames", lambda: ("host-a", "host-a"))
+        sent = []
+        monkeypatch.setattr(pipeline_mod, "broadcast_from_writer",
+                            lambda obj: sent.append(obj) or obj)
+        summary = run_job(mining_cfg)
+        assert summary.delta_seq == 1
+        assert sent == [("published", summary)]
+        state = artifacts.read_delta_state(mining_cfg.pickles_dir)
+
+        def not_on_this_rank(*args, **kwargs):
+            raise AssertionError("only rank 0 may run the delta route or a mine")
+
+        received = []
+        monkeypatch.setattr(pipeline_mod, "this_rank", lambda: 1)
+        monkeypatch.setattr(pipeline_mod, "broadcast_from_writer",
+                            lambda obj: received.append(obj) or sent[0])
+        monkeypatch.setattr(delta_mod, "run_delta_job", not_on_this_rank)
+        monkeypatch.setattr(pipeline_mod, "mine", not_on_this_rank)
+        assert run_job(mining_cfg) == summary
+        assert received == [None]
+        assert artifacts.read_delta_state(mining_cfg.pickles_dir) == state
+
+    @pytest.mark.parametrize("outcome", ["ineligible", "raised"])
+    def test_every_rank_takes_the_writers_outcome(self, delta_pvc, monkeypatch, outcome):
+        """A rank that is not the writer follows rank 0: into the full
+        pipeline when it found the run ineligible, or out with the
+        exception rank 0 raised."""
+        mining_cfg, _, csv_path = delta_pvc
+        _append_rows(csv_path, [(97, "s000"), (97, "s001")])
+        monkeypatch.setattr(pipeline_mod, "this_rank", lambda: 1)
+        shared = ("ineligible", "chain at its cap") if outcome == "ineligible" else (
+            "raised", artifacts.LeaseHeldError("lease held by another writer"))
+        monkeypatch.setattr(pipeline_mod, "broadcast_from_writer", lambda obj: shared)
+        if outcome == "raised":
+            with pytest.raises(artifacts.LeaseHeldError, match="another writer"):
+                run_job(mining_cfg)
+            return
+        summary = run_job(mining_cfg)
+        assert summary.delta_seq is None and summary.token == ""  # mined, not the writer
+        assert artifacts.read_delta_state(mining_cfg.pickles_dir) is None
+
+    def test_two_ranks_over_gloo_publish_the_one_rank_bundle(self, tmp_path, rng):
+        """Two job processes on one host over gloo after an append: rank 0
+        publishes one bundle, equal to a one-rank job's from the same PVC;
+        neither rank enters the full mine, and both exit 0."""
+        from .test_torch_parallel import run_gloo_ranks
+        from .test_torch_sharded_job import _JOB_RANK
+
+        two, one = tmp_path / "two", tmp_path / "one"
+        os.makedirs(two / "datasets")
+        csv_path = str(two / "datasets" / DATASET)
+        _write_csv(csv_path, *_base_rows(rng))
+        run_job(_mining_cfg(two))
+        _append_rows(csv_path, [(97, "s000"), (97, "s001"), (98, "s002"), (98, "zz_new")])
+        shutil.copytree(two, one)
+        assert run_job(_mining_cfg(one)).delta_seq == 1
+        logs = run_gloo_ranks(2, _JOB_RANK, [], env=dict(
+            KMLS_TORCH_DEVICE="cpu", BASE_DIR=str(two), DATASETS_DIR=str(two / "datasets"),
+            MIN_SUPPORT="0.04", KMLS_DELTA_ENABLED="1", KMLS_RANK_HEARTBEAT_S="0.5"))
+        assert "Delta 1 published" in logs[0], logs[0]
+        assert "Rank 1: not the writer; rank 0 ran the delta route (delta 1)" in logs[1], logs[1]
+        for log in logs:
+            assert "Loaded " not in log and "Pair-count path" not in log, log
+        bundles = sorted(n for n in os.listdir(two / "pickles") if n.endswith(".bundle"))
+        assert bundles == [artifacts.delta_bundle_filename(1)]
+        a, b = (artifacts.load_delta_bundle(str(p / "pickles" / bundles[0])) for p in (one, two))
+        assert sorted(a) == sorted(b)
+        for key in a:
+            assert np.array_equal(np.asarray(a[key]), np.asarray(b[key])), key
 
     def test_appended_partial_row_is_ineligible(self, delta_pvc):
         """The base prefix must end at a line boundary: an appender that

@@ -1,7 +1,7 @@
 """The batch side of the port's chaos suite — twin of
 ``tests/test_mining_chaos.py``, held against the JAX package on the same
-seeded inputs: with the ``eval`` phase off (the port has none yet), and
-with the ``embed`` phase off and on.
+seeded inputs: with the ``embed`` phase off and on, and with the ``eval``
+phase on (its report is part of the publication).
 
 A job killed after each checkpointed phase resumes and publishes the same
 bytes as an uninterrupted run, and what it publishes equals the reference
@@ -143,6 +143,35 @@ def embed_publication(tmp_path_factory):
     return {"bytes": {**_artifact_bytes(cfg), emb: blob}, "manifest": _manifest_files(cfg)}
 
 
+def _publication_with_report(cfg) -> dict[str, bytes]:
+    out = _artifact_bytes(cfg)
+    for name in (artifacts.EMBEDDINGS_FILENAME, artifacts.QUALITY_REPORT_FILENAME):
+        with open(os.path.join(cfg.pickles_dir, name), "rb") as fh:
+            out[name] = fh.read()
+    return out
+
+
+@pytest.fixture(scope="module")
+def eval_publication(tmp_path_factory):
+    """The port's uninterrupted publication with the embed and eval phases
+    on → its bytes (the quality report included) and manifest files; its
+    report's split and rules are held against the reference job's."""
+    import json
+
+    cfg = _pvc(tmp_path_factory.mktemp("port_eval_pvc"), eval_enabled=True, **EMBED_KNOBS)
+    faults.clear()
+    run_mining_job(cfg, device="cpu")
+    ref_base = str(tmp_path_factory.mktemp("ref_eval_pvc"))
+    write_dataset(ref_base)
+    ref_faults.clear()
+    ref_run_mining_job(ref_mining_cfg(ref_base, eval_enabled=True, **EMBED_KNOBS))
+    ours = artifacts.load_quality_report(cfg.pickles_dir)
+    theirs = ref_artifacts.load_quality_report(os.path.join(ref_base, "pickles"))
+    assert json.dumps(ours["split"]) == json.dumps(theirs["split"])
+    assert ours["modes"]["rules"] == theirs["modes"]["rules"]
+    return {"bytes": _publication_with_report(cfg), "manifest": _manifest_files(cfg)}
+
+
 class TestResumeEquivalence:
     @pytest.mark.parametrize("crash_phase", ckpt_mod.RUN_PHASES)
     def test_kill_at_phase_then_resume_bit_identical(
@@ -211,6 +240,59 @@ class TestResumeEquivalence:
             got = {**_artifact_bytes(cfg), emb: fh.read()}
         assert got == embed_publication["bytes"]
         assert _manifest_files(cfg) == embed_publication["manifest"]
+
+    @pytest.mark.parametrize(
+        "crash_phase",
+        ckpt_mod.run_phases(port_mining_cfg(".", eval_enabled=True, **EMBED_KNOBS)),
+    )
+    def test_kill_at_phase_with_eval_then_resume_bit_identical(
+        self, tmp_path, crash_phase, eval_publication, monkeypatch
+    ):
+        """With the embed and eval phases on, a kill after each phase (eval
+        included) resumes and publishes the uninterrupted run's bytes, the
+        quality report included, under the same manifest sha256s; a resume
+        after ``eval`` trains and evaluates nothing."""
+        from kmlserver_tpu_torch.quality import eval as eval_mod
+
+        cfg = _pvc(tmp_path, eval_enabled=True, **EMBED_KNOBS)
+        _crashed_run(cfg, crash_phase)
+        assert not os.path.exists(os.path.join(cfg.pickles_dir, artifacts.QUALITY_REPORT_FILENAME))
+        trainings, evals = [], []
+        real_train, real_eval = als.train_embeddings, eval_mod.run_eval_phase
+        monkeypatch.setattr(als, "train_embeddings",
+                            lambda *a, **k: trainings.append(1) or real_train(*a, **k))
+        monkeypatch.setattr(eval_mod, "run_eval_phase",
+                            lambda *a, **k: evals.append(1) or real_eval(*a, **k))
+        summary = run_mining_job(cfg, device="cpu")
+        want = ckpt_mod.PHASES[: ckpt_mod.PHASES.index(crash_phase) + 1]
+        assert summary.resumed_phases == want
+        # eval trains its own embeddings on the train split
+        assert len(evals) == (0 if crash_phase == "eval" else 1)
+        assert len(trainings) == {"embed": 1, "eval": 0}.get(crash_phase, 2)
+        assert _publication_with_report(cfg) == eval_publication["bytes"]
+        assert _manifest_files(cfg) == eval_publication["manifest"]
+
+    def test_eval_off_publication_retires_the_report(self, tmp_path, eval_publication):
+        """A publication with the eval phase off removes the previous
+        generation's report, so its manifest cannot re-bless it; the
+        reference does the same."""
+        cfg = _pvc(tmp_path, eval_enabled=True, **EMBED_KNOBS)
+        run_mining_job(cfg, device="cpu")
+        report = os.path.join(cfg.pickles_dir, artifacts.QUALITY_REPORT_FILENAME)
+        assert os.path.exists(report)
+        assert artifacts.QUALITY_REPORT_FILENAME in _manifest_files(cfg)
+        run_mining_job(dataclasses.replace(cfg, eval_enabled=False), device="cpu")
+        assert not os.path.exists(report)
+        assert artifacts.QUALITY_REPORT_FILENAME not in _manifest_files(cfg)
+        assert artifacts.remove_quality_report(cfg.pickles_dir) is False
+        ref_base = str(tmp_path / "ref")
+        write_dataset(ref_base)
+        ref_cfg = ref_mining_cfg(ref_base, eval_enabled=True, **EMBED_KNOBS)
+        ref_run_mining_job(ref_cfg)
+        assert os.path.exists(os.path.join(ref_base, "pickles", artifacts.QUALITY_REPORT_FILENAME))
+        ref_run_mining_job(dataclasses.replace(ref_cfg, eval_enabled=False))
+        assert not os.path.exists(
+            os.path.join(ref_base, "pickles", artifacts.QUALITY_REPORT_FILENAME))
 
     def test_checkpoint_payloads_are_host_objects(self, tmp_path):
         """The mine payload is host numpy, not torch tensors: a checkpoint
