@@ -36,8 +36,10 @@ main loop on the card and fails loudly on any mismatch:
    the machine has two): (a) each rank's kernel on its slab of the ds2
    bitset against the plain version, and the all-reduced sum against the
    single-card kernel; (b) two ranks of ``python -m
-   kmlserver_tpu_torch.mining.job`` on phase 4's CSV, whose rank-0
-   publication must equal phase 4's; (c) the scale mine at dp = 2 from
+   kmlserver_tpu_torch.mining.job`` on phase 4's CSV with
+   ``KMLS_COUNT_PATH=bitpack`` (``sharded-bitpack-cuda``, the slab kernel
+   on each rank), whose rank-0 publication must equal phase 4's; (c) the
+   scale mine at dp = 2 from
    phase 5's baskets, whose rule tensors must equal phase 5's exactly,
    each rank timing its slab kernel and the all-reduce;
 7. count routes and census (``mining/dispatch.py``, ``ops/support.py``,
@@ -166,7 +168,46 @@ main loop on the card and fails loudly on any mismatch:
    card over gloo on phase 12 (a)'s PVC after one append publish one delta
    bundle from rank 0, whose members equal a one-rank job's, and neither
    enters the full mine. The phase prints its own seconds.
-Then the kernels line is printed.
+Then phase 7 runs (it needs no work directory), and last:
+14. vocab-sharded mining (``parallel/support.py``'s dense sharded counts,
+   slab emission and sparse-sharded route, ``parallel/collectives.py``,
+   ``mining/als.py``'s sharded sweep; ranks share the card over gloo, or
+   take a card each over NCCL; alone: ``python -c "import chip_smoke as c;
+   c.phase_sharded()"``): (a) ``kubernetes/job-multihost.yaml``'s knobs
+   (``KMLS_MESH_SHAPE=hybrid``, ``KMLS_MODEL_LAYOUT=sharded``,
+   ``KMLS_K_MAX_CONSEQUENTS=256``, ``KMLS_EMBED_ENABLED=1``,
+   ``KMLS_CKPT_ENABLED=1``) on two ranks of ``python -m
+   kmlserver_tpu_torch.mining.job`` over phase 4's CSV: ``sharded-vocab-gspmd``
+   and no ``NOTE:`` on either rank, pickles, npz (member by member) and
+   their manifest entries equal to a one-card job with the same knobs,
+   factors within the reference's layout bar (rtol 2e-4, atol 2e-5) of its
+   dense training, a second run's ``embeddings.npz`` byte-equal, a kill
+   after ``mine`` resumed to the same bytes; and two ranks of the job with
+   no knob set (the replicated layout): ``sharded-dense-gspmd``, no
+   ``NOTE:``, no popcount launch, publication equal to phase 4's; (b) in
+   process on ``1x2`` and
+   ``2x2`` (four ranks) meshes over the ds2 baskets, every schedule
+   (``gspmd``, ``allgather``, ``ring``): counts equal to the one-card C and
+   to the plain version, emission equal to the one-card emission; on
+   ``2x2`` the staged ``sharded-dense-<impl>`` route at
+   ``max_itemset_len=3``; ``sparse-sharded`` with
+   ``KMLS_SPARSE_LONG_BASKET=64`` (the popcount kernel's long-basket block
+   on every rank, tile pair by tile pair, counted); the sparse-sharded
+   count of a 16,384-track vocabulary on ``1x2``, ``2x2`` and ``1x4``: each
+   rank's slab equal to its rows of the one-card count, its peak device
+   memory below one ``(V, V)`` int32 count and, from ``tp`` 2 to 4, falling
+   to at most 0.6 of it; (c) phase 5's pruned scale baskets on ``1x2``:
+   ``allgather`` and ``ring`` through ``sharded_rule_tensors``, each equal
+   to phase 5's one-card emission, each rank's phases, collective bytes
+   and peak memory logged, the local product timed with CUDA events
+   beside its bound, ``int8_gram_plain`` and ``torch._int_mm`` over the
+   whole one-hot, the emission against its plain version; one
+   vocab-sharded dense ALS training (time per sweep, peak memory per rank
+   below its X block and two chunks of the loss's residual, the same
+   factors on both ranks).
+Then the kernels line is printed (the sharded entry carries the sharded
+routes' calls and times under ``x8``: library calls, not kernel
+launches).
 
 Not part of the run: :func:`probe_segsum_ring` builds ``segsum.cu`` with
 its adds, its copies or both taken out and times one long row with each
@@ -174,7 +215,7 @@ its adds, its copies or both taken out and times one long row with each
 
 ``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
 5M rows (a shorter check; prints a ``reduced`` line). The script starts
-itself with ``--rank-worker`` for the ranks of phase 6.
+itself with ``--rank-worker`` for the ranks of phases 6 and 14.
 
 The last two lines of standard output are the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line and the result JSON. Exits
@@ -361,10 +402,12 @@ def int_mm_ms(bt, want) -> float:
     return ms
 
 
-def run_ranks(argvs: list[list[str]], envs: list[dict], timeout_s: float, label: str) -> list[str]:
+def run_ranks(argvs: list[list[str]], envs: list[dict], timeout_s: float, label: str,
+              want_exit: int = 0) -> list[str]:
     """Start one process per rank and wait for all of them. A rank that
-    exits non-zero, or a group that outlives ``timeout_s``, kills the
-    group and fails the smoke. → each rank's output."""
+    exits with another code than ``want_exit``, or a group that outlives
+    ``timeout_s``, kills the group and fails the smoke. → each rank's
+    output."""
     procs = [
         subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)
@@ -383,11 +426,11 @@ def run_ranks(argvs: list[list[str]], envs: list[dict], timeout_s: float, label:
     try:
         while True:
             codes = [p.poll() for p in procs]
-            bad = [i for i, c in enumerate(codes) if c not in (None, 0)]
+            bad = [i for i, c in enumerate(codes) if c not in (None, want_exit)]
             if bad:
                 i = bad[0]
                 fail(f"{label}: rank {i} exited {codes[i]}:\n" + "\n".join(outs[i][-60:]))
-            if all(c == 0 for c in codes):
+            if all(c == want_exit for c in codes):
                 break
             if time.monotonic() > deadline:
                 fail(f"{label}: ranks still running after {timeout_s:.0f} s:\n"
@@ -411,11 +454,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def rank_envs(port: int, **extra: str) -> list[dict]:
+def rank_envs(port: int, world: int = RANKS, **extra: str) -> list[dict]:
     return [
         subproc_env(KMLS_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                    KMLS_NUM_PROCESSES=str(RANKS), KMLS_PROCESS_ID=str(r), **extra)
-        for r in range(RANKS)
+                    KMLS_NUM_PROCESSES=str(world), KMLS_PROCESS_ID=str(r), **extra)
+        for r in range(world)
     ]
 
 
@@ -960,7 +1003,7 @@ def phase_ranks(work: str, scale: dict) -> dict:
     outs = run_ranks(
         [[sys.executable, "-m", "kmlserver_tpu_torch.mining.job"] for _ in range(RANKS)],
         rank_envs(free_port(), BASE_DIR=ranks_pvc,
-                  DATASETS_DIR=os.path.join(ranks_pvc, "datasets")),
+                  DATASETS_DIR=os.path.join(ranks_pvc, "datasets"), KMLS_COUNT_PATH="bitpack"),
         300, "job ranks",
     )
     job_s = time.perf_counter() - t0
@@ -1072,15 +1115,17 @@ def phase_ranks(work: str, scale: dict) -> dict:
 
 
 def rank_worker(task: str, work: str) -> int:
-    """One rank of phase 6, started by :func:`phase_ranks` with the env
-    triple; prints ``RANK_RESULT <json>``."""
+    """One rank of phase 6 or 14, started with the env triple; prints
+    ``RANK_RESULT <json>``."""
     sys.path.insert(0, ROOT)
     from kmlserver_tpu_torch.parallel import distributed
 
     distributed.maybe_initialize(device="cuda", timeout_s=600)
     mesh = distributed.resolve_mesh("auto", distributed=True).flattened()
     out = {"rank": distributed.runtime().rank, "backend": distributed.runtime().backend}
-    out.update((worker_slabs if task == "slabs" else worker_scale)(mesh, work))
+    workers = {"slabs": worker_slabs, "scale": worker_scale,
+               "sharded": worker_sharded, "sharded_scale": worker_sharded_scale}
+    out.update(workers[task](mesh, work))
     print("RANK_RESULT " + json.dumps(out), flush=True)
     distributed.shutdown()
     return 0
@@ -1094,7 +1139,7 @@ def worker_slabs(mesh, work: str) -> dict:
     from kmlserver_tpu_torch.mining.vocab import build_baskets
     from kmlserver_tpu_torch.ops import popcount as pc
     from kmlserver_tpu_torch.ops.support import min_count_for
-    from kmlserver_tpu_torch.parallel import support
+    from kmlserver_tpu_torch.parallel import collectives, support
     from kmlserver_tpu_torch.parallel.mesh import this_rank
 
     datasets = os.path.join(work, "pvc", "datasets")
@@ -1115,7 +1160,7 @@ def worker_slabs(mesh, work: str) -> dict:
         launched = pc.LAUNCHES["popcount_pairs"] == before + 1
         plain = pc.popcount_pair_counts_plain(slab)
         err = int((part.long() - plain.long()).abs().max())
-        total = support.reduce_counts(part.clone(), mesh)
+        total = collectives.all_reduce_sum_(part.clone(), mesh.axis("dp"))
         v_pad, w_total = support.sharded_padded_shape(
             reduced.n_tracks, reduced.n_playlists, mesh.shape["dp"]
         )
@@ -1148,7 +1193,7 @@ def worker_scale(mesh, work: str) -> dict:
     from kmlserver_tpu_torch.mining.miner import mine, prune_infrequent
     from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
     from kmlserver_tpu_torch.ops import popcount as pc
-    from kmlserver_tpu_torch.parallel import distributed, support
+    from kmlserver_tpu_torch.parallel import collectives, distributed, support
 
     with open(os.path.join(work, "scale_shape.json")) as fh:
         shape = json.load(fh)
@@ -1188,13 +1233,13 @@ def worker_scale(mesh, work: str) -> dict:
             slab_ms = cuda_ms(lambda: pc.popcount_pair_counts_padded(slab), 3)
     distributed.barrier()
     counts = torch.ones((slab.shape[0], slab.shape[0]), dtype=torch.int32, device="cuda")
-    support.reduce_counts(counts, mesh)  # warm
+    collectives.all_reduce_sum_(counts, mesh.axis("dp"))  # warm
     torch.cuda.synchronize()
     distributed.barrier()
     reps = 3
     t0 = time.perf_counter()
     for _ in range(reps):
-        support.reduce_counts(counts, mesh)
+        collectives.all_reduce_sum_(counts, mesh.axis("dp"))
     torch.cuda.synchronize()
     all_reduce_ms = 1e3 * (time.perf_counter() - t0) / reps
     return {
@@ -4225,6 +4270,651 @@ def phase_quality(work: str | None = None) -> dict:
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 14
+
+SHARDED_IMPLS = ("gspmd", "allgather", "ring")
+# kubernetes/job-multihost.yaml's knobs (:109-112, :132-135, :164-165, :172-173)
+MANIFEST_ENV = dict(KMLS_MESH_SHAPE="hybrid", KMLS_MODEL_LAYOUT="sharded",
+                    KMLS_K_MAX_CONSEQUENTS="256", KMLS_EMBED_ENABLED="1",
+                    KMLS_CKPT_ENABLED="1", MIN_SUPPORT="0.05",
+                    REGEX_FILENAME="2023_spotify_ds*.csv")
+ALS_LAYOUT_RTOL, ALS_LAYOUT_ATOL = 2e-4, 2e-5  # the reference's sharded-vs-dense bar
+SHARDED_K = 256  # the manifest's KMLS_K_MAX_CONSEQUENTS
+SHARDED_ALS_BUDGET = 24 << 30  # per rank: the 1M x 8,124 X block is 16.2 GB in f32
+WIDE_V, WIDE_LONG, WIDE_MIN_COUNT = 16_384, 64, 2  # phase 14 (b)'s wide sparse-sharded check
+
+
+def host_free_gib() -> float:
+    """MemAvailable of the host, GiB (gloo stages the card's collectives
+    through host memory)."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def worker_sharded(_mesh, work: str) -> dict:
+    """Phase 14 (b), one rank: the ds2 baskets on a ``1x2`` (2 ranks) or
+    ``2x2`` (4 ranks) mesh — each dense schedule's counts against the
+    one-card C and the plain version, its emission against the one-card
+    emission; on ``2x2`` the staged ``sharded-dense-<impl>`` route at
+    ``max_itemset_len=3``; the sparse-sharded route with the long-basket
+    block, its popcount launches counted."""
+    import torch
+
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.data.csv import read_tracks
+    from kmlserver_tpu_torch.mining.miner import mine, prune_infrequent
+    from kmlserver_tpu_torch.mining.vocab import build_baskets
+    from kmlserver_tpu_torch.ops import encode, rules
+    from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.ops.support import min_count_for, pair_counts
+    from kmlserver_tpu_torch.parallel import support
+    from kmlserver_tpu_torch.parallel.mesh import make_mesh, world_ranks
+
+    world = len(world_ranks())
+    shape = "1x2" if world == 2 else "2x2"
+    dp, tp = (int(n) for n in shape.split("x"))
+    grid = make_mesh(shape)
+    datasets = os.path.join(work, "pvc", "datasets")
+    baskets = build_baskets(read_tracks(os.path.join(datasets, os.listdir(datasets)[0])))
+    min_count = min_count_for(DS2_MIN_SUPPORT, baskets.n_playlists)
+    reduced, _ = prune_infrequent(baskets, min_count)
+    v = reduced.n_tracks
+    x = encode.onehot_matrix(torch.as_tensor(reduced.playlist_rows, device="cuda"),
+                             torch.as_tensor(reduced.track_ids, device="cuda"),
+                             n_playlists=reduced.n_playlists, n_tracks=v)
+    single = pair_counts(x)
+    del x
+    want = rules.emit_rule_tensors(single, min_count, k_max=SHARDED_K)
+    want = [t.cpu().numpy() for t in want] + [torch.diagonal(single).cpu().numpy()]
+    plain = support.sharded_pair_counts_plain(reduced, dp, tp, device="cuda")
+    out = {"mesh": shape, "v": v, "impls": {}, "mines": {}}
+    for impl in SHARDED_IMPLS:
+        for key in support.CALLS:
+            support.CALLS[key] = 0
+        counts = support.sharded_pair_counts(reduced, grid, impl, device="cuda")
+        emitted = support.sharded_rule_tensors(reduced, grid, min_count, SHARDED_K, impl,
+                                               device="cuda")
+        torch.cuda.synchronize()
+        out["impls"][impl] = {
+            "calls": dict(support.CALLS),
+            "counts_eq_single": bool(torch.equal(counts, single)),
+            "counts_eq_plain": bool(torch.equal(plain[:v, :v], counts)),
+            "max_abs_err": int((plain[:v, :v].long() - counts.long()).abs().max()),
+            "emit_eq_single": all(np.array_equal(a, b) for a, b in zip(emitted, want)),
+        }
+    knobs = {"sparse-sharded": dict(model_layout="sharded", count_path="sparse",
+                                    sparse_long_basket=64)}
+    if shape == "2x2":
+        knobs.update({f"staged-{impl}": dict(count_path="dense", max_itemset_len=3,
+                                             sharded_impl=impl) for impl in SHARDED_IMPLS})
+    for label, kw in knobs.items():
+        cfg = MiningConfig(min_support=DS2_MIN_SUPPORT, k_max_consequents=SHARDED_K, **kw)
+        for key in pc.LAUNCHES:
+            pc.LAUNCHES[key] = 0
+        for key in support.CALLS:
+            support.CALLS[key] = 0
+        got = mine(baskets, cfg, device="cuda", mesh=grid)
+        launches = {"popcount_pairs": pc.LAUNCHES["popcount_pairs"]}
+        calls = dict(support.CALLS)
+        alone = mine(baskets, cfg, device="cuda")
+        out["mines"][label] = {
+            "count_path": got.count_path, "one_card_path": alone.count_path,
+            "launches": launches, "calls": calls, "census": got.itemset_census,
+            # the census differs by design: over a mesh no one-hot is whole,
+            # so length 3 is not enumerated (the reference's behaviour)
+            "eq_one_card": same_tensors(got.tensors, alone.tensors),
+        }
+    del single, want, plain
+    meshes = {shape: grid} | ({"1x4": make_mesh("1x4")} if world == 4 else {})
+    out["wide"] = wide_sparse_memory(meshes)
+    return out
+
+
+def wide_baskets():
+    """Phase 14 (b)'s wide vocabulary: ``WIDE_V`` tracks (its ``(V, V)``
+    int32 counts are 1 GiB), 20,000 baskets of 2–40 tracks and 200 of 200,
+    past the long-basket threshold, from numpy seed 14."""
+    from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
+
+    rng = np.random.default_rng(14)
+    lengths = np.concatenate([rng.integers(2, 41, 20_000), np.full(200, 200)])
+    rows = np.repeat(np.arange(len(lengths), dtype=np.int64), lengths)
+    keys = np.unique(rows * WIDE_V + rng.integers(0, WIDE_V, len(rows)))
+    names = [str(i) for i in range(WIDE_V)]
+    return Baskets(playlist_rows=(keys // WIDE_V).astype(np.int32),
+                   track_ids=(keys % WIDE_V).astype(np.int32), n_playlists=len(lengths),
+                   vocab=Vocab(names=names, index={n: i for i, n in enumerate(names)}))
+
+
+def wide_sparse_memory(meshes: dict) -> dict:
+    """Phase 14 (b), one rank: the sparse-sharded count of the wide
+    baskets on each mesh — this rank's slab against the rows of the
+    one-card count, its peak device memory above what was held before, and
+    the gathered emission against the one-card emission (rank 0)."""
+    import torch
+
+    from kmlserver_tpu_torch.ops import rules
+    from kmlserver_tpu_torch.ops import sparse as sparse_mod
+    from kmlserver_tpu_torch.parallel import support
+    from kmlserver_tpu_torch.parallel.mesh import this_rank
+
+    wide = wide_baskets()
+    full = sparse_mod.sparse_pair_counts_device(
+        wide.playlist_rows, wide.track_ids, n_playlists=wide.n_playlists, n_tracks=WIDE_V,
+        long_basket_threshold=WIDE_LONG, device="cuda")
+    if this_rank() == 0:
+        want = rules.emit_rule_tensors(full, WIDE_MIN_COUNT, k_max=SHARDED_K)
+        want = [t.cpu().numpy() for t in want] + [torch.diagonal(full).cpu().numpy()]
+    out = {}
+    for label, mesh in meshes.items():
+        tp = mesh.shape["tp"]
+        v_loc = -(-WIDE_V // tp)
+        lo = mesh.position(this_rank())[1] * v_loc
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        slab = support.sparse_sharded_slab(wide, mesh, WIDE_LONG, "cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        rows = min(v_loc, WIDE_V - lo)
+        eq = bool(torch.equal(slab[:rows, :WIDE_V], full[lo:lo + rows])
+                  and not slab[rows:].any() and not slab[:, WIDE_V:].any())
+        del slab
+        emitted = support.sparse_sharded_rule_tensors(wide, mesh, WIDE_MIN_COUNT, SHARDED_K,
+                                                      WIDE_LONG, device="cuda")
+        out[label] = {"tp": tp, "count_peak_bytes": peak, "slab_eq_full_rows": eq,
+                      "emit_eq_one_card": None if this_rank() else
+                      all(np.array_equal(a, b) for a, b in zip(emitted, want))}
+    return out
+
+
+def worker_sharded_scale(_mesh, work: str) -> dict:
+    """Phase 14 (c), one rank of a ``1x2`` mesh on phase 5's pruned scale
+    baskets: ``allgather`` and ``ring`` through ``sharded_rule_tensors``
+    (rank 0 saves the emitted tensors), each rank's local product timed in
+    turn with CUDA events, rank 0's library and plain products, the
+    emission against its plain version, then one vocab-sharded dense ALS
+    training."""
+    import hashlib
+
+    import torch
+
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.mining import als
+    from kmlserver_tpu_torch.mining.miner import prune_infrequent
+    from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
+    from kmlserver_tpu_torch.ops import encode
+    from kmlserver_tpu_torch.ops.support import int8_gram, int8_gram_plain, min_count_for
+    from kmlserver_tpu_torch.parallel import distributed, support
+    from kmlserver_tpu_torch.parallel.mesh import make_mesh
+    from kmlserver_tpu_torch.utils.profiling import PhaseTimer
+
+    grid = make_mesh("1x2")
+    me = distributed.runtime().rank
+    with open(os.path.join(work, "scale_shape.json")) as fh:
+        shape = json.load(fh)
+    names = [f"Track {i:07d}" for i in range(shape["n_tracks"])]
+    baskets = Baskets(
+        playlist_rows=np.load(os.path.join(work, "scale_rows.npy")),
+        track_ids=np.load(os.path.join(work, "scale_tids.npy")),
+        n_playlists=shape["n_playlists"],
+        vocab=Vocab(names=names, index={n: i for i, n in enumerate(names)}),
+    )
+    min_count = min_count_for(SCALE_MIN_SUPPORT, baskets.n_playlists)
+    reduced, _ = prune_infrequent(baskets, min_count)
+    del baskets
+    out = {"host_free_gib_start": host_free_gib(), "routes": {}, "shape": [
+        reduced.n_playlists, reduced.n_tracks, int(len(reduced.track_ids))]}
+    for impl in ("allgather", "ring"):
+        for key in support.CALLS:
+            support.CALLS[key] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timer = PhaseTimer(torch.device("cuda"))
+        distributed.barrier()
+        t0 = time.perf_counter()
+        emitted = support.sharded_rule_tensors(reduced, grid, min_count, SHARDED_K, impl,
+                                               device="cuda", timer=timer)
+        wall = time.perf_counter() - t0
+        if me == 0:
+            np.savez(os.path.join(work, f"sharded_{impl}.npz"), rule_ids=emitted[0],
+                     rule_counts=emitted[1], row_valid_counts=emitted[2], item_counts=emitted[3])
+        out["routes"][impl] = {"wall_s": wall, "phases": dict(timer.phases),
+                               "calls": dict(support.CALLS),
+                               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del emitted
+    # ---- the local products, ranks in turn, and rank 0's yardsticks, on
+    # the operands the all-gather gives, built here whole on each rank
+    axis = grid.axis("tp")
+    p_pad, v_pad = support.dense_padded_shape(reduced.n_playlists, reduced.n_tracks, 1, axis.size)
+    cols = encode.onehot_matrix(torch.as_tensor(reduced.track_ids, device="cuda"),
+                                torch.as_tensor(reduced.playlist_rows, device="cuda"),
+                                n_playlists=v_pad, n_tracks=p_pad)
+    v_loc, p_loc = v_pad // axis.size, p_pad
+    lo = axis.ranks.index(me) * v_loc
+    xt = cols[lo:lo + v_loc]
+    slab = int8_gram(xt, cols)
+    torch.cuda.synchronize()
+    times = {}
+    for turn in axis.ranks:
+        distributed.barrier()
+        if turn == me:
+            times["product_ms"] = cuda_ms(lambda: int8_gram(xt, cols), 3)
+            times["ring_step_ms"] = cuda_ms(lambda: int8_gram(xt, xt), 3)
+            times["emit_ms"] = cuda_ms(
+                lambda: support.emit_slab(slab, lo, min_count, SHARDED_K), 3)
+    distributed.barrier()
+    if me == 0:
+        times["library_ms"] = cuda_ms(lambda: int8_gram(cols, cols), 2)  # one card, whole C
+        chunk = RECOUNT_PLAIN_CHUNK
+        plain = torch.zeros_like(slab)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for c in range(0, p_loc, chunk):
+            plain += int8_gram_plain(xt[:, c:c + chunk], cols[:, c:c + chunk])
+        end.record()
+        torch.cuda.synchronize()
+        times["plain_ms"] = start.elapsed_time(end)
+        times["product_eq_plain"] = bool(torch.equal(plain, slab))
+        times["product_max_abs_err"] = int((plain.long() - slab.long()).abs().max())
+        del plain
+        slab_h = slab.cpu()
+        t0 = time.perf_counter()
+        emit_plain = support.emit_slab(slab_h, lo, min_count, SHARDED_K)
+        times["emit_plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        emit_card = support.emit_slab(slab, lo, min_count, SHARDED_K)
+        times["emit_eq_plain"] = all(torch.equal(a.cpu(), b) for a, b in zip(emit_card, emit_plain))
+    distributed.barrier()
+    out["times"] = times
+    out["v_loc"], out["p_loc"], out["v_pad"] = v_loc, p_loc, cols.shape[0]
+    del xt, cols, slab
+    # ---- one vocab-sharded dense ALS training
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["host_free_gib_als"] = host_free_gib()
+    als.CALLS["sharded_sweep"] = 0
+    sweep_s: list[float] = []
+    inner = als._sharded_sweep
+
+    def timed_sweep(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(*args)
+        torch.cuda.synchronize()
+        sweep_s.append(time.perf_counter() - t0)
+        return res
+
+    als._sharded_sweep = timed_sweep
+    try:
+        cfg = MiningConfig(model_layout="sharded", embed_enabled=True,
+                           hbm_budget_bytes=SHARDED_ALS_BUDGET)
+        payload = als.train_embeddings(reduced, cfg, mesh=grid, device="cuda")
+    finally:
+        als._sharded_sweep = inner
+    factors = payload["item_factors"]
+    out["als"] = {
+        "shards": payload.get("shards"), "storage": payload.get("storage"),
+        "skipped": payload.get("skipped"), "iters": payload["iters"], "rank": payload["rank"],
+        "final_loss": payload["final_loss"], "duration_s": payload["duration_s"],
+        "sweep_s": sweep_s, "calls": als.CALLS["sharded_sweep"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "finite": bool(factors is not None and np.isfinite(factors).all()),
+        "factors_sha": None if factors is None else hashlib.sha256(factors.tobytes()).hexdigest(),
+    }
+    return out
+
+
+def sharded_manifest_job(work: str, csv_src: str) -> dict:
+    """Phase 14 (a): ``kubernetes/job-multihost.yaml``'s mining job on two
+    ranks against one card with the same knobs."""
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.io import artifacts
+
+    def pvc(name: str) -> str:
+        path = os.path.join(work, name)
+        os.makedirs(os.path.join(path, "datasets"))
+        shutil.copy(csv_src, os.path.join(path, "datasets", FRESH_CSV))
+        return path
+
+    def ranks_job(base: str, label: str, want_exit: int = 0, **extra: str) -> tuple[list, float]:
+        t0 = time.perf_counter()
+        logs = run_ranks([[sys.executable, "-m", "kmlserver_tpu_torch.mining.job"]] * RANKS,
+                         rank_envs(free_port(), BASE_DIR=base,
+                                   DATASETS_DIR=os.path.join(base, "datasets"),
+                                   **MANIFEST_ENV, **extra),
+                         300, f"phase 14 (a) {label}", want_exit=want_exit)
+        wall = time.perf_counter() - t0
+        for rank, out in enumerate(logs):
+            for line in out.splitlines():
+                log(f"  {label} rank {rank} | {line}")
+        return logs, wall
+
+    cfg = MiningConfig()
+    pickles = [cfg.recommendations_file, cfg.best_tracks_file, cfg.artists_mapping_file,
+               cfg.track_info_file]
+    npz = cfg.recommendations_file + artifacts.TENSOR_ARTIFACT_SUFFIX
+
+    def published(base: str) -> dict:
+        names = pickles + [npz, artifacts.EMBEDDINGS_FILENAME]
+        files = {}
+        for name in names:
+            with open(os.path.join(base, "pickles", name), "rb") as fh:
+                files[name] = fh.read()
+        return {"bytes": files,
+                "manifest": artifacts.load_manifest(os.path.join(base, "pickles"))["files"]}
+
+    one = pvc("pvc_sharded_one")
+    one_out, one_s = job_process(one, "phase 14 one card", **MANIFEST_ENV)
+    first = pvc("pvc_sharded_a")
+    logs, first_s = ranks_job(first, "sharded")
+    for rank, out in enumerate(logs):
+        if "Pair-count path: sharded-vocab-gspmd" not in out or "NOTE:" in out:
+            fail(f"phase 14 (a) rank {rank}: not 'Pair-count path: sharded-vocab-gspmd', or a "
+                 f"NOTE: {[l for l in out.splitlines() if 'Pair-count' in l or 'NOTE' in l]}")
+        if "ALS embeddings trained" not in out:
+            fail(f"phase 14 (a) rank {rank} trained no embeddings")
+    a, b = published(first), published(one)
+    for name in pickles:
+        if (artifacts.load_pickle(os.path.join(first, "pickles", name))
+                != artifacts.load_pickle(os.path.join(one, "pickles", name))):
+            fail(f"phase 14 (a): {name} of the sharded job differs from the one-card job's")
+        if a["manifest"][name] != b["manifest"][name]:
+            fail(f"phase 14 (a): the manifest's {name} entry differs from the one-card job's")
+    x = np.load(os.path.join(first, "pickles", npz), allow_pickle=True)
+    y = np.load(os.path.join(one, "pickles", npz), allow_pickle=True)
+    if x.files != y.files or not all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x.files):
+        fail("phase 14 (a): the npz twin differs from the one-card job's, member by member")
+    if a["manifest"][npz] != b["manifest"][npz]:
+        fail("phase 14 (a): the manifest's npz entry differs from the one-card job's")
+    ea = np.load(os.path.join(first, "pickles", artifacts.EMBEDDINGS_FILENAME), allow_pickle=True)
+    eb = np.load(os.path.join(one, "pickles", artifacts.EMBEDDINGS_FILENAME), allow_pickle=True)
+    fa, fb = ea["item_factors"], eb["item_factors"]
+    if list(ea["vocab"]) != list(eb["vocab"]) or not np.allclose(
+            fa, fb, rtol=ALS_LAYOUT_RTOL, atol=ALS_LAYOUT_ATOL):
+        fail(f"phase 14 (a): sharded factors outside rtol {ALS_LAYOUT_RTOL} atol "
+             f"{ALS_LAYOUT_ATOL} of the one-card training (max |Δ| "
+             f"{float(np.abs(fa - fb).max())})")
+    factor_diff = float(np.abs(fa - fb).max())
+    loss_rel = abs(float(ea["final_loss"]) - float(eb["final_loss"])) / abs(float(eb["final_loss"]))
+    second = pvc("pvc_sharded_b")
+    _, second_s = ranks_job(second, "sharded again")
+    if published(second)["bytes"][artifacts.EMBEDDINGS_FILENAME] != \
+            a["bytes"][artifacts.EMBEDDINGS_FILENAME]:
+        fail("phase 14 (a): a second sharded run's embeddings.npz differs")
+    killed = pvc("pvc_sharded_killed")
+    ranks_job(killed, "sharded killed after mine", want_exit=75,
+              KMLS_FAULT_MINE_CRASH_PHASE="mine")
+    logs, resume_s = ranks_job(killed, "sharded resumed")
+    if not all("Resumed phase 'mine' from checkpoint" in out for out in logs):
+        fail("phase 14 (a): a rank did not resume the mine from its checkpoint")
+    got = published(killed)
+    if got["bytes"] != a["bytes"] or got["manifest"] != a["manifest"]:
+        fail("phase 14 (a): the resumed run's bytes differ from the uninterrupted run's: "
+             f"{sorted(k for k in a['bytes'] if got['bytes'].get(k) != a['bytes'][k])}")
+    # the replicated layout, no count path pinned: the reference's dense
+    # sharded count on the job's auto mesh, held against phase 4's publication
+    base4 = ds2_pvc(work)
+    replicated = pvc("pvc_replicated")
+    t0 = time.perf_counter()
+    logs = run_ranks([[sys.executable, "-m", "kmlserver_tpu_torch.mining.job"]] * RANKS,
+                     rank_envs(free_port(), BASE_DIR=replicated,
+                               DATASETS_DIR=os.path.join(replicated, "datasets")),
+                     300, "phase 14 (a) replicated")
+    replicated_s = time.perf_counter() - t0
+    for rank, out in enumerate(logs):
+        for line in out.splitlines():
+            log(f"  replicated rank {rank} | {line}")
+        n = [int(l.rsplit(":", 1)[1]) for l in out.splitlines()
+             if l.startswith("Popcount kernel launches:")]
+        if "Pair-count path: sharded-dense-gspmd" not in out or "NOTE:" in out or n != [0]:
+            fail(f"phase 14 (a) replicated rank {rank}: not 'Pair-count path: "
+                 f"sharded-dense-gspmd' without a NOTE and 0 popcount launches ({n})")
+    if not same_publication(base4, replicated):
+        fail("phase 14 (a): the replicated two-rank job's publication differs from phase 4's")
+    log(f"phase 14 (a) the replicated job on {RANKS} ranks, unpinned: sharded-dense-gspmd, "
+        f"no NOTE, 0 popcount launches; pickles and npz == phase 4's; {replicated_s:.3f} s")
+    log(f"phase 14 (a) the manifest's job on {RANKS} ranks: sharded-vocab-gspmd, no NOTE; "
+        f"pickles, npz (member by member) and their manifest entries == the one-card job's; "
+        f"factors max |Δ| {factor_diff:.3g} (bar rtol {ALS_LAYOUT_RTOL}, atol "
+        f"{ALS_LAYOUT_ATOL}), loss rel {loss_rel:.3g}; second run's embeddings.npz byte-equal; "
+        f"killed after mine, resumed to the same bytes; wall {first_s:.3f} s ranks, "
+        f"{one_s:.3f} s one card, {resume_s:.3f} s resume")
+    return {"ranks_s": first_s, "one_card_s": one_s, "second_s": second_s,
+            "resume_s": resume_s, "replicated_s": replicated_s,
+            "factor_max_abs_diff": factor_diff, "loss_rel": loss_rel}
+
+
+def emission_bound(rows: int, cols: int, k: int) -> tuple[float, str]:
+    """(ms, what binds) for one slab emission: the int32 slab read once and
+    the four outputs written once over the HBM rate (its comparisons are
+    few beside those bytes)."""
+    nbytes = 4 * rows * cols + 2 * 4 * rows * k + 2 * 4 * rows
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
+
+
+def sharded_in_process(work: str) -> dict:
+    """Phase 14 (b): the ds2 baskets on the ranks' meshes (``1x2``, then
+    ``2x2`` on four ranks)."""
+    worker = [sys.executable, os.path.abspath(__file__), "--rank-worker", "sharded", work]
+    result = {}
+    for world in (RANKS, 4):
+        t0 = time.perf_counter()
+        outs = run_ranks([worker] * world, rank_envs(free_port(), world), 300,
+                         f"phase 14 (b) {world} ranks")
+        for r, out in enumerate(outs):
+            res = rank_result(out, r)
+            for impl, c in res["impls"].items():
+                if not (c["counts_eq_single"] and c["counts_eq_plain"] and c["emit_eq_single"]):
+                    fail(f"phase 14 (b) {res['mesh']} rank {r} {impl}: {c}")
+                key = "sharded_counts_ring" if impl == "ring" else "sharded_counts_allgather"
+                if c["calls"][key] != 2 or c["calls"]["sharded_emit"] != 1:
+                    fail(f"phase 14 (b) {res['mesh']} rank {r} {impl}: calls {c['calls']}")
+            for label, m in res["mines"].items():
+                want = ("sparse-sharded" if label == "sparse-sharded"
+                        else f"sharded-dense-{label.split('-', 1)[1]}")
+                if m["count_path"] != want or not m["eq_one_card"]:
+                    fail(f"phase 14 (b) {res['mesh']} rank {r} {label}: {m}")
+                if label == "sparse-sharded" and (m["launches"]["popcount_pairs"] < 1 or
+                                                  m["calls"]["sparse_sharded_counts"] != 1):
+                    fail(f"phase 14 (b) {res['mesh']} rank {r}: the sparse-sharded route's "
+                         f"launches {m['launches']}, calls {m['calls']}")
+            full_bytes = 4 * WIDE_V * WIDE_V
+            for label, w in res["wide"].items():
+                if not (w["slab_eq_full_rows"] and w["emit_eq_one_card"] in (None, True)
+                        and w["count_peak_bytes"] < full_bytes):
+                    fail(f"phase 14 (b) wide sparse-sharded on {label}, rank {r}: {w} (one "
+                         f"(V, V) int32 count: {full_bytes} B)")
+            if world == 4 and (res["wide"]["1x4"]["count_peak_bytes"]
+                               > 0.6 * res["wide"]["2x2"]["count_peak_bytes"]):
+                fail(f"phase 14 (b) wide sparse-sharded, rank {r}: peak memory does not fall "
+                     f"with V/tp: {res['wide']}")
+            log(f"  rank {r} wide sparse-sharded (V {WIDE_V}): slab == the one-card count's "
+                f"rows; count peak " + ", ".join(
+                    f"{label} {w['count_peak_bytes']} B" for label, w in res["wide"].items())
+                + f" (one (V, V) int32 count {full_bytes} B)")
+            result[f"{res['mesh']}.rank{r}"] = res
+        log(f"phase 14 (b) {res['mesh']} on {world} ranks ({time.perf_counter() - t0:.3f} s): "
+            f"every schedule's counts == one-card C == plain, emission == one-card; "
+            + "; ".join(f"{label}: {m['count_path']} (launches {m['launches']}, calls "
+                        f"{m['calls']}) == one card's {m['one_card_path']}"
+                        for label, m in res["mines"].items()))
+    return result
+
+
+def sharded_scale(work: str, one_card_loss: float | None) -> dict:
+    """Phase 14 (c): the scale shape on two ranks (``1x2``)."""
+    from kmlserver_tpu_torch.mining import als as als_mod
+    from kmlserver_tpu_torch.parallel.mesh import round_up
+
+    worker = [sys.executable, os.path.abspath(__file__), "--rank-worker", "sharded_scale", work]
+    log(f"phase 14 (c) host MemAvailable {host_free_gib():.1f} GiB before the ranks start")
+    t0 = time.perf_counter()
+    outs = run_ranks([worker] * RANKS, rank_envs(free_port()), 600, "phase 14 (c)")
+    wall = time.perf_counter() - t0
+    results = [rank_result(out, r) for r, out in enumerate(outs)]
+    want = np.load(os.path.join(work, "scale_tensors.npz"))
+    for impl in ("allgather", "ring"):
+        got = np.load(os.path.join(work, f"sharded_{impl}.npz"))
+        for key in got.files:
+            if not np.array_equal(got[key], want[key]):
+                fail(f"phase 14 (c) {impl}: {key} differs from phase 5's one-card emission")
+    t = results[0]["times"]
+    if not (t["product_eq_plain"] and t["emit_eq_plain"]):
+        fail(f"phase 14 (c): the local product or the emission differs from its plain version: {t}")
+    p, v, nnz = results[0]["shape"]
+    v_loc, p_loc, v_pad = results[0]["v_loc"], results[0]["p_loc"], results[0]["v_pad"]
+    bound = product_bound(2 * v_loc * v_pad * p_loc, (v_loc + v_pad) * p_loc + 4 * v_loc * v_pad)
+    ring_bound = product_bound(2 * v_loc * v_loc * p_loc, 2 * v_loc * p_loc + 4 * v_loc * v_loc)
+    emit_bound = emission_bound(v_loc, v_pad, SHARDED_K)
+    # one rank's share of the sharded training: its (P, V/tp) block
+    first_als = results[0]["als"]
+    als_bound = als_dense_bound(p, round_up(v, RANKS) // RANKS, first_als["rank"],
+                                first_als["iters"])
+    block_bytes = v_loc * p_loc
+    for r, res in enumerate(results):
+        for impl, route in res["routes"].items():
+            moved = block_bytes * (RANKS - 1)
+            coll = route["phases"].get("all_gather" if impl == "allgather" else "ring", 0.0)
+            log(f"  rank {r} {impl}: {route['wall_s']:.3f} s wall ("
+                + ", ".join(f"{k} {v_:.3f} s" for k, v_ in route["phases"].items())
+                + f"); collective {coll:.3f} s for {moved} B received "
+                f"({moved / max(coll, 1e-9) / 1e9:.3f} GB/s); calls {route['calls']}; "
+                f"peak device memory {route['peak_gib']:.3f} GiB")
+        tr = res["times"]
+        log(f"  rank {r} local product ({v_loc} x {p_loc}) x ({v_pad} x {p_loc})ᵀ "
+            f"{tr['product_ms']:.3f} ms (CUDA events; bound {bound[0]:.3f} ms, {bound[1]}); "
+            f"ring step {tr['ring_step_ms']:.3f} ms (bound {ring_bound[0]:.3f} ms); emission "
+            f"{tr['emit_ms']:.3f} ms (bound {emit_bound[0]:.4f} ms, bytes); ALS "
+            f"{res['als']['storage']} shards {res['als']['shards']} (training bound "
+            f"{als_bound['ms']:.3f} ms, {als_bound['bound_by']}), "
+            f"{len(res['als']['sweep_s'])} sweeps {res['als']['sweep_s']}, final loss "
+            f"{res['als']['final_loss']}, peak {res['als']['peak_gib']:.3f} GiB; host "
+            f"MemAvailable {res['host_free_gib_start']:.1f} / {res['host_free_gib_als']:.1f} GiB")
+    als_ = [res["als"] for res in results]
+    if (any(a["shards"] != RANKS or not a["finite"] or a["calls"] != a["iters"] for a in als_)
+            or len({a["factors_sha"] for a in als_}) != 1):
+        fail(f"phase 14 (c) sharded ALS: {als_}")
+    # a rank holds its X block and one chunk of the loss's residual, never
+    # a second block
+    x_block = 4 * p * (round_up(v, RANKS) // RANKS)
+    als_limit = x_block + 2 * 4 * als_mod._LOSS_CHUNK_ELEMS
+    if any(a["peak_gib"] * 2**30 >= als_limit for a in als_):
+        fail(f"phase 14 (c) sharded ALS peak {[a['peak_gib'] for a in als_]} GiB per rank, "
+             f"want below the X block ({x_block} B) and two loss chunks: {als_limit} B")
+    log(f"phase 14 (c) scale shape {p} x {v} ({nnz} memberships) on 1x{RANKS} ranks, {wall:.3f} s "
+        f"wall: allgather and ring emissions == phase 5's one-card emission; rank 0's product == "
+        f"int8_gram_plain ({t['plain_ms']:.3f} ms, chunked float64) and torch._int_mm on the whole "
+        f"one-hot {t['library_ms']:.3f} ms; emission == its CPU plain version "
+        f"({t['emit_plain_ms']:.3f} ms); sharded ALS loss {als_[0]['final_loss']} (phase 11 (c)'s "
+        f"one-card sparse training at 1M x 1M: {one_card_loss})")
+    return {"ranks": results, "wall_s": wall, "bound_ms": bound[0], "bound_by": bound[1],
+            "ring_step_bound_ms": ring_bound[0], "emit_bound_ms": emit_bound[0],
+            "als_bound_ms": als_bound["ms"], "als_bound_by": als_bound["bound_by"]}
+
+
+def phase_sharded(work: str | None = None, one_card_loss: float | None = None,
+                  shape: dict | None = None) -> dict:
+    """Phase 14: vocab-sharded mining on ranks sharing the card (alone:
+    ``python -c "import chip_smoke as c; c.phase_sharded()"`` writes its own
+    ds2 PVC and scale baskets at ``shape``, default the full scale shape)."""
+    import torch
+
+    from kmlserver_tpu_torch.data.csv import write_tracks_csv
+    from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_baskets, synthetic_table
+
+    t0 = time.perf_counter()
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke14_")
+    try:
+        backend = predicted_backend()
+        log(f"phase 14 case: {RANKS} and 4 ranks "
+            + ("over nccl" if backend == "nccl" else "sharing cuda:0 over gloo")
+            + f" ({torch.cuda.device_count()} card(s) visible)")
+        csv_src = os.path.join(work, "pvc", "datasets", FRESH_CSV)  # phase 4's
+        if not os.path.exists(csv_src):
+            os.makedirs(os.path.dirname(csv_src))
+            write_tracks_csv(csv_src, synthetic_table(**DS2_SHAPE, seed=7))
+        if not os.path.exists(os.path.join(work, "scale_tensors.npz")):
+            from kmlserver_tpu_torch.config import MiningConfig
+            from kmlserver_tpu_torch.mining.miner import mine
+
+            baskets = synthetic_baskets(**(shape or SCALE), seed=2024)
+            np.save(os.path.join(work, "scale_rows.npy"), baskets.playlist_rows)
+            np.save(os.path.join(work, "scale_tids.npy"), baskets.track_ids)
+            with open(os.path.join(work, "scale_shape.json"), "w") as fh:
+                json.dump({"n_playlists": baskets.n_playlists, "n_tracks": baskets.n_tracks}, fh)
+            save_tensors(work, mine(baskets, MiningConfig(min_support=SCALE_MIN_SUPPORT)).tensors)
+            del baskets
+            torch.cuda.empty_cache()
+            log(f"phase 14: scale baskets {shape or SCALE} generated (seed 2024) and mined")
+        t_a = time.perf_counter()
+        job = sharded_manifest_job(work, csv_src)
+        t_b = time.perf_counter()
+        in_process = sharded_in_process(work)
+        t_c = time.perf_counter()
+        scale = sharded_scale(work, one_card_loss)
+        t_end = time.perf_counter()
+        result = {"job": job, "ds2": in_process, "scale": scale,
+                  "seconds": {"a": t_b - t_a, "b": t_c - t_b, "c": t_end - t_c,
+                              "phase": t_end - t0}}
+        log(f"phase 14 seconds {t_end - t0:.3f} ((a) {t_b - t_a:.3f}, (b) {t_c - t_b:.3f}, "
+            f"(c) {t_end - t_c:.3f})")
+        log("PHASE14 " + json.dumps(result, default=str))
+        return result
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def save_tensors(work: str, tensors) -> None:
+    """Phase 5's rule tensors, for phase 14 (c) to hold its emissions against."""
+    np.savez(os.path.join(work, "scale_tensors.npz"), rule_ids=tensors.rule_ids,
+             rule_counts=tensors.rule_counts, row_valid_counts=tensors.row_valid_counts,
+             item_counts=tensors.item_counts)
+
+
+def x8_entry(sharded: dict) -> dict:
+    """The sharded routes' calls and times for the kernels line: each dense
+    schedule, the slab emission, the sparse-sharded count and the sharded
+    ALS sweep, by the ranks of phase 14 (b) and (c). They run library ops,
+    no hand kernel, so they count calls (``support.CALLS``,
+    ``als.CALLS``), not launches."""
+    scale = sharded["scale"]
+    r0 = scale["ranks"][0]
+    t = r0["times"]
+    calls: dict[str, int] = {}
+    counted = [c["calls"] for res in sharded["ds2"].values() for c in res["impls"].values()]
+    counted += [m["calls"] for res in sharded["ds2"].values() for m in res["mines"].values()]
+    counted += [route["calls"] for res in scale["ranks"] for route in res["routes"].values()]
+    for one in counted:
+        for key, n in one.items():
+            calls[key] = calls.get(key, 0) + n
+    calls["als_sharded_sweep"] = sum(res["als"]["calls"] for res in scale["ranks"])
+    return {
+        "calls": calls,
+        "local_product_ms": max(res["times"]["product_ms"] for res in scale["ranks"]),
+        "ring_step_ms": max(res["times"]["ring_step_ms"] for res in scale["ranks"]),
+        "bound_ms": scale["bound_ms"], "bound_by": scale["bound_by"],
+        "ring_step_bound_ms": scale["ring_step_bound_ms"],
+        "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+        "emit_ms": max(res["times"]["emit_ms"] for res in scale["ranks"]),
+        "emit_bound_ms": scale["emit_bound_ms"],
+        "emit_plain_ms": t["emit_plain_ms"],
+        "route_wall_s": {impl: max(res["routes"][impl]["wall_s"] for res in scale["ranks"])
+                         for impl in r0["routes"]},
+        "als_sweep_s": [max(s) for s in zip(*(res["als"]["sweep_s"] for res in scale["ranks"]))],
+        "als_train_s": max(res["als"]["duration_s"] for res in scale["ranks"]),
+        "als_bound_ms": scale["als_bound_ms"], "als_bound_by": scale["als_bound_by"],
+        "als_peak_gib": [res["als"]["peak_gib"] for res in scale["ranks"]],
+        "max_abs_err": t["product_max_abs_err"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -4270,15 +4960,18 @@ def main() -> int:
         phase_observability(work)
         scale = phase_scale(2024, work, QUICK_SCALE if quick else SCALE)
         ranks = phase_ranks(work, scale)
+        save_tensors(work, scale["tensors"])  # phase 14 (c) is held against them
         # phase 5's tensors on the card are spent: phase 12 (b) needs the room
         for key in ("slabs", "slab_plain", "tensors"):
             scale.pop(key)
         embed = phase_embeddings(work)
         phase_freshness(work)
         quality = phase_quality(work)
+        routes = phase_routes()
+        torch.cuda.empty_cache()  # phase 14's ranks share the card with this process
+        sharded = phase_sharded(work, embed["scale"]["final_loss"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    routes = phase_routes()
     kernel = scale["kernel"]
     kernel["launches_job"] = e2e["job_launches"]
     kernel["launches_resume_after_encode"] = resume["resumes"]["encode"]["launches"]
@@ -4287,6 +4980,13 @@ def main() -> int:
     kernel["sparse_long_block"] = routes["long_block"]
     small_err = max(small_err, routes["long_block"]["max_abs_err"])
     kernel["launches_sharded"] = ranks["kernel"]["launches"] + sum(ranks["launches_job"])
+    # phase 14: the sharded routes' launches; the sparse-sharded route's
+    # long-basket block is this kernel's
+    x8 = x8_entry(sharded)
+    ranks["kernel"]["x8"] = x8
+    ranks["kernel"]["launches_sparse_sharded"] = sum(
+        m["launches"]["popcount_pairs"] for res in sharded["ds2"].values()
+        for label, m in res["mines"].items() if label == "sparse-sharded")
     kernel["max_abs_err"] = max(kernel["max_abs_err"], small_err)
     for entry in (kernel, ranks["kernel"]):
         entry["ptxas_registers"] = registers

@@ -223,6 +223,10 @@ class MiningConfig:
     mesh_shape: str = "auto"
     # "replicated", "sharded" or "auto" (parallel/layout.py)
     model_layout: str = "replicated"
+    # the dense sharded count's schedule over a mesh with a vocab axis:
+    # "gspmd", "allgather" or "ring" (parallel/support.py); another value
+    # raises where the count starts, as in the reference
+    sharded_impl: str = "gspmd"
     # phase checkpoints (mining/checkpoint.py): after encode, mine and
     # rules the writer rank saves the phase's host payload, keyed by a
     # config + dataset fingerprint, and a restarted job resumes from it
@@ -326,6 +330,7 @@ class MiningConfig:
             als_sparse=os.getenv("KMLS_ALS_SPARSE", "auto"),
             mesh_shape=os.getenv("KMLS_MESH_SHAPE", "auto"),
             model_layout=_getenv_model_layout(),
+            sharded_impl=os.getenv("KMLS_SHARDED_IMPL", "gspmd"),
             checkpoint_enabled=_getenv_bool("KMLS_CKPT_ENABLED", True),
             checkpoint_dir=os.getenv("KMLS_CKPT_DIR", ""),
             checkpoint_quarantine_after=_getenv_int("KMLS_CKPT_QUARANTINE_AFTER", 2),

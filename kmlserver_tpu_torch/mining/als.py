@@ -9,7 +9,7 @@ Gramian and each is one batched normal-equation solve:
     U ← X F (FᵀF + λI)⁻¹        F ← Xᵀ U (UᵀU + λI)⁻¹
 
 Two storages, decided by the reference's byte formulas against
-``hbm_budget_bytes`` so both packages decide alike:
+``hbm_budget_bytes`` so both packages decide alike, and two layouts:
 
 - **dense**: X as f32 on the device; the two big × skinny products are
   ``torch.matmul`` (TF32 off, PyTorch's default) and the solves
@@ -26,11 +26,14 @@ then items), so both packages start from identical factors; two trainings
 on the same card give bit-identical factors, which the ``embed`` phase's
 checkpoint resume and the manifest sha256 rely on.
 
-The reference's mesh-sharded sweep (``_train_sharded``) is not ported:
-where it would shard, a ``NOTE:`` is printed and the training runs on one
-card with the single-device storage decision (the reference's own layouts
-are float-different, so this is another float-different route, not a
-different model).
+- **mesh-sharded** (``KMLS_MODEL_LAYOUT=sharded``, or ``auto`` where one
+  device's dense matrix would bust the budget; reference
+  ``_train_sharded``): each rank keeps X's ``(P, V/tp)`` f32 column block
+  and its rows of the item factors, zero-padded past V. The item Gramian
+  and ``X F`` are summed over ``tp`` in rank order
+  (``parallel/collectives.sum_in_order``), so every rank solves the same
+  users; the item solve is local. The sharded factors are float-different
+  from one card's, as the reference's are, and bit-identical run to run.
 """
 
 from __future__ import annotations
@@ -45,12 +48,19 @@ import torch
 from ..config import MiningConfig
 from ..ops import encode
 from ..ops.segsum import build_csr, segment_sum
+from ..parallel import collectives
 from ..parallel.layout import validate_layout
-from ..parallel.mesh import AXIS_TP
+from ..parallel.mesh import AXIS_TP, round_up, this_rank
 from ..utils.device import resolve_device
 from .vocab import Baskets
 
 ALS_SPARSE_MODES = ("auto", "always", "never")
+# sweeps of the mesh-sharded training that ran on a CUDA device (calls of
+# torch.matmul and torch.linalg.solve, not hand-kernel launches)
+CALLS = {"sharded_sweep": 0}
+
+# elements of the residual the sharded loss builds at a time (1 GiB of f32)
+_LOSS_CHUNK_ELEMS = 1 << 28
 
 # accumulation-chunk ceiling of the reference's sparse half-sweeps; the
 # budget formula counts one (chunk, R) gathered block, and the loss's
@@ -176,6 +186,113 @@ def _train_dense(
     return item_f.cpu().numpy(), loss
 
 
+def _sharded_sweep(x_blocks, user_f, item_blocks, reg, total):
+    """One sweep with the item axis cut into vocab blocks (reference
+    ``_sharded_sweep_fn``): ``total`` sums the blocks' partials of the item
+    Gramian and of ``X F``; every block's item solve is local. A rank holds
+    one block and ``total`` sums over ``tp``; the plain version holds them
+    all and sums them in the same order."""
+    eye = _eye_reg(user_f.shape[1], reg)
+    g_item = total([f.T @ f for f in item_blocks]) + eye
+    xf = total([x @ f for x, f in zip(x_blocks, item_blocks)])
+    user_f = torch.linalg.solve(g_item, xf.T).T
+    g_user = user_f.T @ user_f + eye
+    item_blocks = [torch.linalg.solve(g_user, (x.T @ user_f).T).T for x in x_blocks]
+    return user_f, item_blocks
+
+
+def _sharded_loss(x_blocks, user_f, item_blocks, reg, total) -> float:
+    """The loss over the blocks (reference ``_sharded_loss_fn``): each
+    block's residual and item penalty summed over the blocks, the user
+    penalty added once on the host. A block's residual ``X − U Fᵀ`` is
+    built over row chunks of at most ``_LOSS_CHUNK_ELEMS`` elements, summed
+    in chunk order, so a rank holds its X block and one chunk."""
+    local = []
+    for x, f in zip(x_blocks, item_blocks):
+        step = max(1, _LOSS_CHUNK_ELEMS // max(x.shape[1], 1))
+        resid = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, x.shape[0], step):
+            chunk = torch.addmm(x[lo:lo + step], user_f[lo:lo + step], f.T, alpha=-1.0)
+            resid = resid + torch.sum(chunk.square_())
+            del chunk  # freed before the next chunk is made: one at a time
+        local.append(resid + reg * torch.sum(f * f))
+    user_host = user_f.cpu().numpy()
+    return float(total(local)) + float(reg) * float(np.sum(user_host * user_host))
+
+
+def _x_block(baskets: Baskets, p: int, lo: int, width: int, device) -> torch.Tensor:
+    """Columns ``[lo, lo + width)`` of the f32 interaction matrix, built at
+    that width (zero past V) with no int8 staging copy."""
+    rows = np.asarray(baskets.playlist_rows)
+    tids = np.asarray(baskets.track_ids)
+    keep = (tids >= lo) & (tids < lo + width)
+    x = torch.zeros((p, width), dtype=torch.float32, device=device)
+    x.index_put_(
+        (torch.as_tensor(rows[keep], device=device).long(),
+         torch.as_tensor(tids[keep] - lo, device=device).long()),
+        torch.ones((), dtype=torch.float32, device=device),
+    )
+    return x
+
+
+def _vocab_blocks(item_init: np.ndarray, v: int, tp: int) -> tuple[int, np.ndarray]:
+    """``(V_loc, the item init zero-padded to tp·V_loc rows)``: padded rows
+    meet zero interaction columns and solve to zero in every sweep."""
+    v_loc = round_up(max(v, 1), tp) // tp
+    padded = np.zeros((v_loc * tp, item_init.shape[1]), dtype=np.float32)
+    padded[:v] = item_init
+    return v_loc, padded
+
+
+def _train_sharded(
+    baskets: Baskets, mesh, user_init: np.ndarray, item_init: np.ndarray,
+    reg: torch.Tensor, iters: int, p: int, v: int, device: torch.device,
+) -> tuple[np.ndarray, float]:
+    """This rank's part of the mesh-sharded training → ``(item factors
+    (V, R), final loss)``, the same on every rank: its X block and item
+    rows, the sums over its ``tp`` row, the item blocks gathered at the
+    end."""
+    axis = mesh.axis(AXIS_TP)
+    t = axis.ranks.index(this_rank())
+    v_loc, padded = _vocab_blocks(item_init, v, axis.size)
+    x_blocks = [_x_block(baskets, p, t * v_loc, v_loc, device)]
+    item_blocks = [torch.as_tensor(padded[t * v_loc:(t + 1) * v_loc], device=device)]
+    user_f = torch.as_tensor(user_init, device=device)
+
+    def total(parts):
+        return collectives.sum_in_order(parts[0], axis)
+
+    for _ in range(iters):
+        user_f, item_blocks = _sharded_sweep(x_blocks, user_f, item_blocks, reg, total)
+        if device.type == "cuda":
+            CALLS["sharded_sweep"] += 1
+    loss = _sharded_loss(x_blocks, user_f, item_blocks, reg, total)
+    items = collectives.all_gather_cat(item_blocks[0], axis)
+    return items[:v].cpu().numpy(), loss
+
+
+def train_sharded_plain(
+    baskets: Baskets, user_init: np.ndarray, item_init: np.ndarray,
+    reg: torch.Tensor, iters: int, tp: int, device: str | torch.device = "cpu",
+) -> tuple[np.ndarray, float]:
+    """:func:`_train_sharded` in one process: all ``tp`` blocks held, their
+    partials summed in block order — the same bits as the ranks' on the
+    same device."""
+    dev = resolve_device(device)
+    p, v = baskets.n_playlists, baskets.n_tracks
+    v_loc, padded = _vocab_blocks(item_init, v, tp)
+    x_blocks = [_x_block(baskets, p, t * v_loc, v_loc, dev) for t in range(tp)]
+    item_blocks = [torch.as_tensor(padded[t * v_loc:(t + 1) * v_loc], device=dev)
+                   for t in range(tp)]
+    user_f = torch.as_tensor(user_init, device=dev)
+    reg = reg.to(dev)
+    for _ in range(iters):
+        user_f, item_blocks = _sharded_sweep(x_blocks, user_f, item_blocks, reg,
+                                             collectives.add_in_order)
+    loss = _sharded_loss(x_blocks, user_f, item_blocks, reg, collectives.add_in_order)
+    return torch.cat(item_blocks)[:v].cpu().numpy(), loss
+
+
 def normalize_factors(item_factors: np.ndarray) -> np.ndarray:
     """Row-L2-normalize → unit vectors (cosine similarities in [-1, 1]); a
     zero row keeps a zero vector instead of NaN."""
@@ -224,36 +341,41 @@ def train_embeddings(
     iters = max(1, cfg.als_iters)
     p, v = baskets.n_playlists, baskets.n_tracks
     nnz = len(baskets.playlist_rows)
-    if _als_shards(cfg, mesh, p, v, rank) > 1:
-        print(
-            "NOTE: the mesh-sharded ALS sweep is not ported; training on one "
-            "card with the single-device storage decision (float-different "
-            "from the sharded layout, as the reference's layouts are from "
-            "each other)"
-        )
+    shards = _als_shards(cfg, mesh, p, v, rank)
     storage_mode = resolve_als_sparse(getattr(cfg, "als_sparse", "auto"))
-    dense_bytes = 5 * p * v + 8 * rank * (p + v)
+    # the dense slab divides across the vocab shards (the reference's guard)
+    dense_bytes = 5 * p * v // shards + 8 * rank * (p + v)
     sparse_bytes = sparse_als_bytes(nnz, p, v, rank)
     budget = cfg.hbm_budget_bytes
     use_sparse = False
     if storage_mode == "always":
-        if sparse_bytes > budget:
+        if shards > 1:
+            print(
+                "NOTE: KMLS_ALS_SPARSE=always under the mesh-sharded "
+                "layout keeps the sharded dense half-sweeps (the mesh "
+                "already divides the matrix); sparse storage applies to "
+                "single-device training"
+            )
+        elif sparse_bytes > budget:
             return _skipped(rank, iters, cfg, (
                 f"KMLS_ALS_SPARSE=always pins the compressed form but "
                 f"~{sparse_bytes >> 20} MiB for {nnz} nnz exceeds "
                 f"hbm_budget_bytes ({budget >> 20} MiB); embed phase skipped "
                 "— serving stays rules-only"
             ))
-        use_sparse = True
-    elif storage_mode == "auto" and dense_bytes > budget and sparse_bytes <= budget:
+        else:
+            use_sparse = True
+    elif (storage_mode == "auto" and shards == 1 and dense_bytes > budget
+          and sparse_bytes <= budget):
         use_sparse = True
     if not use_sparse and dense_bytes > budget:
         return _skipped(rank, iters, cfg, (
             f"dense {p}x{v} interaction matrix (~{dense_bytes >> 20} MiB per "
-            f"device across 1 shard(s)) exceeds hbm_budget_bytes "
+            f"device across {shards} shard(s)) exceeds hbm_budget_bytes "
             f"({budget >> 20} MiB) and sparse storage is "
             + ("disabled (KMLS_ALS_SPARSE=never)" if storage_mode == "never"
-               else f"also over budget (~{sparse_bytes >> 20} MiB for {nnz} nnz)")
+               else f"also over budget (~{sparse_bytes >> 20} MiB for {nnz} nnz)"
+               if shards == 1 else "single-device only (sharded layout active)")
             + "; embed phase skipped — serving stays rules-only"
         ))
     t0 = time.perf_counter()
@@ -263,8 +385,14 @@ def train_embeddings(
     user_init = (rng.standard_normal((p, rank)).astype(np.float32) / np.sqrt(rank)).astype(np.float32)
     item_init = (rng.standard_normal((v, rank)).astype(np.float32) / np.sqrt(rank)).astype(np.float32)
     reg = torch.tensor(cfg.als_reg, dtype=torch.float32, device=dev)
-    train = _train_sparse if use_sparse else _train_dense
-    item_raw, final_loss = train(baskets, user_init, item_init, reg, iters, p, v, dev)
+    if use_sparse:
+        item_raw, final_loss = _train_sparse(baskets, user_init, item_init, reg, iters, p, v, dev)
+    elif shards > 1:
+        item_raw, final_loss = _train_sharded(
+            baskets, mesh, user_init, item_init, reg, iters, p, v, dev
+        )
+    else:
+        item_raw, final_loss = _train_dense(baskets, user_init, item_init, reg, iters, p, v, dev)
     return {
         "item_factors": normalize_factors(item_raw),
         "rank": rank,
@@ -272,7 +400,7 @@ def train_embeddings(
         "reg": float(cfg.als_reg),
         "final_loss": final_loss,
         "duration_s": time.perf_counter() - t0,
-        "shards": 1,
+        "shards": shards,
         "storage": "sparse" if use_sparse else "dense",
         "nnz": nnz,
     }

@@ -22,16 +22,19 @@ the bracket in support mode), and in confidence mode the merged
 multi-antecedent confidences (inside it): frequent pairs → triple
 extension → (quad extension) → ``rules.merge_confidence_contributions``.
 
-With a rank mesh every rank runs the same prune, packs its slab of the word
-axis, counts it with the kernel and all-reduces the partials
-(``parallel/support.py``; the reference's ``sharded-bitpack`` route, ``tp``
-flattened onto ``dp``). Counts are exact integers, so the rule tensors
-equal the reference's whichever count route either package took. Three of
-the reference's routes are not ported; each prints a ``NOTE:`` where the
-reference would take it: the native-CPU counter (the port counts on the
-route the plan named), the dense sharded and vocab-sharded counts (the
-dp-sharded bit-packed route instead) and the sparse-sharded route (each
-rank mines ``sparse-hybrid``).
+With a rank mesh every rank runs the same prune and takes the reference's
+routes (``parallel/support.py``): the bit-packed count with ``tp``
+flattened onto ``dp`` where bitpack is wanted (``sharded-bitpack-*``:
+each rank packs and counts its slab of the word axis and the partials are
+all-reduced), else the dense sharded count (``sharded-dense-<impl>``,
+``KMLS_SHARDED_IMPL``). Under ``KMLS_MODEL_LAYOUT=sharded`` on a mesh with
+a vocab axis, each rank counts and emits its own rows
+(``sharded-vocab-<impl>``), or feeds its rows of the sparse count to the
+same emission (``sparse-sharded``). Counts are exact integers, so the rule
+tensors equal the reference's whichever count route either package took.
+One of the reference's routes is not ported: its native-CPU counter, and
+the port prints a ``NOTE:`` where the reference would take it and counts
+on the route the plan named.
 
 Timing brackets rule generation like the reference (machine-learning/
 main.py:264,306-308), synchronising the device at each phase boundary so
@@ -50,8 +53,8 @@ from ..config import MiningConfig
 from ..ops import encode, popcount, rules, sparse
 from ..ops import support as support_ops
 from ..ops.support import min_count_for
-from ..parallel import layout, support
-from ..parallel.mesh import RankMesh
+from ..parallel import collectives, layout, support
+from ..parallel.mesh import AXIS_DP, RankMesh
 from ..utils import profiling
 from ..utils.device import backend_name, resolve_device
 from ..utils.profiling import PhaseTimer, trace_session
@@ -82,7 +85,9 @@ class MiningResult:
     # which pair-count route ran: "dense-fused", "dense", "sparse-hybrid",
     # "bitpack-cuda" (the CUDA kernel), "bitpack-torch" (its plain PyTorch
     # version on the CPU), the last two with a "sharded-" prefix over a
-    # rank mesh, or "pruned-empty" (nothing frequent in a large vocabulary)
+    # rank mesh, "sharded-dense-<impl>", "sharded-vocab-<impl>",
+    # "sparse-sharded", or "pruned-empty" (nothing frequent in a large
+    # vocabulary)
     count_path: str | None = None
     # how the dispatch decided (mining/dispatch.py CountPlan.source:
     # override/threshold/table/heuristic, or census-override)
@@ -190,38 +195,38 @@ def pair_count_fn(
     mesh: RankMesh | None = None,
     bitpack_threshold_elems: int | str | None = None,
     hbm_budget_bytes: int = 12 << 30,
+    sharded_impl: str = "gspmd",
 ) -> tuple[torch.Tensor, torch.Tensor | None, str]:
     """The staged count: one-hot encode + pair counts, bit-packed or dense,
     over a rank mesh or on one device.
 
     Returns ``(counts, x_onehot_or_None, path)``: the ``(V, V)`` int32
     counts on ``device``, and the one-hot on the dense single-device route
-    (the census reuses it; the bit-packed routes never build it). ``path``
-    names the route that ran — the one source of ``count_path``."""
+    (the census reuses it; the sharded and bit-packed routes never build
+    the whole of it). ``path`` names the route that ran — the one source of
+    ``count_path``."""
     suffix = "cuda" if device.type == "cuda" else "torch"
     v = baskets.n_tracks
     n_rows = len(baskets.playlist_rows)
     if mesh is not None:
-        if not bitpack_wanted(
+        if bitpack_wanted(
             baskets.n_playlists, v, bitpack_threshold_elems,
             hbm_budget_bytes=hbm_budget_bytes, n_devices=mesh.size,
             n_rows=n_rows, backend=backend_name(device),
         ):
-            print(
-                "NOTE: the dense sharded count is not ported; counting on "
-                "the dp-sharded bit-packed route (exact counts, so the same "
-                "rule tensors)"
-            )
-        # the bitpack count shards the word axis over dp only: flatten
-        # every rank onto dp (reference miner.py:216-219)
-        mesh = mesh.flattened()
-        with timer.phase("bitpack"):
-            bt = support.pack_rank_slab(baskets, mesh, device)
+            # the bitpack count shards the word axis over dp only: flatten
+            # every rank onto dp (reference miner.py:216-219)
+            mesh = mesh.flattened()
+            with timer.phase("bitpack"):
+                bt = support.pack_rank_slab(baskets, mesh, device)
+            with timer.phase("pair_counts"):
+                counts = _popcount_counts(bt)
+            with timer.phase("all_reduce"):
+                collectives.all_reduce_sum_(counts, mesh.axis(AXIS_DP))
+            return counts[:v, :v], None, f"sharded-bitpack-{suffix}"
         with timer.phase("pair_counts"):
-            counts = _popcount_counts(bt)
-        with timer.phase("all_reduce"):
-            support.reduce_counts(counts, mesh)
-        return counts[:v, :v], None, f"sharded-bitpack-{suffix}"
+            counts = support.sharded_pair_counts(baskets, mesh, sharded_impl, device)
+        return counts, None, f"sharded-dense-{sharded_impl}"
     if bitpack_wanted(
         baskets.n_playlists, v, bitpack_threshold_elems,
         hbm_budget_bytes=hbm_budget_bytes, n_rows=n_rows,
@@ -548,6 +553,15 @@ def _mine_timed(
             "counter, which is not ported; counting on the route the plan "
             "named (exact counts, so the same rule tensors)"
         )
+    # the vocab-sharded count + emit (reference miner.py:635-660): each
+    # rank counts and emits its own rows; the census and the triple merge
+    # need the whole one-hot, so they keep the staged route
+    use_shard_mine = (
+        layout.wants_sharded_mining(cfg, mesh)
+        and not wants_bitpack
+        and not use_sparse
+        and cfg.max_itemset_len < 3
+    )
     use_fused = (
         mesh is None
         and not wants_bitpack
@@ -555,14 +569,31 @@ def _mine_timed(
         and cfg.max_itemset_len < 3
     )
     counts = x = None
-    if use_sparse:
-        count_path = "sparse-hybrid"
-        if layout.wants_sharded_mining(cfg, mesh):
-            print(
-                "NOTE: the sparse-sharded route is not ported; each rank "
-                "mines sparse-hybrid (exact counts, so the same rule tensors)"
+    emit = dict(
+        n_playlists=mined.n_playlists, min_support=cfg.min_support,
+        k_max=cfg.k_max_consequents, mode=cfg.confidence_mode,
+        min_confidence=cfg.min_confidence, n_total_songs=n_total,
+        n_tracks=mined.n_tracks,
+    )
+    if use_sparse and layout.wants_sharded_mining(cfg, mesh):
+        count_path = "sparse-sharded"
+        with timer.phase("sparse_mine"):
+            emitted = support.sparse_sharded_rule_tensors(
+                mined, mesh, min_count, cfg.k_max_consequents,
+                long_basket_threshold=cfg.sparse_long_basket or None, device=dev,
             )
+            tensors = rules.assemble_rule_tensors(*emitted, **emit)
+    elif use_sparse:
+        count_path = "sparse-hybrid"
         tensors = _sparse_mine(mined, cfg, dev, timer, min_count, n_total)
+    elif use_shard_mine:
+        count_path = f"sharded-vocab-{cfg.sharded_impl}"
+        with timer.phase("sharded_mine"):
+            emitted = support.sharded_rule_tensors(
+                mined, mesh, min_count, cfg.k_max_consequents,
+                impl=cfg.sharded_impl, device=dev,
+            )
+            tensors = rules.assemble_rule_tensors(*emitted, **emit)
     elif use_fused:
         count_path = "dense-fused"
         with timer.phase("fused_mine"):
@@ -582,32 +613,14 @@ def _mine_timed(
                 f"rule tensors, {emitted[0].dtype}/{emitted[1].dtype})"
             )
             tensors = rules.assemble_rule_tensors(
-                *(np.asarray(a, dtype=np.int32) for a in emitted),
-                n_playlists=mined.n_playlists,
-                min_support=cfg.min_support,
-                k_max=cfg.k_max_consequents,
-                mode=cfg.confidence_mode,
-                min_confidence=cfg.min_confidence,
-                n_total_songs=n_total,
-                n_tracks=mined.n_tracks,
+                *(np.asarray(a, dtype=np.int32) for a in emitted), **emit
             )
     else:
-        if (
-            layout.wants_sharded_mining(cfg, mesh)
-            and not wants_bitpack
-            and cfg.max_itemset_len < 3
-        ):
-            print(
-                "NOTE: KMLS_MODEL_LAYOUT=sharded: the vocab-sharded count and "
-                "emission are not ported; counting on the dp-sharded "
-                "bit-packed route with tp flattened onto dp (exact counts, "
-                "so the same rule tensors)"
-            )
-            staged_threshold = 1
         counts, x, count_path = pair_count_fn(
             mined, dev, timer, mesh,
             bitpack_threshold_elems=staged_threshold,
             hbm_budget_bytes=cfg.hbm_budget_bytes,
+            sharded_impl=cfg.sharded_impl,
         )
         with timer.phase("rule_emission"):
             tensors = rules.mine_rules_from_counts(

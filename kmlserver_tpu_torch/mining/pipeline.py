@@ -322,12 +322,18 @@ def _note_mine_metrics(jm: JobMetrics, encoded: dict, result: MiningResult) -> N
 
 
 def _run_embed_phase(phase, cfg: MiningConfig, baskets, device, mesh,
-                     jm: JobMetrics | None) -> dict | None:
+                     jm: JobMetrics | None, watchdog: RankWatchdog | None) -> dict | None:
     """The checkpointed ``embed`` phase → its payload, or None when the
-    HBM-fit guard declined to train (a rules-only generation, said so)."""
+    HBM-fit guard declined to train (a rules-only generation, said so).
+    The mesh-sharded training sums over its ranks, so it runs under the
+    watchdog's guard as the mine does."""
     from . import als
 
-    payload = phase("embed", lambda: als.train_embeddings(baskets, cfg, mesh=mesh, device=device))
+    def _train() -> dict:
+        with _guarded(watchdog, "embed"):
+            return als.train_embeddings(baskets, cfg, mesh=mesh, device=device)
+
+    payload = phase("embed", _train)
     if payload.get("item_factors") is None:
         print(f"ALS embed phase skipped: {payload.get('skipped')}")
         return None
@@ -449,7 +455,8 @@ def run_mining_job(
     """One rotation run of the mining job on ``device`` (default ``cuda``;
     raises when no card is present and ``device`` is not ``"cpu"``). With a
     ``mesh`` every rank of it runs this; ``watchdog`` bounds the sections
-    that wait on a peer (the delta route's outcome, the mine, the eval)."""
+    that wait on a peer (the delta route's outcome, the mine, the embed, the
+    eval)."""
     print(f"Job starting at {get_current_time_str()}")
     if cfg.delta_enabled:
         summary = _run_delta_route(cfg, device, watchdog)
@@ -536,7 +543,8 @@ def run_mining_job(
             _note_mine_metrics(jm, encoded, result)
         rules_dict = phase("rules", lambda: tensors.to_rules_dict(result.vocab_names))
         emb_payload = (
-            _run_embed_phase(phase, cfg, baskets, device, mesh, jm) if cfg.embed_enabled else None
+            _run_embed_phase(phase, cfg, baskets, device, mesh, jm, watchdog)
+            if cfg.embed_enabled else None
         )
         qual_report = None
         if cfg.eval_enabled:

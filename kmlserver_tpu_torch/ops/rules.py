@@ -34,18 +34,22 @@ from .support import min_count_for
 
 
 def emit_rule_tensors(
-    pair_count_matrix: torch.Tensor, min_count: int, *, k_max: int
+    pair_count_matrix: torch.Tensor, min_count: int, *, k_max: int, row_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Threshold + per-row top-k over the pair-count matrix, on its device.
 
-    Returns ``(rule_ids, rule_counts, row_valid_counts)`` where
-    ``row_valid_counts[i]`` is the TRUE number of frequent consequents of i
-    (may exceed ``k_max``; the caller detects truncation overflow)."""
-    v = pair_count_matrix.shape[0]
+    ``pair_count_matrix`` is the whole ``(V, V)`` matrix, or a slab of its
+    rows starting at row ``row_offset`` (the vocab-sharded emission,
+    ``parallel/support.py``): each row's diagonal is masked at its global
+    index. Returns ``(rule_ids, rule_counts, row_valid_counts)`` where
+    ``row_valid_counts[i]`` is the TRUE number of frequent consequents of
+    row i (may exceed ``k_max``; the caller detects truncation overflow)."""
+    n_rows, v = pair_count_matrix.shape
     dev = pair_count_matrix.device
     counts = pair_count_matrix.to(torch.int64)
     valid = counts >= min_count
-    valid.fill_diagonal_(False)
+    rows = torch.arange(n_rows, device=dev)
+    valid[rows, rows + row_offset] = False
     row_valid_counts = valid.sum(dim=1, dtype=torch.int32)
     score = torch.where(valid, counts, torch.full_like(counts, -1))
     k = min(k_max, v)

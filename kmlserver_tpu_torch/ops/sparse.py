@@ -20,7 +20,9 @@ reference's exact float64 contraction.
 
 The host functions (:func:`sparse_pair_counts_np`, :func:`sparse_rule_rows`)
 are copies of the reference's; :func:`sparse_pair_counts_device` scatter-adds
-the same event stream into the counts on the device.
+the same event stream into the counts on the device, and
+:func:`sparse_pair_count_rows` only one rank's rows of them (the
+sparse-sharded route, ``parallel/support.py``).
 :func:`sparse_restricted_pair_counts_np` is the reference's host route of
 the delta recount: only the rows of the requested antecedents.
 """
@@ -358,6 +360,122 @@ def sparse_pair_counts_device(
     u = upper.view(n_tracks, n_tracks)
     out += u
     out += u.t()
+    return out
+
+
+def _stacked_counts(
+    playlists: np.ndarray, ids: np.ndarray, p: int, v: int, device: torch.device
+) -> torch.Tensor:
+    """``XᵀX`` int32 ``(v, v)`` of a compact sub-problem of ``p`` playlists
+    whose ``v`` columns are two stacked id ranges: the popcount kernel on a
+    CUDA device, the exact float64 contraction on the CPU (as
+    :func:`_count_long_dense`)."""
+    from . import popcount as pc
+
+    if device.type == "cuda":
+        v_pad, w_pad = pc.padded_shape(v, p)
+        bt = pc.bitpack_by_track(
+            playlists.astype(np.int32), ids.astype(np.int32),
+            n_playlists=p, n_tracks=v, v_pad=v_pad, w_pad=w_pad, device=device,
+        )
+        return pc.popcount_pair_counts_padded(bt)
+    x = np.zeros((p, v), dtype=np.float64)
+    x[playlists, ids] = 1.0
+    return torch.from_numpy((x.T @ x).astype(np.int32))
+
+
+def _add_long_rows(
+    out: torch.Tensor, rows: np.ndarray, tids: np.ndarray, lo: int, n_tracks: int
+) -> None:
+    """Rows ``[lo, lo + n)`` of the long baskets' counts added into ``out``
+    ``(n, n_cols)``, never the whole ``(V, V)`` block. The rows and the
+    columns are cut into tiles of ``w`` tracks, ``w`` about half of ``n``;
+    for each pair of tiles the long baskets that hold a track of the row
+    tile are gathered (compact playlists) with both tiles' tracks stacked
+    as ``2w`` columns, and the off-diagonal quarter of their ``(2w, 2w)``
+    count is the pair's block. So beside ``out`` a rank holds one
+    ``(2w, 2w)`` int32 block and its bitset: memory per rank goes as
+    ``V / tp``."""
+    from . import popcount as pc
+
+    n = out.shape[0]
+    hi = min(lo + n, n_tracks)
+    if hi <= lo or rows.size == 0:
+        return
+    vt = pc.v_tile()
+    w = -(-((n + 1) // 2) // vt) * vt
+    for a_lo in range(lo, hi, w):
+        a_hi = min(a_lo + w, hi)
+        baskets = np.unique(rows[(tids >= a_lo) & (tids < a_hi)])
+        if baskets.size == 0:
+            continue
+        member = np.isin(rows, baskets)
+        r_sel, t_sel = rows[member], tids[member]
+        compact = np.searchsorted(baskets, r_sel)
+        in_a = (t_sel >= a_lo) & (t_sel < a_hi)
+        for b_lo in range(0, n_tracks, w):
+            b_hi = min(b_lo + w, n_tracks)
+            in_b = (t_sel >= b_lo) & (t_sel < b_hi)
+            if not in_b.any():
+                continue
+            block = _stacked_counts(
+                np.concatenate([compact[in_a], compact[in_b]]),
+                np.concatenate([t_sel[in_a] - a_lo, w + t_sel[in_b] - b_lo]),
+                len(baskets), 2 * w, out.device,
+            )
+            out[a_lo - lo:a_hi - lo, b_lo:b_hi] += block[:a_hi - a_lo, w:w + b_hi - b_lo]
+            del block
+
+
+def sparse_pair_count_rows(
+    playlist_rows: np.ndarray,
+    track_ids: np.ndarray,
+    *,
+    n_tracks: int,
+    lo: int,
+    n_rows: int,
+    n_cols: int,
+    long_basket_threshold: int | None = None,
+    event_chunk: int = 1 << 20,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Rows ``[lo, lo + n_rows)`` of :func:`sparse_pair_counts_device`'s
+    counts → int32 ``(n_rows, n_cols)`` on ``device``, zero past V in
+    either direction: one rank's slab of the sparse-sharded route. Only
+    the slab and one tile pair of the long-basket block
+    (:func:`_add_long_rows`) are ever on the device. Every rank expands
+    the whole event stream on the host and keeps the events of its rows
+    (both directions of each pair)."""
+    dev = torch.device(device)
+    thr = resolve_long_basket(long_basket_threshold)
+    out = torch.zeros((n_rows, n_cols), dtype=torch.int32, device=dev)
+    rows, tids = _sorted_by_playlist(playlist_rows, track_ids)
+    hi = min(lo + n_rows, n_tracks)
+    if rows.size == 0 or hi <= lo:
+        return out
+    starts, counts = _segments(rows)
+    rows, tids, starts, counts, lrows, ltids = _split_long(
+        rows, tids, starts, counts, thr
+    )
+    _add_long_rows(out, lrows, ltids, lo, n_tracks)
+    mine = tids[(tids >= lo) & (tids < hi)].astype(np.int64) - lo
+    if mine.size:
+        r = torch.arange(hi - lo, device=dev)
+        out[r, lo + r] += torch.bincount(
+            torch.as_tensor(mine, device=dev), minlength=hi - lo
+        ).to(torch.int32)
+    flat = out.view(-1)
+    v = np.int64(n_tracks)
+    for keys in _iter_pair_keys(
+        tids, starts, counts, n_tracks, event_chunk, both_directions=True
+    ):
+        keys = keys.astype(np.int64)
+        keys = keys[(keys >= lo * v) & (keys < hi * v)]
+        if keys.size == 0:
+            continue
+        row = keys // v
+        idx = torch.as_tensor((row - lo) * n_cols + (keys - row * v), device=dev)
+        flat.index_add_(0, idx, torch.ones(len(idx), dtype=torch.int32, device=dev))
     return out
 
 

@@ -13,11 +13,12 @@ as a ``Mesh``. The port runs ONE PROCESS PER GPU under
 Rank r takes ``cuda:(r % torch.cuda.device_count())``. The collective's
 backend follows one rule (:func:`choose_backend`): NCCL when every rank
 has a card of its own, gloo when ranks share a card (NCCL refuses two
-ranks on one device) or run on the CPU. Gloo carries only ``all_reduce``
-and ``broadcast`` on CUDA tensors (through the host), so the port uses
-only those on the card; everything else (host names, barriers, the delta
-route's outcome) runs over the gloo world group on the host. The kernels
-run on the card either way.
+ranks on one device) or run on the CPU. Each mesh axis gets a group of
+the same backend (:func:`subgroup`). Gloo carries no send, receive or
+all-gather of CUDA tensors, so ``parallel/collectives.py`` stages those
+through host tensors whenever the group's backend is gloo; host names,
+barriers and the delta route's outcome run over the gloo world group on
+the host. The kernels run on the card either way.
 
 Not ported: the serve-gang bootstrap (``:56-197``; the serve mesh is on
 ROADMAP).
@@ -51,9 +52,13 @@ class Runtime:
     backend: str  # the backend of the dp all-reduce: "nccl" or "gloo"
     group: object  # its process group (None = the gloo world group)
     hostnames: tuple[str, ...]  # per rank
+    timeout: object = None  # torch's limit on each collective (None = its default)
 
 
 _runtime: Runtime | None = None
+# the axis groups made so far, by their ranks (every rank makes them in
+# the same order, so the same key names the same group on every rank)
+_subgroups: dict[tuple[int, ...], object] = {}
 
 
 def distributed_env() -> tuple[str, int, int] | None:
@@ -136,6 +141,7 @@ def maybe_initialize(device: str | None = None, timeout_s: float | None = None) 
     _runtime = Runtime(
         rank=rank, backend=backend, group=group,
         hostnames=tuple(host for host, _ in peers),
+        timeout=timeout,
     )
     return True
 
@@ -148,6 +154,25 @@ def runtime() -> Runtime | None:
 def collective_group():
     """The process group of the dp all-reduce (None = the default group)."""
     return _runtime.group if _runtime is not None else None
+
+
+def subgroup(ranks: tuple[int, ...]):
+    """The process group over ``ranks`` (a mesh axis), in the runtime's
+    backend: None for one rank or in a single process (no collective
+    runs), the collective group for the whole world, else a group made on
+    first use. Every rank must call this for every axis in the same order:
+    ``new_group`` is collective over the world."""
+    if _runtime is None or len(ranks) <= 1:
+        return None
+    key = tuple(sorted(ranks))
+    if len(key) == len(world_ranks()):
+        return collective_group()
+    if key not in _subgroups:
+        import torch.distributed as dist
+
+        _subgroups[key] = dist.new_group(list(key), timeout=_runtime.timeout,
+                                         backend=_runtime.backend)
+    return _subgroups[key]
 
 
 def barrier() -> None:
@@ -178,6 +203,7 @@ def shutdown() -> None:
 
         dist.destroy_process_group()
         _runtime = None
+        _subgroups.clear()
 
 
 # ---------- dead-rank watchdog ----------

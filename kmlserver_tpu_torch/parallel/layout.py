@@ -8,12 +8,9 @@ JAX device counts.
 - ``KMLS_MODEL_LAYOUT=auto`` — shard when the measured tensor bytes exceed
   the per-device budget.
 
-The reference's vocab-sharded dense count and emission
-(``parallel/support.py:270-322``, ``:446-469``) are XLA and not ported:
-with a mesh the port always counts on the dp-sharded bit-packed route
-(``tp`` flattened onto ``dp``), and the miner prints one ``NOTE:`` line
-where the reference would have taken the vocab-sharded route. The counts
-are exact, so the rule tensors are the same either way.
+Under ``sharded`` on a mesh with a vocab axis the miner takes the
+vocab-sharded count and emission (``parallel/support.py``) and the ALS
+trainer the vocab-sharded sweep (``mining/als.py``), as the reference's do.
 """
 
 from __future__ import annotations

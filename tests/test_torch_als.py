@@ -32,10 +32,38 @@ from kmlserver_tpu_torch.mining import als
 from kmlserver_tpu_torch.mining import checkpoint as ckpt_mod
 from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
 from kmlserver_tpu_torch.ops import segsum
+from kmlserver_tpu_torch.parallel import collectives
 from kmlserver_tpu_torch.parallel.mesh import RankMesh
 
 FACTOR_TOL = 1e-4
 LOSS_RTOL = 1e-5
+
+# one gloo rank of the sharded-layout case: trains on a 1x2 mesh
+_SHARDED_RANK = r"""
+import os, sys
+
+import numpy as np
+
+rank, world, port, work = sys.argv[1:5]
+os.environ.update(KMLS_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", KMLS_NUM_PROCESSES=world,
+                  KMLS_PROCESS_ID=rank)
+from kmlserver_tpu_torch.config import MiningConfig
+from kmlserver_tpu_torch.mining import als
+from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
+from kmlserver_tpu_torch.parallel.distributed import maybe_initialize, shutdown
+from kmlserver_tpu_torch.parallel.mesh import make_mesh
+
+assert maybe_initialize(device="cpu", timeout_s=120)
+case = np.load(os.path.join(work, "in.npz"))
+names = [str(n) for n in case["names"]]
+bk = Baskets(playlist_rows=case["rows"], track_ids=case["ids"], n_playlists=int(case["p"]),
+             vocab=Vocab(names=names, index={n: i for i, n in enumerate(names)}))
+cfg = MiningConfig(als_rank=4, als_iters=2, model_layout="sharded")
+res = als.train_embeddings(bk, cfg, mesh=make_mesh("1x2"), device="cpu")
+np.savez(os.path.join(work, f"rank{rank}.npz"), factors=res["item_factors"],
+         shards=res["shards"], loss=res["final_loss"])
+shutdown()
+"""
 
 
 def _pairs(lists: list[list[str]]):
@@ -220,18 +248,50 @@ class TestStorageDecision:
         assert 5 * p * v + 8 * rank * (p + v) > budget
         assert als.sparse_als_bytes(nnz, p, v, rank) <= budget < 5 * p * v
 
-    def test_sharded_layout_notes_and_trains_on_one_card(self, tiny_baskets, capsys):
-        """Where the reference would shard the item axis, the port prints a
-        NOTE and trains the single-device way."""
+    def test_sharded_layout_trains_on_two_gloo_ranks(self, tiny_baskets, tmp_path):
+        """Where the reference shards the item axis, two gloo ranks of the
+        CPU train the vocab-sharded sweep: ``shards == 2``, the same factors
+        on both ranks, within the reference's layout bar of one device's."""
+        from .test_torch_parallel import run_gloo_ranks
+
         bk, _ = both_baskets(tiny_baskets)
-        mesh = RankMesh(grid=((0, 1),))
-        cfg = MiningConfig(als_rank=4, als_iters=2, model_layout="sharded")
-        assert als._als_shards(cfg, mesh, bk.n_playlists, bk.n_tracks, 4) == 2
-        res = als.train_embeddings(bk, cfg, mesh=mesh, device="cpu")
-        assert "NOTE: the mesh-sharded ALS sweep is not ported" in capsys.readouterr().out
+        np.savez(tmp_path / "in.npz", rows=bk.playlist_rows, ids=bk.track_ids,
+                 p=bk.n_playlists, names=np.asarray(bk.vocab.names))
+        run_gloo_ranks(2, _SHARDED_RANK, [str(tmp_path)], env=dict(OMP_NUM_THREADS="1"))
         plain = train(bk, als_rank=4, als_iters=2)
-        assert res["shards"] == 1 and res["storage"] == "dense"
-        assert np.array_equal(res["item_factors"], plain["item_factors"])
+        got = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+        assert [int(g["shards"]) for g in got] == [2, 2]
+        np.testing.assert_array_equal(got[0]["factors"], got[1]["factors"])
+        np.testing.assert_allclose(got[0]["factors"], plain["item_factors"],
+                                   rtol=2e-4, atol=2e-5)
+        assert float(got[0]["loss"]) == pytest.approx(plain["final_loss"], rel=1e-4)
+
+    @pytest.mark.parametrize("chunk_elems", [1, 7 * 13, 64 * 13 + 5])
+    def test_sharded_loss_over_row_chunks(self, chunk_elems, monkeypatch):
+        """The sharded loss builds each block's residual in row chunks: the
+        same value as the whole residual's (up to float order), the same
+        bits from one call to the next, and the reference's loss."""
+        rng = np.random.default_rng(5)
+        p, v, r, tp = 90, 26, 4, 2
+        x = (rng.random((p, v)) < 0.2).astype(np.float32)
+        user = rng.standard_normal((p, r)).astype(np.float32)
+        items = rng.standard_normal((v, r)).astype(np.float32)
+        reg = torch.tensor(0.1)
+        blocks = [torch.from_numpy(x[:, t * 13:(t + 1) * 13]) for t in range(tp)]
+        item_blocks = [torch.from_numpy(items[t * 13:(t + 1) * 13]) for t in range(tp)]
+        user_f = torch.from_numpy(user)
+
+        def loss():
+            return als._sharded_loss(blocks, user_f, item_blocks, reg,
+                                     collectives.add_in_order)
+
+        whole = loss()
+        monkeypatch.setattr(als, "_LOSS_CHUNK_ELEMS", chunk_elems)
+        chunked = loss()
+        assert chunked == loss()
+        assert chunked == pytest.approx(whole, rel=1e-6)
+        want = float(ref_als._als_loss(x, user, items, 0.1))
+        assert chunked == pytest.approx(want, rel=1e-5)
 
     @pytest.mark.parametrize("layout,budget,want", [
         ("replicated", 1, 1), ("sharded", 1 << 40, 2), ("auto", 1 << 40, 1), ("auto", 1, 2),

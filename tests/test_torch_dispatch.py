@@ -398,8 +398,8 @@ def test_mine_capacity_overflow_matches_reference(pair_cap, triple_cap, data, ca
 @pytest.mark.parametrize("name", ["auto", "sparse", "conf3", "census4", "conf_len2"])
 def test_mine_on_a_rank_mesh_matches_reference(name, data, capsys):
     """A one-rank mesh here, the reference's 2x1 device mesh there: the
-    port counts on the dp-sharded bit-packed route where the reference
-    takes either sharded route (exact counts, the same tensors); with
+    port takes the sharded route the reference takes (the bit-packed one
+    named with its ``-torch`` suffix), with the same tensors; with
     max_itemset_len >= 3 neither has a one-hot, so both report the census
     and skip the merge the same way."""
     from kmlserver_tpu.parallel.mesh import make_mesh as ref_make_mesh
@@ -412,9 +412,8 @@ def test_mine_on_a_rank_mesh_matches_reference(name, data, capsys):
     ref_out = capsys.readouterr().out
     port = miner.mine(port_b, MiningConfig(**cfg), device="cpu", mesh=make_mesh("auto"))
     out = capsys.readouterr().out
-    if ref.count_path.startswith("sharded-"):
-        assert port.count_path == "sharded-bitpack-torch"
-        ref.count_path = port.count_path
+    if ref.count_path == "sharded-bitpack":
+        ref.count_path = "sharded-bitpack-torch"
     _assert_same(ref, port)
     assert _warnings(out) == _warnings(ref_out)
     if cfg.get("max_itemset_len", 2) >= 3:

@@ -39,7 +39,7 @@ from kmlserver_tpu.parallel.support import (
 from kmlserver_tpu_torch.mining import job
 from kmlserver_tpu_torch.mining.vocab import DuplicateArtistURIError
 from kmlserver_tpu_torch.ops import popcount as pc
-from kmlserver_tpu_torch.parallel import distributed, layout, mesh, support
+from kmlserver_tpu_torch.parallel import collectives, distributed, layout, mesh, support
 from kmlserver_tpu_torch.parallel.distributed import RankWatchdog
 from kmlserver_tpu_torch.utils.device import DeviceUnavailableError
 
@@ -441,7 +441,8 @@ def test_one_rank_mesh_without_a_runtime():
     )
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     with pytest.raises(RuntimeError, match="distributed runtime"):
-        support.reduce_counts(torch.zeros(2, 2), mesh.make_mesh("2x1", ranks=[0, 1]))
+        collectives.all_reduce_sum_(torch.zeros(2, 2),
+                                    mesh.make_mesh("2x1", ranks=[0, 1]).axis("dp"))
 
 
 # ---------------------------------------------------------------- B4 on gloo ranks

@@ -2,7 +2,9 @@
 against the JAX package's on the same numpy inputs: the plan-time event
 count, the host counts and fully sparse emission (copies of the
 reference's), and the device scatter-add on torch-CPU, with and without
-long baskets. Integer counts: every comparison is exact. The
+long baskets, and one rank's rows of it (the sparse-sharded route's slab,
+its long-basket block cut into tiles). Integer counts: every comparison is
+exact. The
 ``cuda``-marked twin runs the long-basket block through the popcount
 kernel on the card and skips here.
 """
@@ -148,3 +150,66 @@ def test_cuda_long_block_launches_the_popcount_kernel(name):
         full.cpu().numpy(),
         sparse.sparse_pair_counts_np(rows, tids, n_playlists=p, n_tracks=v, long_basket_threshold=10),
     )
+
+
+def _row_blocks(tp: int, v: int):
+    """``(lo, n_rows, n_cols)`` of each of ``tp`` ranks' row slabs."""
+    v_loc = -(-v // tp)
+    return [(t * v_loc, v_loc, v_loc * tp) for t in range(tp)]
+
+
+@pytest.mark.parametrize("tp", [1, 2, 3, 4])
+@pytest.mark.parametrize("threshold", [None, 10])
+@pytest.mark.parametrize("name", list(CASES))
+def test_pair_count_rows_equal_the_rows_of_jax_counts(name, threshold, tp):
+    """One rank's rows of the sparse count (the sparse-sharded route): each
+    slab equals its rows of the reference's host counts, zero past V, on
+    torch-CPU in small event chunks; the CPU path launches nothing."""
+    rows, tids, p, v = _case(name)
+    want = ref_sparse.sparse_pair_counts_np(rows, tids, n_playlists=p, n_tracks=v,
+                                            long_basket_threshold=threshold)
+    before = dict(pc.LAUNCHES)
+    for lo, n_rows, n_cols in _row_blocks(tp, v):
+        got = sparse.sparse_pair_count_rows(rows, tids, n_tracks=v, lo=lo, n_rows=n_rows,
+                                            n_cols=n_cols, long_basket_threshold=threshold,
+                                            event_chunk=333, device="cpu")
+        assert got.dtype == torch.int32 and tuple(got.shape) == (n_rows, n_cols)
+        real = min(n_rows, v - lo)
+        np.testing.assert_array_equal(got[:real, :v].numpy(), want[lo:lo + real])
+        assert not got[real:].any() and not got[:, v:].any()
+    assert pc.LAUNCHES == before
+
+
+def test_pair_count_rows_cut_the_long_block_into_tiles():
+    """A slab wider than two of the popcount kernel's vocab tiles: the long
+    baskets' block is counted tile pair by tile pair (several row and
+    column tiles), and the rows still equal the whole count's."""
+    rows, tids = _baskets(n_playlists=120, n_tracks=700, mean_len=6, seed=6, long_baskets=8,
+                          long_len=300)
+    want = sparse.sparse_pair_counts_np(rows, tids, n_playlists=120, n_tracks=700,
+                                        long_basket_threshold=20)
+    assert -(-700 // 2) > 2 * pc.v_tile()
+    for lo, n_rows, n_cols in _row_blocks(1, 700) + _row_blocks(2, 700):
+        got = sparse.sparse_pair_count_rows(rows, tids, n_tracks=700, lo=lo, n_rows=n_rows,
+                                            n_cols=n_cols, long_basket_threshold=20,
+                                            device="cpu")
+        real = min(n_rows, 700 - lo)
+        np.testing.assert_array_equal(got[:real, :700].numpy(), want[lo:lo + real])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_cuda_pair_count_rows_launch_the_popcount_kernel(tp):
+    """On the card: each rank's slab counts its long-basket tiles with the
+    popcount kernel (its counter moves) and equals the CPU slab."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the GPU machine)")
+    rows, tids = _baskets(n_playlists=120, n_tracks=700, mean_len=6, seed=6, long_baskets=8,
+                          long_len=300)
+    for lo, n_rows, n_cols in _row_blocks(tp, 700):
+        kw = dict(n_tracks=700, lo=lo, n_rows=n_rows, n_cols=n_cols, long_basket_threshold=20)
+        before = pc.LAUNCHES["popcount_pairs"]
+        got = sparse.sparse_pair_count_rows(rows, tids, device="cuda", **kw)
+        torch.cuda.synchronize()
+        assert pc.LAUNCHES["popcount_pairs"] > before
+        assert torch.equal(got.cpu(), sparse.sparse_pair_count_rows(rows, tids, device="cpu", **kw))
