@@ -205,9 +205,39 @@ Then phase 7 runs (it needs no work directory), and last:
    vocab-sharded dense ALS training (time per sweep, peak memory per rank
    below its X block and two chunks of the loss's residual, the same
    factors on both ranks).
+   (c) also recounts phase 12 (b)'s delta rows over the ``1x2`` ranks
+   (``restricted_pair_counts`` with the mesh, A.8.2): each rank's rows equal
+   to phase 12 (b)'s one-card rows, its product timed beside its int8
+   bound, its exchange and its peak memory (below the one-card route's)
+   logged;
+15. model-parallel serving (``ops/serve.py``'s X9 — a slab's partial top-k
+   and the cross-slab merge —, the engine's ``sharded`` and ``mesh``
+   layouts, ``serving/mesh.py``; alone: ``python -c "import chip_smoke as
+   c; c.phase_model_parallel()"``): phase 4's CSV mined by two ranks under
+   ``KMLS_MODEL_LAYOUT=sharded`` on ``1x2`` with deltas armed (the
+   publication equal to phase 4's), then (a) X9 on the card at every
+   (batch, length) bucket of the ds2 rules, with ``k_best`` above V, and on
+   synthetic 1M x 256 rule tensors, at 2, 3 and 4 slabs: bit-identical to
+   ``recommend_batch`` on the whole tensors and to the CPU run, timed with
+   CUDA events beside the replicated lookup and :func:`serve_shard_bound`;
+   (b) the ``sharded`` engine (two slabs, both on cuda:0) under 2,000
+   config-5 draws equal to the replicated CPU engine's, no unwarmed
+   dispatch, ``kmls_model_shards`` and the per-shard series, and the
+   ``auto`` layout flipping at the budget; (c) a gang of two ``python -m
+   kmlserver_tpu_torch.serving.server`` (the ``KMLS_SERVE_GANG_*``
+   quartet, a probed free port pair) and one replicated server under
+   config 5's draws at 500 QPS — every answer the CPU engine's, client
+   p50/p99 side by side —, rank 1 SIGKILLed (200 with ``X-KMLS-Degraded:
+   mesh-shard-missing:1``, ``/readyz`` naming it), respawned with
+   ``mesh.peer`` armed once (a ``mesh-straggler`` answer), the re-form
+   timed, fresh answers identical again; (d) one bench-size append: the
+   two-rank sharded delta job (the mesh recount on both ranks), its bundle
+   equal to a one-card job's member by member, applied into the (b) engine
+   and the gang (still sharded) with answers equal to a pristine full
+   re-mine's, and the compaction equal to that re-mine.
 Then the kernels line is printed (the sharded entry carries the sharded
-routes' calls and times under ``x8``: library calls, not kernel
-launches).
+routes' calls and times under ``x8``, and X9's under ``x9``: library
+calls, not kernel launches).
 
 Not part of the run: :func:`probe_segsum_ring` builds ``segsum.cu`` with
 its adds, its copies or both taken out and times one long row with each
@@ -215,7 +245,8 @@ its adds, its copies or both taken out and times one long row with each
 
 ``--quick`` runs the same phases with the scale shape cut to 100k x 100k x
 5M rows (a shorter check; prints a ``reduced`` line). The script starts
-itself with ``--rank-worker`` for the ranks of phases 6 and 14.
+itself with ``--rank-worker`` for the ranks of phases 6 and 14. Phase 12
+(b) leaves its recount rows in the work directory for phase 14 (c).
 
 The last two lines of standard output are the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line and the result JSON. Exits
@@ -575,28 +606,40 @@ def wait_ready(base: str, proc: subprocess.Popen, timeout_s: float) -> None:
     fail("server never became ready")
 
 
-def start_server(pvc: str, **extra: str) -> tuple[subprocess.Popen, str, list[str]]:
-    """``python -m kmlserver_tpu_torch.serving.server`` on the card over
-    ``pvc``, waited on until ``/readyz`` answers 200 → (process, base URL,
-    its log lines so far and to come)."""
+SPAWNED: list[subprocess.Popen] = []  # every server started, for stop_spawned
+
+
+def spawn_server(pvc: str, **extra: str) -> tuple[subprocess.Popen, list[str], list[int],
+                                                   threading.Event]:
+    """Start ``python -m kmlserver_tpu_torch.serving.server`` on the card
+    over ``pvc`` → (process, its log lines so far and to come, [its port]
+    once logged, the event set then)."""
     server = subprocess.Popen(
         [sys.executable, "-m", "kmlserver_tpu_torch.serving.server"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=subproc_env(BASE_DIR=pvc, KMLS_PORT="0", **extra),
     )
+    SPAWNED.append(server)
     lines: list[str] = []
     port: list[int] = []
-    ready = threading.Event()
+    bound = threading.Event()
 
     def pump() -> None:
         for line in server.stdout:
             lines.append(line.rstrip())
             if "serving on" in line and not port:
                 port.append(int(line.split("serving on", 1)[1].split()[0].rsplit(":", 1)[1]))
-                ready.set()
+                bound.set()
 
     threading.Thread(target=pump, daemon=True).start()
-    if not ready.wait(120):
+    return server, lines, port, bound
+
+
+def await_server(spawned) -> tuple[subprocess.Popen, str, list[str]]:
+    """Wait for a :func:`spawn_server` process until ``/readyz`` answers
+    200 → (process, base URL, log lines)."""
+    server, lines, port, bound = spawned
+    if not bound.wait(120):
         stop_server(server)
         fail("server never logged its port:\n" + "\n".join(lines[-40:]))
     base = f"http://127.0.0.1:{port[0]}"
@@ -608,6 +651,13 @@ def start_server(pvc: str, **extra: str) -> tuple[subprocess.Popen, str, list[st
     return server, base, lines
 
 
+def start_server(pvc: str, **extra: str) -> tuple[subprocess.Popen, str, list[str]]:
+    """``python -m kmlserver_tpu_torch.serving.server`` on the card over
+    ``pvc``, waited on until ``/readyz`` answers 200 → (process, base URL,
+    its log lines so far and to come)."""
+    return await_server(spawn_server(pvc, **extra))
+
+
 def stop_server(server: subprocess.Popen) -> int:
     """SIGTERM (the drain), then wait; → the exit code (killed after 20 s)."""
     server.terminate()
@@ -617,6 +667,15 @@ def stop_server(server: subprocess.Popen) -> int:
         server.kill()
         server.wait()
         return -9
+
+
+def stop_spawned() -> None:
+    """Stop every server :func:`spawn_server` started that still runs: a
+    failed check leaves none behind."""
+    while SPAWNED:
+        server = SPAWNED.pop()
+        if server.poll() is None:
+            stop_server(server)
 
 
 def job_process(pvc: str, label: str, **extra: str) -> tuple[str, float]:
@@ -799,7 +858,7 @@ def phase_scale(seed: int, work: str, shape: dict) -> dict:
     from kmlserver_tpu_torch.parallel import support
 
     t0 = time.perf_counter()
-    baskets = synthetic_baskets(**shape, seed=seed)
+    baskets = synthetic_baskets(**shape, seed=seed, device="cuda")
     log(f"scale data: {shape['n_playlists']} playlists x {shape['n_tracks']} "
         f"tracks, {len(baskets.track_ids)} memberships (Zipf 1.0, seed {seed}) "
         f"generated in {time.perf_counter() - t0:.3f} s")
@@ -1586,7 +1645,7 @@ def server_window(base: str) -> dict:
 
 
 def replay_run(base: str, label: str, payloads: list, want: list, cpu, qps: float,
-               allow_drops: bool = False) -> dict:
+               allow_drops: bool = False, phase: str = "phase 8") -> dict:
     """One replay through the port's load generator, every answer checked,
     then the server's window read (reset just before it)."""
     from kmlserver_tpu_torch.serving.replay import replay_async_http
@@ -1608,7 +1667,7 @@ def replay_run(base: str, label: str, payloads: list, want: list, cpu, qps: floa
            "client_cache_hit_ratio": report.cache_hit_ratio,
            "uncached_p50_ms": report.uncached_p50_ms, "cached_p50_ms": report.cached_p50_ms,
            **counts, **window}
-    log(f"phase 8 {label}: {len(payloads)} requests at {qps:.0f} QPS → achieved "
+    log(f"{phase} {label}: {len(payloads)} requests at {qps:.0f} QPS → achieved "
         f"{report.achieved_qps:.1f} QPS, client p50/p95/p99 {report.p50_ms:.3f}/"
         f"{report.p95_ms:.3f}/{report.p99_ms:.3f} ms, errors {report.n_errors} "
         f"(shed {counts['shed']}, unanswered {counts['dropped']}, degraded "
@@ -3264,7 +3323,7 @@ def phase_embeddings(work: str | None = None, shape: dict | None = None) -> dict
             from kmlserver_tpu_torch.data.synthetic import synthetic_baskets
 
             shape = shape or SCALE
-            baskets = synthetic_baskets(**shape, seed=2024)
+            baskets = synthetic_baskets(**shape, seed=2024, device="cuda")
             np.save(os.path.join(work, "scale_rows.npy"), baskets.playlist_rows)
             np.save(os.path.join(work, "scale_tids.npy"), baskets.track_ids)
             with open(os.path.join(work, "scale_shape.json"), "w") as fh:
@@ -3781,6 +3840,11 @@ def freshness_scale(work: str) -> dict:
     bound = recount_bound(r, v, p)
     if bound["ms"] > ms:
         fail(f"phase 12 (b): {ms:.3f} ms is below its bound {bound['ms']:.3f} ms")
+    # phase 14 (c) recounts the same rows over two ranks and is held to these
+    np.save(os.path.join(work, "recount_rows.npy"), r_ids)
+    np.save(os.path.join(work, "recount_counts.npy"), got)
+    with open(os.path.join(work, "recount_peak.json"), "w") as fh:
+        json.dump({"peak_device_bytes": peak}, fh)
     result = {"r": r, "v": v, "p": p, "launches": launches, "wall_s": wall_s, "ms": ms,
               "library_ms": ms, "plain_ms": plain_ms, "bound": bound, "max_abs_err": max_err,
               "peak_device_bytes": peak}
@@ -3807,7 +3871,7 @@ def phase_freshness(work: str | None = None, shape: dict | None = None) -> dict:
             from kmlserver_tpu_torch.data.synthetic import synthetic_baskets
 
             shape = shape or SCALE
-            baskets = synthetic_baskets(**shape, seed=2024)
+            baskets = synthetic_baskets(**shape, seed=2024, device="cuda")
             np.save(os.path.join(work, "scale_rows.npy"), baskets.playlist_rows)
             np.save(os.path.join(work, "scale_tids.npy"), baskets.track_ids)
             with open(os.path.join(work, "scale_shape.json"), "w") as fh:
@@ -4487,6 +4551,7 @@ def worker_sharded_scale(_mesh, work: str) -> dict:
                                "calls": dict(support.CALLS),
                                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         del emitted
+    out["recount"] = worker_recount(reduced, grid, me, work)
     # ---- the local products, ranks in turn, and rank 0's yardsticks, on
     # the operands the all-gather gives, built here whole on each rank
     axis = grid.axis("tp")
@@ -4565,6 +4630,49 @@ def worker_sharded_scale(_mesh, work: str) -> dict:
         "finite": bool(factors is not None and np.isfinite(factors).all()),
         "factors_sha": None if factors is None else hashlib.sha256(factors.tobytes()).hexdigest(),
     }
+    return out
+
+
+def worker_recount(reduced, grid, me: int, work: str) -> dict:
+    """Phase 14 (c), A.8.2: phase 12 (b)'s delta-recount rows over the
+    ``1x2`` ranks (``restricted_pair_counts`` with the mesh) against phase
+    12 (b)'s one-card rows; the call's phases, calls and peak memory, then
+    its product alone, ranks in turn, with CUDA events."""
+    import torch
+
+    from kmlserver_tpu_torch.ops.support import int8_gram
+    from kmlserver_tpu_torch.parallel import distributed, support
+    from kmlserver_tpu_torch.utils.profiling import PhaseTimer
+
+    r_ids = np.load(os.path.join(work, "recount_rows.npy"))
+    for key in support.CALLS:
+        support.CALLS[key] = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer(torch.device("cuda"))
+    distributed.barrier()
+    t0 = time.perf_counter()
+    got = support.restricted_pair_counts(reduced, r_ids, device="cuda", mesh=grid, timer=timer)
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall, "phases": dict(timer.phases), "calls": dict(support.CALLS),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "eq_one_card": bool(np.array_equal(got, np.load(os.path.join(work,
+                                                                        "recount_counts.npy"))))}
+    del got
+    xt = support.onehot_block_t(reduced, grid, device="cuda")
+    a = support.restricted_rows_block(reduced, np.unique(r_ids).astype(np.int64), grid,
+                                      device="cuda")
+    int8_gram(a, xt)
+    torch.cuda.synchronize()
+    for turn in grid.axis("tp").ranks:
+        distributed.barrier()
+        if turn == me:
+            out["product_ms"] = cuda_ms(lambda: int8_gram(a, xt), 3)
+    distributed.barrier()
+    out["r"], out["r_pad"], out["v_loc"], out["p_loc"] = (len(r_ids), a.shape[0], xt.shape[0],
+                                                          xt.shape[1])
+    del a, xt
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4795,6 +4903,7 @@ def sharded_scale(work: str, one_card_loss: float | None) -> dict:
             f"{len(res['als']['sweep_s'])} sweeps {res['als']['sweep_s']}, final loss "
             f"{res['als']['final_loss']}, peak {res['als']['peak_gib']:.3f} GiB; host "
             f"MemAvailable {res['host_free_gib_start']:.1f} / {res['host_free_gib_als']:.1f} GiB")
+    recount = check_sharded_recount(work, results)
     als_ = [res["als"] for res in results]
     if (any(a["shards"] != RANKS or not a["finite"] or a["calls"] != a["iters"] for a in als_)
             or len({a["factors_sha"] for a in als_}) != 1):
@@ -4814,7 +4923,41 @@ def sharded_scale(work: str, one_card_loss: float | None) -> dict:
         f"one-card sparse training at 1M x 1M: {one_card_loss})")
     return {"ranks": results, "wall_s": wall, "bound_ms": bound[0], "bound_by": bound[1],
             "ring_step_bound_ms": ring_bound[0], "emit_bound_ms": emit_bound[0],
-            "als_bound_ms": als_bound["ms"], "als_bound_by": als_bound["bound_by"]}
+            "als_bound_ms": als_bound["ms"], "als_bound_by": als_bound["bound_by"],
+            "recount": recount}
+
+
+def check_sharded_recount(work: str, results: list[dict]) -> dict:
+    """Phase 14 (c)'s A.8.2 recount: every rank's rows equal phase 12 (b)'s
+    one-card rows, one sharded call each, and a rank's peak below the one-card
+    route's (it holds its ``V/tp`` block of the one-hot, never the whole);
+    each rank's product against its int8 bound, its exchange and its peak
+    logged."""
+    with open(os.path.join(work, "recount_peak.json")) as fh:
+        one_card_peak = json.load(fh)["peak_device_bytes"]
+    rows = []
+    for r, res in enumerate(results):
+        rc = res["recount"]
+        v_pad = rc["v_loc"] * RANKS
+        whole = (v_pad + rc["r_pad"]) * rc["p_loc"]  # the one-card route's operands
+        if (not rc["eq_one_card"] or rc["calls"]["restricted_recount_sharded"] != 1
+                or rc["peak_bytes"] >= min(one_card_peak, whole)):
+            fail(f"phase 14 (c) recount over the ranks, rank {r}: {rc} (one-card peak "
+                 f"{one_card_peak} B, one-card operands {whole} B)")
+        bound = recount_bound(rc["r_pad"], rc["v_loc"], rc["p_loc"])
+        exchange_s = rc["phases"].get("all_reduce", 0.0) + rc["phases"].get("gather_counts", 0.0)
+        received = 4 * rc["r_pad"] * rc["v_loc"] * (RANKS - 1)
+        rows.append({"rank": r, "product_ms": rc["product_ms"], "bound_ms": bound["ms"],
+                     "bound_by": bound["bound_by"], "exchange_s": exchange_s,
+                     "exchange_bytes": received, "peak_bytes": rc["peak_bytes"],
+                     "wall_s": rc["wall_s"]})
+        log(f"  rank {r} recount (A.8.2) R {rc['r']} x V_loc {rc['v_loc']} x P {rc['p_loc']}: "
+            f"rows == phase 12 (b)'s one-card rows; {rc['wall_s']:.3f} s wall ("
+            + ", ".join(f"{k} {v:.3f} s" for k, v in rc["phases"].items())
+            + f"); product {rc['product_ms']:.3f} ms (CUDA events; bound {bound['ms']:.3f} ms, "
+            f"{bound['bound_by']}); exchange {exchange_s:.3f} s for {received} B received; peak "
+            f"{rc['peak_bytes']} B (one-card route {one_card_peak} B)")
+    return {"ranks": rows, "one_card_peak_bytes": one_card_peak}
 
 
 def phase_sharded(work: str | None = None, one_card_loss: float | None = None,
@@ -4843,7 +4986,7 @@ def phase_sharded(work: str | None = None, one_card_loss: float | None = None,
             from kmlserver_tpu_torch.config import MiningConfig
             from kmlserver_tpu_torch.mining.miner import mine
 
-            baskets = synthetic_baskets(**(shape or SCALE), seed=2024)
+            baskets = synthetic_baskets(**(shape or SCALE), seed=2024, device="cuda")
             np.save(os.path.join(work, "scale_rows.npy"), baskets.playlist_rows)
             np.save(os.path.join(work, "scale_tids.npy"), baskets.track_ids)
             with open(os.path.join(work, "scale_shape.json"), "w") as fh:
@@ -4852,6 +4995,8 @@ def phase_sharded(work: str | None = None, one_card_loss: float | None = None,
             del baskets
             torch.cuda.empty_cache()
             log(f"phase 14: scale baskets {shape or SCALE} generated (seed 2024) and mined")
+        if not os.path.exists(os.path.join(work, "recount_rows.npy")):
+            freshness_scale(work)  # (c) recounts phase 12 (b)'s rows
         t_a = time.perf_counter()
         job = sharded_manifest_job(work, csv_src)
         t_b = time.perf_counter()
@@ -4869,6 +5014,622 @@ def phase_sharded(work: str | None = None, one_card_loss: float | None = None,
     finally:
         if own:
             shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 15
+
+MESH_SHARDS = (2, 3, 4)  # X9's shard counts: 3 leaves both vocabularies no multiple of S
+MESH_TIMED_SHARDS = (2, 4)
+MESH_SERVE_SHARDS = 2  # the (b) engine's slabs
+MESH_REQUESTS = 2000  # per run; config 5's meshserve bracket sends 4,000 (bench.py:3502-3503)
+MESH_QPS = 500.0
+MESH_DRAWS = 2000  # (b): config-5 draws through the sharded engine
+MESH_PROBES = 300  # fresh draws checked after the re-form and after the delta
+MESH_SETTLE = 20  # of those after the re-form, sent one at a time (gang_on_card)
+MESH_HEDGE_DELAY_MS = "500"  # the gang's straggler floor: only the armed fault crosses it
+MESH_FAULT_MS = 1500  # the armed mesh.peer delay on the respawned rank 1
+X9_V, X9_K = 1_000_000, 256  # BASELINE config 4's catalog at K_max = 256
+X9_SEED = 15
+X9_SCALE_BUCKETS = ((1, 8), (8, 8), (32, 8), (32, 128))
+X9_CPU_BUCKET = (2, 8)  # the 1M CPU run's bucket (the CPU sorts B x 1M scores per shard)
+
+
+def serve_shard_bound(seeds, shard_size: int, k_max: int, v_pad: int, k_best: int) -> dict:
+    """The least time of X9 for one batch: bytes over the memory rate. The
+    seeds read once; per shard the rule rows of the distinct seeds it holds
+    (ids and confidences, ``8·K`` bytes a row), its ``(B, V_pad + 1)``
+    float32 scores written and read once, its ``(B, k)`` partial written;
+    the merge reads the S partials and writes the answer."""
+    b, length = seeds.shape
+    uniq = np.unique(seeds[seeds >= 0])
+    n_shards = v_pad // shard_size
+    nbytes = (4 * b * length + 8 * k_max * len(uniq)
+              + n_shards * (2 * 4 * b * (v_pad + 1) + 8 * b * k_best)
+              + n_shards * 8 * b * k_best + 8 * b * k_best)
+    return {"ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes", "bytes": nbytes}
+
+
+def device_slabs(ids, confs, n_shards: int):
+    """The rule tensors cut into ``n_shards`` slabs on their device, the
+    vocabulary padded with empty rows (only the last slab is copied) →
+    (slab ids, slab confs, V_loc)."""
+    import torch
+
+    v, k = ids.shape
+    v_loc = -(-v // n_shards)
+    slab_ids, slab_confs = [], []
+    for s in range(n_shards):
+        a, b = ids[s * v_loc:(s + 1) * v_loc], confs[s * v_loc:(s + 1) * v_loc]
+        if a.shape[0] < v_loc:
+            pad = v_loc - a.shape[0]
+            a = torch.cat([a, torch.full((pad, k), -1, dtype=a.dtype, device=a.device)])
+            b = torch.cat([b, torch.zeros((pad, k), dtype=b.dtype, device=b.device)])
+        slab_ids.append(a)
+        slab_confs.append(b)
+    return slab_ids, slab_confs, v_loc
+
+
+def x9_rules_1m():
+    """Synthetic rule tensors at V = 1M rows x K_max = 256, on the card
+    from a numpy seed: consequent ids Zipf-distributed (``floor(V^u)``, u
+    uniform: P(id < x) ≈ ln x / ln V, Zipf 1.0), each row's confidences
+    descending, trailing rows of -1 / 0 past a uniform row length."""
+    import torch
+
+    seed = int(np.random.default_rng(X9_SEED).integers(2**31))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.rand((X9_V, X9_K), generator=gen, device="cuda")
+    ids = (torch.pow(float(X9_V), u) - 1).to(torch.int32).clamp_(0, X9_V - 1)
+    u.uniform_(generator=gen)
+    confs = torch.sort(u, dim=1, descending=True).values
+    del u
+    lengths = torch.randint(0, X9_K + 1, (X9_V, 1), generator=gen, device="cuda")
+    dead = torch.arange(X9_K, device="cuda")[None, :] >= lengths
+    ids.masked_fill_(dead, -1)
+    confs.masked_fill_(dead, 0.0)
+    del dead, lengths
+    return ids, confs, seed
+
+
+def x9_case(label: str, ids, confs, cpu_ids, cpu_confs, buckets, k_best: int, gen,
+            timed: bool, cpu_buckets) -> list[dict]:
+    """X9 on one set of rule tensors: at every bucket and shard count, the
+    sharded lookup (the slabs' partials and the merge) bit-identical to
+    ``recommend_batch`` on the whole tensors, and at ``cpu_buckets`` to the
+    CPU run of both; with ``timed``, CUDA-event times of the whole sharded
+    lookup, one slab's partial and the merge beside the replicated lookup
+    and the bound."""
+    import torch
+
+    from kmlserver_tpu_torch.ops import serve
+
+    v, k_max = ids.shape
+    rows = []
+    for n_shards in MESH_SHARDS:
+        slab_ids, slab_confs, v_loc = device_slabs(ids, confs, n_shards)
+        v_pad = v_loc * n_shards
+        for batch, length in buckets:
+            seeds = torch.randint(0, v, (batch, length), generator=gen).to(torch.int32)
+            seeds[0, length // 2:] = -1
+            dev_seeds = seeds.cuda()
+            want = serve.recommend_batch(ids, confs, dev_seeds, k_best=k_best)
+            got = serve.sharded_recommend(slab_ids, slab_confs, dev_seeds, k_best=k_best)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                fail(f"phase 15 (a) {label} S={n_shards} {batch}x{length}: the sharded lookup "
+                     "differs from recommend_batch on the whole tensors")
+            row = {"label": label, "shards": n_shards, "batch": batch, "length": length}
+            if (batch, length) in cpu_buckets and n_shards in (2, 3):
+                c_ids, c_confs, _ = device_slabs(cpu_ids, cpu_confs, n_shards)
+                cpu = serve.sharded_recommend(c_ids, c_confs, seeds, k_best=k_best)
+                cpu_whole = serve.recommend_batch(cpu_ids, cpu_confs, seeds, k_best=k_best)
+                if not all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu)) or not all(
+                        torch.equal(a, b) for a, b in zip(cpu, cpu_whole)):
+                    fail(f"phase 15 (a) {label} S={n_shards} {batch}x{length}: the card's "
+                         "sharded lookup differs from the CPU run")
+                row["cpu_checked"] = True
+            if timed and n_shards in MESH_TIMED_SHARDS:
+                reps = 10 if v < 100_000 else 3
+                row["ms"] = cuda_ms(lambda: serve.sharded_recommend(
+                    slab_ids, slab_confs, dev_seeds, k_best=k_best), reps)
+                row["partial_ms"] = cuda_ms(lambda: serve.shard_partial_topk(
+                    slab_ids[0], slab_confs[0], dev_seeds, 0, v=v_pad, k_best=k_best), reps)
+                parts = [serve.shard_partial_topk(slab_ids[s], slab_confs[s], dev_seeds,
+                                                  s * v_loc, v=v_pad, k_best=k_best)
+                         for s in range(n_shards)]
+                stack_ids = torch.stack([p[0] for p in parts])
+                stack_confs = torch.stack([p[1] for p in parts])
+                row["merge_ms"] = cuda_ms(lambda: serve.merge_partial_topk(
+                    stack_ids, stack_confs, v=v_pad, k_best=k_best), reps)
+                row["replicated_ms"] = cuda_ms(lambda: serve.recommend_batch(
+                    ids, confs, dev_seeds, k_best=k_best), reps)
+                bound = serve_shard_bound(seeds.numpy(), v_loc, k_max, v_pad, k_best)
+                row["bound_ms"], row["bound_by"] = bound["ms"], bound["bound_by"]
+                if row["ms"] < bound["ms"]:
+                    fail(f"phase 15 (a) {label}: {row} is below its bound")
+            rows.append(row)
+        del slab_ids, slab_confs
+    return rows
+
+
+def x9_on_card(pvc: str) -> dict:
+    """Phase 15 (a): X9 on the ds2 rule tensors at every (batch, length)
+    bucket — and once with ``k_best`` above V — and on the 1M x 256
+    synthetic rules at :data:`X9_SCALE_BUCKETS`, each against
+    ``recommend_batch`` and the CPU run; times beside the replicated lookup
+    and :func:`serve_shard_bound`."""
+    import torch
+
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.io import artifacts
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+
+    t0 = time.perf_counter()
+    cfg = ServingConfig(base_dir=pvc)
+    arrays = artifacts.load_rule_tensors(artifacts.tensor_artifact_path(
+        os.path.join(cfg.pickles_dir, cfg.recommendations_file)))
+    from kmlserver_tpu_torch.serving.engine import _host_rule_arrays
+
+    _, _, host_ids, host_confs = _host_rule_arrays(arrays)
+    cpu_ids, cpu_confs = torch.from_numpy(host_ids), torch.from_numpy(host_confs)
+    ids, confs = cpu_ids.cuda(), cpu_confs.cuda()
+    probe = RecommendEngine(cfg, device="cpu")
+    buckets = [(b, n) for n in probe._len_buckets() for b in probe._batch_buckets()]
+    gen = torch.Generator().manual_seed(X9_SEED)
+    k_best = cfg.k_best_tracks
+    ds2 = x9_case("ds2", ids, confs, cpu_ids, cpu_confs, buckets, k_best, gen, True, buckets)
+    over = x9_case("ds2 k_best > V", ids, confs, cpu_ids, cpu_confs, [(4, 8)],
+                   ids.shape[0] + 7, gen, False, [(4, 8)])
+    t_ds2 = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    big_ids, big_confs, seed = x9_rules_1m()
+    nbytes = big_ids.nbytes + big_confs.nbytes
+    big_cpu = (big_ids.cpu(), big_confs.cpu())
+    scale = x9_case("1M", big_ids, big_confs, *big_cpu, X9_SCALE_BUCKETS, k_best, gen, True,
+                    [X9_CPU_BUCKET])
+    scale += x9_case("1M cpu", big_ids, big_confs, *big_cpu, [X9_CPU_BUCKET], k_best, gen,
+                     False, [X9_CPU_BUCKET])
+    del big_ids, big_confs, big_cpu
+    torch.cuda.empty_cache()
+    t_scale = time.perf_counter() - t1
+    n_cpu = sum(1 for r in ds2 + over + scale if r.get("cpu_checked"))
+    log(f"phase 15 (a) X9 on the card: ds2 rules ({ids.shape[0]} x {ids.shape[1]}) at "
+        f"{len(buckets)} buckets x S in {MESH_SHARDS}, and k_best {ids.shape[0] + 7} > V; "
+        f"synthetic {X9_V} x {X9_K} ({nbytes} B, Zipf ids from seed {X9_SEED} → torch seed "
+        f"{seed}) at {X9_SCALE_BUCKETS}: every sharded lookup == recommend_batch on the whole "
+        f"tensors, and == the CPU run at {n_cpu} (bucket, S) cases; {t_ds2:.3f} s + "
+        f"{t_scale:.3f} s")
+    log("reduced: phase 15 (a) places every slab on cuda:0 (the machine has one H100); a "
+        "slab's partial runs in turn on one stream, so the whole lookup's time is the sum")
+    for row in ds2 + scale:
+        if "ms" in row:
+            log(f"  X9 {row['label']} S={row['shards']} {row['batch']}x{row['length']}: sharded "
+                f"{row['ms']:.4f} ms (one partial {row['partial_ms']:.4f}, merge "
+                f"{row['merge_ms']:.4f}) vs replicated {row['replicated_ms']:.4f} ms; bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return {"ds2": ds2, "over": over, "scale": scale, "scale_bytes": nbytes,
+            "seconds": {"ds2": t_ds2, "scale": t_scale}}
+
+
+def sharded_engine(cfg, n_shards: int):
+    """A ``RecommendEngine`` on the card whose serving devices are
+    ``[cuda:0] * n_shards`` (the machine has one card)."""
+    import torch
+
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+
+    engine = RecommendEngine(cfg, device="cuda")
+    devices = [torch.device("cuda", 0)] * n_shards
+    engine._serve_devices = lambda: devices
+    return engine
+
+
+def sharded_on_card(pvc: str, keys: list, cpu) -> tuple[dict, object]:
+    """Phase 15 (b): the ``sharded`` engine on the card (two slabs on
+    cuda:0) under config 5's draws against the replicated CPU engine; the
+    compile watch, the shard series; the ``auto`` layout's budget flip.
+    → (result, the engine, kept for (d))."""
+    import dataclasses as dc
+
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.ops import serve
+    from kmlserver_tpu_torch.serving.app import RecommendApp
+    from kmlserver_tpu_torch.serving.replay import sample_seed_sets
+
+    t0 = time.perf_counter()
+    cfg = ServingConfig(base_dir=pvc, model_layout="sharded", delta_enabled=True)
+    engine = sharded_engine(cfg, MESH_SERVE_SHARDS)
+    if not engine.load() or engine.model_layout != "sharded" or (
+            engine.n_shards != MESH_SERVE_SHARDS):
+        fail(f"phase 15 (b): the sharded engine did not publish {MESH_SERVE_SHARDS} slabs")
+    draws = sample_seed_sets(keys, MESH_DRAWS, rng_seed=15)
+    want = engine_answers(cpu, draws)
+    # the main path: the counts to 0, the draws, the counts read
+    for key in serve.CALLS:
+        serve.CALLS[key] = 0
+    got = engine_answers(engine, draws)
+    calls = dict(serve.CALLS)
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        fail(f"phase 15 (b): answer for {draws[bad]} {got[bad]} != the CPU engine's {want[bad]}")
+    if min(calls.values()) < 1:
+        fail(f"phase 15 (b): X9 calls {calls}")
+    compiles = engine.cost_model.compiles_post_publish()
+    app = RecommendApp(cfg, engine=engine, device="cuda", defer_batcher=True)
+    try:
+        text = app.handle("GET", "/metrics", None)[2].decode()
+    finally:
+        app.close()
+    shards = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+              if line.startswith("kmls_shard_dispatch_total{")]
+    if (engine.unwarmed_dispatches or any(compiles.values())
+            or f"kmls_model_shards {MESH_SERVE_SHARDS}" not in text
+            or len(shards) != MESH_SERVE_SHARDS or min(shards) <= 0):
+        fail(f"phase 15 (b): unwarmed {engine.unwarmed_dispatches}, compiles {compiles}, "
+             f"shard series {shards}")
+    layouts = {}
+    for label, budget in (("default budget", cfg.device_budget_bytes), ("tight budget", None)):
+        auto_cfg = dc.replace(cfg, model_layout="auto", delta_enabled=False)
+        if budget is None:  # one byte below the measured (unpadded) rule tensors
+            budget = int(cpu.bundle.rule_ids.nbytes + cpu.bundle.rule_confs.nbytes) - 1
+        auto = sharded_engine(dc.replace(auto_cfg, device_budget_bytes=budget), MESH_SERVE_SHARDS)
+        if not auto.load():
+            fail(f"phase 15 (b): the auto engine ({label}) did not load")
+        layouts[label] = (auto.model_layout, budget)
+    if (layouts["default budget"][0] != "replicated" or layouts["tight budget"][0] != "sharded"):
+        fail(f"phase 15 (b): KMLS_MODEL_LAYOUT=auto resolved {layouts}")
+    seconds = time.perf_counter() - t0
+    log(f"phase 15 (b) sharded engine on the card ({MESH_SERVE_SHARDS} slabs of "
+        f"{engine.bundle.shard_size} rows on cuda:0): {MESH_DRAWS} config-5 draws == the "
+        f"replicated CPU engine's; X9 calls {calls}; unwarmed 0, compiles {compiles}; "
+        f"kmls_model_shards {MESH_SERVE_SHARDS}, kmls_shard_dispatch_total {shards}; auto: "
+        f"{layouts}; {seconds:.3f} s")
+    log(f"reduced: phase 15 (b) passes the engine [cuda:0] * {MESH_SERVE_SHARDS} as its serving "
+        "devices (one H100 on this machine)")
+    return {"calls": calls, "shard_dispatch": shards, "layouts": layouts,
+            "seconds": seconds}, engine
+
+
+def gang_ports() -> int:
+    """Two consecutive free localhost ports (rank r on base + r), probed
+    as ``bench.py:3507-3523`` probes them."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s0:
+            s0.bind(("127.0.0.1", 0))
+            base = s0.getsockname()[1]
+        if base + 1 > 65535:
+            continue
+        try:
+            with socket.socket() as s1:
+                s1.bind(("127.0.0.1", base + 1))
+            return base
+        except OSError:
+            continue
+    fail("phase 15: no consecutive free port pair")
+
+
+def gang_env(port: int, rank: int, **extra: str) -> dict:
+    """A gang member's env: the quartet, the cache off (every answer goes
+    through the mesh), deltas polled, and the straggler bound armed."""
+    return dict(KMLS_SERVE_GANG_COORDINATOR=f"127.0.0.1:{port}", KMLS_SERVE_GANG_SIZE="2",
+                KMLS_SERVE_GANG_RANK=str(rank), KMLS_SERVE_GANG_PORT=str(port + rank),
+                KMLS_CACHE_ENABLED="0", KMLS_DELTA_ENABLED="1", POLLING_WAIT_IN_MINUTES=FRESH_POLL,
+                KMLS_HEDGE="1", KMLS_HEDGE_DELAY_MS=MESH_HEDGE_DELAY_MS, **extra)
+
+
+def readyz(base: str) -> dict:
+    try:
+        with urllib.request.urlopen(base + "/readyz", timeout=10) as resp:
+            return json.loads(resp.read())
+    except (urllib.error.URLError, ConnectionError) as exc:
+        return {"status": f"unreachable: {exc}"}
+
+
+def wait_gang_ready(bases: list[str], timeout_s: float) -> float:
+    """Until every member's ``/readyz`` says ``ready`` (its probe re-admits
+    a peer that came up after it) → seconds waited."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if all(readyz(b).get("status") == "ready" for b in bases):
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    fail(f"phase 15: the gang never formed: {[readyz(b) for b in bases]}")
+
+
+def server_unwarmed(lines: list[str]) -> int:
+    return sum("unwarmed seed shape" in ln or "mesh partial for unwarmed" in ln for ln in lines)
+
+
+def mesh_probe(base: str, seeds: list) -> tuple[int, dict, dict]:
+    """One POST → (status, lower-cased headers, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", int(base.rsplit(":", 1)[1]), timeout=30)
+    try:
+        conn.request("POST", "/api/recommend/", json.dumps({"songs": seeds}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = resp.read()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, json.loads(body or b"{}")
+    finally:
+        conn.close()
+
+
+def songs_check(label: str, base: str, payloads: list, want: list) -> None:
+    """Every answer 200, not degraded, its songs ``want``'s (the payloads
+    sent through the port's load generator at the replays' rate, so the
+    admission ladder has no cause to degrade one)."""
+    from kmlserver_tpu_torch.serving.replay import replay_async_http
+
+    responses: list = []
+    replay_async_http(base, payloads, qps=MESH_QPS, n_conns=CONFIG5_CONNS, responses=responses)
+    if len(responses) != len(payloads):
+        fail(f"phase 15 {label}: {len(payloads) - len(responses)} requests got no answer")
+    for i, status, head, body in responses:
+        songs = json.loads(body).get("songs") if status == 200 else None
+        degraded = [ln for ln in head.split(b"\r\n") if ln.startswith(b"x-kmls-degraded:")]
+        if status != 200 or degraded or songs != want[i][0]:
+            fail(f"phase 15 {label}: {payloads[i]} → {status} {degraded} {body[:200]!r} != "
+                 f"{want[i][0]}")
+
+
+def gang_on_card(pvc: str, keys: list, cpu, spawned: list, port: int) -> tuple[dict, list]:
+    """Phase 15 (c): the two gang members and one replicated server
+    (spawned earlier over ``pvc``) under config 5's draws; SIGKILL of rank
+    1, its respawn with ``mesh.peer`` armed once, the re-form. → (result,
+    the live servers: rank 0, rank 1, replicated)."""
+    from kmlserver_tpu_torch.serving.replay import sample_seed_sets
+
+    t0 = time.perf_counter()
+    servers = [await_server(s) for s in spawned]
+    bases = [s[1] for s in servers]
+    form_s = wait_gang_ready(bases[:2], 60)
+    log(f"phase 15 (c): the gang formed and the replicated server ready "
+        f"{time.perf_counter() - t0:.3f} s into the wait ({form_s:.3f} s of /readyz probes); "
+        f"gang ports {port}, {port + 1}")
+    if not any(ln.startswith("NOTE: serve gang rank") for ln in servers[0][2]):
+        fail("phase 15 (c): rank 0 logged no NOTE about the socket transport")
+    payloads = sample_seed_sets(keys, MESH_REQUESTS, rng_seed=16)
+    want = engine_answers(cpu, payloads)
+    log(f"reduced: phase 15 (c) replays {MESH_REQUESTS} of config 5's draws a run, not the "
+        "meshserve bracket's 4,000: the phase's 90 s and the smoke's 1,150 s budgets")
+    runs = {}
+    for label, base in (("gang rank 0", bases[0]), ("gang rank 1", bases[1]),
+                        ("replicated", bases[2])):
+        row = replay_run(base, f"(c) {label}", payloads, want, cpu, MESH_QPS, phase="phase 15")
+        if row["degraded"] or row["shed"] or row["errors"]:
+            fail(f"phase 15 (c) {label}: {row}")
+        runs[label] = row
+    serving_key = 'kmls_serve_mesh_shards{state="serving"}'
+    for rank, base in enumerate(bases[:2]):
+        m = scrape_metrics(base)
+        if m.get(serving_key) != 2 or m.get("kmls_model_shards") != 2:
+            fail(f"phase 15 (c) rank {rank}: {serving_key} {m.get(serving_key)}, "
+                 f"kmls_model_shards {m.get('kmls_model_shards')}")
+    unwarmed = [server_unwarmed(s[2]) for s in servers]
+    if any(unwarmed):
+        fail(f"phase 15 (c): unwarmed dispatches {unwarmed}")
+    # shard loss: SIGKILL rank 1, then seeds not sent before
+    sent = {tuple(p) for p in payloads}
+    fresh = [p for p in sample_seed_sets(keys, 4 * MESH_PROBES, rng_seed=17)
+             if tuple(p) not in sent and not p[0].startswith("__")]
+    servers[1][0].kill()
+    servers[1][0].wait()
+    for seeds in fresh[:3]:
+        status, headers, _ = mesh_probe(bases[0], seeds)
+        if status != 200 or headers.get("x-kmls-degraded") != "mesh-shard-missing:1":
+            fail(f"phase 15 (c) after the kill: {status} {headers}")
+    ready = readyz(bases[0])
+    if ready.get("status") != "degraded" or (
+            "serve_mesh_shard_missing:1" not in ready.get("reasons", [])):
+        fail(f"phase 15 (c) after the kill: /readyz {ready}")
+    # the respawn: the same env, mesh.peer armed for its first partial
+    t_spawn = time.perf_counter()
+    reborn = await_server(spawn_server(pvc, **gang_env(
+        port, 1, KMLS_FAULT_MESH_PEER_DELAY_MS=f"1:{MESH_FAULT_MS}:1")))
+    wait_gang_ready(bases[:1] + [reborn[1]], 60)
+    reform_s = time.perf_counter() - t_spawn
+    servers[1] = reborn
+    status, headers, _ = mesh_probe(bases[0], fresh[3])
+    if status != 200 or headers.get("x-kmls-degraded") != "mesh-straggler":
+        fail(f"phase 15 (c) mesh.peer armed on rank 1: {status} {headers}")
+    time.sleep(MESH_FAULT_MS / 1e3)  # the late partial lands; the link is free
+    probes = fresh[4:4 + MESH_PROBES]
+    want = engine_answers(cpu, probes)
+    # the straggler's batch (the hedge delay long) sits in the admission
+    # ladder's per-batch device-time EWMA, which only completions bring
+    # down, as in the reference's batcher: at 500 QPS its projection would
+    # degrade some of the next requests ("overload"). One request at a
+    # time is admitted at zero projected wait and each completion shrinks
+    # the estimate, so the first MESH_SETTLE probes go one by one.
+    for seeds, (songs, *_rest) in zip(probes[:MESH_SETTLE], want):
+        status, headers, body = mesh_probe(bases[0], seeds)
+        if status != 200 or "x-kmls-degraded" in headers or body.get("songs") != songs:
+            fail(f"phase 15 (c) after the re-form, one by one: {seeds} → {status} "
+                 f"{headers.get('x-kmls-degraded')} {body} != {songs}")
+    songs_check("(c) after the re-form", bases[0], probes[MESH_SETTLE:], want[MESH_SETTLE:])
+    m = scrape_metrics(bases[0])
+    result = {"runs": runs, "form_s": form_s, "reform_s": reform_s,
+              "straggler_degraded": m.get("kmls_mesh_straggler_degraded_total"),
+              "seconds": time.perf_counter() - t0}
+    log(f"phase 15 (c) gang of two `python -m kmlserver_tpu_torch.serving.server` sharing the "
+        f"card: {MESH_REQUESTS} config-5 draws at {MESH_QPS:.0f} QPS at each member == the CPU "
+        f"engine's, 0 5xx, 0 degraded, 0 unwarmed; client p50/p99 rank 0 "
+        f"{runs['gang rank 0']['p50_ms']:.3f}/{runs['gang rank 0']['p99_ms']:.3f} ms, rank 1 "
+        f"{runs['gang rank 1']['p50_ms']:.3f}/{runs['gang rank 1']['p99_ms']:.3f} ms, one "
+        f"replicated server {runs['replicated']['p50_ms']:.3f}/{runs['replicated']['p99_ms']:.3f}"
+        f" ms; rank 1 SIGKILLed: 200 + X-KMLS-Degraded: mesh-shard-missing:1, /readyz "
+        f"{ready['reasons']}; respawned, the gang re-formed in {reform_s:.3f} s; mesh.peer "
+        f"armed once → mesh-straggler; {len(probes)} fresh answers identical again "
+        f"({MESH_SETTLE} one at a time, then {len(probes) - MESH_SETTLE} at {MESH_QPS:.0f} QPS)")
+    return result, servers
+
+
+def delta_across_layouts(work: str, pvc: str, engine, servers: list, cpu) -> dict:
+    """Phase 15 (d): one bench-size append to ``pvc`` (mined by two sharded
+    ranks), the two-rank sharded delta job (the mesh recount on both
+    ranks), its bundle against a one-card delta job's, and the apply into
+    the (b) engine and the (c) gang against a pristine full re-mine; then
+    the sharded compaction against the same re-mine."""
+    import dataclasses as dc
+
+    from kmlserver_tpu_torch.config import MiningConfig, ServingConfig
+    from kmlserver_tpu_torch.io import artifacts
+    from kmlserver_tpu_torch.mining.pipeline import run_mining_job
+    from kmlserver_tpu_torch.quality import lifecycle
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.replay import sample_seed_sets
+
+    t0 = time.perf_counter()
+    csv_path = os.path.join(pvc, "datasets", FRESH_CSV)
+    append_bench_rows(csv_path, np.random.default_rng(15), 10_000_000 + 7_000, 96 + 5 * 160,
+                      9_000_015)
+    one = os.path.join(work, "pvc15_one")
+    shutil.copytree(pvc, one)
+    full = os.path.join(work, "pvc15_full")
+    os.makedirs(os.path.join(full, "datasets"))
+    shutil.copy(csv_path, os.path.join(full, "datasets", FRESH_CSV))
+    logs = run_ranks([[sys.executable, "-m", "kmlserver_tpu_torch.mining.job"]] * RANKS,
+                     rank_envs(free_port(), **mesh_job_env(pvc)), 300, "phase 15 (d)")
+    t_two = time.perf_counter() - t0
+    # the one-card delta job and the pristine full re-mine, in this process
+    cfg = MiningConfig(base_dir=one, datasets_dir=os.path.join(one, "datasets"),
+                       delta_enabled=True, model_layout="sharded")
+    if run_mining_job(cfg, device="cuda").delta_seq != 1:
+        fail("phase 15 (d): the one-card delta job published no bundle")
+    run_mining_job(dc.replace(cfg, base_dir=full, delta_enabled=False,
+                              datasets_dir=os.path.join(full, "datasets")), device="cuda")
+    route = [ln for out in logs for ln in out.splitlines() if ln.startswith("Delta recount route")]
+    if (len(route) != RANKS or not all(f"rank {r} contributes" in route[r] for r in range(RANKS))
+            or "Delta 1 published" not in logs[0]):
+        fail(f"phase 15 (d): the two-rank delta job's recount routes {route}:\n"
+             + "\n".join(logs[0].splitlines()[-20:]))
+    name = artifacts.delta_bundle_filename(1)
+    a, b = (bundle_members(os.path.join(p, "pickles", name)) for p in (one, pvc))
+    if a != b:
+        fail(f"phase 15 (d): {name} of the two-rank job differs from the one-card job's: "
+             f"{sorted(k for k in a if a.get(k) != b.get(k))}")
+    want_engine = RecommendEngine(ServingConfig(base_dir=full), device="cpu")
+    if not want_engine.load():
+        fail("phase 15 (d): the full re-mine did not load")
+    keys = sorted(n for n, k in zip(want_engine.bundle.vocab, want_engine.bundle.known_mask) if k)
+    # rule answers only: a delta leaves the popularity list (the fallback's)
+    # as the base published it, a re-mine recomputes it
+    probes = [p for p in sample_seed_sets(keys, MESH_PROBES, rng_seed=18)
+              if not p[0].startswith("__")]
+    want = engine_answers(want_engine, probes)
+    # (b)'s sharded engine: the bundle applied into its slabs
+    if engine.apply_pending_deltas() != 1 or engine.n_shards != MESH_SERVE_SHARDS:
+        fail(f"phase 15 (d): the sharded engine applied {engine.delta_seq}, "
+             f"{engine.n_shards} shards")
+    if engine_answers(engine, probes) != want or engine.unwarmed_dispatches:
+        fail("phase 15 (d): the sharded engine's answers after the delta != the full re-mine's")
+    # the gang: each member polls and applies into its slab
+    deadline = time.perf_counter() + 60
+    while True:
+        seqs = [scrape_metrics(s[1]).get("kmls_delta_seq") for s in servers[:2]]
+        if seqs == [1, 1]:
+            break
+        if time.perf_counter() > deadline:
+            fail(f"phase 15 (d): the gang's delta seqs {seqs}")
+        time.sleep(0.1)
+    for rank in range(2):
+        m = scrape_metrics(servers[rank][1])
+        if m.get("kmls_model_shards") != 2:
+            fail(f"phase 15 (d) rank {rank}: kmls_model_shards {m.get('kmls_model_shards')}")
+        songs_check(f"(d) gang rank {rank} after the delta", servers[rank][1], probes, want)
+    # the compaction under the sharded layout
+    for server in servers:
+        stop_server(server[0])
+    compacted = lifecycle.compact_delta_chain(dc.replace(
+        cfg, base_dir=pvc, datasets_dir=os.path.join(pvc, "datasets")))
+    got_npz, want_npz = (artifacts.load_rule_tensors(artifacts.tensor_artifact_path(
+        os.path.join(p, "pickles", cfg.recommendations_file))) for p in (pvc, full))
+    if compacted.n_folded != 1 or got_npz["vocab"] != want_npz["vocab"] or not all(
+            np.array_equal(got_npz[k], want_npz[k]) for k in ("rule_ids", "rule_counts",
+                                                               "item_counts")):
+        fail(f"phase 15 (d): the sharded compaction ({compacted}) != the full re-mine")
+    seconds = time.perf_counter() - t0
+    log(f"phase 15 (d) one append ({FRESH_CSV}, bench size): two sharded ranks on 1x2 — "
+        + "; ".join(route) + f" — published {name} in {t_two:.3f} s, its members == the "
+        f"one-card job's; applied into the sharded engine ({engine.n_shards} slabs) and into "
+        f"both gang members (kmls_model_shards 2, delta seq 1): {len(probes)} answers == the "
+        f"pristine full re-mine's; the compaction (folded {compacted.n_folded}) == the full "
+        f"re-mine's npz; {seconds:.3f} s")
+    return {"two_ranks_s": t_two, "route": route, "seconds": seconds}
+
+
+def mesh_job_env(pvc: str) -> dict:
+    """The sharded delta-armed job's env (two ranks on ``1x2``)."""
+    return dict(BASE_DIR=pvc, DATASETS_DIR=os.path.join(pvc, "datasets"),
+                KMLS_MODEL_LAYOUT="sharded", KMLS_MESH_SHAPE=f"1x{RANKS}", KMLS_DELTA_ENABLED="1")
+
+
+def phase_model_parallel(work: str | None = None) -> dict:
+    """Phase 15: model-parallel serving on phase 4's CSV (alone: ``python
+    -c "import chip_smoke as c; c.phase_model_parallel()"`` mines its own
+    ds2 PVC first)."""
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+
+    t0 = time.perf_counter()
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke15_")
+    try:
+        src = os.path.join(ds2_pvc(work), "datasets", FRESH_CSV)
+        pvc = os.path.join(work, "pvc15")
+        os.makedirs(os.path.join(pvc, "datasets"))
+        shutil.copy(src, os.path.join(pvc, "datasets", FRESH_CSV))
+        t_base = time.perf_counter()
+        outs = run_ranks([[sys.executable, "-m", "kmlserver_tpu_torch.mining.job"]] * RANKS,
+                         rank_envs(free_port(), **mesh_job_env(pvc)), 300,
+                         "phase 15 base mine")
+        if "sharded-vocab" not in outs[0]:
+            fail("phase 15: the two-rank sharded base mine failed:\n" + outs[0][-3000:])
+        if not same_publication(pvc, os.path.join(work, "pvc")):
+            fail("phase 15: the two-rank sharded mine's publication != phase 4's")
+        t_mine = time.perf_counter() - t_base
+        log(f"phase 15: phase 4's CSV mined by two ranks (KMLS_MODEL_LAYOUT=sharded, 1x{RANKS}, "
+            f"deltas armed) in {t_mine:.3f} s wall, its publication == phase 4's; rank 0: "
+            + "; ".join(ln for ln in outs[0].splitlines()
+                        if ln.startswith(("Pair-count path", "Phase timings", "Distributed"))))
+        port = gang_ports()
+        spawned = [spawn_server(pvc, **gang_env(port, rank)) for rank in range(2)]
+        spawned.append(spawn_server(pvc, KMLS_CACHE_ENABLED="0"))
+        cpu = RecommendEngine(ServingConfig(base_dir=pvc), device="cpu")
+        if not cpu.load():
+            fail("phase 15: the CPU engine could not load the PVC")
+        keys = sorted(n for n, k in zip(cpu.bundle.vocab, cpu.bundle.known_mask) if k)
+        sharded, engine = sharded_on_card(pvc, keys, cpu)
+        gang, servers = gang_on_card(pvc, keys, cpu, spawned, port)
+        x9 = x9_on_card(pvc)  # the servers idle: the card is this process's
+        delta = delta_across_layouts(work, pvc, engine, servers, cpu)
+        seconds = time.perf_counter() - t0
+        result = {"x9": x9, "sharded": sharded, "gang": gang, "delta": delta,
+                  "seconds": {"base_mine": t_mine, "phase": seconds}}
+        log(f"phase 15 seconds {seconds:.3f} (the two-rank base mine {t_mine:.3f}, (a) "
+            f"{sum(x9['seconds'].values()):.3f}, (b) {sharded['seconds']:.3f}, (c) "
+            f"{gang['seconds']:.3f}, (d) {delta['seconds']:.3f})")
+        log("PHASE15 " + json.dumps(result, default=str))
+        return result
+    finally:
+        stop_spawned()
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def x9_entry(mp: dict) -> dict:
+    """X9's sub-entry of the kernels line: library ops, so calls (phase 15
+    (b)'s main path), not launches; per bucket the sharded lookup's ms
+    beside the replicated lookup's and the bound."""
+    def rows(case: list) -> list[dict]:
+        return [{k: r[k] for k in ("shards", "batch", "length", "ms", "partial_ms", "merge_ms",
+                                   "replicated_ms", "bound_ms")} for r in case if "ms" in r]
+
+    return {"shards": list(MESH_SHARDS), "calls": mp["sharded"]["calls"],
+            "ds2": rows(mp["x9"]["ds2"]), "v_1m": rows(mp["x9"]["scale"]),
+            "bound_by": "bytes"}
 
 
 def save_tensors(work: str, tensors) -> None:
@@ -4970,7 +5731,10 @@ def main() -> int:
         routes = phase_routes()
         torch.cuda.empty_cache()  # phase 14's ranks share the card with this process
         sharded = phase_sharded(work, embed["scale"]["final_loss"])
+        torch.cuda.empty_cache()
+        model_parallel = phase_model_parallel(work)
     finally:
+        stop_spawned()
         shutil.rmtree(work, ignore_errors=True)
     kernel = scale["kernel"]
     kernel["launches_job"] = e2e["job_launches"]
@@ -4984,6 +5748,7 @@ def main() -> int:
     # long-basket block is this kernel's
     x8 = x8_entry(sharded)
     ranks["kernel"]["x8"] = x8
+    ranks["kernel"]["x9"] = x9_entry(model_parallel)
     ranks["kernel"]["launches_sparse_sharded"] = sum(
         m["launches"]["popcount_pairs"] for res in sharded["ds2"].values()
         for label, m in res["mines"].items() if label == "sparse-sharded")

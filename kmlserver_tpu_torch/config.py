@@ -103,6 +103,18 @@ def _getenv_model_layout() -> str:
     return validate_layout(os.getenv("KMLS_MODEL_LAYOUT", "replicated"))
 
 
+def _getenv_gang_rank() -> int:
+    """``KMLS_SERVE_GANG_RANK``, else the identity recipe of
+    ``parallel.distributed.gang_rank_fallback`` (``JOB_COMPLETION_INDEX``,
+    then the hostname's trailing StatefulSet ordinal)."""
+    raw = os.getenv("KMLS_SERVE_GANG_RANK")
+    if raw not in (None, ""):
+        return int(raw)
+    from .parallel.distributed import gang_rank_fallback
+
+    return gang_rank_fallback()
+
+
 def torch_device_from_env() -> str:
     """``KMLS_TORCH_DEVICE`` (default ``cuda``)."""
     return os.getenv("KMLS_TORCH_DEVICE") or "cuda"
@@ -426,8 +438,14 @@ class ServingConfig:
     request_deadline_ms: float = 0.0
     # budget for the degraded fallback answer itself (ms)
     fallback_budget_ms: float = 50.0
-    # per-device bytes the cost model's headroom gauge measures the rule
-    # tensors against (the reference's layout budget)
+    # serving layout (parallel/layout.py, shared with mining): "replicated"
+    # = one full copy of the rule tensors per serving card; "sharded" = one
+    # logical model, its rule rows split along the vocabulary across every
+    # serving card; "auto" shards only when the measured tensor bytes exceed
+    # device_budget_bytes. An armed serve gang (below) overrides it: "mesh"
+    model_layout: str = "replicated"
+    # per-device bytes the auto layout and the cost model's headroom gauge
+    # measure the rule tensors against; 0 disables the auto trigger
     device_budget_bytes: int = 12 * (1 << 30)
     # span tracing (observability/trace.py): baseline retention probability
     # of OK traces; 0 disables tracing entirely. Shed, degraded and error
@@ -473,6 +491,27 @@ class ServingConfig:
     cache_affinity: bool = False
     cache_affinity_peers: str = ""
     cache_affinity_self: str = ""
+    # the serve gang (serving/mesh.py, kubernetes/serve-gang.yaml): with
+    # serve_gang_size > 1 and a coordinator, each member holds only its
+    # vocab slab (rows [rank·slab, (rank+1)·slab)), serves its partial
+    # top-k to its peers on serve_gang_port, and merges every slab's
+    # partial for its own requests. coordinator is rank 0's partial
+    # address ("host:port"): a "-0" ordinal host maps rank r to "-r" on the
+    # same port, a bare host to port + r. The rank falls back to the
+    # hostname's trailing ordinal
+    serve_gang_coordinator: str = ""
+    serve_gang_size: int = 1
+    serve_gang_rank: int = 0
+    serve_gang_port: int = 8477
+    # the gang coordinator's straggler bound: with hedge on, a rank that has
+    # not answered within ~its p95 (floored at hedge_delay_ms) is left out
+    # of the merge (a degraded answer), at most hedge_max_frac of the
+    # dispatches; peer_slow_ratio > 0 marks a rank slow once its latency
+    # EWMA passes that multiple of the healthy median
+    hedge_enabled: bool = False
+    hedge_delay_ms: float = 30.0
+    hedge_max_frac: float = 0.05
+    peer_slow_ratio: float = 0.0
 
     @property
     def pickles_dir(self) -> str:
@@ -506,6 +545,7 @@ class ServingConfig:
             shed_retry_jitter=_getenv_float("KMLS_SHED_RETRY_JITTER", 0.5),
             batch_max_inflight=_getenv_int("KMLS_BATCH_MAX_INFLIGHT", 4),
             serve_devices=_getenv_int("KMLS_SERVE_DEVICES", 0),
+            model_layout=_getenv_model_layout(),
             cache_enabled=_getenv_bool("KMLS_CACHE_ENABLED", True),
             cache_max_entries=_getenv_int("KMLS_CACHE_MAX_ENTRIES", 8192),
             prefer_tensor_artifact=_getenv_bool("KMLS_PREFER_TENSOR_ARTIFACT", True),
@@ -538,4 +578,12 @@ class ServingConfig:
             cache_affinity=_getenv_bool("KMLS_CACHE_AFFINITY", False),
             cache_affinity_peers=os.getenv("KMLS_CACHE_AFFINITY_PEERS", ""),
             cache_affinity_self=os.getenv("KMLS_CACHE_AFFINITY_SELF", ""),
+            serve_gang_coordinator=os.getenv("KMLS_SERVE_GANG_COORDINATOR", ""),
+            serve_gang_size=_getenv_int("KMLS_SERVE_GANG_SIZE", 1),
+            serve_gang_rank=_getenv_gang_rank(),
+            serve_gang_port=_getenv_int("KMLS_SERVE_GANG_PORT", 8477),
+            hedge_enabled=_getenv_bool("KMLS_HEDGE", False),
+            hedge_delay_ms=_getenv_float("KMLS_HEDGE_DELAY_MS", 30.0),
+            hedge_max_frac=_getenv_float("KMLS_HEDGE_MAX_FRAC", 0.05),
+            peer_slow_ratio=_getenv_float("KMLS_PEER_SLOW_RATIO", 0.0),
         )

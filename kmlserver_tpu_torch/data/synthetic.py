@@ -6,16 +6,19 @@ the repo). This produces Zipf-popularity membership data shaped like the real
 ds2 (240,249 rows over 2,246 playlists × 2,171 tracks — relatorio.pdf p.6)
 at any scale, deterministically.
 
-Generation is vectorized numpy: draw playlist sizes (Poisson around the
-target mean), draw track ids from a Zipf(s) law, then deduplicate
-(playlist, track) pairs — matching how real playlists can't contain a track
-twice (the reference's encoder has the same set semantics,
-machine-learning/main.py:267-269).
+Generation draws playlist sizes (Poisson around the target mean), draws
+track ids from a Zipf(s) law, then deduplicates (playlist, track) pairs —
+matching how real playlists can't contain a track twice (the reference's
+encoder has the same set semantics, machine-learning/main.py:267-269). The
+random numbers are numpy's, in the reference's order, so a seed gives the
+reference generator's arrays; the inverse-CDF search and the dedup run on
+``device`` (a card makes the 1M-track scale shape's ~90M draws cheap).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..mining.vocab import Baskets, Vocab
 from .csv import TrackTable
@@ -33,6 +36,7 @@ def synthetic_memberships(
     *,
     zipf_exponent: float = 1.0,
     seed: int = 0,
+    device: str | torch.device = "cpu",
 ) -> tuple[np.ndarray, np.ndarray]:
     """→ deduplicated ``(playlist_rows int32, track_ids int32)`` with roughly
     ``target_rows`` memberships."""
@@ -43,11 +47,20 @@ def synthetic_memberships(
     mean_len = max(draw_rows / n_playlists, 1.0)
     sizes = np.maximum(rng.poisson(mean_len, size=n_playlists), 1)
     playlist_rows = np.repeat(np.arange(n_playlists, dtype=np.int64), sizes)
-    track_ids = rng.choice(
-        n_tracks, size=playlist_rows.shape[0], p=zipf_weights(n_tracks, zipf_exponent)
-    )
-    key = playlist_rows * np.int64(n_tracks) + track_ids
-    unique_key = np.unique(key)
+    # numpy's Generator.choice(n_tracks, size, p=zipf) written out: the same
+    # normalised cdf, the same uniforms, the same right-side search — the
+    # same draws — with the search and the dedup on ``device``
+    cdf = zipf_weights(n_tracks, zipf_exponent).cumsum()
+    cdf /= cdf[-1]
+    uniform = rng.random(playlist_rows.shape[0])
+    dev = torch.device(device)
+    track_ids = torch.searchsorted(torch.as_tensor(cdf, device=dev),
+                                   torch.as_tensor(uniform, device=dev), right=True)
+    del uniform
+    key = torch.as_tensor(playlist_rows, device=dev).mul_(n_tracks).add_(track_ids)
+    del track_ids
+    unique_key = torch.unique(key).cpu().numpy()  # sorted, as np.unique
+    del key
     if len(unique_key) > target_rows:
         unique_key = np.sort(
             rng.choice(unique_key, size=target_rows, replace=False)
@@ -65,10 +78,13 @@ def synthetic_baskets(
     *,
     zipf_exponent: float = 1.0,
     seed: int = 0,
+    device: str | torch.device = "cpu",
 ) -> Baskets:
-    """Basket tensor ready for the miner, with a generated name vocabulary."""
+    """Basket tensor ready for the miner, with a generated name vocabulary
+    (``device``: where :func:`synthetic_memberships` searches and dedups)."""
     rows, tids = synthetic_memberships(
-        n_playlists, n_tracks, target_rows, zipf_exponent=zipf_exponent, seed=seed
+        n_playlists, n_tracks, target_rows, zipf_exponent=zipf_exponent, seed=seed,
+        device=device,
     )
     names = [f"Track {i:07d}" for i in range(n_tracks)]
     vocab = Vocab(names=names, index={n: i for i, n in enumerate(names)})

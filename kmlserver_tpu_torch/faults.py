@@ -31,6 +31,11 @@ Sites wired in this package:
   before a chain entry's bundle is read: a fail fault rejects the bundle
   like a torn one (the base generation keeps serving, the poll backs off,
   and a later apply lands the same bundle).
+- ``"mesh.peer"`` (keyed by gang rank) — in the serve-gang worker's
+  partial handler (:meth:`RecommendEngine._mesh_serve_partial`), on the
+  answer path of a REMOTE rank: a fail fault makes the coordinating peer
+  read that rank as a missing shard, a delay fault makes it a straggler
+  (alive, correct, late) that ``KMLS_HEDGE`` leaves out of the merge.
 - ``"io.write"`` / ``"io.read"`` / ``"io.fsync"`` — the storage plane,
   consumed through :func:`take_io` inside ``io/artifacts.py``'s one writer
   and reader, path-scoped (each armed fault carries an optional path
@@ -38,11 +43,9 @@ Sites wired in this package:
   bytes to the temp file, then raise :class:`TornWrite`), ``stall`` (the
   caller sleeps) and ``fail`` for fsync (never retried).
 
-The reference's other sites — ``mesh.peer`` and ``fleet.peer`` — belong
-to modules this package does not have yet (the serve mesh, the fleet
-router). Their knobs (``KMLS_FAULT_MESH_PEER_DELAY_MS``,
-``KMLS_FAULT_FLEET_PEER_DELAY_MS``) parse as in the reference and arm
-faults that nothing fires yet.
+The reference's ``fleet.peer`` site belongs to the fleet router, which this
+package does not have yet: its knob (``KMLS_FAULT_FLEET_PEER_DELAY_MS``)
+parses as in the reference and arms a fault that nothing fires yet.
 
 Arming, two ways:
 
@@ -66,8 +69,10 @@ Arming, two ways:
   - ``KMLS_FAULT_EMBED_CORRUPT=N`` — fail the next N embedding-artifact
     loads;
   - ``KMLS_FAULT_DELTA_CORRUPT=N`` — reject the next N delta applies;
-  - ``KMLS_FAULT_MESH_PEER_DELAY_MS=rank:ms[:N]``,
-    ``KMLS_FAULT_FLEET_PEER_DELAY_MS=idx:ms[:N]`` — parsed, not fired
+  - ``KMLS_FAULT_MESH_PEER_DELAY_MS=rank:ms[:N]`` — gang rank ``rank``'s
+    worker sleeps ``ms`` before each of its next N partials (default
+    every partial);
+  - ``KMLS_FAULT_FLEET_PEER_DELAY_MS=idx:ms[:N]`` — parsed, not fired
     (see above);
   - ``KMLS_FAULT_IO_WRITE=kind[:N][:substr]`` — next N artifact-plane
     writes whose destination contains ``substr`` fail with ``kind`` ∈

@@ -14,7 +14,9 @@ bundle. With ``KMLS_DELTA_ENABLED=1``:
   (``data/csv.py::parse_tracks``: verbatim strings, strict int64 pids), so
   they read exactly as a full read would — and support is recounted for
   the rows of the affected baskets' tracks only
-  (``parallel/support.py::restricted_pair_counts``);
+  (``parallel/support.py::restricted_pair_counts``; under the
+  vocab-sharded layout every rank of the one-host world contributes its
+  block of that recount, ``mining/pipeline.py::_run_delta_route``);
 - the changed rule rows and tombstones publish as ``delta-<seq>.bundle``
   (``io/artifacts.py``), bound to the base generation by token and by the
   published npz's sha256, under the publication lease. The invalidation
@@ -61,7 +63,7 @@ import io
 import json
 import os
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -518,10 +520,17 @@ def _shrink(
     return keep
 
 
-def run_delta_job(cfg: MiningConfig, device: str | torch.device = "cuda") -> DeltaResult:
+def run_delta_job(
+    cfg: MiningConfig, device: str | torch.device = "cuda",
+    recount: Callable[[Baskets, np.ndarray], np.ndarray] | None = None,
+    n_devices: int = 1,
+) -> DeltaResult:
     """The ``delta`` route of the mining job, its recount on ``device``
     above the host threshold; run by one rank (rank 0 of a one-host world;
-    ranks on several hosts are ineligible). Raises
+    ranks on several hosts are ineligible). Under the vocab-sharded layout
+    the pipeline passes ``recount`` (the mesh recount every rank joins) and
+    the mesh's ``n_devices`` for the dispatch, as the reference's
+    ``use_mesh`` does; a sparse plan still counts on the host alone. Raises
     :class:`DeltaIneligible` whenever a full re-mine is the only correct
     answer."""
     from ..mining import dispatch as dispatch_mod
@@ -631,12 +640,15 @@ def run_delta_job(cfg: MiningConfig, device: str | torch.device = "cuda") -> Del
         t = time.perf_counter()
         plan = dispatch_mod.plan_count_path(
             cfg, mined.n_playlists, mined.n_tracks, len(mined.playlist_rows),
-            backend=backend_name(dev), n_devices=1, baskets=mined,
+            backend=backend_name(dev), n_devices=n_devices, baskets=mined,
         )
-        counts_r = restricted_pair_counts(
-            mined, r_ids, count_path="sparse" if plan.path == "sparse" else None,
-            device=dev,
-        )
+        if recount is not None and plan.path != "sparse":
+            counts_r = recount(mined, r_ids)
+        else:
+            counts_r = restricted_pair_counts(
+                mined, r_ids, count_path="sparse" if plan.path == "sparse" else None,
+                device=dev,
+            )
         timings["recount"] = time.perf_counter() - t
         t = time.perf_counter()
         rule_ids, rule_counts, item_counts = emit_rule_rows_np(

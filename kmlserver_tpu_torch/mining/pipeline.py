@@ -142,25 +142,58 @@ def _guarded(watchdog: RankWatchdog | None, name: str):
     return watchdog.guard(name) if watchdog is not None else contextlib.nullcontext()
 
 
-def _run_delta_route(cfg: MiningConfig, device,
-                     watchdog: RankWatchdog | None = None) -> JobSummary | None:
+def _run_delta_route(cfg: MiningConfig, device, watchdog: RankWatchdog | None = None,
+                     mesh: RankMesh | None = None) -> JobSummary | None:
     """The delta route (``KMLS_DELTA_ENABLED``) → its summary, or None when
     the run is ineligible and the full pipeline must run.
 
-    Rank 0 alone decides and runs it (the one-device recount on its card,
-    the publication under the lease) and broadcasts the outcome — published,
-    ineligible, or the exception it raised — so every rank takes the same
-    route. A rank that decided for itself could read a different CSV suffix
-    while an appender writes, and a rank left in the full mine would block
-    in its all-reduce."""
+    Rank 0 alone decides and runs it (the publication under the lease) and
+    broadcasts the outcome — published, ineligible, or the exception it
+    raised — so every rank takes the same route. A rank that decided for
+    itself could read a different CSV suffix while an appender writes, and
+    a rank left in the full mine would block in its all-reduce.
+
+    The recount: on rank 0's card alone; under the vocab-sharded layout on
+    a mesh with a vocab axis (the reference's ``use_mesh``), over the mesh
+    — rank 0 broadcasts the recount's baskets and rows first (or nothing,
+    when it decided no recount runs) and every rank contributes its block
+    (``parallel/support.py::restricted_pair_counts``); rank 0 still emits
+    and publishes."""
     from ..freshness import delta as delta_mod
+    from ..parallel import support
 
     rank = this_rank()
+    mesh = layout.mining_mesh(cfg, mesh)
+    sharded = mesh is not None and layout.wants_sharded_mining(cfg, mesh)
+    route = f"sharded over the {mesh.shape['dp']}x{mesh.shape['tp']} mesh" if sharded else ""
     local: BaseException | None = None
     outcome = None
-    if rank == 0:
+    if sharded and rank != 0:
+        with _guarded(watchdog, "delta"):
+            job = broadcast_from_writer(None)
+        if job is not None:
+            mined, r_ids = job
+            print(f"Delta recount route: {route}, rank {rank} contributes its block "
+                  f"({len(r_ids)} rows)")
+            with _guarded(watchdog, "delta"):
+                support.restricted_pair_counts(mined, r_ids, device=device, mesh=mesh)
+    elif rank == 0:
+        sent: list[bool] = []
+
+        def mesh_recount(mined, r_ids):
+            with _guarded(watchdog, "delta"):
+                broadcast_from_writer((mined, r_ids))
+            sent.append(True)
+            print(f"Delta recount route: {route}, rank 0 contributes its block "
+                  f"({len(r_ids)} rows), emits and publishes")
+            with _guarded(watchdog, "delta"):
+                return support.restricted_pair_counts(mined, r_ids, device=device, mesh=mesh)
+
         try:
-            outcome = ("published", _delta_on_writer(cfg, device))
+            outcome = ("published", _delta_on_writer(
+                cfg, device, recount=mesh_recount if sharded else None,
+                n_devices=mesh.size if sharded else 1,
+            ))
         except delta_mod.DeltaIneligible as exc:
             outcome = ("ineligible", str(exc))
         except BaseException as exc:
@@ -170,6 +203,10 @@ def _run_delta_route(cfg: MiningConfig, device,
                 outcome = ("raised", exc)
             except Exception:
                 outcome = ("raised", RuntimeError(f"rank 0's delta route failed: {exc!r}"))
+        if sharded and not sent:
+            # no recount ran: release the ranks waiting for one
+            with _guarded(watchdog, "delta"):
+                broadcast_from_writer(None)
     with _guarded(watchdog, "delta"):
         kind, value = broadcast_from_writer(outcome)
     if local is not None:
@@ -186,7 +223,7 @@ def _run_delta_route(cfg: MiningConfig, device,
     return value
 
 
-def _delta_on_writer(cfg: MiningConfig, device) -> JobSummary:
+def _delta_on_writer(cfg: MiningConfig, device, recount=None, n_devices: int = 1) -> JobSummary:
     """The writer's delta route → its summary; raises ``DeltaIneligible``
     when a full re-mine is needed. A delta publication refreshes
     ``job_metrics.prom`` (a ``delta`` phase, the recount's analytic cost,
@@ -198,7 +235,7 @@ def _delta_on_writer(cfg: MiningConfig, device) -> JobSummary:
     # nothing until a phase completes, so an ineligible run leaves no trace
     jm = JobMetrics(cfg.pickles_dir) if cfg.job_metrics else None
     try:
-        res = delta_mod.run_delta_job(cfg, device=device)
+        res = delta_mod.run_delta_job(cfg, device=device, recount=recount, n_devices=n_devices)
     except delta_mod.DeltaIneligible:
         raise  # not an abort: the full pipeline runs next
     except BaseException:
@@ -459,7 +496,7 @@ def run_mining_job(
     eval)."""
     print(f"Job starting at {get_current_time_str()}")
     if cfg.delta_enabled:
-        summary = _run_delta_route(cfg, device, watchdog)
+        summary = _run_delta_route(cfg, device, watchdog, mesh)
         if summary is not None:
             return summary
     mesh = layout.mining_mesh(cfg, mesh)

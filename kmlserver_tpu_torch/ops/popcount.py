@@ -61,9 +61,7 @@ VARIANTS = ("bcast", "row")
 # launches of the CUDA kernels, counted by the wrapper where it launches
 LAUNCHES = {"popcount_pairs": 0, "popcount_pairs_swar": 0}
 
-_MASK32 = 0xFFFFFFFF
-
-# int64 elements per block of the plain version's (rows, V, words) temporaries
+# elements per block of the plain version's unpacked (V, 32·words) bits
 _PLAIN_BLOCK_ELEMS = {"cuda": 1 << 26, "cpu": 1 << 22}
 
 
@@ -134,40 +132,25 @@ def block_shape(tile_i: int, tile_j: int) -> tuple[int, int]:
     return TILE_I_DEFAULT, TILE_J_DEFAULT
 
 
-def _popcount32_(x: torch.Tensor) -> torch.Tensor:
-    """In-place SWAR popcount of int64 values in ``[0, 2**32)`` (so every
-    shift is logical) — adds and shifts only, Hacker's Delight fig. 5-2."""
-    t = torch.bitwise_right_shift(x, 1)
-    x.sub_(t.bitwise_and_(0x55555555))
-    torch.bitwise_right_shift(x, 2, out=t)
-    x.bitwise_and_(0x33333333).add_(t.bitwise_and_(0x33333333))
-    torch.bitwise_right_shift(x, 4, out=t)
-    x.add_(t).bitwise_and_(0x0F0F0F0F)
-    torch.bitwise_right_shift(x, 16, out=t)
-    x.add_(t)
-    torch.bitwise_right_shift(x, 8, out=t)
-    return x.add_(t).bitwise_and_(0x3F)
-
-
 def popcount_pair_counts_plain(bt: torch.Tensor) -> torch.Tensor:
-    """The kernel's function written straight out: AND every row pair's
-    words, SWAR-popcount them in int64, sum over words. Works in
-    ``(rows, V, words)`` blocks of at most ``_PLAIN_BLOCK_ELEMS`` elements
-    for ``bt``'s device so memory stays bounded. → int32 ``(V, V)`` on
-    ``bt``'s device."""
+    """The kernel's function written straight out: unpack each word's 32
+    bits into 0/1 columns and take every row pair's dot product — the
+    number of playlists both tracks are in — over blocks of words of at
+    most ``_PLAIN_BLOCK_ELEMS`` unpacked elements, in float64 (exact: every
+    count is an integer below 2**53). → int32 ``(V, V)`` on ``bt``'s
+    device."""
     max_elems = _PLAIN_BLOCK_ELEMS["cuda" if bt.is_cuda else "cpu"]
     v, w = bt.shape
-    out = torch.zeros((v, v), dtype=torch.int64, device=bt.device)
+    out = torch.zeros((v, v), dtype=torch.float64, device=bt.device)
     if v == 0 or w == 0:
         return out.to(torch.int32)
-    words = bt.long() & _MASK32
-    wc = max(1, min(w, max_elems // v))
-    rows = max(1, max_elems // (v * wc))
+    wc = max(1, min(w, max_elems // (32 * v)))
+    # an arithmetic shift of an int32 word by k leaves its bit k in bit 0
+    shifts = torch.arange(32, dtype=torch.int32, device=bt.device)
     for w0 in range(0, w, wc):
-        b = words[None, :, w0:w0 + wc]
-        for i0 in range(0, v, rows):
-            a = words[i0:i0 + rows, None, w0:w0 + wc]
-            out[i0:i0 + rows] += _popcount32_(a & b).sum(dim=2)
+        bits = (bt[:, w0:w0 + wc, None].int() >> shifts) & 1
+        x = bits.reshape(v, -1).to(torch.float64)
+        out += x @ x.t()
     return out.to(torch.int32)
 
 

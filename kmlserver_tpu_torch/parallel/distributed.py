@@ -20,8 +20,12 @@ through host tensors whenever the group's backend is gloo; host names,
 barriers and the delta route's outcome run over the gloo world group on
 the host. The kernels run on the card either way.
 
-Not ported: the serve-gang bootstrap (``:56-197``; the serve mesh is on
-ROADMAP).
+The serve gang's identity (``:56-142``): ``KMLS_SERVE_GANG_COORDINATOR``,
+``KMLS_SERVE_GANG_SIZE`` and ``KMLS_SERVE_GANG_RANK`` (falling back to the
+StatefulSet ordinal, :func:`gang_rank_fallback`). A gang serves through
+the socket transport of ``serving/mesh.py``; the reference's
+real-collectives gang (``maybe_initialize_serve_gang``, one JAX world over
+the gang) is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +48,12 @@ COORDINATOR_ENV = "KMLS_COORDINATOR_ADDRESS"
 NUM_PROCESSES_ENV = "KMLS_NUM_PROCESSES"
 PROCESS_ID_ENV = "KMLS_PROCESS_ID"
 K8S_INDEX_ENV = "JOB_COMPLETION_INDEX"
+# the serving twin of the env triple above (a StatefulSet gang of API pods
+# whose vocab slabs form one logical replica); names of their own, so a pod
+# can belong to a mining world and a serve gang at once
+SERVE_GANG_COORDINATOR_ENV = "KMLS_SERVE_GANG_COORDINATOR"
+SERVE_GANG_SIZE_ENV = "KMLS_SERVE_GANG_SIZE"
+SERVE_GANG_RANK_ENV = "KMLS_SERVE_GANG_RANK"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +87,35 @@ def distributed_env() -> tuple[str, int, int] | None:
             f"{NUM_PROCESSES_ENV} to the Job's completion count"
         )
     return coordinator, num, process_id
+
+
+def gang_rank_fallback(default: int = 0) -> int:
+    """The serve gang's rank when ``KMLS_SERVE_GANG_RANK`` is unset:
+    ``JOB_COMPLETION_INDEX``, else the hostname's trailing ordinal (under a
+    StatefulSet ``serve-gang-1`` is rank 1), else ``default``."""
+    raw = os.getenv(K8S_INDEX_ENV)
+    if raw is not None and raw.isdigit():
+        return int(raw)
+    _, _, ordinal = socket.gethostname().rpartition("-")
+    return int(ordinal) if ordinal.isdigit() else default
+
+
+def serve_gang_env() -> tuple[str, int, int] | None:
+    """→ (coordinator, gang size, rank), or None with no gang armed. A rank
+    outside the declared size is a config error raised at boot, never a
+    hang."""
+    coordinator = os.getenv(SERVE_GANG_COORDINATOR_ENV)
+    if not coordinator:
+        return None
+    size = int(os.getenv(SERVE_GANG_SIZE_ENV, "1"))
+    raw = os.getenv(SERVE_GANG_RANK_ENV)
+    rank = int(raw) if raw not in (None, "") else gang_rank_fallback()
+    if rank >= size:
+        raise ValueError(
+            f"serve gang rank {rank} >= gang size {size}: set "
+            f"{SERVE_GANG_SIZE_ENV} to the StatefulSet's replica count"
+        )
+    return coordinator, size, rank
 
 
 def choose_backend(device_type: str, peers: list[tuple[str, int]]) -> str:

@@ -8,9 +8,12 @@ JAX device counts.
 - ``KMLS_MODEL_LAYOUT=auto`` — shard when the measured tensor bytes exceed
   the per-device budget.
 
-Under ``sharded`` on a mesh with a vocab axis the miner takes the
-vocab-sharded count and emission (``parallel/support.py``) and the ALS
-trainer the vocab-sharded sweep (``mining/als.py``), as the reference's do.
+Serving resolves through :func:`resolve_serve_span`: an armed serve gang
+is the ``mesh`` layout, else ``sharded`` spreads the rule tensors over the
+serve cards in one process. Under ``sharded`` on a mesh with a vocab axis
+the miner takes the vocab-sharded count and emission
+(``parallel/support.py``) and the ALS trainer the vocab-sharded sweep
+(``mining/als.py``), as the reference's do.
 """
 
 from __future__ import annotations
@@ -58,6 +61,20 @@ def resolve_layout(layout: str, tensor_bytes: int, budget_bytes: int, n_ranks: i
         )
         return "sharded"
     return "replicated"
+
+
+def resolve_serve_span(
+    layout: str, tensor_bytes: int, budget_bytes: int, n_devices: int,
+    gang_size: int = 1,
+) -> str:
+    """→ ``"mesh"``, ``"sharded"`` or ``"replicated"``: the serving
+    engine's layout decision (reference ``:79-100``). An armed serve gang
+    (``KMLS_SERVE_GANG_SIZE`` > 1) is decisive — each member holds only its
+    own vocab slab; otherwise :func:`resolve_layout` over the serve
+    cards."""
+    if gang_size > 1:
+        return "mesh"
+    return resolve_layout(layout, tensor_bytes, budget_bytes, n_devices)
 
 
 def mining_mesh(cfg, mesh):

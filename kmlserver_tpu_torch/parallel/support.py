@@ -45,10 +45,15 @@ Each device function has a plain version in one process that computes the
 ranks' blocks one after another and joins them (``*_plain``).
 
 :func:`restricted_pair_counts` is the delta recount (reference
-``:342-398``) on one rank: rows ``R`` of ``C`` against every basket, on the
-host below the reference's size threshold and through ``torch._int_mm``
-on the card above it. Not ported: the mesh-sharded restricted recount
-(``:326``) and the reference's ``impl="mxu"`` unpack-matmul, which is XLA.
+``:326-398``): rows ``R`` of ``C`` against every basket. On one rank, on
+the host below the reference's size threshold and through
+``torch._int_mm`` on the card above it. Over a ``(dp, tp)`` mesh (the
+reference's ``_restricted_counts_fn``, ``C[R, :] = X[:, R]ᵀ X`` over the
+``P('dp','tp')`` one-hot), at any size: rank ``(d, t)`` builds its block
+of ``Xᵀ`` and the ``R`` rows of its own playlists straight from the host
+baskets (nothing is exchanged to build them), ``int8_gram`` gives its
+``(R, V_loc)`` block, summed over ``dp`` and gathered over ``tp``. Not
+ported: the reference's ``impl="mxu"`` unpack-matmul, which is XLA.
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ CALLS = {
     "sharded_counts_ring": 0,
     "sharded_emit": 0,
     "sparse_sharded_counts": 0,
+    "restricted_recount_sharded": 0,
 }
 
 
@@ -393,6 +399,8 @@ def restricted_pair_counts(
     row_ids,
     count_path: str | None = None,
     device: str | torch.device = "cuda",
+    mesh: RankMesh | None = None,
+    timer=None,
 ) -> np.ndarray:
     """Rows ``row_ids`` of ``C = XᵀX`` → host ``(R, V)`` int32, each equal
     to that row of the full count matrix: the delta recount, the affected
@@ -405,9 +413,10 @@ def restricted_pair_counts(
     - above it, on ``device``: the padded one-hot built transposed,
       ``Xᵀ (V_pad, P_pad)`` int8, its rows ``R`` gathered into an operand
       that is already padded, and ``int8_gram(Xᵀ[R], Xᵀ)`` with int32
-      accumulation (``int8_gram_plain`` on the CPU).
-
-    One rank: the reference's mesh-sharded form is not ported."""
+      accumulation (``int8_gram_plain`` on the CPU);
+    - with ``mesh``, at any size (the reference takes its host shortcut
+      only without one): every rank of the mesh calls this, and each gets
+      the rows (:func:`_restricted_counts_sharded`)."""
     row_ids = np.asarray(row_ids, dtype=np.int32)
     v = baskets.n_tracks
     if row_ids.size == 0:
@@ -421,6 +430,8 @@ def restricted_pair_counts(
             baskets.playlist_rows, baskets.track_ids, row_ids,
             n_playlists=baskets.n_playlists, n_tracks=v,
         )
+    if mesh is not None:
+        return _restricted_counts_sharded(baskets, row_ids, mesh, device, timer)
     p = baskets.n_playlists
     if p * v <= HOST_RECOUNT_ELEMS:
         x = np.zeros((p, v), dtype=np.float64)
@@ -444,3 +455,79 @@ def restricted_pair_counts(
     if dev.type == "cuda":
         LAUNCHES["restricted_recount"] += 1
     return counts.cpu().numpy()
+
+
+def restricted_rows_block(
+    baskets: Baskets, row_ids: np.ndarray, mesh: RankMesh, rank: int | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """The requested rows of the one-hot over rank ``(d, t)``'s playlists,
+    int8 ``(R_pad, P_loc)``: ``A[i, p] = X[d·P_loc + p, row_ids[i]]`` for
+    distinct sorted ``row_ids``, built from the membership pairs, padded to
+    ``int8_gram``'s shape (``R_pad`` a multiple of 8, above 16)."""
+    dp, tp = mesh.shape[AXIS_DP], mesh.shape[AXIS_TP]
+    p_pad, _ = dense_padded_shape(baskets.n_playlists, baskets.n_tracks, dp, tp)
+    p_loc = p_pad // dp
+    d, _t = mesh.position(this_rank() if rank is None else rank)
+    rows = np.asarray(baskets.playlist_rows)
+    tids = np.asarray(baskets.track_ids)
+    pos = np.minimum(np.searchsorted(row_ids, tids), len(row_ids) - 1)
+    keep = (row_ids[pos] == tids) & (rows >= d * p_loc) & (rows < (d + 1) * p_loc)
+    dev = resolve_device(device)
+    return encode.onehot_matrix(
+        torch.as_tensor(pos[keep], device=dev),
+        torch.as_tensor(rows[keep] - d * p_loc, device=dev),
+        n_playlists=round_up(max(len(row_ids), 17), 8), n_tracks=p_loc,
+    )
+
+
+def _restricted_counts_sharded(
+    baskets: Baskets, row_ids: np.ndarray, mesh: RankMesh,
+    device: str | torch.device, timer=None,
+) -> np.ndarray:
+    """Rows ``row_ids`` of ``C`` over the mesh → host ``(R, V)`` int32 on
+    every rank: rank ``(d, t)``'s ``(R, V_loc)`` block ``A_d · Xᵀ_{d,t}ᵀ``
+    (its playlists' requested rows against its block of the one-hot),
+    summed over ``dp``, the ``tp`` column blocks gathered. No rank holds a
+    ``(P, V)`` one-hot: its largest operands are ``(V/tp, P/dp)`` and
+    ``(R, P/dp)``."""
+    v = baskets.n_tracks
+    uniq, inverse = np.unique(row_ids, return_inverse=True)
+    with _phase(timer, "onehot"):
+        xt = onehot_block_t(baskets, mesh, device=device)
+        a = restricted_rows_block(baskets, uniq.astype(np.int64), mesh, device=device)
+    with _phase(timer, "pair_counts"):
+        block = int8_gram(a, xt) if xt.is_cuda else int8_gram_plain(a, xt)
+    del a, xt
+    with _phase(timer, "all_reduce"):
+        collectives.all_reduce_sum_(block, mesh.axis(AXIS_DP))
+    with _phase(timer, "gather_counts"):
+        cols = collectives.all_gather_cat(block.t().contiguous(), mesh.axis(AXIS_TP))
+    if block.is_cuda:
+        CALLS["restricted_recount_sharded"] += 1
+    counts = cols.t()[: len(uniq), :v].cpu().numpy()
+    return np.ascontiguousarray(counts[inverse])
+
+
+def restricted_counts_sharded_plain(
+    baskets: Baskets, row_ids, dp: int, tp: int, device: str | torch.device = "cpu",
+) -> np.ndarray:
+    """The mesh recount written out in one process: every rank's block
+    product taken in turn (``int8_gram_plain``), summed over ``dp`` and
+    joined over ``tp``."""
+    row_ids = np.asarray(row_ids, dtype=np.int64)
+    uniq, inverse = np.unique(row_ids, return_inverse=True)
+    grid = RankMesh(grid=tuple(tuple(d * tp + t for t in range(tp)) for d in range(dp)))
+    cols = []
+    for t in range(tp):
+        total = None
+        for d in range(dp):
+            rank = d * tp + t
+            part = int8_gram_plain(
+                restricted_rows_block(baskets, uniq, grid, rank=rank, device=device),
+                onehot_block_t(baskets, grid, rank=rank, device=device),
+            )
+            total = part if total is None else total + part
+        cols.append(total)
+    counts = torch.cat(cols, dim=1)[: len(uniq), : baskets.n_tracks].cpu().numpy()
+    return np.ascontiguousarray(counts[inverse])

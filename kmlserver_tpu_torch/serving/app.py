@@ -7,6 +7,9 @@ reference's FastAPI routes rebuilt on the stdlib:
   422 (FastAPI's validation status); a shed → 429 with ``Retry-After``; a
   deadline, overload or replica-loss degradation → 200 from the popularity
   fallback with ``X-KMLS-Degraded``; a cache hit carries ``X-KMLS-Cache``.
+  On a serve-gang member a dark member's slab is answered the same way,
+  ``X-KMLS-Degraded: mesh-shard-missing:<rank>`` (the reference's
+  standalone branch; its fleet-routed 503 waits for the fleet router).
 - ``POST /metrics/reset``: windows the latency percentiles (loopback only).
 - ``GET /`` (reference: :190-203): HTML test client with a seed sample.
 - ``GET /test`` (reference: :150-153): 307 redirect to the docs.
@@ -14,7 +17,8 @@ reference's FastAPI routes rebuilt on the stdlib:
   three canned request examples (:158-174).
 - ``GET /healthz`` / ``GET /readyz`` (ready / degraded / 503, with the
   artifacts' ages; degraded names each artifact older than
-  ``KMLS_ARTIFACT_MAX_AGE_S``); ``GET /metrics``: Prometheus text;
+  ``KMLS_ARTIFACT_MAX_AGE_S`` and each missing gang member as
+  ``serve_mesh_shard_missing:<rank>``); ``GET /metrics``: Prometheus text;
   ``GET /static/``.
 - ``GET /debug/traces`` (retained request traces), ``GET /debug/slo``
   (burn-rate detail) and ``GET /debug/profile?seconds=N`` (a
@@ -60,6 +64,7 @@ from ..utils import profiling
 from .batcher import DeadlineExceeded, NoHealthyReplicas, Overloaded, OverloadDegraded
 from .cache import RecommendCache
 from .engine import RecommendEngine
+from .mesh import MeshShardUnavailable
 from .metrics import ServingMetrics
 
 logger = logging.getLogger("kmlserver_tpu_torch.serving")
@@ -267,6 +272,8 @@ class RecommendApp:
                     io=MONITOR.snapshot(),
                     cost=getattr(self.engine, "cost_model", None),
                     slo=self.slo,
+                    shard_counts=getattr(self.engine, "shard_dispatch_counts", None),
+                    mesh_shards=self._mesh_shard_states(),
                 )
                 return 200, {"Content-Type": "text/plain; version=0.0.4"}, text.encode()
             if path.startswith("/static/"):
@@ -274,13 +281,15 @@ class RecommendApp:
         return _json_response(404, {"detail": "Not Found"})
 
     def close(self) -> None:
-        """Stop the loop-lag driver and the threaded batcher's threads (the
-        asyncio transport closes the batcher it installed itself)."""
+        """Stop the loop-lag driver, the threaded batcher's threads (the
+        asyncio transport closes the batcher it installed itself) and the
+        engine's serve-gang worker and coordinator."""
         if self.loop_lag is not None:
             self.loop_lag.stop()
-        close = getattr(self.batcher, "close", None)
-        if callable(close):
-            close()
+        for owner in (self.batcher, self.engine):
+            close = getattr(owner, "close", None)
+            if callable(close):
+                close()
 
     def _get_readyz(self) -> Response:
         """Degraded = ready-but-flagged (200): the pod keeps answering, so
@@ -324,6 +333,14 @@ class RecommendApp:
                 round(self.loop_lag.lag_s() * 1e3, 3) if self.loop_lag is not None else 0.0
             ),
             "deadline_expired_total": self.deadline_expired_total,
+            # model-parallel serving: the published bundle's vocab shards,
+            # the gang worker's budget-shed partials and the answers merged
+            # without a straggler (0 outside a gang)
+            "model_shards": getattr(self.engine, "n_shards", 1),
+            "mesh_expired_on_arrival_total": getattr(
+                getattr(self.engine, "mesh_worker", None), "expired_on_arrival", 0
+            ),
+            "mesh_straggler_degraded_total": getattr(self.engine, "mesh_straggler_degraded", 0),
             # began is the zero-cost proof counter: 0 while tracing is off
             "traces_began_total": self.recorder.began,
             "traces_retained_total": self.recorder.retained_total,
@@ -564,9 +581,38 @@ class RecommendApp:
         ejected = ejected_fn() if callable(ejected_fn) else []
         if ejected:
             reasons.append(f"replicas ejected: {ejected}")
+        # a dark gang member's slab cannot be served; the probe makes every
+        # /readyz scrape a re-form detector (rate-limited in the coordinator)
+        for rank in self._mesh_missing_shards(probe=True):
+            reasons.append(f"serve_mesh_shard_missing:{rank}")
         if MONITOR.storage_slow():
             reasons.append("storage-slow")
         return reasons
+
+    # ---------- the serve gang ----------
+
+    def _mesh_missing_shards(self, probe: bool = False) -> list[int]:
+        """Missing gang ranks (empty off the mesh layout, or with an engine
+        double that predates it)."""
+        fn = getattr(self.engine, "mesh_missing_shards", None)
+        return fn(probe=probe) if callable(fn) else []
+
+    def _mesh_shard_states(self) -> dict | None:
+        """``{"serving": n, "missing": m}`` for ``kmls_serve_mesh_shards``,
+        or None off a gang, so a replicated pod exports no such series."""
+        gang = getattr(self.engine, "gang", None)
+        if gang is None:
+            return None
+        missing = self._mesh_missing_shards()
+        return {"serving": gang.size - len(missing), "missing": len(missing)}
+
+    def _mesh_shard_response(self, t0: float, songs: list[str], rank: int, trace=None) -> Response:
+        """A dark gang member: the popularity fallback with
+        ``X-KMLS-Degraded: mesh-shard-missing:<rank>`` — shard loss costs
+        answer quality, never availability."""
+        if trace is not None:
+            trace.annotate("mesh_shard_missing", int(rank))
+        return self._degraded_response(t0, songs, f"mesh-shard-missing:{int(rank)}", trace=trace)
 
     def _recommend_error_response(self, exc: Exception, trace=None) -> Response:
         if isinstance(exc, Overloaded):
@@ -731,9 +777,16 @@ class RecommendApp:
             # the budget arrived spent: answer the fallback, compute nothing
             self.deadline_expired_total += 1
             return self._degraded_response(t0, songs, "deadline-expired", trace=trace)
+        # a gang member known dark: answer before the cache and the batcher
+        # (a merge missing a slab would be wrong, and cached past the re-form)
+        missing = self._mesh_missing_shards(probe=True)
+        if missing:
+            return self._mesh_shard_response(t0, songs, missing[0], trace=trace)
         try:
             recs, source, cached = self.recommend_direct(songs, trace=trace, deadline=deadline)
         except Exception as exc:
+            if isinstance(exc, MeshShardUnavailable):  # died after the pre-check
+                return self._mesh_shard_response(t0, songs, exc.rank, trace=trace)
             reason = self._degrade_reason(exc)
             if reason is not None:
                 return self._degraded_response(t0, songs, reason, trace=trace)
@@ -766,12 +819,17 @@ class RecommendApp:
         if expired:
             self.deadline_expired_total += 1
             return self._degraded_response(t0, songs, "deadline-expired", trace=trace), None, t0, None
+        missing = self._mesh_missing_shards(probe=True)
+        if missing:
+            return self._mesh_shard_response(t0, songs, missing[0], trace=trace), None, t0, None
         try:
             state, payload = self._cache_lookup_or_lead(songs, deadline, trace)
             if state == "off":
                 payload = self.batcher.submit(songs, deadline=deadline, trace=trace)
                 payload._kmls_seeds = songs
         except Exception as exc:  # Overloaded / OverloadDegraded / NoHealthyReplicas
+            if isinstance(exc, MeshShardUnavailable):
+                return self._mesh_shard_response(t0, songs, exc.rank, trace=trace), None, t0, None
             reason = self._degrade_reason(exc)
             if reason is not None:
                 return self._degraded_response(t0, songs, reason, trace=trace), None, t0, None
@@ -790,6 +848,9 @@ class RecommendApp:
         try:
             recs, source = future.result()
         except Exception as exc:
+            if isinstance(exc, MeshShardUnavailable):
+                songs = getattr(future, "_kmls_seeds", None) or []
+                return self._mesh_shard_response(t0, songs, exc.rank, trace=trace)
             reason = self._degrade_reason(exc)
             if reason is not None:
                 songs = getattr(future, "_kmls_seeds", None) or []

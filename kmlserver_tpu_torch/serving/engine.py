@@ -54,12 +54,25 @@ seeds only) unless a blend-mode hybrid bundle's ``n_playlists`` moved. A
 torn, mis-bound or out-of-order bundle is rejected, and the base keeps
 serving.
 
-The native host kernel, the vocab-sharded layout and the serve mesh are not
-part of this package.
+Model-parallel serving (``KMLS_MODEL_LAYOUT``, ``parallel/layout.py``):
+under ``sharded`` (or ``auto`` past ``KMLS_DEVICE_BUDGET_BYTES``) one
+logical bundle holds the rule tensors cut along the vocabulary into one
+slab per serving card, padded with empty rows; a batch runs each slab's
+partial top-k on its card and merges the partials on the first
+(``ops/serve.sharded_recommend``). An armed serve gang
+(``KMLS_SERVE_GANG_*``) is the ``mesh`` layout: this process holds only its
+own slab, serves its partial to its peers (``serving/mesh.py``), and for its
+own batches merges its partial with theirs on its card in rank order. Both
+answer as the replicated layout does, bit for bit; a dead gang member
+raises :class:`~.mesh.MeshShardUnavailable`, which the app answers
+degraded. Deltas rebuild through the same layout decision.
+
+The native host kernel is not part of this package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import logging
@@ -80,7 +93,15 @@ from ..io.artifacts import ArtifactIntegrityError
 from ..io.iohealth import MONITOR
 from ..observability import costmodel as costmodel_mod
 from ..ops.embed import embed_topk
-from ..ops.serve import recommend_batch
+from ..ops.serve import (
+    merge_partial_topk,
+    recommend_batch,
+    shard_partial_topk,
+    sharded_recommend,
+    split_vocab,
+)
+from ..parallel.layout import resolve_serve_span
+from . import mesh as mesh_mod
 from ..ops.support import min_count_for
 from ..utils.device import resolve_device
 
@@ -104,6 +125,11 @@ def blend_candidates(
         scores[name] = scores.get(name, 0.0) + w * float(sim)
     ranked = sorted(scores.items(), key=lambda kv: (-kv[1], kv[0]))
     return [n for n, _ in ranked[:k_best]]
+
+
+def _on_device(dev: torch.device):
+    """The current-device context for work on ``dev`` from any thread."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def stable_seed(seed_tracks: list[str]) -> int:
@@ -143,6 +169,30 @@ class RuleBundle:
     emb_index: dict[str, int] | None = None
     # the (batch, length) shapes the embedding lookup ran before publication
     emb_warmed_shapes: set = dataclasses.field(default_factory=set)
+    # ---- model layout (parallel/layout.py) ----
+    # "replicated": one full copy on `device`. "sharded": one logical bundle
+    # whose rule rows are cut into n_shards slabs of shard_size rows (the
+    # vocabulary padded with empty rows), slab s in shard_ids[s] /
+    # shard_confs[s] on its own card; rule_ids / rule_confs are slab 0 and
+    # `device` its card. "mesh": rule_ids / rule_confs hold only this gang
+    # member's slab, global rows [gang_rank·shard_size, +shard_size);
+    # n_shards is the gang size, mesh_v the padded global width every
+    # partial scores at, mesh_lo the slab's first global row
+    layout: str = "replicated"
+    n_shards: int = 1
+    shard_size: int = 0
+    shard_ids: list | None = None
+    shard_confs: list | None = None
+    gang_rank: int = 0
+    mesh_v: int = 0
+    mesh_lo: int = 0
+
+    def rule_tensor_bytes(self) -> dict[str, int]:
+        """The rule tensors' bytes across every slab of the bundle."""
+        ids = self.shard_ids or [self.rule_ids]
+        confs = self.shard_confs or [self.rule_confs]
+        return {"rule_ids": sum(int(t.nbytes) for t in ids),
+                "rule_confs": sum(int(t.nbytes) for t in confs)}
 
 
 def _host_rule_arrays(arrays: Mapping[str, Any]) -> tuple[list[str], np.ndarray, np.ndarray, np.ndarray]:
@@ -218,6 +268,9 @@ class RecommendEngine:
         self.bundle_epoch = 0
         # cumulative per-replica dispatch counters (they survive hot swaps)
         self.dispatch_counts: list[int] = []
+        # sharded and mesh layouts: seed ids dispatched per vocab shard (the
+        # load-balance signal, kmls_shard_dispatch_total); empty replicated
+        self.shard_dispatch_counts: list[int] = []
         self._dispatch_lock = threading.Lock()
         self.best_tracks: list[dict] | None = None
         self.cache_value: str | None = None  # the reference's app.cache_value
@@ -239,6 +292,32 @@ class RecommendEngine:
             lambda: self.unwarmed_dispatches - self.unwarmed_embed_dispatches
         )
         self._unwarmed_embed_probe = lambda: self.unwarmed_embed_dispatches
+        # the gang's merges of an unwarmed shape (part of unwarmed_dispatches)
+        self.unwarmed_merge_dispatches = 0
+        self._unwarmed_merge_probe = lambda: self.unwarmed_merge_dispatches
+        self._unwarmed_partial_probe = (
+            lambda: self.unwarmed_dispatches - self.unwarmed_embed_dispatches
+            - self.unwarmed_merge_dispatches
+        )
+        # the serve gang (serving/mesh.py), armed when
+        # KMLS_SERVE_GANG_COORDINATOR and a size > 1 name one: the worker
+        # serves this rank's partial to its peers, the coordinator fetches
+        # theirs. Both start at the first mesh publication (under the
+        # reload lock), outlive hot swaps (the model token on every partial
+        # fences generations) and stop in close()
+        self.gang = mesh_mod.gang_from_config(cfg)
+        self.mesh_worker: mesh_mod.MeshWorkerServer | None = None
+        self.mesh_coordinator: mesh_mod.MeshCoordinator | None = None
+        # answers merged without a straggler's slab (degraded by contract;
+        # 0 with KMLS_HEDGE off)
+        self.mesh_straggler_degraded = 0
+        if self.gang is not None:
+            print(
+                f"NOTE: serve gang rank {self.gang.rank}/{self.gang.size}: the "
+                "reference's real-collectives gang is not ported; every partial "
+                f"is computed on {self.device} and crosses the socket transport",
+                flush=True,
+            )
         # embedding-artifact failures are survivable (the bundle publishes
         # rules-only), so they have counters of their own; degraded = the
         # last publication wanted embeddings but serves rules only
@@ -439,17 +518,23 @@ class RecommendEngine:
         taken after warm-up so later growth is a serving-path dispatch."""
         cm = self.cost_model
         bundle = replicas[0]
-        tensor_bytes = {
-            "rule_ids": int(bundle.rule_ids.nbytes), "rule_confs": int(bundle.rule_confs.nbytes),
-        }
+        tensor_bytes = bundle.rule_tensor_bytes()
         if bundle.emb_factors is not None:
             tensor_bytes["embeddings"] = int(bundle.emb_factors.nbytes)
         cm.note_publish(
             tensor_bytes,
             self.cfg.device_budget_bytes,
+            n_shards=bundle.n_shards,
             watermark_bytes=costmodel_mod.device_watermark_bytes(bundle.device),
         )
-        cm.watch_compiles("serve_rules", self._unwarmed_rules_probe)
+        if bundle.layout == "mesh":
+            # the gang composes the lookup's two halves: each is watched
+            cm.watch_compiles("serve_mesh", self._unwarmed_partial_probe)
+            cm.watch_compiles("serve_mesh_merge", self._unwarmed_merge_probe)
+        elif bundle.layout == "sharded":
+            cm.watch_compiles("serve_sharded", self._unwarmed_rules_probe)
+        else:
+            cm.watch_compiles("serve_rules", self._unwarmed_rules_probe)
         if bundle.emb_factors is not None:
             cm.watch_compiles("embed_topk", self._unwarmed_embed_probe)
         cm.mark_published()
@@ -623,11 +708,23 @@ class RecommendEngine:
         return self._replicas_from_arrays(arrays, token), host_state, npz_sha
 
     def _replicas_from_arrays(self, arrays: Mapping[str, Any], token: str) -> list[RuleBundle]:
-        """Host rule arrays (:func:`_host_rule_arrays`' dicts) → one bundle
-        per serving device — the one upload path a load and a delta apply
-        share, the out-of-range id mapping included."""
+        """Host rule arrays (:func:`_host_rule_arrays`' dicts) → the replica
+        set — the one upload path a load and a delta apply share, the
+        out-of-range id mapping and the layout decision included: one
+        bundle per serving device (``replicated``), one bundle over all of
+        them (``sharded``), or this gang member's slab (``mesh``)."""
         vocab, known, ids, confs = _host_rule_arrays(arrays)
         index = {n: i for i, n in enumerate(vocab)}
+        devs = self._serve_devices()
+        layout = resolve_serve_span(
+            self.cfg.model_layout, int(ids.nbytes + confs.nbytes),
+            self.cfg.device_budget_bytes, len(devs),
+            gang_size=self.gang.size if self.gang is not None else 1,
+        )
+        if layout == "mesh" and vocab:
+            return [self._build_mesh_bundle(vocab, index, known, ids, confs, token, devs[0])]
+        if layout == "sharded" and vocab:
+            return [self._build_sharded_bundle(vocab, index, known, ids, confs, token, devs)]
         return [
             RuleBundle(
                 vocab=vocab, index=index,
@@ -635,15 +732,157 @@ class RecommendEngine:
                 rule_confs=torch.as_tensor(confs, device=dev),
                 known_mask=known, model_token=token, device=dev,
             )
-            for dev in self._serve_devices()
+            for dev in devs
         ]
+
+    def _build_sharded_bundle(
+        self, vocab, index, known, ids, confs, token, devs: list[torch.device]
+    ) -> RuleBundle:
+        """One logical bundle whose rule rows are cut along the vocabulary
+        into one slab per device of ``devs`` (the vocabulary padded to a
+        multiple of their count with empty rows), slab s on ``devs[s]``."""
+        n = len(devs)
+        ids_p, confs_p, v_loc = split_vocab(ids, confs, n)
+        shard_ids = [torch.as_tensor(ids_p[s * v_loc:(s + 1) * v_loc], device=d)
+                     for s, d in enumerate(devs)]
+        shard_confs = [torch.as_tensor(confs_p[s * v_loc:(s + 1) * v_loc], device=d)
+                       for s, d in enumerate(devs)]
+        logger.info(
+            "sharded layout: %d rule rows (+%d pad) across %d shards on %s (%d rows, "
+            "~%.1f MiB of rule tensors each)", len(vocab), v_loc * n - len(vocab), n,
+            ", ".join(str(d) for d in devs), v_loc,
+            (ids_p.nbytes + confs_p.nbytes) / n / (1 << 20),
+        )
+        return RuleBundle(
+            vocab=vocab, index=index, rule_ids=shard_ids[0], rule_confs=shard_confs[0],
+            known_mask=known, model_token=token, device=devs[0], layout="sharded",
+            n_shards=n, shard_size=v_loc, shard_ids=shard_ids, shard_confs=shard_confs,
+        )
+
+    def _build_mesh_bundle(
+        self, vocab, index, known, ids, confs, token, dev: torch.device
+    ) -> RuleBundle:
+        """This gang member's slab: the vocabulary padded to a multiple of
+        the gang size, rows ``[rank·slab, (rank+1)·slab)`` kept on ``dev``.
+        Starts the gang's worker and coordinator at the first call."""
+        gang = self.gang
+        ids_p, confs_p, slab = split_vocab(ids, confs, gang.size)
+        lo = gang.rank * slab
+        bundle = RuleBundle(
+            vocab=vocab, index=index,
+            rule_ids=torch.as_tensor(ids_p[lo:lo + slab], device=dev),
+            rule_confs=torch.as_tensor(confs_p[lo:lo + slab], device=dev),
+            known_mask=known, model_token=token, device=dev, layout="mesh",
+            n_shards=gang.size, shard_size=slab, gang_rank=gang.rank,
+            mesh_v=slab * gang.size, mesh_lo=lo,
+        )
+        self._ensure_mesh_runtime()
+        logger.info(
+            "mesh layout: %d rule rows (+%d pad) across a %d-member gang; rank %d holds "
+            "rows [%d, %d) on %s (~%.1f MiB)", len(vocab), slab * gang.size - len(vocab),
+            gang.size, gang.rank, lo, lo + slab, dev,
+            (bundle.rule_ids.nbytes + bundle.rule_confs.nbytes) / (1 << 20),
+        )
+        return bundle
+
+    def _ensure_mesh_runtime(self) -> None:
+        """Start the gang's partial worker and coordinator once (under the
+        reload lock at a mesh publication)."""
+        if self.mesh_worker is None:
+            self.mesh_worker = mesh_mod.MeshWorkerServer(
+                self._mesh_serve_partial, self._mesh_status, port=self.cfg.serve_gang_port,
+            ).start()
+            logger.info(
+                "serve-mesh worker listening on :%d (gang rank %d/%d)",
+                self.mesh_worker.port, self.gang.rank, self.gang.size,
+            )
+        if self.mesh_coordinator is None:
+            self.mesh_coordinator = mesh_mod.MeshCoordinator(
+                self.gang,
+                hedge=self.cfg.hedge_enabled,
+                hedge_delay_ms=self.cfg.hedge_delay_ms,
+                hedge_max_frac=self.cfg.hedge_max_frac,
+                peer_slow_ratio=self.cfg.peer_slow_ratio,
+            )
+
+    def _mesh_serve_partial(self, seeds: np.ndarray) -> tuple[np.ndarray, np.ndarray, str]:
+        """The worker's handler: this rank's partial for a peer's batch, on
+        this rank's device, handed back as host arrays only once the device
+        work is done. Raising makes the peer read this shard as missing."""
+        faults.fire("mesh.peer", replica=self.gang.rank if self.gang else 0)
+        bundle = self.bundle
+        if bundle is None or bundle.layout != "mesh":
+            raise RuntimeError("no mesh bundle published on this rank")
+        shape = (int(seeds.shape[0]), int(seeds.shape[1]))
+        if shape not in bundle.warmed_shapes:
+            self.unwarmed_dispatches += 1
+            logger.warning("mesh partial for unwarmed shape %s", shape)
+        host = torch.from_numpy(np.array(seeds, dtype=np.int32))
+        with _on_device(bundle.device):
+            ids, confs = shard_partial_topk(
+                bundle.rule_ids, bundle.rule_confs, host.to(bundle.device), bundle.mesh_lo,
+                v=bundle.mesh_v, k_best=self.cfg.k_best_tracks,
+            )
+            # .cpu() waits for the lookup: the bytes are final
+            return ids.cpu().numpy(), confs.cpu().numpy(), bundle.model_token or ""
+
+    def _mesh_status(self) -> dict:
+        """The worker's ``ready`` payload: what a peer's probe learns."""
+        bundle = self.bundle
+        return {
+            "rank": self.gang.rank if self.gang is not None else 0,
+            "epoch": self.bundle_epoch,
+            "token": bundle.model_token if bundle is not None else None,
+            "layout": bundle.layout if bundle is not None else None,
+        }
+
+    def mesh_missing_shards(self, probe: bool = False) -> list[int]:
+        """Sorted ranks the coordinator cannot serve through (empty outside
+        the mesh layout); ``probe=True`` re-auditions them, rate-limited."""
+        coord = self.mesh_coordinator
+        return coord.missing_shards(probe=probe) if coord is not None else []
+
+    def close(self) -> None:
+        """Stop the serve gang's worker and coordinator (a no-op outside the
+        mesh layout)."""
+        worker, self.mesh_worker = self.mesh_worker, None
+        coord, self.mesh_coordinator = self.mesh_coordinator, None
+        if worker is not None:
+            worker.stop()
+        if coord is not None:
+            coord.close()
+
+    @property
+    def model_layout(self) -> str:
+        """The published bundle's layout (``replicated`` before a load)."""
+        bundle = self.bundle
+        return bundle.layout if bundle is not None else "replicated"
+
+    @property
+    def n_shards(self) -> int:
+        """Vocab shards of the published bundle (1 = replicated)."""
+        bundle = self.bundle
+        return bundle.n_shards if bundle is not None else 1
+
+    def _note_shard_dispatch(self, bundle: RuleBundle, staged: np.ndarray) -> None:
+        """Count the batch's seed ids per vocab shard they hit."""
+        hit = staged[staged >= 0]
+        if not hit.size:
+            return
+        per_shard = np.bincount(hit // bundle.shard_size, minlength=bundle.n_shards)
+        with self._dispatch_lock:
+            while len(self.shard_dispatch_counts) < len(per_shard):
+                self.shard_dispatch_counts.append(0)
+            for i, count in enumerate(per_shard):
+                self.shard_dispatch_counts[i] += int(count)
 
     def _serve_devices(self) -> list[torch.device]:
         """The devices the replica set spans. On ``cuda``: every card
         (``serve_devices == 0``) or the first ``serve_devices`` of them; a
         device with an explicit index pins that one card. On the CPU: one
         replica, or ``serve_devices`` copies on the host (the reference's
-        virtual-device replicas, for exercising the replica lanes)."""
+        virtual-device replicas, for exercising the replica lanes and the
+        sharded layout's slabs)."""
         n = self.cfg.serve_devices
         if self.device.type != "cuda":
             return [self.device] * max(1, n)
@@ -667,13 +906,19 @@ class RecommendEngine:
     def _warmup(self, bundle: RuleBundle) -> None:
         """Run EVERY (batch-bucket, length-bucket) shape through the
         dispatch path on ``bundle`` before it publishes, the copies and
-        the pinned host buffers included — the rule lookup, and the
-        embedding lookup when factors are attached."""
+        the pinned host buffers included — the rule lookup (in the mesh
+        layout its two halves: the slab's partial and the rank-stacked
+        merge), and the embedding lookup when factors are attached."""
         for length in self._len_buckets():
             for batch in self._batch_buckets():
                 shape = (batch, length)
                 if bundle.vocab:  # an empty rule vocabulary knows no seed
-                    self._launch(bundle, self._staging(shape, bundle.device))()
+                    ids, confs = self._launch(bundle, self._staging(shape, bundle.device))()
+                    if bundle.layout == "mesh":
+                        self._merge_on_device(
+                            bundle, np.broadcast_to(ids, (bundle.n_shards, *ids.shape)),
+                            np.broadcast_to(confs, (bundle.n_shards, *confs.shape)),
+                        )
                     bundle.warmed_shapes.add(shape)
                 if bundle.emb_factors is not None:
                     self._launch_embed(bundle, self._staging(shape, bundle.device))()
@@ -963,6 +1208,8 @@ class RecommendEngine:
         shape = (rows, length)
         seeds = self._staging(shape, bundle.device)
         known_rows = self._fill_seed_rows(bundle, seed_sets, seeds.numpy(), length)
+        if bundle.n_shards > 1 and bundle.shard_size > 0:
+            self._note_shard_dispatch(bundle, seeds.numpy())
         if shape not in bundle.warmed_shapes:
             self.unwarmed_dispatches += 1
             logger.warning(
@@ -1010,12 +1257,35 @@ class RecommendEngine:
 
     def _launch(self, bundle: RuleBundle, seeds: torch.Tensor):
         """The rule lookup of ``seeds`` on ``bundle`` → ``wait()`` for the
-        host (ids, confidences)."""
+        host (ids, confidences): the whole lookup (replicated), the slabs'
+        partials merged on the first slab's device (sharded), or this gang
+        member's partial (mesh)."""
         k_best = self.cfg.k_best_tracks
-        return self._enqueue(
-            lambda s: recommend_batch(bundle.rule_ids, bundle.rule_confs, s, k_best=k_best),
-            seeds, bundle.device,
-        )
+        if bundle.layout == "sharded":
+            def lookup(s):
+                return sharded_recommend(bundle.shard_ids, bundle.shard_confs, s, k_best=k_best)
+        elif bundle.layout == "mesh":
+            def lookup(s):
+                return shard_partial_topk(bundle.rule_ids, bundle.rule_confs, s, bundle.mesh_lo,
+                                          v=bundle.mesh_v, k_best=k_best)
+        else:
+            def lookup(s):
+                return recommend_batch(bundle.rule_ids, bundle.rule_confs, s, k_best=k_best)
+        return self._enqueue(lookup, seeds, bundle.device)
+
+    def _merge_on_device(
+        self, bundle: RuleBundle, stack_ids: np.ndarray, stack_confs: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """The gang's merge of ``(S, B, k)`` rank-ordered partials on this
+        member's device → host ``(B, k_best)`` ids and confidences."""
+        ids = torch.from_numpy(np.ascontiguousarray(stack_ids, dtype=np.int32))
+        confs = torch.from_numpy(np.ascontiguousarray(stack_confs, dtype=np.float32))
+        dev = bundle.device
+        with _on_device(dev):
+            out_ids, out_confs = merge_partial_topk(
+                ids.to(dev), confs.to(dev), v=bundle.mesh_v, k_best=self.cfg.k_best_tracks,
+            )
+            return out_ids.cpu().numpy(), out_confs.cpu().numpy()
 
     def _launch_embed(self, bundle: RuleBundle, seeds: torch.Tensor):
         """The embedding lookup of ``seeds`` (embedding ids) on ``bundle``
@@ -1118,6 +1388,8 @@ class RecommendEngine:
                 return [(self.static_recommendation(s), "fallback") for s in seed_sets]
 
             return finish_fallback
+        if bundle.layout == "mesh":
+            return self._mesh_recommend_async(bundle, seed_sets, idx)
         length = self._bucket_len(max((len(s) for s in seed_sets), default=1))
         n_rows = self._bucket_batch(max(len(seed_sets), 1))
         seeds, known_rows = self._stage_seeds(bundle, seed_sets, n_rows, length)
@@ -1141,9 +1413,11 @@ class RecommendEngine:
                     # its fence): the same span kmls_device_ms reports, an
                     # upper bound on device time, so the MFU is a lower bound
                     cm.observe_kernel(
-                        "serve_rules", t_rules - t_kernel,
+                        "serve_sharded" if bundle.layout == "sharded" else "serve_rules",
+                        t_rules - t_kernel,
                         b=n_rows, l=length, k_max=bundle.rule_ids.shape[1],
                         v=len(bundle.vocab), k_best=self.cfg.k_best_tracks,
+                        shards=bundle.n_shards,
                     )
             emb_ids = emb_sims = emb_known = None
             if emb is not None:
@@ -1165,6 +1439,77 @@ class RecommendEngine:
                 )
                 for r, s in enumerate(seed_sets)
             ]
+
+        return finish
+
+    def _mesh_recommend_async(
+        self, bundle: RuleBundle, seed_sets: list[list[str]], idx: int,
+    ) -> Callable[[], list[tuple[list[str], str]]]:
+        """The gang's dispatch/finish pair: the staged batch goes to every
+        peer first (their sockets overlap this member's device work), this
+        slab's partial is enqueued, and ``finish()`` stacks the partials in
+        rank order and merges them on this member's device. A dead peer
+        raises :class:`~.mesh.MeshShardUnavailable` out of ``finish()``; a
+        straggler the coordinator dropped (``KMLS_HEDGE``) makes every
+        answer of the batch ``degraded:mesh-straggler``."""
+        length = self._bucket_len(max((len(s) for s in seed_sets), default=1))
+        n_rows = self._bucket_batch(max(len(seed_sets), 1))
+        seeds, known_rows = self._stage_seeds(bundle, seed_sets, n_rows, length)
+        if (n_rows, length) not in bundle.warmed_shapes:
+            self.unwarmed_dispatches += 1
+            self.unwarmed_merge_dispatches += 1
+        # fetch_partials copies the seeds before any pool thread sends them
+        finish_remote = self.mesh_coordinator.fetch_partials(
+            seeds.numpy(), bundle.model_token or ""
+        )
+        cm = self.cost_model
+        t_kernel = time.perf_counter()
+        wait = self._launch(bundle, seeds)
+        emb = self._dispatch_embed(bundle, seed_sets, n_rows, length)
+        self._note_dispatch(idx)
+
+        def finish() -> list[tuple[list[str], str]]:
+            faults.fire("replica.kernel", replica=idx)
+            local_ids, local_confs = wait()
+            # blocks on the slowest peer; raises for the first dead rank
+            parts = finish_remote()
+            stack_ids = np.empty((bundle.n_shards, *local_ids.shape), dtype=np.int32)
+            stack_confs = np.empty((bundle.n_shards, *local_confs.shape), dtype=np.float32)
+            stack_ids[bundle.gang_rank] = local_ids
+            stack_confs[bundle.gang_rank] = local_confs
+            for rank, (ids_r, confs_r) in parts.items():
+                stack_ids[rank] = ids_r
+                stack_confs[rank] = confs_r
+            # a rank the coordinator left out contributes nothing: -inf
+            # confidences are dead lanes in the merge
+            dropped = list(getattr(finish_remote, "dropped", None) or [])
+            for rank in dropped:
+                stack_ids[rank] = 0
+                stack_confs[rank] = np.float32(-np.inf)
+            host_ids, host_confs = self._merge_on_device(bundle, stack_ids, stack_confs)
+            t_rules = time.perf_counter()
+            if cm is not None:
+                cm.observe_kernel(
+                    "serve_mesh", t_rules - t_kernel,
+                    b=n_rows, l=length, k_max=bundle.rule_ids.shape[1],
+                    v=len(bundle.vocab), k_best=self.cfg.k_best_tracks, shards=bundle.n_shards,
+                )
+            emb_ids = emb_sims = emb_known = None
+            if emb is not None:
+                (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
+            out = [
+                self._compose_answer(
+                    bundle, s, bool(known_rows[r]), host_ids[r], host_confs[r],
+                    None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
+                )
+                for r, s in enumerate(seed_sets)
+            ]
+            if dropped:
+                # a partial catalog is a degraded answer, never a silent one
+                # (the app flags it; the cache refuses to store it)
+                self.mesh_straggler_degraded += len(out)
+                out = [(songs, "degraded:mesh-straggler") for songs, _src in out]
+            return out
 
         return finish
 

@@ -56,6 +56,17 @@ METRIC_REGISTRY: dict[str, str] = {
     "kmls_cache_affinity_remote_total": "counter:serving",
     # --- dispatch ---
     "kmls_device_dispatch_total": "counter:serving",
+    # model-parallel serving: vocab shards of the published bundle, seed ids
+    # dispatched per shard, and (on serve-gang members only) the gang's
+    # shards by state; {state="missing"} > 0 is the condition /readyz names
+    # serve_mesh_shard_missing:<rank>
+    "kmls_model_shards": "gauge:serving",
+    "kmls_shard_dispatch_total": "counter:serving",
+    "kmls_serve_mesh_shards": "gauge:serving",
+    # partial frames a gang worker shed because their deadline budget was
+    # spent on arrival, and answers merged without a straggler's slab
+    "kmls_mesh_expired_on_arrival_total": "counter:serving",
+    "kmls_mesh_straggler_degraded_total": "counter:serving",
     # --- fault tolerance / overload ---
     "kmls_degraded_total": "counter:serving",
     "kmls_degraded_by_reason": "counter:serving",
@@ -349,6 +360,7 @@ class ServingMetrics:
         self, reload_counter: int, finished_loading: bool,
         cache=None, dispatch_counts=None, robustness=None, artifact_ages=None,
         io=None, cost=None, slo=None, artifact_stale=None,
+        shard_counts=None, mesh_shards=None,
     ) -> str:
         """Prometheus text. ``cache`` (a serving.cache.RecommendCache),
         ``dispatch_counts`` (the engine's per-replica dispatch counters),
@@ -356,7 +368,10 @@ class ServingMetrics:
         in ``_total`` render as counters, the rest as gauges, all under a
         ``kmls_`` prefix), ``artifact_ages`` (artifact → seconds since
         publication), ``artifact_stale`` (artifact → 0/1, from the same age
-        snapshot), ``io`` (the IO-health monitor's snapshot), ``cost``
+        snapshot), ``shard_counts`` (seed ids dispatched per vocab shard,
+        sharded and mesh layouts), ``mesh_shards`` (a serve-gang member's
+        ``{"serving": n, "missing": m}``), ``io`` (the IO-health monitor's
+        snapshot), ``cost``
         (an observability.costmodel.CostModel) and ``slo`` (an
         observability.slo.SloTracker) are optional."""
         p50, p95, p99 = self.latency.percentiles(0.50, 0.95, 0.99)
@@ -410,6 +425,19 @@ class ServingMetrics:
             lines += [
                 f'kmls_device_dispatch_total{{device="{i}"}} {count}'
                 for i, count in enumerate(dispatch_counts)
+            ]
+        if shard_counts:
+            lines.append("# TYPE kmls_shard_dispatch_total counter")
+            lines += [
+                f'kmls_shard_dispatch_total{{shard="{i}"}} {count}'
+                for i, count in enumerate(shard_counts)
+            ]
+        if mesh_shards:
+            # gang members only: serving + missing is the gang size
+            lines.append("# TYPE kmls_serve_mesh_shards gauge")
+            lines += [
+                f'kmls_serve_mesh_shards{{state="{state}"}} {count}'
+                for state, count in sorted(mesh_shards.items())
             ]
         with self._lock:
             degraded = dict(self.degraded_by_reason)

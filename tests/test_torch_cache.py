@@ -199,7 +199,10 @@ def test_render_names_only_catalog_series():
               "hybrid_blend_weight": 0.5,
               "delta_applied_total": 1, "delta_rejected_total": 0, "delta_seq": 1,
               "delta_chain_length": 1, "freshness_lag_seconds": 0.5,
-              "cache_affinity_local_total": 3, "cache_affinity_remote_total": 4}
+              "cache_affinity_local_total": 3, "cache_affinity_remote_total": 4,
+              "model_shards": 2, "mesh_expired_on_arrival_total": 0,
+              "mesh_straggler_degraded_total": 1}
+    shards = dict(shard_counts=[3, 1], mesh_shards={"serving": 2, "missing": 0})
     io = {"latency_s": {"read": 0.002}, "errors": {("read", 5): 1}, "retries": 1,
           "storage_slow": False, "disk_free_bytes": 1 << 30}
     cost = CostModel(peak_flops=1e12, peak_bytes_s=1e11)
@@ -209,7 +212,7 @@ def test_render_names_only_catalog_series():
     text = port_m.render(3, True, cache=cache, dispatch_counts=[4, 5], robustness=robust,
                          artifact_ages={"rules": 1.0, "popularity": 2.0}, io=io,
                          cost=cost, slo=SloTracker(port_m),
-                         artifact_stale={"rules": 0, "popularity": 1})
+                         artifact_stale={"rules": 0, "popularity": 1}, **shards)
     names = set()
     for line in text.splitlines():
         if line.startswith("# TYPE "):
@@ -219,7 +222,7 @@ def test_render_names_only_catalog_series():
     card_only = {"kmls_device_bytes_in_use", "kmls_device_bytes_limit"}
     serving = {n for n, k in metrics.METRIC_REGISTRY.items() if k.endswith(":serving")}
     assert names == serving - card_only
-    want = ref_m.render(3, True, cache=cache, dispatch_counts=[4, 5])
+    want = ref_m.render(3, True, cache=cache, dispatch_counts=[4, 5], **shards)
     # the summaries, histograms, counters and cache lines agree line for line
     # (uptime aside), the embedding family's sources included
     ref_lines = [line for line in want.splitlines()

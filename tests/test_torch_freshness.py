@@ -427,6 +427,105 @@ class TestDeltaBitIdentity:
             assert port.recommend(seeds) == ref.recommend(seeds)
 
 
+class TestShardedLayout:
+    """Deltas under model-parallel serving: applied into a sharded bundle
+    and into a serve gang's slabs, and recounted over two ranks — answers
+    bit-identical to a full re-mine (the reference's
+    ``test_delta_bit_identity_sharded_layout``)."""
+
+    @pytest.mark.parametrize("n_shards", [2, 4])
+    def test_delta_bit_identity_sharded_layout(self, tmp_path, rng, n_shards):
+        os.makedirs(tmp_path / "datasets")
+        csv_path = str(tmp_path / "datasets" / DATASET)
+        _write_csv(csv_path, *_base_rows(rng, n_playlists=70, n_tracks=26))
+        mining_cfg = _mining_cfg(tmp_path, min_support=0.05, model_layout="sharded")
+        run_job(mining_cfg)
+        engine = RecommendEngine(_serving_cfg(tmp_path, model_layout="sharded",
+                                              serve_devices=n_shards), device="cpu")
+        assert engine.load() and engine.n_shards == n_shards
+        _append_rows(csv_path, [(71, "s000"), (71, "s001"), (71, "zz_new"),
+                                (72, "s002"), (72, "s003")])
+        assert run_job(mining_cfg).delta_seq == 1
+        assert engine.apply_pending_deltas() == 1
+        # the patched generation stays sharded, under the same epoch
+        assert engine.model_layout == "sharded" and engine.n_shards == n_shards
+        assert engine.bundle_epoch == 1 and "zz_new" in engine.bundle.vocab
+        assert engine.unwarmed_dispatches == 0
+        full = _fresh_full_remine(tmp_path, csv_path, mining_cfg)
+        from kmlserver_tpu.config import ServingConfig as RefServingConfig
+        from kmlserver_tpu.serving.engine import RecommendEngine as RefEngine
+
+        ref = RefEngine(RefServingConfig(base_dir=str(tmp_path / "full"), pickle_dir="pickles/",
+                                         native_serve=False, **SERVE_KNOBS))
+        assert ref.load()
+        for seeds in (["s000"], ["s001", "s002", "s003"], ["zz_new"]) + PROBES:
+            assert engine.recommend(seeds) == full.recommend(seeds) == ref.recommend(seeds)
+
+    def test_delta_into_the_gang(self, tmp_path, delta_pvc):
+        """Both members of a two-member gang apply the bundle into their own
+        slabs (the epoch kept, the layout still ``mesh``) and answer as the
+        full re-mine."""
+        from .test_torch_mesh import _gang_ports
+
+        mining_cfg, serving_cfg, csv_path = delta_pvc
+        port = _gang_ports()
+        members = [RecommendEngine(dataclasses.replace(
+            serving_cfg, serve_gang_coordinator=f"127.0.0.1:{port}", serve_gang_size=2,
+            serve_gang_rank=rank, serve_gang_port=port + rank), device="cpu") for rank in range(2)]
+        try:
+            for engine in members:
+                assert engine.load()
+            _append_rows(csv_path, CYCLE_1)
+            assert run_job(mining_cfg).delta_seq == 1
+            for engine in members:
+                assert engine.apply_pending_deltas() == 1
+                assert engine.model_layout == "mesh" and engine.n_shards == 2
+                assert engine.bundle_epoch == 1
+            full = _fresh_full_remine(tmp_path, csv_path, mining_cfg)
+            for engine in members:
+                for seeds in PROBES:
+                    assert engine.recommend(seeds) == full.recommend(seeds)
+                assert engine.unwarmed_dispatches == 0
+        finally:
+            for engine in members:
+                engine.close()
+
+    def test_two_ranks_recount_over_the_mesh_and_publish_the_one_rank_bundle(
+        self, tmp_path, rng,
+    ):
+        """Two job processes under ``KMLS_MODEL_LAYOUT=sharded`` on ``1x2``:
+        both ranks enter the recount over the mesh (rank 0 emits and
+        publishes), and the bundle equals a one-rank job's, member by
+        member."""
+        from .test_torch_parallel import run_gloo_ranks
+        from .test_torch_sharded_job import _JOB_RANK
+
+        two, one = tmp_path / "two", tmp_path / "one"
+        os.makedirs(two / "datasets")
+        csv_path = str(two / "datasets" / DATASET)
+        _write_csv(csv_path, *_base_rows(rng))
+        env = dict(KMLS_TORCH_DEVICE="cpu", BASE_DIR=str(two), DATASETS_DIR=str(two / "datasets"),
+                   MIN_SUPPORT="0.04", KMLS_DELTA_ENABLED="1", KMLS_RANK_HEARTBEAT_S="0.5",
+                   KMLS_MODEL_LAYOUT="sharded", KMLS_MESH_SHAPE="1x2", KMLS_COUNT_PATH="dense")
+        run_gloo_ranks(2, _JOB_RANK, [], env=env)
+        _append_rows(csv_path, [(97, "s000"), (97, "s001"), (98, "s002"), (98, "zz_new")])
+        shutil.copytree(two, one)
+        logs = run_gloo_ranks(2, _JOB_RANK, [], env=env)
+        assert "Delta 1 published" in logs[0], logs[0]
+        assert ("Delta recount route: sharded over the 1x2 mesh, rank 0 contributes its block"
+                in logs[0]), logs[0]
+        assert ("Delta recount route: sharded over the 1x2 mesh, rank 1 contributes its block"
+                in logs[1]), logs[1]
+        assert "Rank 1: not the writer; rank 0 ran the delta route (delta 1)" in logs[1], logs[1]
+        one_cfg = _mining_cfg(one, model_layout="sharded", count_path="dense")
+        assert run_job(one_cfg).delta_seq == 1
+        name = artifacts.delta_bundle_filename(1)
+        a, b = (artifacts.load_delta_bundle(str(p / "pickles" / name)) for p in (one, two))
+        assert sorted(a) == sorted(b)
+        for key in a:
+            assert np.array_equal(np.asarray(a[key]), np.asarray(b[key])), key
+
+
 # ---------------------------------------------------------------------------
 # eligibility: the delta route never publishes an approximation
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@ against the JAX package's on the same seeded inputs: base ∘ chain ==
 compacted snapshot == full re-mine, for the tensors and the answers; the
 trigger, the ineligible cases, the re-armed chain after the swap, zero 5xx
 through a compaction under load, and the port's compactor folding a chain
-the reference published exactly as the reference's own compactor does.
-The vocab-sharded layout's cases wait for the port's sharded serving."""
+the reference published exactly as the reference's own compactor does,
+and the vocab-sharded layout's case (a chain applied into sharded bundles,
+compacted, equal to the full re-mine)."""
 
 import contextlib
 import dataclasses
@@ -137,6 +138,44 @@ class TestCompaction:
         seeds = [[vocab[i], vocab[(i + 13) % len(vocab)]] for i in range(0, len(vocab), 9)]
         assert compacted.recommend_many(seeds) == full.recommend_many(seeds)
         assert chained.recommend_many(seeds) == full.recommend_many(seeds)
+
+    @pytest.mark.parametrize("n_shards", [2, 3])
+    def test_compacted_equals_full_remine_sharded(self, tmp_path, rng, n_shards):
+        """The reference's ``test_compacted_equals_full_remine[sharded]``:
+        mined and served under ``KMLS_MODEL_LAYOUT=sharded``, the chain
+        applied into a sharded bundle, the compacted snapshot and a full
+        re-mine give the same tensors, and sharded engines over either
+        answer as the chain does and as the reference's engine over the
+        full re-mine."""
+        from kmlserver_tpu.serving.engine import RecommendEngine as RefEngine
+
+        from .torch_chaos_util import ref_serving_cfg
+
+        base, csv_path = _pvc(tmp_path / "pvc")
+        cfg = _port_cfg(base, model_layout="sharded")
+        _run(cfg)
+        chained = _engine(base, delta_enabled=True, model_layout="sharded",
+                          serve_devices=n_shards)
+        _grow_chain(csv_path, cfg, 2, rng)
+        assert chained.apply_pending_deltas() == 2
+        assert chained.n_shards == n_shards
+        result = lifecycle.compact_delta_chain(cfg)
+        assert result.n_folded == 2
+        control = _control_remine(tmp_path, csv_path, cfg)
+        a, b = _npz(cfg), _npz(control)
+        assert a["vocab"] == b["vocab"] and a["n_playlists"] == b["n_playlists"]
+        for key in ("rule_ids", "rule_counts", "item_counts"):
+            assert np.array_equal(a[key], b[key]), key
+        compacted = _engine(base, model_layout="sharded", serve_devices=n_shards)
+        full = _engine(control.base_dir, model_layout="sharded", serve_devices=n_shards)
+        assert compacted.n_shards == n_shards == full.n_shards
+        ref = RefEngine(ref_serving_cfg(control.base_dir, pickle_dir="pickles/"))
+        assert ref.load()
+        vocab = compacted.bundle.vocab
+        seeds = [[vocab[i], vocab[(i + 13) % len(vocab)]] for i in range(0, len(vocab), 9)]
+        want = [ref.recommend(s) for s in seeds]
+        for engine in (compacted, full, chained):
+            assert [engine.recommend(s) for s in seeds] == want
 
     def test_compaction_keeps_the_rotation_history(self, chain_pvc):
         cfg, _ = chain_pvc

@@ -15,7 +15,9 @@ bar (``tests/test_shard_layout.py:391-411``): factors within
 ``rtol=2e-4, atol=2e-5`` of the dense training, the loss within
 ``rel=1e-4``, bit-identical from one run to the next and to its plain
 version in one process. A sharded job killed after ``mine`` resumes to the
-uninterrupted run's bytes.
+uninterrupted run's bytes. The delta recount over the ranks
+(``restricted_pair_counts`` with a mesh) equals the reference's mesh
+recount, the one-rank recount and its plain version, on every rank.
 """
 
 import dataclasses
@@ -119,6 +121,8 @@ for shape in spec["meshes"]:
             b, grid, min_count, k_max, long_basket_threshold=long, device="cpu")
         for key, arr in zip(("ids", "counts", "valid", "items"), emitted):
             out[f"sparse_{key}"] = arr
+        rows = np.asarray(spec["recount_rows"][name], dtype=np.int32)
+        out["recount"] = support.restricted_pair_counts(b, rows, device="cpu", mesh=grid)
         logs = {}
         for label, knobs in spec["mines"]:
             knobs = dict(knobs, min_support=spec["support"][name], k_max_consequents=k_max,
@@ -168,6 +172,11 @@ def data():
     return {name: _both(kw) for name, (kw, *_rest) in DATA.items()} | {"als": _both(ALS_DATA)}
 
 
+def _recount_rows(v: int) -> list[int]:
+    """Delta-recount rows: unsorted, one repeated, both vocabulary ends."""
+    return [v - 1, 0, 5 % v, 5 % v, (v * 2) // 3, 1 % v]
+
+
 def _min_count(name, data) -> int:
     return min_count_for(DATA[name][1], data[name][1].n_playlists)
 
@@ -184,6 +193,7 @@ def ranks(data, tmp_path_factory):
                  for name, (_, _, k, long) in DATA.items()},
         "support": {name: sup for name, (_, sup, _, _) in DATA.items()},
         "mines": MINES,
+        "recount_rows": {name: _recount_rows(data[name][1].n_tracks) for name in DATA},
     }
     arrays, logs, trained = {}, {}, {}
     for world, meshes in MESHES.items():
@@ -233,6 +243,24 @@ def test_sharded_pair_counts_equal_the_reference(shape, name, impl, ranks, data)
     assert not plain[v:].any() and not plain[:, v:].any()
     for rank, got in enumerate(arrays[shape, name]):
         np.testing.assert_array_equal(got[f"counts_{impl}"], want, err_msg=f"rank {rank}")
+
+
+@pytest.mark.parametrize("shape,name", CASES)
+def test_restricted_recount_over_ranks_equals_the_reference(shape, name, ranks, data):
+    """The delta recount with a mesh: on every rank, the reference's mesh
+    recount of the same rows (``_restricted_counts_fn``), the one-rank
+    recount and the plain version in one process — at any size (no host
+    shortcut under a mesh)."""
+    arrays, _, _ = ranks
+    ref_b, port_b = data[name]
+    rows = np.asarray(_recount_rows(port_b.n_tracks), dtype=np.int32)
+    want = np.asarray(ref_support.restricted_pair_counts(ref_b, rows, mesh=_ref_mesh(shape)))
+    np.testing.assert_array_equal(support.restricted_pair_counts(port_b, rows, device="cpu"), want)
+    dp, tp = (int(n) for n in shape.split("x"))
+    np.testing.assert_array_equal(
+        support.restricted_counts_sharded_plain(port_b, rows, dp, tp), want)
+    for rank, got in enumerate(arrays[shape, name]):
+        np.testing.assert_array_equal(got["recount"], want, err_msg=f"rank {rank}")
 
 
 @pytest.mark.parametrize("impl", IMPLS)
