@@ -235,6 +235,34 @@ Then phase 7 runs (it needs no work directory), and last:
    equal to a one-card job's member by member, applied into the (b) engine
    and the gang (still sharded) with answers equal to a pristine full
    re-mine's, and the compaction equal to that re-mine.
+16. the serving fleet (``freshness/ring.py``'s ``FleetRouter``,
+   ``serving/forecast.py``, the app's owner stamping and gang 503,
+   ``serving/replay.py``'s fleet client; alone: ``python -c "import
+   chip_smoke as c; c.phase_fleet()"``, which mines its own ds2 PVC from
+   seed 123 with deltas armed): (a) ``bench.py``'s fleet bracket at its
+   defaults — three ``python -m kmlserver_tpu_torch.serving.server`` on the
+   card as ``kubernetes/statefulset.yaml``'s ``replica-0..2`` (LRU 512),
+   42,000 Zipf 0.9 requests a leg at 10,500 QPS offered, round robin then
+   ring-routed with an append + delta job at 30 % and replica-2 SIGKILLed
+   at 60 %: zero 5xx and errors, the survivors' delta applied with
+   selective invalidations and their probe answers equal to each other and
+   to the CPU engine's post-delta ones, the routed window hit ratio above
+   the independent one beside ``simulate_fleet``'s prediction, the dead
+   context's card memory freed; X1 timed per bucket with the replicas idle
+   and under leg A's load; (b) the slow-peer bracket: a two-replica fleet
+   whose replica-1 stalls 200 ms on every request (``fleet.peer``),
+   control and hedged legs of 300 at 32 QPS (the bracket's 600, cut for
+   the time limit; hedged p99 below the
+   control's, a slow ejection, every answer the CPU engine's), the
+   two-member gang as the one ring peer under a finite ``mesh.peer`` stall,
+   then rank 1 SIGKILLed: 503 + ``X-KMLS-Mesh-Unavailable: 1``, spilled by
+   the client; (c) the predictive bracket in process: ramp, sine and
+   constant at 1,000 QPS, the answer cache off so the forecaster sees the
+   traffic, forecaster off then on at equal capacity
+   (observations only when on, the led utilization never below the
+   reactive, a pre-touch on the ramp, no 5xx), and a delta applied with
+   the forecaster armed re-warming its hot seed sets, each equal to the
+   CPU engine's post-delta answer. No server outlives the phase.
 Then the kernels line is printed (the sharded entry carries the sharded
 routes' calls and times under ``x8``, and X9's under ``x9``: library
 calls, not kernel launches).
@@ -1734,12 +1762,15 @@ def pipelined_batchers_check(card, cpu, payloads: list, want: list) -> dict:
     return out
 
 
-def serve_bucket_times(card) -> list[dict]:
+def serve_bucket_times(card, label: str = "phase 8", reps: int = 50, walls_n: int = 20,
+                       loaded=None) -> list[dict]:
     """``recommend_batch`` at every (batch, length) bucket on the ds2 rule
-    tensors, by CUDA events, each beside its bound: the bytes it must move
-    (the seeds, the rule rows of the distinct seeds, the top-k out) over
-    the memory rate. Also the host wall time of one whole dispatch →
-    finish (staging, launches, copy back, event wait)."""
+    tensors, by CUDA events (``reps`` launches), each beside its bound: the
+    bytes it must move (the seeds, the rule rows of the distinct seeds, the
+    top-k out) over the memory rate. Also the host wall time of one whole
+    dispatch → finish (staging, launches, copy back, event wait; median of
+    ``walls_n``). ``loaded()``, when given, is read after each bucket and
+    kept as its ``loaded`` flag."""
     import torch
 
     from kmlserver_tpu_torch.ops.serve import recommend_batch
@@ -1760,11 +1791,11 @@ def serve_bucket_times(card) -> list[dict]:
 
             fn()
             torch.cuda.synchronize()
-            ms = cuda_ms(fn, 50)
+            ms = cuda_ms(fn, reps)
             staged = card._staging((batch, length), bundle.device)
             staged.copy_(seeds_host.to(torch.int32))
             walls = []
-            for _ in range(20):
+            for _ in range(walls_n):
                 t0 = time.perf_counter()
                 card._launch(bundle, staged)()
                 walls.append(1e3 * (time.perf_counter() - t0))
@@ -1774,7 +1805,9 @@ def serve_bucket_times(card) -> list[dict]:
                          "dispatch_ms": sorted(walls)[len(walls) // 2],
                          "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
                          "bytes": nbytes})
-    log("phase 8 serve lookup per bucket (recommend_batch, CUDA events; bound = "
+            if loaded is not None:
+                rows[-1]["loaded"] = loaded()
+    log(f"{label} serve lookup per bucket (recommend_batch, CUDA events; bound = "
         "bytes / 3.35 TB/s; dispatch = host wall of stage → launch → copy back → wait): "
         + "; ".join(f"{r['batch']}x{r['length']} {r['ms']:.4f} ms (dispatch "
                     f"{r['dispatch_ms']:.4f}, bound {r['bound_ms']:.6f})" for r in rows))
@@ -3349,21 +3382,30 @@ RECOUNT_PLAYLISTS = 1000  # phase 12 (b): the playlists a 0.1 % append adds
 RECOUNT_PLAIN_CHUNK = 32768  # playlists per float64 chunk of int8_gram_plain on the card
 
 
-def append_bench_rows(csv_path: str, rng, first_pid: int, lo: int, new_track: int) -> int:
-    """The reference bench's append (``bench.py:1580-1615``): 24 new
-    playlists × 90 rows drawn over the 128 tracks from ``lo``, plus one
-    brand-new track → rows appended."""
-    lines = []
-    for p in range(24):
-        for t in lo + rng.integers(0, 128, size=90):
-            t = int(t)
-            lines.append(f"{first_pid + p},Track {t:07d},spotify:track:{t:07d},"
-                         f"Artist {t % 997:04d},spotify:artist:{t % 997:04d},Album {t // 12:06d}")
-    lines.append(f"{first_pid},Track {new_track:07d},spotify:track:{new_track:07d},"
-                 f"Artist 0000,spotify:artist:0000,Album 000000")
+def track_row(pid: int, t: int) -> str:
+    """One CSV row of the synthetic tables' format for track ``t``."""
+    return (f"{pid},Track {t:07d},spotify:track:{t:07d},"
+            f"Artist {t % 997:04d},spotify:artist:{t % 997:04d},Album {t // 12:06d}")
+
+
+def append_rows(csv_path: str, lines: list[str]) -> int:
     with open(csv_path, "a") as fh:
         fh.write("\n".join(lines) + "\n")
     return len(lines)
+
+
+def append_bench_rows(csv_path: str, rng, first_pid: int, lo: int,
+                      new_track: int | None) -> int:
+    """The reference bench's append (``bench.py:1580-1615``): 24 new
+    playlists × 90 rows drawn over the 128 tracks from ``lo``, plus one
+    brand-new track unless ``new_track`` is None (the fleet bracket's,
+    ``bench.py:2088-2103``) → rows appended."""
+    lines = [track_row(first_pid + p, int(t))
+             for p in range(24) for t in lo + rng.integers(0, 128, size=90)]
+    if new_track is not None:
+        lines.append(f"{first_pid},Track {new_track:07d},spotify:track:{new_track:07d},"
+                     f"Artist 0000,spotify:artist:0000,Album 000000")
+    return append_rows(csv_path, lines)
 
 
 def wait_metrics(base: str, ready, timeout_s: float, label: str) -> tuple[dict, float]:
@@ -5619,6 +5661,630 @@ def phase_model_parallel(work: str | None = None) -> dict:
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 16
+
+FLEET_PEERS = [f"replica-{i}" for i in range(3)]  # kubernetes/statefulset.yaml: replicas 3
+FLEET_QPS = 10500.0  # bench.py _FLEET_BENCH's defaults
+FLEET_REQUESTS = 42000
+FLEET_CACHE = 512  # per-replica LRU
+FLEET_POOL = int(FLEET_CACHE * (len(FLEET_PEERS) + 1.5))  # 2,304 sets: wider than one LRU
+FLEET_POLL = "0.005"  # POLLING_WAIT_IN_MINUTES: the mid-replay delta applies within ~0.3 s
+FLEET_CSV = "2023_spotify_ds2.csv"
+SLOW_QPS = 32.0  # under the stalled peer's capacity (bench.py _SLOWPEER_BENCH)
+# the bracket's 600 a leg cut to 300 (its gang leg 300 → 150): the whole
+# smoke took 1,061.694 s with 600, past the ~1,050 s the time limit leaves
+SLOW_REQUESTS = 300
+SLOW_STALL_MS = 200
+SLOW_PEERS = ["replica-0", "replica-1"]
+SHAPE_QPS = 1000.0  # bench.py _LOADSHAPE_PRED_BENCH
+SHAPE_REQUESTS = 8000
+SHAPE_SEEDS = {"ramp": 41, "sine": 43, "constant": 47}
+PREFETCH_DRAWS = 2000  # (c)'s Zipf traffic before the delta the pre-fetch follows
+
+
+def fleet_env(me: str, peers: list[str], **extra: str) -> dict:
+    """A fleet replica's env: its stable identity among ``peers``, as
+    kubernetes/statefulset.yaml sets ``KMLS_FLEET_SELF`` / ``_PEERS``; the
+    admission ladder off as the bench's fleet servers have it."""
+    return dict(KMLS_FLEET_SELF=me, KMLS_FLEET_PEERS=",".join(peers),
+                KMLS_SHED_QUEUE_BUDGET_MS="0", **extra)
+
+
+def fleet_pvc(work: str) -> str:
+    """ds2 from seed 123 mined on the card in process with deltas armed
+    (the bench's fleet PVC, min_support 0.05) → the PVC."""
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.data.csv import write_tracks_csv
+    from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_table
+    from kmlserver_tpu_torch.mining.pipeline import run_mining_job
+
+    pvc = os.path.join(work, "pvc16")
+    datasets = os.path.join(pvc, "datasets")
+    os.makedirs(datasets)
+    write_tracks_csv(os.path.join(datasets, FLEET_CSV), synthetic_table(**DS2_SHAPE, seed=123))
+    run_mining_job(MiningConfig(base_dir=pvc, datasets_dir=datasets, min_support=0.05,
+                                delta_enabled=True), device="cuda")
+    return pvc
+
+
+def rule_vocab(pvc: str) -> list[str]:
+    """The rule dict's keys, sorted (the bench's payload vocabulary)."""
+    from kmlserver_tpu_torch.io import artifacts
+
+    return sorted(artifacts.load_pickle(os.path.join(pvc, "pickles", "recommendations.pickle")))
+
+
+def fleet_answers_check(label: str, responses: list, payloads: list, cpu,
+                        straggler_ok: bool = False) -> dict:
+    """``replay_fleet_http``'s answers (one per request) against the CPU
+    engine's: 200 and its songs, or a counted degraded answer — the
+    popularity fallback, or with ``straggler_ok`` a merge without a late
+    slab. → counts by outcome."""
+    if len(responses) != len(payloads):
+        fail(f"phase 16 {label}: {len(payloads) - len(responses)} requests got no answer")
+    want = engine_answers(cpu, payloads)
+    head_k = [b["track_name"] for b in cpu.best_tracks][: cpu.cfg.k_best_tracks]
+    counts: dict[str, int] = {"ok": 0, "cached": 0}
+    for i, _peer, status, head, body in responses:
+        songs = json.loads(body).get("songs") if status == 200 else None
+        reason = [ln.split(b":", 1)[1].strip().decode() for ln in head.split(b"\r\n")
+                  if ln.startswith(b"x-kmls-degraded:")]
+        if status == 200 and reason:
+            counts[reason[0]] = counts.get(reason[0], 0) + 1
+            if reason[0] == "mesh-straggler" and straggler_ok:
+                continue
+            if songs not in (cpu.static_recommendation(payloads[i]), head_k):
+                fail(f"phase 16 {label}: degraded ({reason[0]}) answer for {payloads[i]} is "
+                     "not the fallback")
+            continue
+        if status != 200 or songs != want[i][0]:
+            fail(f"phase 16 {label}: {payloads[i]} → {status} {body[:200]!r} != {want[i][0]}")
+        counts["ok"] += 1
+        counts["cached"] += b"x-kmls-cache: hit" in head
+    return counts
+
+
+def fleet_routed(pvc: str, servers: dict, cpu, card, phase8_buckets) -> dict:
+    """Phase 16 (a): ``_FLEET_BENCH`` at its defaults on the three replicas
+    — leg A round robin (rng 31) with X1 timed per bucket while it runs,
+    leg B ring-routed (rng 32) with the append + delta job at 30 % and
+    replica-2 SIGKILLed at 60 %; the survivors' delta and answers."""
+    import torch
+
+    from kmlserver_tpu_torch.freshness.ring import seeds_key, simulate_fleet
+    from kmlserver_tpu_torch.serving.replay import replay_fleet_http, sample_seed_sets
+
+    t0 = time.perf_counter()
+    urls = {me: base for me, (_proc, base, _lines) in servers.items()}
+    vocab = rule_vocab(pvc)
+    window_end = int(FLEET_REQUESTS * 0.30)
+    kill_at = int(FLEET_REQUESTS * 0.60)
+    idle = serve_bucket_times(card, label="phase 16 (a), three replicas idle")
+    # leg A: X1 per bucket timed in this process while three servers answer
+    payloads_a = sample_seed_sets(vocab, FLEET_REQUESTS, rng_seed=31, zipf_s=0.9,
+                                  zipf_pool=FLEET_POOL)
+    leg_a_done = threading.Event()
+    timed: dict = {}
+
+    def time_under_load() -> None:
+        time.sleep(0.2)  # the client's first bursts
+        # fewer launches a bucket than idle, so most buckets finish inside
+        # the leg; each row says whether the leg still ran when it ended
+        timed["rows"] = serve_bucket_times(card, "phase 16 (a), under leg A's load", reps=20,
+                                           walls_n=10, loaded=lambda: not leg_a_done.is_set())
+
+    timer = threading.Thread(target=time_under_load, daemon=True)
+    timer.start()
+    rep_a, fleet_a = replay_fleet_http(urls, payloads_a, qps=FLEET_QPS, policy="roundrobin",
+                                       window_end=window_end)
+    leg_a_done.set()
+    timer.join(120)
+    loaded = [(r["ms"], i["ms"]) for r, i in zip(timed["rows"], idle) if r["loaded"]]
+    x1_ratio = sorted(ms / idle_ms for ms, idle_ms in loaded)
+    log(f"phase 16 (a): X1 under leg A's load in {len(loaded)} of {len(idle)} buckets, "
+        f"{x1_ratio[0]:.3f}–{x1_ratio[-1]:.3f}× the idle time (median "
+        f"{x1_ratio[len(x1_ratio) // 2]:.3f}×)" if loaded else
+        "phase 16 (a): leg A ended before the first bucket was timed")
+    log(f"phase 16 (a) independent: window hit {fleet_a['window_hit_ratio']:.4f}, achieved "
+        f"{rep_a.achieved_qps:.1f} QPS of {FLEET_QPS:.0f}, p50/p99 {rep_a.p50_ms:.3f}/"
+        f"{rep_a.p99_ms:.3f} ms, {fleet_a['http_5xx']} 5xx, {rep_a.n_errors} errors")
+    # round robin lands ~2/3 of the traffic off its owner: the routed leg's
+    # drift is read as a delta over this
+    misrouted_before = {me: scrape_metrics(b).get("kmls_cache_misrouted_total", 0.0)
+                        for me, b in urls.items()}
+    payloads_b = sample_seed_sets(vocab, FLEET_REQUESTS, rng_seed=32, zipf_s=0.9,
+                                  zipf_pool=FLEET_POOL)
+    victim = FLEET_PEERS[-1]
+    delta: dict = {}
+
+    def run_delta() -> None:
+        # the fleet bracket's mid-replay append: over tracks 96-223, rng 7
+        append_bench_rows(os.path.join(pvc, "datasets", FLEET_CSV), np.random.default_rng(7),
+                          30_000_000, 96, None)
+        out, wall = job_process(pvc, "phase 16 (a) delta", KMLS_DELTA_ENABLED="1",
+                                MIN_SUPPORT="0.05")
+        delta["published"] = "Delta 1 published" in out
+        delta["job_s"] = wall
+
+    mem: dict = {}
+
+    def kill() -> None:
+        mem["free_before"] = torch.cuda.mem_get_info()[0]
+        servers[victim][0].kill()  # SIGKILL: a crash holding a CUDA context
+        mem["t_kill"] = time.perf_counter()
+
+    delta_thread = threading.Thread(target=run_delta, daemon=True)
+    rep_b, fleet_b = replay_fleet_http(
+        urls, payloads_b, qps=FLEET_QPS, policy="ring", window_end=window_end,
+        events=[(window_end, delta_thread.start), (kill_at, kill)],
+    )
+    delta_thread.join(300)
+    servers[victim][0].wait(30)
+    deadline = time.perf_counter() + 10
+    while True:  # the dead context's card memory returns once the process is reaped
+        mem["free_after"] = torch.cuda.mem_get_info()[0]
+        if mem["free_after"] > mem["free_before"] or time.perf_counter() > deadline:
+            break
+        time.sleep(0.1)
+    mem["freed_bytes"] = mem["free_after"] - mem["free_before"]
+    log(f"phase 16 (a) routed: window hit {fleet_b['window_hit_ratio']:.4f}, achieved "
+        f"{rep_b.achieved_qps:.1f} QPS of {FLEET_QPS:.0f}, p50/p99 {rep_b.p50_ms:.3f}/"
+        f"{rep_b.p99_ms:.3f} ms, {fleet_b['http_5xx']} 5xx, {rep_b.n_errors} errors, rerouted "
+        f"{fleet_b['rerouted']}, ejections {fleet_b['ejections']}, spills {fleet_b['spills']}, "
+        f"owner-stamped {fleet_b['owner_stamped']}; {victim} SIGKILLed at request {kill_at}: "
+        f"free card memory {mem['free_before']} → {mem['free_after']} bytes")
+    if not delta.get("published"):
+        fail(f"phase 16 (a): the mid-replay delta job published no bundle: {delta}")
+    survivors = [me for me in FLEET_PEERS if me != victim]
+    metrics = {}
+    for me in survivors:
+        metrics[me], _ = wait_metrics(urls[me], lambda m: m.get("kmls_delta_seq", 0) >= 1, 60,
+                                      f"phase 16 (a) {me}'s delta apply")
+    if cpu.apply_pending_deltas() != 1:
+        fail("phase 16 (a): the CPU engine did not apply delta 1")
+    probes = payloads_b[:4] + [["Track 0000100"], vocab[:3]]
+    answers = {me: [json.loads(post(urls[me] + "/api/recommend/", {"songs": s})[1])["songs"]
+                    for s in probes] for me in survivors}
+    want = [cpu.recommend(s)[0] for s in probes]
+    keys_b = [seeds_key(p) for p in payloads_b[:window_end]]
+    sim_aff = simulate_fleet(keys_b, len(FLEET_PEERS), FLEET_CACHE, "affinity")
+    sim_rr = simulate_fleet(keys_b, len(FLEET_PEERS), FLEET_CACHE, "roundrobin")
+    result = {
+        "qps": FLEET_QPS, "requests": FLEET_REQUESTS, "replicas": len(FLEET_PEERS),
+        "cache_entries": FLEET_CACHE, "zipf_pool": FLEET_POOL,
+        "independent_hit_ratio": fleet_a["window_hit_ratio"],
+        "routed_hit_ratio": fleet_b["window_hit_ratio"],
+        "independent_hit_ratio_full": fleet_a["hit_ratio"],
+        "routed_hit_ratio_full": fleet_b["hit_ratio"],
+        "multiplier_achieved": fleet_b["window_hit_ratio"] / fleet_a["window_hit_ratio"],
+        "multiplier_simulated": sim_aff / sim_rr, "sim_affinity_hit": sim_aff,
+        "sim_roundrobin_hit": sim_rr,
+        "leg_a": {"offered_qps": rep_a.offered_qps, "achieved_qps": rep_a.achieved_qps,
+                  "p50_ms": rep_a.p50_ms, "p99_ms": rep_a.p99_ms},
+        "offered_qps": rep_b.offered_qps, "achieved_qps": rep_b.achieved_qps,
+        "p50_ms": rep_b.p50_ms, "p99_ms": rep_b.p99_ms,
+        "errors": rep_a.n_errors + rep_b.n_errors,
+        "http_5xx": fleet_a["http_5xx"] + fleet_b["http_5xx"],
+        "kill_peer": victim, "rerouted": fleet_b["rerouted"],
+        "router_ejections": fleet_b["ejections"], "router_spills": fleet_b["spills"],
+        "owner_stamped": fleet_b["owner_stamped"], "answered_by": fleet_b["answered_by"],
+        "delta_seq": {me: metrics[me].get("kmls_delta_seq") for me in survivors},
+        "selective_invalidations": sum(
+            metrics[me].get("kmls_cache_selective_invalidations_total", 0) for me in survivors),
+        "misrouted_total": sum(metrics[me].get("kmls_cache_misrouted_total", 0)
+                               - misrouted_before[me] for me in survivors),
+        "delta_job_s": delta["job_s"], "card_memory": mem,
+        "device_ms": {me: {q: metrics[me].get(f'kmls_device_ms{{quantile="{q}"}}')
+                           for q in ("0.5", "0.99")} for me in survivors},
+        "x1_buckets": {"idle": idle, "under_load": timed.get("rows"),
+                       "loaded_over_idle": x1_ratio, "phase8_single_server": phase8_buckets},
+    }
+    if result["http_5xx"] or result["errors"]:
+        fail(f"phase 16 (a): {result['http_5xx']} 5xx and {result['errors']} errors over the legs")
+    if not all(metrics[me].get("kmls_delta_applied_total", 0) >= 1
+               and metrics[me].get("kmls_delta_rejected_total", 0) == 0 for me in survivors):
+        fail(f"phase 16 (a): a survivor did not apply the delta cleanly: {metrics}")
+    if result["selective_invalidations"] <= 0:
+        fail("phase 16 (a): no selective invalidation on the survivors")
+    if any(answers[me] != want for me in survivors):
+        fail(f"phase 16 (a): the survivors' probe answers differ from each other or the CPU "
+             f"engine's on the post-delta bundle: {answers} vs {want}")
+    if not result["routed_hit_ratio"] > result["independent_hit_ratio"]:
+        fail(f"phase 16 (a): routed window hit ratio {result['routed_hit_ratio']} is not above "
+             f"the independent {result['independent_hit_ratio']}")
+    if mem["freed_bytes"] <= 0:
+        fail(f"phase 16 (a): the killed replica's card memory was not freed: {mem}")
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 (a): multiplier achieved {result['multiplier_achieved']:.4f} vs simulated "
+        f"{result['multiplier_simulated']:.4f}; misrouted {result['misrouted_total']:.0f}, "
+        f"selective invalidations {result['selective_invalidations']:.0f}; survivors' probes "
+        f"== the CPU engine's post-delta answers; {mem['freed_bytes']} bytes freed by the kill; "
+        f"{result['seconds']:.3f} s")
+    return result
+
+
+def gray_failure(pvc: str, pair: dict, gang: list, cpu) -> dict:
+    """Phase 16 (b): ``_SLOWPEER_BENCH`` — control and hedged legs against
+    the two-replica fleet whose replica-1 stalls every request, then the
+    two-member gang as the one ring peer under a finite ``mesh.peer``
+    stall, then rank 1 SIGKILLed under routing."""
+    from kmlserver_tpu_torch.serving import replay as replay_mod
+    from kmlserver_tpu_torch.serving.replay import replay_fleet_http, sample_seed_sets
+
+    t0 = time.perf_counter()
+    urls = {me: base for me, (_proc, base, _lines) in pair.items()}
+    vocab = rule_vocab(pvc)
+    hedges_before = replay_mod.HEDGES_ISSUED
+    payloads_a = sample_seed_sets(vocab, SLOW_REQUESTS, rng_seed=41, zipf_s=1.1, zipf_pool=1024)
+    resp_a: list = []
+    rep_ctl, fleet_ctl = replay_fleet_http(urls, payloads_a, qps=SLOW_QPS, policy="ring",
+                                           responses=resp_a)
+    control_hedges = replay_mod.HEDGES_ISSUED - hedges_before
+    counts_ctl = fleet_answers_check("(b) control", resp_a, payloads_a, cpu)
+    payloads_b = sample_seed_sets(vocab, SLOW_REQUESTS, rng_seed=42, zipf_s=1.1, zipf_pool=1024)
+    resp_b: list = []
+    rep_hdg, fleet_hdg = replay_fleet_http(
+        urls, payloads_b, qps=SLOW_QPS, policy="ring", hedge=True, hedge_delay_ms=20.0,
+        hedge_max_frac=0.5, slow_ratio=3.0, deadline_ms=5000.0, probe_interval_s=5.0,
+        responses=resp_b,
+    )
+    counts_hdg = fleet_answers_check("(b) hedged", resp_b, payloads_b, cpu)
+    log(f"phase 16 (b) control: p50/p99 {rep_ctl.p50_ms:.3f}/{rep_ctl.p99_ms:.3f} ms, "
+        f"{fleet_ctl['http_5xx']} 5xx, {rep_ctl.n_errors} errors, hedges {control_hedges}; "
+        f"hedged: p50/p99 {rep_hdg.p50_ms:.3f}/{rep_hdg.p99_ms:.3f} ms, "
+        f"{fleet_hdg['hedges_issued']} hedges ({fleet_hdg['hedge_wins']} won, "
+        f"{fleet_hdg['hedges_suppressed']} suppressed), {fleet_hdg['slow_ejections']} slow "
+        f"ejections, {fleet_hdg['http_5xx']} 5xx, {rep_hdg.n_errors} errors; answers {counts_ctl} "
+        f"/ {counts_hdg}")
+    # the gang, one ring peer
+    gang_urls = [base for _proc, base, _lines in gang]
+    wait_gang_ready(gang_urls, 120)
+    payloads_m = sample_seed_sets(vocab, max(100, SLOW_REQUESTS // 2), rng_seed=43, zipf_s=1.1,
+                                  zipf_pool=1024)
+    resp_m: list = []
+    rep_m, fleet_m = replay_fleet_http({"gang": gang_urls[0]}, payloads_m, qps=SLOW_QPS,
+                                       policy="ring", deadline_ms=1500.0, responses=resp_m)
+    if rep_m.n_errors or fleet_m["http_5xx"]:
+        fail(f"phase 16 (b): the gang leg: {rep_m.n_errors} errors, {fleet_m}")
+    counts_m = fleet_answers_check("(b) gang", resp_m, payloads_m, cpu, straggler_ok=True)
+    front = scrape_metrics(gang_urls[0])
+    # rank 1 killed under routing: the gang answers 503, the client spills
+    gang[1][0].kill()
+    gang[1][0].wait(30)
+    # a seed set never sent: a cached answer would not reach the mesh
+    fresh = next(p for p in sample_seed_sets(vocab, 50, rng_seed=45, unknown_fraction=0.0)
+                 if p not in payloads_m)
+    status, headers, _body = mesh_probe(gang_urls[0], fresh)
+    payloads_k = sample_seed_sets(vocab, 60, rng_seed=44)
+    resp_k: list = []
+    rep_k, fleet_k = replay_fleet_http(
+        {"gang": gang_urls[0], "solo": urls["replica-0"]}, payloads_k, qps=SLOW_QPS,
+        eject_threshold=1, redispatch_max=4, probe_interval_s=30.0, responses=resp_k,
+    )
+    counts_k = fleet_answers_check("(b) gang member killed", resp_k, payloads_k, cpu)
+    result = {
+        "qps": SLOW_QPS, "requests": SLOW_REQUESTS, "stall_ms": SLOW_STALL_MS,
+        "control": {"p50_ms": rep_ctl.p50_ms, "p99_ms": rep_ctl.p99_ms,
+                    "errors": rep_ctl.n_errors, "http_5xx": fleet_ctl["http_5xx"],
+                    "hedges": control_hedges, "answers": counts_ctl},
+        "hedged": {"p50_ms": rep_hdg.p50_ms, "p99_ms": rep_hdg.p99_ms,
+                   "errors": rep_hdg.n_errors, "http_5xx": fleet_hdg["http_5xx"],
+                   **{k: fleet_hdg[k] for k in ("hedges_issued", "hedge_wins", "hedge_losses",
+                                                "hedges_suppressed", "hedge_mismatch",
+                                                "slow_ejections", "ejections", "readmissions",
+                                                "deadline_expired")},
+                   "answers": counts_hdg},
+        "p99_ratio": rep_ctl.p99_ms / rep_hdg.p99_ms,
+        "gang": {"requests": len(payloads_m), "p50_ms": rep_m.p50_ms, "p99_ms": rep_m.p99_ms,
+                 "errors": rep_m.n_errors, "http_5xx": fleet_m["http_5xx"], "answers": counts_m,
+                 "hedge_wins_total": front.get("kmls_hedge_wins_total"),
+                 "straggler_degraded_total": front.get("kmls_mesh_straggler_degraded_total"),
+                 "peer_slow_ejections_total": front.get("kmls_peer_slow_ejections_total")},
+        "gang_killed": {"probe_status": status,
+                        "mesh_unavailable_header": headers.get("x-kmls-mesh-unavailable"),
+                        "retry_after": headers.get("retry-after"),
+                        "errors": rep_k.n_errors, "http_5xx": fleet_k["http_5xx"],
+                        **{k: fleet_k[k] for k in ("mesh_unavailable", "rerouted", "ejections",
+                                                   "failed_shards", "answered_by")},
+                        "answers": counts_k},
+    }
+    if control_hedges:
+        fail(f"phase 16 (b): {control_hedges} hedges issued with hedging off")
+    for leg in (result["control"], result["hedged"], result["gang"], result["gang_killed"]):
+        if leg["errors"] or leg["http_5xx"]:
+            fail(f"phase 16 (b): a leg with errors or 5xx: {result}")
+    if not rep_hdg.p99_ms < rep_ctl.p99_ms:
+        fail(f"phase 16 (b): hedged p99 {rep_hdg.p99_ms:.3f} ms is not below the control's "
+             f"{rep_ctl.p99_ms:.3f} ms")
+    if fleet_hdg["slow_ejections"] < 1 or fleet_hdg["hedge_mismatch"]:
+        fail(f"phase 16 (b): no slow ejection of replica-1, or a hedge answered differently: "
+             f"{fleet_hdg}")
+    if (status != 503 or headers.get("x-kmls-mesh-unavailable") != "1"
+            or not (headers.get("retry-after") or "").isdigit()):
+        fail(f"phase 16 (b): the gang with rank 1 dead answered {status} {headers}")
+    if not (result["gang"]["hedge_wins_total"] or 0) >= 1 or not (
+            result["gang"]["straggler_degraded_total"] or 0) >= 1:
+        fail(f"phase 16 (b): the gang's coordinator never left the straggler out: {front}")
+    if fleet_k["mesh_unavailable"] < 1 or fleet_k["failed_shards"] != {"gang": 1}:
+        fail(f"phase 16 (b): the routed client did not spill the gang's 503s: {fleet_k}")
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 (b): hedged p99 {rep_hdg.p99_ms:.3f} < control {rep_ctl.p99_ms:.3f} ms "
+        f"(x{result['p99_ratio']:.3f}); gang leg p50/p99 {rep_m.p50_ms:.3f}/{rep_m.p99_ms:.3f} "
+        f"ms, answers {counts_m}, hedge wins {front.get('kmls_hedge_wins_total')}; rank 1 "
+        f"killed: 503 + X-KMLS-Mesh-Unavailable 1, Retry-After {headers.get('retry-after')}, "
+        f"{fleet_k['mesh_unavailable']} refusals spilled to solo ({fleet_k['answered_by']}); "
+        f"{result['seconds']:.3f} s")
+    return result
+
+
+def shape_leg(base_cfg, engine, shape: str, predictive: bool, payloads: list,
+              arrivals) -> dict:
+    """One ``_LOADSHAPE_PRED_BENCH`` leg in process on the card: a fresh
+    app over the shared engine (equal capacity; the forecaster knob is the
+    only difference), every distinct payload once, a half-rate pass, then
+    the shaped replay with the utilization sampled every 10 ms."""
+    import dataclasses as dc
+
+    from kmlserver_tpu_torch.serving import forecast as forecast_mod
+    from kmlserver_tpu_torch.serving.app import RecommendApp
+    from kmlserver_tpu_torch.serving.batcher import (
+        DeadlineExceeded, NoHealthyReplicas, Overloaded, OverloadDegraded,
+    )
+    from kmlserver_tpu_torch.serving.replay import replay_pooled
+
+    app = RecommendApp(dc.replace(base_cfg, forecast_enabled=predictive), engine=engine,
+                       device="cuda")
+    would_5xx = [0]
+    lock = threading.Lock()
+
+    def make_send():
+        def send(seeds):
+            try:
+                _recs, _source, cached = app.recommend_direct(seeds)
+            except Overloaded:
+                return "shed", None
+            except (OverloadDegraded, DeadlineExceeded, NoHealthyReplicas):
+                return "degraded", None
+            except Exception:
+                with lock:
+                    would_5xx[0] += 1  # handle() would answer 500
+                raise
+            return "ok", cached
+        return send
+
+    try:
+        warm = make_send()
+        for p in {tuple(p): p for p in payloads}.values():
+            warm(p)
+        replay_pooled(make_send, payloads[:3000], qps=SHAPE_QPS / 2, n_workers=16)
+        shed0, obs0 = app.batcher.shed_total, forecast_mod.OBSERVATIONS_TOTAL
+        lead = {"min": float("inf"), "max": 0.0, "samples": 0}
+        stop = threading.Event()
+
+        def sample() -> None:
+            while not stop.wait(0.01):
+                reactive, led = app.batcher.utilization_parts()
+                lead["min"] = min(lead["min"], led - reactive)
+                lead["max"] = max(lead["max"], led - reactive)
+                lead["samples"] += 1
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        rep = replay_pooled(make_send, payloads, qps=SHAPE_QPS, n_workers=16, max_queue=16384,
+                            arrivals=arrivals)
+        stop.set()
+        sampler.join(5)
+        out = {"p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms, "onset_p99_ms": rep.onset_p99_ms,
+               "steady_p99_ms": rep.steady_p99_ms, "errors": rep.n_errors,
+               "http_5xx": would_5xx[0], "shed": app.batcher.shed_total - shed0,
+               "degraded": rep.by_source.get("degraded", 0), "ok": rep.by_source.get("ok", 0),
+               "achieved_qps": rep.achieved_qps, "lead_min": lead["min"],
+               "lead_max": lead["max"], "lead_samples": lead["samples"],
+               "observations_delta": forecast_mod.OBSERVATIONS_TOTAL - obs0}
+        if predictive:
+            out["forecast_observations"] = app.forecaster.observations
+            out["prewarm_total"] = app.batcher.prewarm_total
+        log(f"phase 16 (c) {shape}/{'pred' if predictive else 'react'}: p50/p99 "
+            f"{rep.p50_ms:.3f}/{rep.p99_ms:.3f} ms, onset/steady p99 {rep.onset_p99_ms}/"
+            f"{rep.steady_p99_ms}, shed {out['shed']}, degraded {out['degraded']}, 5xx "
+            f"{would_5xx[0]}, lead over reactive [{lead['min']:.4f}, {lead['max']:.4f}] in "
+            f"{lead['samples']} samples, pre-touches {out.get('prewarm_total', 0)}")
+        return out
+    finally:
+        app.close()
+        engine.delta_listeners.remove(app._on_delta_applied)
+
+
+def prefetch_after_delta(pvc: str, base_cfg) -> dict:
+    """(c)'s pre-fetch: an app with the cache, the forecaster and deltas
+    armed under Zipf traffic, an append whose playlists hold its hottest
+    seed sets' tracks, the delta job in process on the card (the bench's
+    way; a process start-up's ~20 windows would decay the mix table), the
+    apply → the pre-fetched answers against the CPU engine's on the
+    post-delta bundle."""
+    import dataclasses as dc
+
+    from kmlserver_tpu_torch.config import MiningConfig, ServingConfig
+    from kmlserver_tpu_torch.mining.pipeline import run_mining_job
+    from kmlserver_tpu_torch.serving.app import RecommendApp
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.replay import replay_pooled, sample_seed_sets
+
+    app = RecommendApp(dc.replace(base_cfg, cache_enabled=True, forecast_enabled=True,
+                                  delta_enabled=True), device="cuda")
+    try:
+        if not app.engine.load():
+            fail("phase 16 (c): the delta app could not load its PVC")
+        payloads = sample_seed_sets(rule_vocab(pvc), PREFETCH_DRAWS, rng_seed=48, zipf_s=1.1)
+
+        def make_send():
+            def send(seeds):
+                return app.recommend_direct(seeds)[1]
+            return send
+
+        replay_pooled(make_send, payloads, qps=SHAPE_QPS, n_workers=16)
+        hot = app.forecaster.hot_seed_sets(base_cfg.forecast_prefetch_top_n)
+        tracks = sorted({int(s.split()[1]) for seeds in hot for s in seeds
+                         if s.startswith("Track ")})
+        rng = np.random.default_rng(16)
+        appended = append_rows(os.path.join(pvc, "datasets", FLEET_CSV), [
+            track_row(31_000_000 + p, t)
+            for p in range(24) for t in tracks + [int(t) for t in rng.integers(0, 4000, size=30)]
+        ])
+        datasets = os.path.join(pvc, "datasets")
+        summary = run_mining_job(MiningConfig(base_dir=pvc, datasets_dir=datasets,
+                                              delta_enabled=True), device="cuda")
+        if summary.delta_seq != 1:
+            fail("phase 16 (c): the delta job published no bundle")
+        if app.engine.apply_pending_deltas() != 1:
+            fail("phase 16 (c): the app's engine did not apply delta 1")
+        cpu = RecommendEngine(ServingConfig(base_dir=pvc, delta_enabled=True), device="cpu")
+        if not cpu.load() or cpu.apply_pending_deltas() != 1:
+            fail("phase 16 (c): the CPU engine did not load and apply delta 1")
+        # the hot sets the delta cooled come back through the pre-fetch;
+        # the rest stayed cached
+        deadline = time.perf_counter() + 30
+        warmed: list = []
+        while time.perf_counter() < deadline:
+            warmed = [s for s in hot if app.cache.contains(app._cache_key(s))]
+            if len(warmed) == len(hot):
+                break
+            time.sleep(0.02)
+        result = {"hot_sets": len(hot), "appended_rows": appended,
+                  "prefetch_total": app.forecast_prefetch_total, "cached_hot_sets": len(warmed),
+                  "delta_seq": app.engine.delta_seq}
+        if app.forecast_prefetch_total < 1 or len(warmed) != len(hot):
+            fail(f"phase 16 (c): the delta apply did not re-warm the hot sets: {result}")
+        for seeds in warmed:
+            got = app.cache.get(app._cache_key(seeds))
+            if got is None or got[0] != cpu.recommend(seeds)[0]:
+                fail(f"phase 16 (c): the pre-fetched answer for {seeds} != the CPU engine's "
+                     f"post-delta answer")
+        log(f"phase 16 (c) pre-fetch: {result['prefetch_total']} of {len(hot)} hot sets "
+            f"re-warmed after delta {result['delta_seq']}, each == the CPU engine's post-delta "
+            "answer")
+        return result
+    finally:
+        app.close()
+
+
+def predictive(pvc: str) -> dict:
+    """Phase 16 (c): ``_LOADSHAPE_PRED_BENCH`` in process on the card —
+    ramp (to 3×), sine and constant at 1,000 QPS, 8,000 Zipf 1.1 requests,
+    the forecaster off then on at equal capacity; then the pre-fetch after
+    a delta. The legs run with the answer cache off: the forecaster feeds
+    from the batcher's submit, and after the bench's warm pass every
+    measured request would be a cache hit, so no actuator could fire."""
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.replay import sample_seed_sets, shaped_arrivals
+
+    t0 = time.perf_counter()
+    # a 30 ms shed budget puts the admission ladder in play (the bench's)
+    base_cfg = ServingConfig(base_dir=pvc, batch_max_size=64, request_deadline_ms=2000.0,
+                             shed_queue_budget_ms=30.0, cache_enabled=False)
+    engine = RecommendEngine(base_cfg, device="cuda")
+    if not engine.load():
+        fail("phase 16 (c): the engine could not load its PVC")
+    vocab = list(engine.bundle.vocab)
+    shapes = {}
+    for shape, rng_seed in SHAPE_SEEDS.items():
+        payloads = sample_seed_sets(vocab, SHAPE_REQUESTS, rng_seed=rng_seed, zipf_s=1.1)
+        kw = {"ramp_stop_factor": 3.0} if shape == "ramp" else {}
+        arrivals = shaped_arrivals(SHAPE_REQUESTS, SHAPE_QPS, shape, **kw)
+        shapes[shape] = {mode: shape_leg(base_cfg, engine, shape, mode == "predictive",
+                                         payloads, arrivals)
+                         for mode in ("reactive", "predictive")}
+    engine.close()
+    for shape, legs in shapes.items():
+        react, pred = legs["reactive"], legs["predictive"]
+        if react["http_5xx"] or pred["http_5xx"]:
+            fail(f"phase 16 (c) {shape}: 5xx answers: {legs}")
+        if react["observations_delta"] != 0 or pred["forecast_observations"] <= 0:
+            fail(f"phase 16 (c) {shape}: forecaster observations off {react['observations_delta']}"
+                 f", on {pred['forecast_observations']}")
+        if pred["lead_min"] < 0.0:
+            fail(f"phase 16 (c) {shape}: the led utilization fell below the reactive one")
+    if shapes["ramp"]["predictive"]["prewarm_total"] < 1:
+        fail("phase 16 (c): no pre-touch on the ramp")
+    result = {"qps": SHAPE_QPS, "requests": SHAPE_REQUESTS, "shapes": shapes,
+              "prefetch": prefetch_after_delta(pvc, base_cfg)}
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 (c): {result['seconds']:.3f} s")
+    return result
+
+
+def phase_fleet(work: str | None = None, phase8_buckets: list | None = None) -> dict:
+    """Phase 16: the serving fleet (``kubernetes/statefulset.yaml``'s
+    owner-routed replicas, the gang as a ring peer, the forecaster) on the
+    card (alone: ``python -c "import chip_smoke as c; c.phase_fleet()"``)."""
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+
+    t0 = time.perf_counter()
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke16_")
+    try:
+        pvc = fleet_pvc(work)
+        pvc_b, pvc_c = os.path.join(work, "pvc16b"), os.path.join(work, "pvc16c")
+        shutil.copytree(pvc, pvc_b)
+        shutil.copytree(pvc, pvc_c)
+        t_mine = time.perf_counter() - t0
+        # every server of (a) and (b) starts at once
+        spawned_a = {me: spawn_server(pvc, **fleet_env(
+            me, FLEET_PEERS, POLLING_WAIT_IN_MINUTES=FLEET_POLL, KMLS_DELTA_ENABLED="1",
+            KMLS_CACHE_MAX_ENTRIES=str(FLEET_CACHE))) for me in FLEET_PEERS}
+        spawned_b = {me: spawn_server(pvc_b, **fleet_env(
+            me, SLOW_PEERS, **({"KMLS_FAULT_FLEET_PEER_DELAY_MS": f"1:{SLOW_STALL_MS}:-1"}
+                               if me == "replica-1" else {}))) for me in SLOW_PEERS}
+        port = gang_ports()
+        spawned_g = [spawn_server(pvc_b, **{
+            **gang_env(port, rank), "KMLS_CACHE_ENABLED": "1", "KMLS_DELTA_ENABLED": "0",
+            "KMLS_SHED_QUEUE_BUDGET_MS": "0",
+            "KMLS_FLEET_SELF": "gang", "KMLS_FLEET_PEERS": "gang", "KMLS_HEDGE_DELAY_MS": "20",
+            "KMLS_HEDGE_MAX_FRAC": "0.5", "KMLS_PEER_SLOW_RATIO": "3.0",
+            **({"KMLS_FAULT_MESH_PEER_DELAY_MS": f"1:{SLOW_STALL_MS}:12"} if rank == 1 else {}),
+        }) for rank in range(2)]
+        cpu = RecommendEngine(ServingConfig(base_dir=pvc, delta_enabled=True), device="cpu")
+        cpu_b = RecommendEngine(ServingConfig(base_dir=pvc_b), device="cpu")
+        card = RecommendEngine(ServingConfig(base_dir=pvc_b), device="cuda")
+        if not (cpu.load() and cpu_b.load() and card.load()):
+            fail("phase 16: an engine could not load its PVC")
+        t_up = time.perf_counter()
+        servers_a = {me: await_server(s) for me, s in spawned_a.items()}
+        servers_b = {me: await_server(s) for me, s in spawned_b.items()}
+        gang = [await_server(s) for s in spawned_g]
+        t_up = time.perf_counter() - t_up
+        log(f"phase 16: 7 servers up on the card in {t_up:.3f} s after the engines' load "
+            f"(fleet {', '.join(b for _p, b, _l in servers_a.values())}; pair "
+            f"{', '.join(b for _p, b, _l in servers_b.values())}; gang "
+            f"{', '.join(b for _p, b, _l in gang)})")
+        fleet = fleet_routed(pvc, servers_a, cpu, card, phase8_buckets)
+        card.close()
+        gray = gray_failure(pvc_b, servers_b, gang, cpu_b)
+        unwarmed = {me: server_unwarmed(lines) for me, (_p, _b, lines)
+                    in list(servers_a.items()) + list(servers_b.items())}
+        stop_spawned()  # (c) measures on a quiet card
+        pred = predictive(pvc_c)
+        seconds = time.perf_counter() - t0
+        result = {"fleet": fleet, "gray": gray, "predictive": pred, "unwarmed": unwarmed,
+                  "reduced": [f"(b): {SLOW_REQUESTS} requests a leg, the gang leg "
+                              f"{max(100, SLOW_REQUESTS // 2)} (the bracket's 600 / 300): "
+                              "the whole smoke took 1,061.694 s with 600"],
+                  "seconds": {"mine": t_mine, "servers_up": t_up, "a": fleet["seconds"],
+                              "b": gray["seconds"], "c": pred["seconds"], "phase": seconds}}
+        if any(unwarmed.values()):
+            fail(f"phase 16: unwarmed dispatches on the servers: {unwarmed}")
+        log(f"phase 16 seconds {seconds:.3f} (mine {t_mine:.3f}, servers up {t_up:.3f}, (a) "
+            f"{fleet['seconds']:.3f}, (b) {gray['seconds']:.3f}, (c) {pred['seconds']:.3f})")
+        log("PHASE16 " + json.dumps(result, default=str))
+        return result
+    finally:
+        stop_spawned()
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def x9_entry(mp: dict) -> dict:
     """X9's sub-entry of the kernels line: library ops, so calls (phase 15
     (b)'s main path), not launches; per bucket the sharded lookup's ms
@@ -5716,7 +6382,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="kmls_smoke_")
     try:
         e2e = phase_end_to_end(work)
-        phase_serving(work)
+        serving = phase_serving(work)
         resume = phase_resume(work)
         phase_observability(work)
         scale = phase_scale(2024, work, QUICK_SCALE if quick else SCALE)
@@ -5733,6 +6399,8 @@ def main() -> int:
         sharded = phase_sharded(work, embed["scale"]["final_loss"])
         torch.cuda.empty_cache()
         model_parallel = phase_model_parallel(work)
+        torch.cuda.empty_cache()
+        phase_fleet(work, serving["buckets"])
     finally:
         stop_spawned()
         shutil.rmtree(work, ignore_errors=True)

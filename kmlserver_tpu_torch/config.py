@@ -491,6 +491,14 @@ class ServingConfig:
     cache_affinity: bool = False
     cache_affinity_peers: str = ""
     cache_affinity_self: str = ""
+    # the routing tier (kubernetes/statefulset.yaml): a non-empty
+    # fleet_peers (the replicas' stable identities) arms owner-aware
+    # serving — every request is answered locally, one this replica
+    # (fleet_self, default the hostname) does not own is stamped
+    # X-KMLS-Cache-Owner, and a non-owned miss counts
+    # kmls_cache_misrouted_total
+    fleet_self: str = ""
+    fleet_peers: str = ""
     # the serve gang (serving/mesh.py, kubernetes/serve-gang.yaml): with
     # serve_gang_size > 1 and a coordinator, each member holds only its
     # vocab slab (rows [rank·slab, (rank+1)·slab)), serves its partial
@@ -507,11 +515,25 @@ class ServingConfig:
     # not answered within ~its p95 (floored at hedge_delay_ms) is left out
     # of the merge (a degraded answer), at most hedge_max_frac of the
     # dispatches; peer_slow_ratio > 0 marks a rank slow once its latency
-    # EWMA passes that multiple of the healthy median
+    # EWMA passes that multiple of the healthy median (the replay client's
+    # FleetRouter takes the same three as arguments)
     hedge_enabled: bool = False
     hedge_delay_ms: float = 30.0
     hedge_max_frac: float = 0.05
     peer_slow_ratio: float = 0.0
+    # predictive serving (serving/forecast.py): off = the app holds no
+    # forecaster. horizon_s ahead the rate is predicted from level + trend
+    # over window_s windows (alpha smooths the level); the forecast alone
+    # lifts kmls_utilization at most to util_cap; a growth ratio of
+    # ramp_ratio arms the window pre-widening and the bucket pre-touch;
+    # prefetch_top_n hot seed sets are re-warmed after a delta apply
+    forecast_enabled: bool = False
+    forecast_horizon_s: float = 2.0
+    forecast_window_s: float = 0.5
+    forecast_alpha: float = 0.35
+    forecast_util_cap: float = 1.0
+    forecast_ramp_ratio: float = 1.2
+    forecast_prefetch_top_n: int = 8
 
     @property
     def pickles_dir(self) -> str:
@@ -578,6 +600,8 @@ class ServingConfig:
             cache_affinity=_getenv_bool("KMLS_CACHE_AFFINITY", False),
             cache_affinity_peers=os.getenv("KMLS_CACHE_AFFINITY_PEERS", ""),
             cache_affinity_self=os.getenv("KMLS_CACHE_AFFINITY_SELF", ""),
+            fleet_self=os.getenv("KMLS_FLEET_SELF", ""),
+            fleet_peers=os.getenv("KMLS_FLEET_PEERS", ""),
             serve_gang_coordinator=os.getenv("KMLS_SERVE_GANG_COORDINATOR", ""),
             serve_gang_size=_getenv_int("KMLS_SERVE_GANG_SIZE", 1),
             serve_gang_rank=_getenv_gang_rank(),
@@ -586,4 +610,11 @@ class ServingConfig:
             hedge_delay_ms=_getenv_float("KMLS_HEDGE_DELAY_MS", 30.0),
             hedge_max_frac=_getenv_float("KMLS_HEDGE_MAX_FRAC", 0.05),
             peer_slow_ratio=_getenv_float("KMLS_PEER_SLOW_RATIO", 0.0),
+            forecast_enabled=_getenv_bool("KMLS_FORECAST", False),
+            forecast_horizon_s=_getenv_float("KMLS_FORECAST_HORIZON_S", 2.0),
+            forecast_window_s=_getenv_float("KMLS_FORECAST_WINDOW_S", 0.5),
+            forecast_alpha=_getenv_float("KMLS_FORECAST_ALPHA", 0.35),
+            forecast_util_cap=_getenv_float("KMLS_FORECAST_UTIL_CAP", 1.0),
+            forecast_ramp_ratio=_getenv_float("KMLS_FORECAST_RAMP_RATIO", 1.2),
+            forecast_prefetch_top_n=_getenv_int("KMLS_FORECAST_PREFETCH_TOP_N", 8),
         )

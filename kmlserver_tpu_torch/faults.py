@@ -43,9 +43,11 @@ Sites wired in this package:
   bytes to the temp file, then raise :class:`TornWrite`), ``stall`` (the
   caller sleeps) and ``fail`` for fsync (never retried).
 
-The reference's ``fleet.peer`` site belongs to the fleet router, which this
-package does not have yet: its knob (``KMLS_FAULT_FLEET_PEER_DELAY_MS``)
-parses as in the reference and arms a fault that nothing fires yet.
+- ``"fleet.peer"`` (keyed by the replica's index in the sorted
+  ``KMLS_FLEET_PEERS``, None off the routing tier) — once per recommend
+  request: the asyncio transport takes it with :func:`take` and delays the
+  request on a loop timer (a gray peer: alive, correct, late); the
+  threaded transport fires it in ``RecommendApp._post_recommend``.
 
 Arming, two ways:
 
@@ -72,8 +74,9 @@ Arming, two ways:
   - ``KMLS_FAULT_MESH_PEER_DELAY_MS=rank:ms[:N]`` — gang rank ``rank``'s
     worker sleeps ``ms`` before each of its next N partials (default
     every partial);
-  - ``KMLS_FAULT_FLEET_PEER_DELAY_MS=idx:ms[:N]`` — parsed, not fired
-    (see above);
+  - ``KMLS_FAULT_FLEET_PEER_DELAY_MS=idx:ms[:N]`` — fleet replica
+    ``idx`` stalls ``ms`` on each of its next N recommend requests
+    (default every request);
   - ``KMLS_FAULT_IO_WRITE=kind[:N][:substr]`` — next N artifact-plane
     writes whose destination contains ``substr`` fail with ``kind`` ∈
     ``enospc`` | ``eio`` | ``torn@BYTES`` (default N=1, any path);

@@ -17,7 +17,10 @@ while a connection has too many requests outstanding.
 
 The loop-lag monitor's drift tick (``observability/runtime.py``) is armed
 on the serving loop, so a stall of the loop shows as ``kmls_loop_lag_ms``
-and escalates the admission ladder; the drain stops it.
+and escalates the admission ladder; the drain stops it. An armed
+``fleet.peer`` fault (``KMLS_FAULT_FLEET_PEER_DELAY_MS``) is consumed here
+with :func:`faults.take` and delays its request on a loop timer; the app is
+then told not to fire the site again.
 
 SIGTERM drain: the listener closes at once (racing connects are refused),
 every later response carries ``Connection: close``, in-flight requests
@@ -35,6 +38,7 @@ import signal
 import socket
 from concurrent.futures import ThreadPoolExecutor
 
+from .. import faults
 from ..config import drain_settle_s_from_env
 from .app import RecommendApp, batcher_kwargs
 
@@ -215,6 +219,22 @@ class _Conn(asyncio.Protocol):
         seq = self._next_seq
         self._next_seq += 1
         if method == "POST" and path.split("?", 1)[0] in _RECOMMEND_PATHS:
+            # the fleet.peer chaos site, loop-native: an armed stall delays
+            # THIS request on a loop timer while pipelined neighbours and
+            # other connections flow on — a slow-but-alive replica, where a
+            # blocking sleep would stall the whole loop
+            try:
+                delay = faults.take("fleet.peer", replica=app._fleet_index)
+            except Exception:
+                logger.exception("unhandled error for %s %s", method, path)
+                app.metrics.record_error()
+                self._stage(seq, _ERROR_500, close_after)
+                state.leave()
+                return
+            if delay > 0:
+                self.loop.call_later(delay, self._recommend, seq, path, body, close_after,
+                                     trace_header, budget_header)
+                return
             self._recommend(seq, path, body, close_after, trace_header, budget_header)
             return
         try:
@@ -232,12 +252,16 @@ class _Conn(asyncio.Protocol):
     ) -> None:
         state = self.state
         app = state.app
+        if self.closed:  # the connection dropped during a fault stall
+            state.leave()
+            return
         try:
             if app.batcher is None:
-                # batching disabled: the engine call stays off the loop
+                # batching disabled: the engine call stays off the loop (the
+                # fleet.peer site was consumed in _dispatch)
                 task = state.engine_pool.submit(
                     app.handle, "POST", path, body, self.peer_host, trace_header,
-                    budget_header,
+                    budget_header, False,
                 )
                 task.add_done_callback(
                     lambda f: self.loop.call_soon_threadsafe(
@@ -349,6 +373,7 @@ async def run_async(app: RecommendApp, port: int, ready=None) -> int:
 
         app.batcher = AsyncMicroBatcher(
             app.engine, **batcher_kwargs(app.cfg), metrics=app.metrics, lag_monitor=app.loop_lag,
+            forecaster=app.forecaster,
         )
     if app.loop_lag is not None:
         # the drift tick: a late tick IS the time something blocked the loop

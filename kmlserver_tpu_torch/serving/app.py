@@ -8,8 +8,10 @@ reference's FastAPI routes rebuilt on the stdlib:
   deadline, overload or replica-loss degradation → 200 from the popularity
   fallback with ``X-KMLS-Degraded``; a cache hit carries ``X-KMLS-Cache``.
   On a serve-gang member a dark member's slab is answered the same way,
-  ``X-KMLS-Degraded: mesh-shard-missing:<rank>`` (the reference's
-  standalone branch; its fleet-routed 503 waits for the fleet router).
+  ``X-KMLS-Degraded: mesh-shard-missing:<rank>``; in a routed fleet
+  (``KMLS_FLEET_PEERS``) it is 503 + ``X-KMLS-Mesh-Unavailable: <rank>``
+  with a jittered integer ``Retry-After``, so the router spills the key to
+  the next ring peer.
 - ``POST /metrics/reset``: windows the latency percentiles (loopback only).
 - ``GET /`` (reference: :190-203): HTML test client with a seed sample.
 - ``GET /test`` (reference: :150-153): 307 redirect to the docs.
@@ -29,7 +31,17 @@ With ``KMLS_DELTA_ENABLED`` the engine applies delta bundles in place and
 calls back :meth:`RecommendApp._on_delta_applied`, which invalidates the
 cached answers of the touched seeds only. With ``KMLS_CACHE_AFFINITY=1``
 the app counts the requests its replica would own on a rendezvous ring of
-``KMLS_CACHE_AFFINITY_PEERS`` (``freshness/ring.py``).
+``KMLS_CACHE_AFFINITY_PEERS`` (``freshness/ring.py``). With
+``KMLS_FLEET_PEERS`` (kubernetes/statefulset.yaml) the routing tier is
+live at the client or ingress: every request is still answered here, one
+owned by another replica is stamped ``X-KMLS-Cache-Owner``, a non-owned
+miss counts ``kmls_cache_misrouted_total``, and the ``fleet.peer`` fault
+site is keyed by this replica's index in the sorted fleet.
+
+With ``KMLS_FORECAST=1`` a :class:`~.forecast.TrafficForecaster` feeds the
+batcher's window and pre-touch and ``kmls_utilization``'s lead, and after
+a selective delta invalidation the app re-warms the predicted-hot seed
+sets it owns through the normal lookup path.
 
 With ``KMLS_TRACE_SAMPLE`` > 0 every request carries a trace
 (``observability/trace.py``): its id comes from ``X-KMLS-Trace`` (or is
@@ -57,6 +69,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from .. import faults
 from ..config import ServingConfig
 from ..io.iohealth import MONITOR
 from ..observability import LoopLagMonitor, SloTracker, SpanRecorder
@@ -120,6 +133,10 @@ def _esc(s: str) -> str:
 class RecommendApp:
     """Transport-independent app core."""
 
+    # the fleet.peer fault site's replica key: the sorted-fleet index with
+    # the routing tier armed, else None
+    _fleet_index = None
+
     def __init__(
         self,
         cfg: ServingConfig,
@@ -176,22 +193,60 @@ class RecommendApp:
         listeners = getattr(self.engine, "delta_listeners", None)
         if listeners is not None:
             listeners.append(self._on_delta_applied)
-        # rendezvous-ring affinity accounting (counters only, no routing)
+        # one rendezvous ring, two arming levels: KMLS_CACHE_AFFINITY=1
+        # counts what a router would keep local (no routing);
+        # KMLS_FLEET_PEERS arms owner-aware serving (_stamp_owner), whose
+        # one owner computation also drives the affinity counters
         self.ring = None
         self._ring_self = ""
+        self.fleet_routing = False
         self.affinity_local_total = 0
         self.affinity_remote_total = 0
-        if cfg.cache_affinity:
+        self.misrouted_total = 0
+        fleet_peers = [p.strip() for p in cfg.fleet_peers.split(",") if p.strip()]
+        if fleet_peers or cfg.cache_affinity:
             import socket
 
             from ..freshness.ring import RendezvousRing
 
-            me = cfg.cache_affinity_self or socket.gethostname()
-            peers = [p.strip() for p in cfg.cache_affinity_peers.split(",") if p.strip()]
+            if fleet_peers:
+                me = cfg.fleet_self or socket.gethostname()
+                peers = fleet_peers
+                self.fleet_routing = True
+                if me not in peers:
+                    # this replica would own keys on a ring no client or
+                    # sibling uses: serve, but say so
+                    logger.error(
+                        "KMLS_FLEET_SELF %r is not in KMLS_FLEET_PEERS %r — this "
+                        "replica's ownership ring now differs from the fleet's; "
+                        "kmls_cache_misrouted_total will measure the "
+                        "misconfiguration, not routing drift. Fix the peer list "
+                        "(it must track the replica set exactly).", me, peers,
+                    )
+            else:
+                me = cfg.cache_affinity_self or socket.gethostname()
+                peers = [p.strip() for p in cfg.cache_affinity_peers.split(",") if p.strip()]
             if me not in peers:
                 peers.append(me)
             self.ring = RendezvousRing(peers)
             self._ring_self = me
+            if self.fleet_routing:
+                # stable across the fleet whatever each replica's peer order
+                self._fleet_index = sorted(peers).index(me)
+        # predictive serving: None unless KMLS_FORECAST=1
+        self.forecaster = None
+        self.forecast_prefetch_total = 0
+        if cfg.forecast_enabled:
+            from .forecast import TrafficForecaster
+
+            self.forecaster = TrafficForecaster(
+                horizon_s=cfg.forecast_horizon_s,
+                window_s=cfg.forecast_window_s,
+                alpha=cfg.forecast_alpha,
+                util_cap=cfg.forecast_util_cap,
+                ramp_ratio=cfg.forecast_ramp_ratio,
+                hot_top_n=cfg.forecast_prefetch_top_n,
+            )
         # defer_batcher: the asyncio transport installs its loop-native
         # AsyncMicroBatcher instead of the threaded pipeline
         self.batcher = None
@@ -200,7 +255,7 @@ class RecommendApp:
 
             self.batcher = MicroBatcher(
                 self.engine, **batcher_kwargs(cfg), metrics=self.metrics,
-                lag_monitor=self.loop_lag,
+                lag_monitor=self.loop_lag, forecaster=self.forecaster,
             )
         # the client page and static root honor APP_PATH_FROM_ROOT like the
         # reference (rest_api/app/main.py:44-48, :138): templates/static
@@ -224,11 +279,15 @@ class RecommendApp:
     def handle(
         self, method: str, path: str, body: bytes | None,
         client_host: str | None = None, trace_header: str | None = None,
-        budget_header: str | None = None,
+        budget_header: str | None = None, fire_fleet_fault: bool = True,
     ) -> Response:
+        """``fire_fleet_fault=False``: the transport already consumed the
+        ``fleet.peer`` site for this request (the asyncio one, on a loop
+        timer)."""
         path, _, query = path.partition("?")
         if method == "POST" and path in ("/api/recommend/", "/api/recommend"):
-            return self._post_recommend(body, trace_header, budget_header)
+            return self._post_recommend(body, trace_header, budget_header,
+                                        fire_fleet_fault=fire_fleet_fault)
         if method == "POST" and path == "/metrics/reset":
             # windows the latency percentiles to one replay run
             if not is_loopback_host(client_host):
@@ -308,8 +367,11 @@ class RecommendApp:
         """Batcher recovery-state snapshot for /metrics (names ending in
         _total render as counters, the rest as gauges)."""
         ejected_fn = getattr(self.batcher, "ejected_replicas", None)
-        util_fn = getattr(self.batcher, "utilization", None)
-        return {
+        parts_fn = getattr(self.batcher, "utilization_parts", None)
+        reactive, led = parts_fn() if callable(parts_fn) else (0.0, 0.0)
+        mesh = getattr(self.engine, "mesh_coordinator", None)
+        slow_fn = getattr(mesh, "slow_ranks", None)
+        state = {
             "artifact_quarantines_total": getattr(self.engine, "artifact_quarantines", 0),
             "reload_failures_total": getattr(self.engine, "reload_failures", 0),
             "reload_consecutive_failures": getattr(
@@ -323,9 +385,10 @@ class RecommendApp:
                 getattr(self.engine, "blend_weight", self.cfg.hybrid_blend_weight), 4
             ),
             "replicas_ejected": len(ejected_fn()) if callable(ejected_fn) else 0,
-            # the autoscaling signal; 0.0 without a batcher so the series
-            # always exists
-            "utilization": round(util_fn() if callable(util_fn) else 0.0, 4),
+            # the autoscaling signal (kubernetes/hpa.yaml), with the
+            # forecast's bounded lead when armed; 0.0 without a batcher so
+            # the series always exists
+            "utilization": round(led, 4),
             "admission_degrade_total": getattr(self.batcher, "degrade_total", 0),
             # the decayed stall estimate the ladder also folds in; 0.0 with
             # the collector off, so the series always exists
@@ -359,7 +422,31 @@ class RecommendApp:
             # (0/0 with KMLS_CACHE_AFFINITY off)
             "cache_affinity_local_total": self.affinity_local_total,
             "cache_affinity_remote_total": self.affinity_remote_total,
+            # the routing tier: non-owned misses answered here (routing
+            # drift) and the ring's size (0 = unarmed)
+            "cache_misrouted_total": self.misrouted_total,
+            "fleet_peers": len(self.ring.peers) if self.fleet_routing else 0,
+            # the gang coordinator's straggler outcomes and slow ladder
+            # (all 0 with KMLS_HEDGE off or outside a gang)
+            "hedge_wins_total": getattr(mesh, "hedge_wins", 0),
+            "hedge_losses_total": getattr(mesh, "hedge_losses", 0),
+            "hedge_cancelled_total": getattr(mesh, "hedge_cancelled", 0),
+            "peer_slow_ejections_total": getattr(mesh, "slow_ejections", 0),
+            "peer_slow_readmissions_total": getattr(mesh, "slow_readmissions", 0),
+            "peer_slow": len(slow_fn()) if callable(slow_fn) else 0,
         }
+        if self.forecaster is not None:
+            # the forecast's added lead over the reactive signal, its
+            # snapshot, the observation counter and the two actuators'
+            snap = self.forecaster.snapshot()
+            state["utilization_forecast"] = round(max(0.0, led - reactive), 4)
+            state["forecast_rate"] = round(snap["rate"], 3)
+            state["forecast_predicted_rate"] = round(snap["predicted_rate"], 3)
+            state["forecast_ratio"] = round(snap["ratio"], 4)
+            state["forecast_observations_total"] = snap["observations"]
+            state["forecast_prefetch_total"] = self.forecast_prefetch_total
+            state["forecast_prewarm_total"] = getattr(self.batcher, "prewarm_total", 0)
+        return state
 
     def _artifact_ages(self) -> dict:
         ages_fn = getattr(self.engine, "artifact_ages", None)
@@ -529,6 +616,27 @@ class RecommendApp:
             return "overload"
         return None
 
+    def _stamp_owner(self, headers: dict, songs: list[str] | None, cached: bool) -> None:
+        """Owner-aware serving (routing tier armed): a request another
+        replica owns is answered here all the same, stamped
+        ``X-KMLS-Cache-Owner: <owner>``, and a non-owned MISS (work the
+        owner's cache already holds) counts ``kmls_cache_misrouted_total``;
+        a hit did no duplicate work. The same owner drives the affinity
+        counters."""
+        if not self.fleet_routing or self.ring is None or not songs:
+            return
+        from ..freshness.ring import seeds_key
+
+        owner = self.ring.owner(seeds_key(songs))
+        if owner == self._ring_self:
+            self.affinity_local_total += 1
+            return
+        self.affinity_remote_total += 1
+        # the identities come from operator config: no header smuggling
+        headers["X-KMLS-Cache-Owner"] = owner.replace("\r", "").replace("\n", "")
+        if not cached:
+            self.misrouted_total += 1
+
     def _degraded_response(
         self, t0: float, songs: list[str], reason: str, trace=None,
     ) -> Response:
@@ -547,6 +655,7 @@ class RecommendApp:
             {"songs": recs, "model_date": self.engine.cache_value, "version": self.cfg.version},
         )
         headers["X-KMLS-Degraded"] = reason
+        self._stamp_owner(headers, songs, cached=False)
         if trace is not None:
             # the ladder's decision rides an attribute: "overload" is the
             # admission controller's degrade rung
@@ -607,12 +716,33 @@ class RecommendApp:
         return {"serving": gang.size - len(missing), "missing": len(missing)}
 
     def _mesh_shard_response(self, t0: float, songs: list[str], rank: int, trace=None) -> Response:
-        """A dark gang member: the popularity fallback with
-        ``X-KMLS-Degraded: mesh-shard-missing:<rank>`` — shard loss costs
-        answer quality, never availability."""
+        """A dark gang member. In a routed fleet the gang is one ring peer
+        and not the last line of defense: 503 + ``X-KMLS-Mesh-Unavailable:
+        <rank>`` names the shard to blame and makes the router spill the
+        key, with an integer ``Retry-After`` jittered by
+        KMLS_SHED_RETRY_JITTER around the probe interval. Standalone, the
+        popularity fallback with ``X-KMLS-Degraded:
+        mesh-shard-missing:<rank>`` — shard loss costs answer quality,
+        never availability."""
+        rank = int(rank)
+        if self.fleet_routing:
+            status, headers, payload = _json_response(
+                503, {"detail": f"serve mesh degraded: vocab shard {rank} unavailable"},
+            )
+            headers["X-KMLS-Mesh-Unavailable"] = str(rank)
+            base = max(self.cfg.replica_probe_interval_s, 1.0)
+            jitter = max(0.0, self.cfg.shed_retry_jitter)
+            if jitter > 0.0:
+                base = random.uniform(base * (1.0 - jitter), base * (1.0 + jitter))
+            headers["Retry-After"] = str(math.ceil(max(base, 0.0)))
+            self.metrics.record_degraded(f"mesh-shard-missing:{rank}")
+            if trace is not None:
+                trace.annotate("mesh_shard_missing", rank)
+                self._trace_finish(trace, "mesh-unavailable", headers)
+            return status, headers, payload
         if trace is not None:
-            trace.annotate("mesh_shard_missing", int(rank))
-        return self._degraded_response(t0, songs, f"mesh-shard-missing:{int(rank)}", trace=trace)
+            trace.annotate("mesh_shard_missing", rank)
+        return self._degraded_response(t0, songs, f"mesh-shard-missing:{rank}", trace=trace)
 
     def _recommend_error_response(self, exc: Exception, trace=None) -> Response:
         if isinstance(exc, Overloaded):
@@ -640,6 +770,7 @@ class RecommendApp:
 
     def _recommend_result_response(
         self, t0: float, recs: list[str], source: str, cached: bool = False, trace=None,
+        songs: list[str] | None = None,
     ) -> Response:
         # compose span: the answer is available (the caller comes straight
         # from the resolved future) → the response bytes are built
@@ -649,6 +780,7 @@ class RecommendApp:
             200,
             {"songs": recs, "model_date": self.engine.cache_value, "version": self.cfg.version},
         )
+        self._stamp_owner(headers, songs, cached=cached)
         if cached:
             # lets load harnesses split cached vs computed latency
             headers["X-KMLS-Cache"] = "hit"
@@ -670,7 +802,8 @@ class RecommendApp:
     def _on_delta_applied(self, touched: set, wholesale: bool) -> None:
         """Engine callback after a delta swapped in: invalidate the cached
         answers of the touched seeds (a wholesale apply bumped the epoch,
-        which already invalidated every key)."""
+        which already invalidated every key), then, forecaster armed,
+        re-warm the predicted-hot sets the invalidation cooled."""
         if self.cache is None or wholesale:
             return
         dropped = self.cache.invalidate_seeds(set(touched))
@@ -678,6 +811,53 @@ class RecommendApp:
             "delta applied: %d touched names, %d cache entries invalidated "
             "selectively", len(touched), dropped,
         )
+        if self.forecaster is not None:
+            names = set(touched)
+            loop = getattr(self.batcher, "_loop", None)
+            if loop is not None:
+                # the loop-native batcher's submit() is loop-confined and
+                # this runs on the engine's poll thread: hop
+                try:
+                    loop.call_soon_threadsafe(self._forecast_prefetch, names)
+                except RuntimeError:
+                    pass  # the loop is closed: a missed pre-fetch is fine
+            else:
+                self._forecast_prefetch(names)
+
+    def _forecast_prefetch(self, touched: set) -> int:
+        """The post-delta pre-fetch: each predicted-hot seed set that the
+        delta cooled (its seeds meet ``touched``), that this replica owns
+        (every key with no ring), and that is not cached leads a normal
+        singleflight batcher submission, so it runs the card's lookup and
+        lands in the cache before the next request misses on it. The first
+        admission refusal abandons the pass: it never competes with
+        traffic. → leads started."""
+        f = self.forecaster
+        if f is None or self.cache is None or self.batcher is None:
+            return 0
+        from ..freshness.ring import seeds_key
+
+        started = 0
+        for seeds in f.hot_seed_sets(self.cfg.forecast_prefetch_top_n):
+            if not any(s in touched for s in seeds):
+                continue  # not cooled: still cached
+            if self.ring is not None and not self.ring.owns(seeds_key(seeds), self._ring_self):
+                continue  # its owner pre-fetches it
+            key = self._cache_key(seeds)
+            if self.cache.contains(key):
+                continue
+            try:
+                future, joined = self.cache.join_or_lead(
+                    key, lambda s=seeds: self.batcher.submit(s)
+                )
+            except Exception:
+                break  # overloaded or unhealthy: never compete with traffic
+            if not joined:
+                cache = self.cache
+                future.add_done_callback(lambda fut, k=key: cache.finish(k, fut))
+                started += 1
+        self.forecast_prefetch_total += started
+        return started
 
     # ---------- the cache front half, shared by both transports ----------
 
@@ -694,8 +874,9 @@ class RecommendApp:
         for this key or leads a new batcher submission (the leader's
         done-callback stores the answer); raises what ``batcher.submit``
         raises. "off": cache disabled, or no batcher. With the ring armed
-        it first counts whether this replica owns the request's key."""
-        if self.ring is not None:
+        it first counts whether this replica owns the request's key (in
+        routing mode :meth:`_stamp_owner` counts instead)."""
+        if self.ring is not None and not self.fleet_routing:
             from ..freshness.ring import seeds_key
 
             if self.ring.owner(seeds_key(songs)) == self._ring_self:
@@ -762,9 +943,14 @@ class RecommendApp:
 
     def _post_recommend(
         self, body: bytes | None, trace_header: str | None = None,
-        budget_header: str | None = None,
+        budget_header: str | None = None, fire_fleet_fault: bool = True,
     ) -> Response:
         t0 = time.perf_counter()
+        # the fleet.peer chaos site: a stall (or failure) of ONE replica,
+        # by sorted-fleet index; the asyncio transport consumes it itself
+        # on a loop timer and passes False, so it fires once per request
+        if fire_fleet_fault:
+            faults.fire("fleet.peer", replica=self._fleet_index)
         err, songs = self._validate_recommend(body)
         if err is not None:
             return err
@@ -791,7 +977,8 @@ class RecommendApp:
             if reason is not None:
                 return self._degraded_response(t0, songs, reason, trace=trace)
             return self._recommend_error_response(exc, trace=trace)
-        return self._recommend_result_response(t0, recs, source, cached=cached, trace=trace)
+        return self._recommend_result_response(t0, recs, source, cached=cached, trace=trace,
+                                               songs=songs)
 
     # ---------- async-transport entry points ----------
 
@@ -811,7 +998,9 @@ class RecommendApp:
         if err is not None:
             return err, None, t0, None
         if self.batcher is None:
-            return self._post_recommend(body, trace_header, budget_header), None, t0, None
+            # the transport consumed the fleet.peer site already
+            return self._post_recommend(body, trace_header, budget_header,
+                                        fire_fleet_fault=False), None, t0, None
         trace = self._trace_begin(trace_header)
         deadline, budget_ms, expired = self._effective_deadline(t0, budget_header)
         if budget_ms is not None and trace is not None:
@@ -836,7 +1025,7 @@ class RecommendApp:
             return self._recommend_error_response(exc, trace=trace), None, t0, None
         if state == "hit":
             response = self._recommend_result_response(
-                t0, payload[0], payload[1], cached=True, trace=trace,
+                t0, payload[0], payload[1], cached=True, trace=trace, songs=songs,
             )
             return response, None, t0, None
         return None, payload, t0, trace
@@ -856,7 +1045,9 @@ class RecommendApp:
                 songs = getattr(future, "_kmls_seeds", None) or []
                 return self._degraded_response(t0, songs, reason, trace=trace)
             return self._recommend_error_response(exc, trace=trace)
-        return self._recommend_result_response(t0, recs, source, trace=trace)
+        return self._recommend_result_response(
+            t0, recs, source, trace=trace, songs=getattr(future, "_kmls_seeds", None),
+        )
 
     # ---------- pages ----------
 

@@ -56,6 +56,14 @@ With every replica ejected and no probe due, admission raises
 popularity fallback instead of 500ing. A failed dispatch is never retried
 on another device kind: there is no CPU branch.
 
+**Forecast** (``forecaster=``, a :class:`~.forecast.TrafficForecaster`):
+every arrival is observed before the shed decision; under a predicted ramp
+the busy window is sized from the predicted gap when it is tighter, the
+engine's ``prewarm_touch`` runs once per ramp episode on a ``kmls-prewarm``
+thread (joined by ``close()``), and ``utilization_parts()`` adds the
+bounded lead to ``kmls_utilization``. None (the default) costs one is-None
+check per touchpoint.
+
 **Deadlines**: ``submit(seeds, deadline=...)`` carries a perf_counter
 deadline. A request still queued at its deadline fails with
 :class:`DeadlineExceeded` instead of dispatching dead work; in-flight
@@ -249,9 +257,15 @@ class _ReplicaPolicy:
         self, engine, *, max_size, window_ms, max_inflight, adaptive, window_min_ms,
         shed_queue_budget_ms, shed_retry_after_s, shed_soft_ratio, shed_hard_ratio,
         shed_retry_jitter, eject_threshold, probe_interval_s, redispatch_max, metrics,
-        lag_monitor,
+        lag_monitor, forecaster,
     ) -> None:
         self.engine = engine
+        # a serving.forecast.TrafficForecaster, or None (every forecast
+        # touchpoint is then one is-None check)
+        self.forecaster = forecaster
+        self.prewarm_total = 0
+        self._prewarm_armed = True  # one pre-touch per ramp episode
+        self._prewarm_threads: list[threading.Thread] = []
         self.max_size = max_size
         self.window_s = window_ms / 1e3
         self.adaptive = adaptive
@@ -372,16 +386,70 @@ class _ReplicaPolicy:
         """Collection wait while every replica is busy: the fixed ceiling,
         or (adaptive) the time the observed rate needs to fill the rest of
         the batch; always capped so the leader's queue wait stays inside
-        the shed budget."""
+        the shed budget. Under a forecast ramp the predicted gap is used
+        when it is the tighter one."""
         window = self.window_s
         if self.adaptive:
-            gap = self._arrival_gap_s()
+            gap = self._forecast_gap_s(self._arrival_gap_s())
             if gap is not None:
                 need = (self.max_size - n_collected) * gap
                 window = min(self.window_s, max(self.window_min_s, need))
         if self.shed_budget_s > 0 and leader_t is not None:
             window = min(window, max(0.0, self.shed_budget_s - (now - leader_t)))
         return window
+
+    def _forecast_gap_s(self, gap: float | None) -> float | None:
+        """Under a predicted ramp, the tighter of the measured and the
+        predicted arrival gap (the window can only shrink); else the
+        measured gap. Runs once per batch collection, so it also drives
+        the once-per-episode pre-touch."""
+        f = self.forecaster
+        if f is None:
+            return gap
+        ramping = f.ramp_predicted()
+        self._note_ramp(ramping)
+        if not ramping:
+            return gap
+        predicted = f.expected_gap_s()
+        if predicted == float("inf"):
+            return gap
+        return predicted if gap is None else min(gap, predicted)
+
+    def _note_ramp(self, ramping: bool) -> None:
+        """Once per ramp episode (the signal clearing re-arms it), run the
+        engine's largest-bucket pre-touch on a daemon thread: it waits on
+        a device dispatch, which neither the collector nor the loop may."""
+        if not ramping:
+            self._prewarm_armed = True
+            return
+        if not self._prewarm_armed:
+            return
+        self._prewarm_armed = False
+        touch = getattr(self.engine, "prewarm_touch", None)
+        if touch is None:
+            return
+
+        def _touch() -> None:
+            try:
+                self.prewarm_total += touch()
+            except Exception:
+                logger.exception("predictive pre-touch failed (ignored)")
+
+        thread = threading.Thread(target=_touch, daemon=True, name="kmls-prewarm")
+        self._prewarm_threads = [t for t in self._prewarm_threads if t.is_alive()]
+        self._prewarm_threads.append(thread)
+        thread.start()
+
+    def _join_prewarm(self, timeout_s: float) -> None:
+        for thread in self._prewarm_threads:
+            thread.join(timeout_s)
+
+    def _observe(self, seeds: list[str]) -> None:
+        """Feed the forecaster (before the shed decision: demand the ladder
+        turns away is still demand)."""
+        f = self.forecaster
+        if f is not None:
+            f.observe(seeds)
 
     def _admit(self, projected_s: float) -> None:
         """The admission ladder for one arrival: raises Overloaded or
@@ -525,10 +593,25 @@ class _ReplicaPolicy:
 
     def utilization(self) -> float:
         """The autoscaling signal (``kmls_utilization``): max of pipeline
-        occupancy over the effective replicas and admission pressure."""
+        occupancy over the effective replicas and admission pressure, plus,
+        with a forecaster, its bounded lead (never below the reactive
+        value; the admission ladder does not read it)."""
+        return self.utilization_parts()[1]
+
+    def _reactive_utilization(self) -> float:
         capacity = max(1, self._n_effective_locked(self._n_replicas()))
         occupancy = self._total_inflight_locked() / (self.max_inflight * capacity)
         return max(occupancy, self._admission.pressure(self.projected_queue_wait_s()))
+
+    def utilization_parts(self) -> tuple[float, float]:
+        """→ ``(reactive, led)``: the reactive value and the one exported
+        as ``kmls_utilization`` (equal without a forecaster; the
+        difference is ``kmls_utilization_forecast``)."""
+        reactive = self._reactive_utilization()
+        f = self.forecaster
+        if f is None:
+            return reactive, reactive
+        return reactive, f.utilization_lead(reactive)
 
 
 class MicroBatcher(_ReplicaPolicy):
@@ -555,6 +638,7 @@ class MicroBatcher(_ReplicaPolicy):
         redispatch_max: int = 2,
         metrics=None,
         lag_monitor=None,
+        forecaster=None,
     ):
         self._init_policy(
             engine, max_size=max_size, window_ms=window_ms, max_inflight=max_inflight,
@@ -563,7 +647,7 @@ class MicroBatcher(_ReplicaPolicy):
             shed_soft_ratio=shed_soft_ratio, shed_hard_ratio=shed_hard_ratio,
             shed_retry_jitter=shed_retry_jitter, eject_threshold=eject_threshold,
             probe_interval_s=probe_interval_s, redispatch_max=redispatch_max, metrics=metrics,
-            lag_monitor=lag_monitor,
+            lag_monitor=lag_monitor, forecaster=forecaster,
         )
         # priority queue of (priority, seq, pending): re-dispatched requests
         # ride at 0, ahead of fresh arrivals at 1; seq keeps FIFO order.
@@ -595,7 +679,7 @@ class MicroBatcher(_ReplicaPolicy):
         with self._n_lock:
             return self._projected_wait_locked(time.perf_counter(), self._queue.qsize())
 
-    def utilization(self) -> float:
+    def _reactive_utilization(self) -> float:
         projected = self.projected_queue_wait_s()
         with self._n_lock:
             capacity = max(1, self._n_effective_locked(self._n_replicas()))
@@ -622,6 +706,7 @@ class MicroBatcher(_ReplicaPolicy):
     def close(self, timeout_s: float = 5.0) -> None:
         """Stop the collector and the completion lanes after the requests
         already queued have been dispatched and finished."""
+        self._join_prewarm(timeout_s)
         if not self._collector.is_alive():
             return
         self._queue.put((2, next(self._seq), None))
@@ -639,6 +724,7 @@ class MicroBatcher(_ReplicaPolicy):
         now = time.perf_counter()
         with self._rate_lock:
             self._arrivals.append(now)
+        self._observe(seeds)
         if self.eject_threshold > 0 and self._ejected:
             # unlocked pre-check: the healthy case pays no lock
             with self._n_lock:
@@ -825,6 +911,7 @@ class AsyncMicroBatcher(_ReplicaPolicy):
         redispatch_max: int = 2,
         metrics=None,
         lag_monitor=None,
+        forecaster=None,
     ):
         self._init_policy(
             engine, max_size=max_size, window_ms=window_ms, max_inflight=max_inflight,
@@ -833,9 +920,12 @@ class AsyncMicroBatcher(_ReplicaPolicy):
             shed_soft_ratio=shed_soft_ratio, shed_hard_ratio=shed_hard_ratio,
             shed_retry_jitter=shed_retry_jitter, eject_threshold=eject_threshold,
             probe_interval_s=probe_interval_s, redispatch_max=redispatch_max, metrics=metrics,
-            lag_monitor=lag_monitor,
+            lag_monitor=lag_monitor, forecaster=forecaster,
         )
         self._pending: list[_Pending] = []
+        # the loop submit() runs on, once known: the app's post-delta
+        # pre-fetch hops onto it from the engine's poll thread
+        self._loop: asyncio.AbstractEventLoop | None = None
         self._flush_handle: asyncio.TimerHandle | None = None
         # finish() blocks — it runs off-loop. The pool is sized for a large
         # replica set (threads spawn on demand) and the ADMISSION bound in
@@ -850,7 +940,9 @@ class AsyncMicroBatcher(_ReplicaPolicy):
         return self._projected_wait_locked(time.perf_counter(), len(self._pending))
 
     def close(self) -> None:
-        """Stop the finish() pool (idle threads exit; none is waited on)."""
+        """Stop the finish() pool (idle threads exit; none is waited on)
+        after any pre-touch thread."""
+        self._join_prewarm(5.0)
         self._executor.shutdown(wait=False)
 
     # ---------- admission (loop thread only) ----------
@@ -859,8 +951,11 @@ class AsyncMicroBatcher(_ReplicaPolicy):
         self, seeds: list[str], deadline: float | None = None, trace=None,
     ) -> asyncio.Future:
         loop = asyncio.get_running_loop()
+        if self._loop is None:
+            self._loop = loop
         now = time.perf_counter()
         self._arrivals.append(now)
+        self._observe(seeds)
         if self.eject_threshold > 0 and self._ejected:
             n = self._n_replicas()
             if self._n_healthy_locked(n) == 0 and not self._probe_due_locked(n, now):

@@ -65,7 +65,11 @@ own slab, serves its partial to its peers (``serving/mesh.py``), and for its
 own batches merges its partial with theirs on its card in rank order. Both
 answer as the replicated layout does, bit for bit; a dead gang member
 raises :class:`~.mesh.MeshShardUnavailable`, which the app answers
-degraded. Deltas rebuild through the same layout decision.
+degraded (503 + ``X-KMLS-Mesh-Unavailable`` in a routed fleet). Deltas
+rebuild through the same layout decision.
+
+:meth:`RecommendEngine.prewarm_touch` is the forecast's pre-touch: one
+dispatch of the largest bucket per replica before a predicted ramp.
 
 The native host kernel is not part of this package.
 """
@@ -923,6 +927,32 @@ class RecommendEngine:
                 if bundle.emb_factors is not None:
                     self._launch_embed(bundle, self._staging(shape, bundle.device))()
                     bundle.emb_warmed_shapes.add(shape)
+
+    def prewarm_touch(self) -> int:
+        """The forecast's pre-touch: one dispatch at the largest warmed
+        (batch, length) bucket per replica on the live bundle, through the
+        dispatch path itself (a fresh pinned staging tensor, the lookup,
+        the copies back and the CUDA event), so the big-batch path is hot
+        before a predicted ramp arrives. Never a first-shape dispatch (the
+        publish warm-up ran every bucket); gang bundles are skipped (their
+        partial path is peer-coordinated). Failures are logged and
+        ignored. → lookups touched."""
+        replicas = self.replicas
+        if not replicas:
+            return 0
+        shape = (self._batch_buckets()[-1], self._len_buckets()[-1])
+        touched = 0
+        for bundle in replicas:
+            try:
+                if bundle.vocab and bundle.layout != "mesh":
+                    self._launch(bundle, self._staging(shape, bundle.device))()
+                    touched += 1
+                if bundle.emb_factors is not None:
+                    self._launch_embed(bundle, self._staging(shape, bundle.device))()
+                    touched += 1
+            except Exception:
+                logger.exception("predictive pre-touch failed (ignored)")
+        return touched
 
     def _read_measured_blend_weight(self) -> float | None:
         """The published blend optimum (``quality.report.json``) under

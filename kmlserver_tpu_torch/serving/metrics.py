@@ -6,8 +6,9 @@ micro-batcher threads through (``kmls_queue_wait_ms`` / ``kmls_device_ms``
 instead of only that one exists.
 
 Series names, types and label sets are the reference's; this module
-renders the subset the port's serving front end produces (no serve-mesh,
-shard or forecast sections). The cost-model and SLO blocks come
+renders the subset the port's serving front end produces. The fleet,
+hedge, slow-peer and forecast series come through the app's robustness
+dict, the forecast ones only while a forecaster is armed. The cost-model and SLO blocks come
 from ``observability/costmodel.py`` and ``observability/slo.py``; the
 mining job's ``job_metrics.prom`` (``observability/jobmetrics.py``) looks
 its series up in the same registry.
@@ -54,6 +55,10 @@ METRIC_REGISTRY: dict[str, str] = {
     # router have kept the request on this replica ---
     "kmls_cache_affinity_local_total": "counter:serving",
     "kmls_cache_affinity_remote_total": "counter:serving",
+    # --- the routing tier (KMLS_FLEET_PEERS): non-owned misses answered
+    # here (routing drift) and the ring's size (0 = unarmed) ---
+    "kmls_cache_misrouted_total": "counter:serving",
+    "kmls_fleet_peers": "gauge:serving",
     # --- dispatch ---
     "kmls_device_dispatch_total": "counter:serving",
     # model-parallel serving: vocab shards of the published bundle, seed ids
@@ -67,6 +72,15 @@ METRIC_REGISTRY: dict[str, str] = {
     # spent on arrival, and answers merged without a straggler's slab
     "kmls_mesh_expired_on_arrival_total": "counter:serving",
     "kmls_mesh_straggler_degraded_total": "counter:serving",
+    # the gang coordinator's hedged merges (won, lost in the grace check,
+    # cancelled for want of budget; all 0 with KMLS_HEDGE off) and its
+    # slow-rank ladder (KMLS_PEER_SLOW_RATIO)
+    "kmls_hedge_wins_total": "counter:serving",
+    "kmls_hedge_losses_total": "counter:serving",
+    "kmls_hedge_cancelled_total": "counter:serving",
+    "kmls_peer_slow_ejections_total": "counter:serving",
+    "kmls_peer_slow_readmissions_total": "counter:serving",
+    "kmls_peer_slow": "gauge:serving",
     # --- fault tolerance / overload ---
     "kmls_degraded_total": "counter:serving",
     "kmls_degraded_by_reason": "counter:serving",
@@ -131,6 +145,18 @@ METRIC_REGISTRY: dict[str, str] = {
     "kmls_device_budget_bytes": "gauge:serving",
     "kmls_device_headroom_bytes": "gauge:serving",
     "kmls_publish_watermark_bytes": "gauge:serving",
+    # --- predictive serving (serving/forecast.py), rendered only while
+    # the forecaster is armed: the smoothed and predicted arrival rates,
+    # their ratio, the observation counter (0 with KMLS_FORECAST=0), the
+    # pre-fetches and pre-touches, and the forecast's added lead in
+    # kmls_utilization ---
+    "kmls_forecast_rate": "gauge:serving",
+    "kmls_forecast_predicted_rate": "gauge:serving",
+    "kmls_forecast_ratio": "gauge:serving",
+    "kmls_forecast_observations_total": "counter:serving",
+    "kmls_forecast_prefetch_total": "counter:serving",
+    "kmls_forecast_prewarm_total": "counter:serving",
+    "kmls_utilization_forecast": "gauge:serving",
     # --- SLO burn rates (observability/slo.py; slo ∈ latency_p99/
     # availability/quality, window ∈ fast/slow) ---
     "kmls_slo_burn_rate": "gauge:serving",
@@ -158,7 +184,8 @@ METRIC_REGISTRY: dict[str, str] = {
 }
 
 # The autoscaling signal: max of pipeline occupancy and admission queue
-# pressure (1.0 = at capacity), rendered from the app's robustness dict.
+# pressure (1.0 = at capacity; with a forecaster, plus its bounded lead),
+# rendered from the app's robustness dict.
 UTILIZATION_SERIES = "kmls_utilization"
 
 

@@ -201,7 +201,14 @@ def test_render_names_only_catalog_series():
               "delta_chain_length": 1, "freshness_lag_seconds": 0.5,
               "cache_affinity_local_total": 3, "cache_affinity_remote_total": 4,
               "model_shards": 2, "mesh_expired_on_arrival_total": 0,
-              "mesh_straggler_degraded_total": 1}
+              "mesh_straggler_degraded_total": 1,
+              "cache_misrouted_total": 2, "fleet_peers": 3,
+              "hedge_wins_total": 1, "hedge_losses_total": 0, "hedge_cancelled_total": 0,
+              "peer_slow_ejections_total": 1, "peer_slow_readmissions_total": 0,
+              "peer_slow": 0, "utilization_forecast": 0.1, "forecast_rate": 12.0,
+              "forecast_predicted_rate": 15.0, "forecast_ratio": 1.25,
+              "forecast_observations_total": 40, "forecast_prefetch_total": 2,
+              "forecast_prewarm_total": 1}
     shards = dict(shard_counts=[3, 1], mesh_shards={"serving": 2, "missing": 0})
     io = {"latency_s": {"read": 0.002}, "errors": {("read", 5): 1}, "retries": 1,
           "storage_slow": False, "disk_free_bytes": 1 << 30}

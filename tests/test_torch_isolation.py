@@ -38,7 +38,8 @@ def test_every_module_imports_without_jax_or_the_reference():
                  "observability.tracejoin", "utils.profiling", "ops.embed", "ops.segsum",
                  "mining.als", "models", "models.embedding_model", "models.rule_model",
                  "freshness", "freshness.delta", "freshness.ring", "quality",
-                 "quality.lifecycle", "parallel.collectives", "serving.mesh"):
+                 "quality.lifecycle", "parallel.collectives", "serving.mesh",
+                 "serving.forecast"):
         assert f"kmlserver_tpu_torch.{name}" in names, name
     proc = _run(
         f"""

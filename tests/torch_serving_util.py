@@ -1,8 +1,9 @@
 """Shared pieces of the serving front end's parity tests
 (``tests/test_torch_{cache,batcher,app,replay}.py``): one small PVC mined
 by the port on the CPU, matching serving configs for the port and the JAX
-package, seed sets, an engine wrapper that slows or fails batches, and the
-port's two transports started on a thread."""
+package, seed sets, an engine wrapper that slows or fails batches, the port's two
+transports started on a thread, and the JAX package's test classes rebound
+to the port's objects."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import threading
 import time
 
 import numpy as np
+import pytest
 
 from kmlserver_tpu.config import ServingConfig as RefServingConfig
 from kmlserver_tpu.data.synthetic import synthetic_table
@@ -133,3 +135,28 @@ class ServerThread:
         self.thread.join(timeout)
         assert not self.thread.is_alive(), "server did not exit after the drain"
         return self.code
+
+
+def rebound_class(cls, **names):
+    """``cls`` (a test class of the JAX package's suite) with every method
+    re-created over its module's globals with ``names`` replaced — the
+    same case bodies, run against the port's objects of those names."""
+    import types
+
+    members = {}
+    for key, value in vars(cls).items():
+        if isinstance(value, types.FunctionType):
+            value = types.FunctionType(
+                value.__code__, {**value.__globals__, **names}, value.__name__,
+                value.__defaults__, value.__closure__,
+            )
+        members[key] = value
+    return type(cls.__name__, cls.__bases__, members)
+
+
+def reference_cases(*classes) -> list:
+    """``(class, test name)`` for every test method of ``classes``."""
+    return [
+        pytest.param(cls, name, id=f"{cls.__name__}.{name}")
+        for cls in classes for name in sorted(vars(cls)) if name.startswith("test_")
+    ]
