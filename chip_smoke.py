@@ -45,8 +45,11 @@ main loop on the card and fails loudly on any mismatch:
 7. count routes and census (``mining/dispatch.py``, ``ops/support.py``,
    ``ops/sparse.py``): the ds2 baskets mined in process through
    ``mining.miner.mine`` on the card and on the CPU at every case of
-   :data:`ROUTE_CASES` — the auto dispatch, each family pinned, the sparse
-   route with a long-basket threshold that sends baskets through the
+   :data:`ROUTE_CASES` — the auto dispatch (at the job's support, a cell no
+   sweep measured, and at 0.005, a cell of the packaged table's ``gpu``
+   backend, whose plan must read ``"source": "table"``), each family
+   pinned, the sparse route with a long-basket threshold that sends baskets
+   through the
    popcount kernel, confidence mode at ``max_itemset_len`` 3 and 4, the
    census in support mode — with the counters reset before each card mine;
    rule tensors, ``rule_confs64``, census and merge flag must equal the CPU
@@ -263,6 +266,24 @@ Then phase 7 runs (it needs no work directory), and last:
    reactive, a pre-touch on the ramp, no 5xx), and a delta applied with
    the forecaster armed re-warming its hot seed sets, each equal to the
    CPU engine's post-delta answer. No server outlives the phase.
+17. the host-native routes and the measured dispatch (``utils/nativelib.py``,
+   ``data/native.py``, ``ops/cpu_popcount.py``, ``serving/native_serve.py``,
+   ``mining/sweep.py``; alone: ``python -c "import chip_smoke as c;
+   c.phase_native()"``): (a) the three native libraries built from
+   ``kmlserver_tpu_torch/native/`` with ``g++`` beside the ``nvcc`` builds
+   (seconds, digest, the compiler's version line) and loaded from
+   ``build/kmls_torch_native/``, and the host CPU's model; (b) the ds2 job
+   on the card, which must read its CSV through the native reader, and the
+   native reader beside the stdlib parser on the same file (equal tables);
+   (c) the ds2 job on the CPU: ``native-cpu``, no ``NOTE:`` line, the card
+   job's publication; (d) config 5's 8,000 draws through a CPU engine's
+   native lookup, every answer X1's on the card; (e) ``python -m
+   kmlserver_tpu_torch.mining.sweep`` over the reference grid (68 points)
+   on the card and on the CPU, the CSVs equal but for the durations; (f)
+   the density sweep over the reference grid, best of 5, banked into a
+   temporary table: every point identical, a ``gpu`` backend measured on
+   the card, the ``cpu`` cells untouched, and the cells whose winner
+   differs from the packaged table's logged.
 Then the kernels line is printed (the sharded entry carries the sharded
 routes' calls and times under ``x8``, and X9's under ``x9``: library
 calls, not kernel launches).
@@ -1348,6 +1369,10 @@ def worker_scale(mesh, work: str) -> dict:
 # its quad-overflow path and BASELINE config 2's settings among them
 ROUTE_CASES = [
     ("auto", {}, "dense-fused", None),
+    # MIN_SUPPORT 0.005 keeps all 2,171 tracks (density 4.9 %, cell d3:e1):
+    # a cell the density sweep measured, so the plan reads the packaged
+    # table's gpu cell ("table": the route that cell names)
+    ("auto_measured", {"MIN_SUPPORT": "0.005"}, "table", None),
     ("dense", {"KMLS_COUNT_PATH": "dense"}, "dense-fused", None),
     ("bitpack", {"KMLS_COUNT_PATH": "bitpack"}, "bitpack-cuda", None),
     ("sparse", {"KMLS_COUNT_PATH": "sparse"}, "sparse-hybrid", None),
@@ -1494,14 +1519,35 @@ def phase_routes() -> dict:
     import io
 
     from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_baskets
-    from kmlserver_tpu_torch.mining.miner import mine
+    from kmlserver_tpu_torch.mining import dispatch
+    from kmlserver_tpu_torch.mining.miner import bitpack_wanted, mine, prune_infrequent
     from kmlserver_tpu_torch.ops import popcount as pc
+    from kmlserver_tpu_torch.ops.support import min_count_for
 
     baskets = synthetic_baskets(**DS2_SHAPE, seed=7)
-    support_tensors = None
+    support_tensors = {}
     cases = {}
+    gpu_cells = (dispatch.load_table() or {}).get("backends", {}).get("gpu", {}).get("cells", {})
     for name, knobs, route, census in ROUTE_CASES:
         cfg = config_from_knobs(knobs)
+        if route == "table":
+            # the plan the miner makes, on the pruned baskets
+            mined, _ = prune_infrequent(baskets, min_count_for(cfg.min_support,
+                                                               baskets.n_playlists))
+            plan = dispatch.plan_count_path(
+                cfg, mined.n_playlists, mined.n_tracks, len(mined.playlist_rows),
+                backend="gpu", baskets=mined)
+            if plan.cell not in gpu_cells:
+                fail(f"phase 7 {name}: cell {plan.cell} has no measured gpu cell")
+            route = ROUTE_NAMES[plan.path]
+            if plan.path == "bitpack" and not bitpack_wanted(
+                    mined.n_playlists, mined.n_tracks, "auto",
+                    hbm_budget_bytes=cfg.hbm_budget_bytes, n_rows=len(mined.playlist_rows)):
+                # the reference's miner: on one device the staged count
+                # re-derives bitpack from the threshold, which keeps dense
+                # where the one-hot fits (kmlserver_tpu/mining/miner.py:593-600,
+                # :835-837)
+                route = "dense"
         # ---- the main path: counters to 0, mine on the card, read counters
         for key in pc.LAUNCHES:
             pc.LAUNCHES[key] = 0
@@ -1516,6 +1562,8 @@ def phase_routes() -> dict:
                 log(f"  {name} | {line}")
         if card.count_path != route:
             fail(f"phase 7 {name}: the card took {card.count_path}, want {route}")
+        if name == "auto_measured" and card.count_path_source != "table":
+            fail(f"phase 7 {name}: the plan's source is {card.count_path_source}, not the table")
         if not same_tensors(card.tensors, cpu.tensors):
             fail(f"phase 7 {name}: rule tensors on the card != the CPU run's ({cpu.count_path})")
         if card.itemset_census != cpu.itemset_census or (census and card.itemset_census != census):
@@ -1525,10 +1573,10 @@ def phase_routes() -> dict:
             fail(f"phase 7 {name}: merge applied {card.triple_merge_applied} on the card, "
                  f"{cpu.triple_merge_applied} on the CPU")
         if cfg.confidence_mode == "support":
-            if support_tensors is None:
-                support_tensors = card.tensors
-            if not same_tensors(card.tensors, support_tensors):
-                fail(f"phase 7 {name}: support-mode tensors differ from the auto route's")
+            first = support_tensors.setdefault(cfg.min_support, card.tensors)
+            if not same_tensors(card.tensors, first):
+                fail(f"phase 7 {name}: support-mode tensors differ from the first route's "
+                     f"at min_support {cfg.min_support}")
         if name in ("bitpack", "sparse_long"):
             if launches["popcount_pairs"] < 1:
                 fail(f"phase 7 {name}: the popcount kernel was not launched ({launches})")
@@ -6285,6 +6333,255 @@ def phase_fleet(work: str | None = None, phase8_buckets: list | None = None) -> 
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 17
+
+# the port's native host libraries (kmlserver_tpu_torch/native/<name>.cpp)
+NATIVE_SOURCES = ("kmls_csv", "kmls_popcount", "kmls_serve")
+NATIVE_READS = 3  # each reader's best of this many reads of the ds2 CSV
+SWEEP_POINTS = 68  # the reference grid: arange(0.03, 0.2, 0.0025)
+ROUTE_NAMES = {"dense": "dense-fused", "bitpack": "bitpack-cuda", "sparse": "sparse-hybrid"}
+
+
+def lscpu_model() -> str:
+    """The host CPU's model name, which host-native times need: ``lscpu``'s,
+    else ``/proc/cpuinfo``'s, with the core count."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+             if line.startswith("Model name:")]
+    if not names or names[0] in ("", "unknown", "-"):
+        try:
+            with open("/proc/cpuinfo") as fh:
+                names = [line.split(":", 1)[1].strip() for line in fh
+                         if line.startswith("model name")]
+        except OSError:
+            names = []
+    name = names[0] if names and names[0] else "not measured"
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def build_native() -> dict:
+    """Build (one g++ each, all started together) and load the three
+    native libraries from the port's sources → their build records; fails
+    the smoke when one does not build, load, or come from ``build/``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kmlserver_tpu_torch.data import native as csv_native
+    from kmlserver_tpu_torch.ops import cpu_popcount
+    from kmlserver_tpu_torch.serving import native_serve
+    from kmlserver_tpu_torch.utils import nativelib
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(NATIVE_SOURCES)) as pool:
+        futures = {name: pool.submit(nativelib.build, name) for name in NATIVE_SOURCES}
+    for name, fut in futures.items():
+        if fut.exception() is not None:
+            fail(f"native library {name} did not build: {fut.exception()}")
+    wall = time.perf_counter() - t0
+    loaders = {"kmls_csv": csv_native._loader, "kmls_popcount": cpu_popcount._loader,
+               "kmls_serve": native_serve._LIB}
+    records = {}
+    for name, loader in loaders.items():
+        if loader.load() is None:
+            fail(f"native library {name} did not load: {loader.error}")
+        path = loader._lib._name
+        if not path.startswith(str(nativelib.BUILD_DIR) + os.sep):
+            fail(f"native library {name} loaded from {path}, not {nativelib.BUILD_DIR}")
+        records[name] = {**nativelib.BUILD_LOG[name], "path": os.path.relpath(path, ROOT)}
+    log(f"build: {', '.join(f'{n}.cpp' for n in NATIVE_SOURCES)} in {wall:.3f} s (g++ "
+        + ", ".join(f"{n} {r['seconds']:.3f} s, digest {r['digest']}" for n, r in records.items())
+        + f"; {next(iter(records.values()))['compiler']})")
+    return {"wall_s": wall, "libraries": records}
+
+
+def best_read_s(read, reps: int = NATIVE_READS) -> tuple[float, object]:
+    best, table = None, None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        table = read()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best, table
+
+
+def csv_rows(path: str) -> list[str]:
+    """A results CSV's lines without the duration column."""
+    with open(path) as fh:
+        return [line.rsplit(",", 1)[0] for line in fh.read().splitlines()]
+
+
+def phase_native(work: str | None = None, builds: dict | None = None) -> dict:
+    """Phase 17: the host-native routes and the measured dispatch (alone:
+    ``python -c "import chip_smoke as c; c.phase_native()"``, which writes
+    its own ds2 CSV)."""
+    import torch
+
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.data import native as csv_native
+    from kmlserver_tpu_torch.data.csv import parse_tracks, read_tracks, write_tracks_csv
+    from kmlserver_tpu_torch.data.synthetic import DS2_SHAPE, synthetic_table
+    from kmlserver_tpu_torch.io import artifacts
+    from kmlserver_tpu_torch.mining import dispatch, sweep
+    from kmlserver_tpu_torch.serving import native_serve
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.replay import sample_seed_sets
+
+    t_phase = time.perf_counter()
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke17_")
+    try:
+        builds = builds or build_native()
+        cpu_model = lscpu_model()
+        csv_src = os.path.join(work, "pvc", "datasets", "2023_spotify_ds2_synthetic.csv")
+        if not os.path.exists(csv_src):
+            os.makedirs(os.path.dirname(csv_src))
+            write_tracks_csv(csv_src, synthetic_table(**DS2_SHAPE, seed=7))
+        pvcs = {}
+        for side in ("card", "cpu"):
+            pvcs[side] = os.path.join(work, f"pvc17_{side}")
+            os.makedirs(os.path.join(pvcs[side], "datasets"))
+            shutil.copy(csv_src, os.path.join(pvcs[side], "datasets"))
+
+        # (b) the card job reads its CSV through the native reader
+        out, launches, card_job_s = run_job(pvcs["card"], "phase 17 card")
+        reader = [line for line in out.splitlines() if line.startswith("CSV reader:")]
+        if not reader or not reader[0].startswith("CSV reader: native ("):
+            fail(f"phase 17: the card job's CSV load did not go through the native reader "
+                 f"({reader})")
+        job_read_s = float(reader[0].split("(")[1].split()[0])
+        native_s, table_n = best_read_s(lambda: read_tracks(csv_src))
+        loads = dict(csv_native.LOADS)
+        if loads["stdlib"]:
+            fail(f"phase 17: read_tracks fell back to the stdlib parser ({loads})")
+
+        def stdlib_read():
+            with open(csv_src, newline="", encoding="utf-8", errors="replace") as fh:
+                return parse_tracks(fh, csv_src)
+
+        stdlib_s, table_s = best_read_s(stdlib_read)
+        for field in ("pid", "track_name", "track_uri", "artist_name", "artist_uri", "album_name"):
+            if not np.array_equal(np.asarray(getattr(table_n, field)),
+                                  np.asarray(getattr(table_s, field))):
+                fail(f"phase 17: the native reader's {field} != the stdlib parser's")
+        reads = {"rows": len(table_n), "bytes": os.path.getsize(csv_src),
+                 "job_native_s": job_read_s, "native_s": native_s, "stdlib_s": stdlib_s}
+        log(f"phase 17 (b): the card job read {len(table_n)} rows through the native reader in "
+            f"{job_read_s:.6f} s; in process (best of {NATIVE_READS}) native {native_s:.6f} s, "
+            f"stdlib csv {stdlib_s:.6f} s, tables equal (host CPU {cpu_model})")
+
+        # (c) the same job on the CPU: the native counter, no NOTE, same publication
+        t0 = time.perf_counter()
+        cpu_out, _ = job_process(pvcs["cpu"], "phase 17 cpu", KMLS_TORCH_DEVICE="cpu")
+        cpu_job_s = time.perf_counter() - t0
+        if "Pair-count path: native-cpu" not in cpu_out:
+            fail("phase 17: the CPU job did not count through the native counter")
+        if any(line.startswith("NOTE:") for line in cpu_out.splitlines()):
+            fail("phase 17: the CPU job printed a NOTE: line")
+        if not same_publication(pvcs["card"], pvcs["cpu"]):
+            fail("phase 17: the CPU job's publication != the card job's")
+        phases = [line for line in cpu_out.splitlines() if line.startswith("Phase timings:")]
+        log(f"phase 17 (c): the CPU job took native-cpu in {cpu_job_s:.3f} s wall (card job "
+            f"{card_job_s:.3f} s, {launches} launches), no NOTE, publication == the card job's; "
+            f"{phases[0] if phases else ''}")
+
+        # (d) config 5's draws through the CPU engine's native lookup and X1 on the card
+        cfg = ServingConfig(base_dir=pvcs["card"])
+        cpu = RecommendEngine(cfg, device="cpu")
+        card = RecommendEngine(cfg, device="cuda")
+        if not (cpu.load() and card.load()):
+            fail("phase 17: an engine could not load the PVC")
+        if cpu.bundle.host_rule_ids is None or card.bundle.host_rule_ids is not None:
+            fail("phase 17: the CPU engine must serve natively and the card engine on the card")
+        keys = sorted(artifacts.load_pickle(os.path.join(cfg.pickles_dir, cfg.recommendations_file)))
+        payloads = sample_seed_sets(keys, CONFIG5_REQUESTS)
+        calls = native_serve.CALLS["serve_topk"]
+        t0 = time.perf_counter()
+        got = engine_answers(cpu, payloads)
+        cpu_serve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = engine_answers(card, payloads)
+        card_serve_s = time.perf_counter() - t0
+        batches = (len(payloads) + 31) // 32
+        if native_serve.CALLS["serve_topk"] - calls != batches:
+            fail(f"phase 17: {native_serve.CALLS['serve_topk'] - calls} native lookups for "
+                 f"{batches} batches")
+        if got != want:
+            bad = sum(a != b for a, b in zip(got, want))
+            fail(f"phase 17: {bad} of {len(payloads)} CPU native answers != the card's")
+        stats_cpu = cpu.cost_model.kernel_stats().get("serve_native", {})
+        stats_card = card.cost_model.kernel_stats().get("serve_rules", {})
+        serving = {"draws": len(payloads), "batches": batches, "cpu_s": cpu_serve_s,
+                   "card_s": card_serve_s,
+                   "native_ms_per_batch": 1e3 * stats_cpu["device_s"] / stats_cpu["dispatches"],
+                   "x1_ms_per_batch": 1e3 * stats_card["device_s"] / stats_card["dispatches"]}
+        card.close()
+        cpu.close()
+        log(f"phase 17 (d): {len(payloads)} config-5 draws in {batches} batches of 32: the CPU "
+            f"engine's native lookup == X1 on the card, every answer; native "
+            f"{serving['native_ms_per_batch']:.4f} ms a batch ({cpu_serve_s:.3f} s in all), "
+            f"X1 dispatch → event {serving['x1_ms_per_batch']:.4f} ms ({card_serve_s:.3f} s)")
+
+        # (e) the support sweep over the reference grid, on the card and on the CPU
+        sweeps = {}
+        for side, extra in (("card", {}), ("cpu", {"KMLS_TORCH_DEVICE": "cpu"})):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "kmlserver_tpu_torch.mining.sweep"], cwd=ROOT,
+                capture_output=True, text=True, timeout=600,
+                env=subproc_env(BASE_DIR=pvcs[side],
+                                DATASETS_DIR=os.path.join(pvcs[side], "datasets"), **extra))
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0 or f"wrote {SWEEP_POINTS} sweep points" not in proc.stdout:
+                log(proc.stdout[-3000:] + proc.stderr[-3000:])
+                fail(f"phase 17: the {side} support sweep failed (exit {proc.returncode})")
+            counted = [line for line in proc.stdout.splitlines()
+                       if line.startswith("pair counts once:")]
+            sweeps[side] = {"wall_s": wall, "count_line": counted[0] if counted else ""}
+        rows = {side: csv_rows(os.path.join(pvcs[side], sweep.RESULTS_FILE)) for side in pvcs}
+        if rows["card"] != rows["cpu"] or len(rows["card"]) != SWEEP_POINTS + 1:
+            fail("phase 17: the card's support sweep != the CPU's (durations aside)")
+        log(f"phase 17 (e): support sweep, {SWEEP_POINTS} points: card {sweeps['card']['wall_s']:.3f}"
+            f" s wall ({sweeps['card']['count_line']}), CPU {sweeps['cpu']['wall_s']:.3f} s "
+            f"({sweeps['cpu']['count_line']}); the two CSVs equal but for the durations")
+
+        # (f) the density sweep over the reference grid, banked into a temp table
+        dev = torch.device("cuda")
+        t0 = time.perf_counter()
+        records = sweep.run_density_sweep(repeat=sweep.BANK_REPEAT, device=dev)
+        density_s = time.perf_counter() - t0
+        if not records or not all(r["identical"] for r in records):
+            fail(f"phase 17: a density-sweep point is not identical: {records}")
+        table = sweep.bank_density_table(records, dev, os.path.join(work, "table17.json"))
+        packaged = dispatch.load_table()
+        gpu = table["backends"].get("gpu")
+        if gpu is None or torch.cuda.get_device_name(0) not in gpu["measured_on"]:
+            fail(f"phase 17: the banked table has no gpu backend measured on the card")
+        if table["backends"]["cpu"] != packaged["backends"]["cpu"]:
+            fail("phase 17: banking the gpu cells moved the cpu cells")
+        packaged_gpu = packaged["backends"].get("gpu", {}).get("cells", {})
+        flips = {cell: (packaged_gpu.get(cell, {}).get("path"), rec["path"])
+                 for cell, rec in gpu["cells"].items()
+                 if packaged_gpu.get(cell, {}).get("path") != rec["path"]}
+        log(f"phase 17 (f): density sweep, {len(records)} points in {density_s:.3f} s, every "
+            f"point identical; winners " + ", ".join(
+                f"{r['shape']}@{r['density']:.5f} {r['winner']}" for r in records)
+            + f"; cells whose winner differs from the packaged table's: {flips or 'none'}")
+        seconds = time.perf_counter() - t_phase
+        result = {"builds": builds, "host_cpu": cpu_model, "reads": reads,
+                  "cpu_job_s": cpu_job_s, "card_job_s": card_job_s, "serving": serving,
+                  "sweeps": sweeps, "density": {"seconds": density_s, "records": records,
+                                                "flips": flips},
+                  "seconds": seconds}
+        log(f"phase 17 seconds {seconds:.3f}")
+        log("PHASE17 " + json.dumps(result, default=str))
+        return result
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def x9_entry(mp: dict) -> dict:
     """X9's sub-entry of the kernels line: library ops, so calls (phase 15
     (b)'s main path), not launches; per bucket the sharded lookup's ms
@@ -6362,12 +6659,15 @@ def main() -> int:
     if quick:
         log(f"reduced: --quick cuts the scale shape from {SCALE} to {QUICK_SCALE}")
 
-    # every kernel source at once, one nvcc each
+    # every kernel source at once, one nvcc each, beside the native host
+    # libraries (one g++ each)
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        native_builds = pool.submit(build_native)
         list(pool.map(cuda_build.build, KERNEL_SOURCES))
+        native_builds = native_builds.result()
     log(f"build: {', '.join(f'{n}.cu' for n in KERNEL_SOURCES)} in "
         f"{time.perf_counter() - t0:.3f} s (nvcc "
         + ", ".join(f"{n} {cuda_build.BUILD_LOG[n]['seconds']:.3f} s" for n in KERNEL_SOURCES)
@@ -6401,6 +6701,7 @@ def main() -> int:
         model_parallel = phase_model_parallel(work)
         torch.cuda.empty_cache()
         phase_fleet(work, serving["buckets"])
+        phase_native(work, native_builds)
     finally:
         stop_spawned()
         shutil.rmtree(work, ignore_errors=True)

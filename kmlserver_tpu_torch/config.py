@@ -217,6 +217,11 @@ class MiningConfig:
     sparse_long_basket: int = 0
     write_tensor_artifact: bool = True
     write_manifest: bool = True
+    # on the CPU, count pairs with the native POPCNT counter
+    # (ops/cpu_popcount.py) where the plan allows it; ignored on a card, and
+    # off when the library cannot build. KMLS_NATIVE=0 turns it off too;
+    # KMLS_NATIVE_PAIR_METHOD and KMLS_NATIVE_THREADS are read per call
+    native_cpu_pair_counts: bool = True
     # the optional ``embed`` phase after ``rules`` (mining/als.py): ALS item
     # embeddings over the playlist x track matrix, published as
     # embeddings.npz beside the rule tensors; off by default
@@ -335,6 +340,7 @@ class MiningConfig:
             sparse_long_basket=_getenv_int("KMLS_SPARSE_LONG_BASKET", 0),
             write_tensor_artifact=_getenv_bool("KMLS_WRITE_TENSOR_ARTIFACT", True),
             write_manifest=_getenv_bool("KMLS_WRITE_MANIFEST", True),
+            native_cpu_pair_counts=_getenv_bool("KMLS_NATIVE_PAIR_COUNTS", True),
             embed_enabled=_getenv_bool("KMLS_EMBED_ENABLED", False),
             als_rank=_getenv_int("KMLS_ALS_RANK", 32),
             als_iters=_getenv_int("KMLS_ALS_ITERS", 8),
@@ -413,6 +419,10 @@ class ServingConfig:
     cache_max_entries: int = 8192
     # load rule tensors from the .npz twin when present (else the pickle)
     prefer_tensor_artifact: bool = True
+    # on the CPU, serve lookups through the native C++ kernel
+    # (serving/native_serve.py): the same answers; ignored on a card, and
+    # off when the library cannot build. KMLS_NATIVE=0 turns it off too
+    native_serve: bool = True
     # check the artifacts against the mining job's manifest before a bundle
     # publishes: a mismatched pickle aborts the reload (last-good keeps
     # serving), a mismatched npz falls back to the pickle
@@ -571,6 +581,7 @@ class ServingConfig:
             cache_enabled=_getenv_bool("KMLS_CACHE_ENABLED", True),
             cache_max_entries=_getenv_int("KMLS_CACHE_MAX_ENTRIES", 8192),
             prefer_tensor_artifact=_getenv_bool("KMLS_PREFER_TENSOR_ARTIFACT", True),
+            native_serve=_getenv_bool("KMLS_NATIVE_SERVE", True),
             verify_manifest=_getenv_bool("KMLS_VERIFY_MANIFEST", True),
             quarantine_after_failures=_getenv_int("KMLS_QUARANTINE_AFTER_FAILURES", 2),
             reload_backoff_base_s=_getenv_float("KMLS_RELOAD_BACKOFF_BASE_S", 0.5),

@@ -1,12 +1,15 @@
-"""CSV ingestion — counterpart of ``kmlserver_tpu/data/csv.py``, on the
-stdlib ``csv`` module and numpy (no pandas).
+"""CSV ingestion — counterpart of ``kmlserver_tpu/data/csv.py``.
 
-Semantics are the reference loader's: RFC-4180 fields (quotes, ``""``
-escapes, embedded commas and newlines), every column except ``pid`` kept
-as its verbatim string (empty cells stay ``""``), ``pid`` parsed as a
-strict int64 (a float spelling such as ``1.0`` is an error, never a silent
-truncation), ``DROP_COLUMNS`` dropped, and ``sample_ratio`` a head slice of
-``max(1, int(n · ratio))`` rows.
+:func:`read_tracks` reads through the native C++ loader
+(``data/native.py``, ``native/kmls_csv.cpp``) when it is available; where
+it is off (``KMLS_NATIVE=0``, no compiler) or its strict parser refuses a
+file, the stdlib ``csv`` parser below decides, as pandas does in the
+reference. Both give the reference loader's semantics: RFC-4180 fields
+(quotes, ``""`` escapes, embedded commas and newlines), every column except
+``pid`` kept as its verbatim string (empty cells stay ``""``), ``pid``
+parsed as a strict int64 (a float spelling such as ``1.0`` is an error,
+never a silent truncation), ``DROP_COLUMNS`` dropped, and ``sample_ratio``
+a head slice of ``max(1, int(n · ratio))`` rows.
 
 Expected schema: ``pid, track_uri, track_name, artist_name, artist_uri,
 album_name, duration_ms`` (extra columns tolerated); only ``pid`` and
@@ -70,9 +73,46 @@ def _parse_pids(path: str, values: list[str]) -> np.ndarray:
 def read_tracks(path: str, sample_ratio: float = 1.0) -> TrackTable:
     """Read a membership CSV, optionally head-sampling ``sample_ratio`` of
     the rows, and drop ``duration_ms`` (reference: read_tracks
-    main.py:152-166 + clean_df main.py:148-150)."""
+    main.py:152-166 + clean_df main.py:148-150). Native loader first,
+    the stdlib parser where it is off or refuses the file; ``native.LOADS``
+    counts which served."""
+    from . import native
+
+    if native.available():
+        try:
+            table = _table_from_native(
+                native.read_csv_native(path, skip_columns=tuple(DROP_COLUMNS)),
+                sample_ratio,
+            )
+        except ValueError:
+            pass  # malformed for the strict native parser: the stdlib one decides
+        else:
+            native.LOADS["native"] += 1
+            return table
     with open(path, newline="", encoding="utf-8", errors="replace") as fh:
-        return parse_tracks(fh, path, sample_ratio)
+        table = parse_tracks(fh, path, sample_ratio)
+    native.LOADS["stdlib"] += 1
+    return table
+
+
+def _table_from_native(nt, sample_ratio: float) -> TrackTable:
+    n = len(nt)
+    if "track_name" not in nt.columns:
+        raise ValueError("missing required column track_name")
+    stop = max(1, int(n * sample_ratio)) if 0 < sample_ratio < 1.0 else n
+
+    def col(name: str) -> np.ndarray | None:
+        dc = nt.columns.get(name)
+        return None if dc is None else dc.materialize()[:stop]
+
+    return TrackTable(
+        pid=nt.pids[:stop],
+        track_name=col("track_name"),
+        track_uri=col("track_uri"),
+        artist_name=col("artist_name"),
+        artist_uri=col("artist_uri"),
+        album_name=col("album_name"),
+    )
 
 
 def parse_tracks(

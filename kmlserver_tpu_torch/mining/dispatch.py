@@ -8,11 +8,12 @@ the sparse hybrid when the matrix is mostly air. The decision:
 
 - the key is the (density band, element-count band) cell of a small 2-D
   grid (:func:`table_cell`);
-- the table's cells come from the reference's bench sweep, banked per
-  backend; the port ships its own unchanged copy of
-  ``dispatch_table.json``, which holds ``cpu`` cells only, so on a CUDA
-  device (backend ``"gpu"``, ``utils/device.py::backend_name``) every plan
-  falls through to the heuristic, as the reference's does on a GPU;
+- the table's cells come from a density sweep, banked per backend: the
+  port's ``dispatch_table.json`` holds the reference's ``cpu`` cells
+  unchanged and the ``gpu`` cells its own sweep
+  (``mining/sweep.py::run_density_sweep``) banked on an H100, looked up on
+  a CUDA device under ``"gpu"`` (``utils/device.py::backend_name``); a
+  cell no sweep measured falls through to the heuristic;
 - :func:`plan_count_path` consults the table at plan time (one O(nnz) host
   bincount measures the exact density and pair-event volume), and the
   chosen path + its provenance ride ``MiningResult.count_path`` /
@@ -299,9 +300,9 @@ def table_from_records(
     banked_at: float,
     base: dict | None = None,
 ) -> dict:
-    """Fold density-sweep records (the reference's ``mining/sweep.py
-    run_density_sweep``: one record per measured (density, shape) point
-    with per-path ``mine_s`` timings) into a dispatch table, merging over ``base`` so
+    """Fold density-sweep records (``mining/sweep.py::run_density_sweep``:
+    one record per measured (density, shape) point with per-path ``<path>_s``
+    timings) into a dispatch table, merging over ``base`` so
     successive bench rounds accumulate cells per backend exactly like
     the bench bank merges brackets. The winner of a cell measured twice
     is the NEWER measurement (same newest-wins rule as the bank)."""

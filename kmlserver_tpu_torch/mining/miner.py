@@ -32,9 +32,12 @@ a vocab axis, each rank counts and emits its own rows
 (``sharded-vocab-<impl>``), or feeds its rows of the sparse count to the
 same emission (``sparse-sharded``). Counts are exact integers, so the rule
 tensors equal the reference's whichever count route either package took.
-One of the reference's routes is not ported: its native-CPU counter, and
-the port prints a ``NOTE:`` where the reference would take it and counts
-on the route the plan named.
+
+When the caller asks for the CPU, the dense family's count is the native
+POPCNT counter (``native-cpu``, ``ops/cpu_popcount.py``) and its emission
+the native top-k, as in the reference on a CPU backend: one rank, no
+census or triple merge, ``native_cpu_pair_counts`` on, and the library
+built. On a card nothing changes route for the library.
 
 Timing brackets rule generation like the reference (machine-learning/
 main.py:264,306-308), synchronising the device at each phase boundary so
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 
 from ..config import MiningConfig
-from ..ops import encode, popcount, rules, sparse
+from ..ops import cpu_popcount, encode, popcount, rules, sparse
 from ..ops import support as support_ops
 from ..ops.support import min_count_for
 from ..parallel import collectives, layout, support
@@ -250,6 +253,31 @@ def pair_count_fn(
     with timer.phase("pair_counts"):
         counts = support_ops.pair_counts(x)
     return counts, x, "dense"
+
+
+def native_cpu_eligible(
+    cfg: MiningConfig, device: torch.device, mesh: RankMesh | None = None
+) -> bool:
+    """True when the native POPCNT counter carries the pair count: the
+    mine runs on the CPU, on one rank, with no downstream step (itemset
+    census, triple/quad extensions) needing the one-hot, the knob is on
+    and the library loads. May build the library — call it outside any
+    timed bracket. The one copy of the gate: the sweep takes it too."""
+    return (
+        device.type == "cpu"
+        and mesh is None
+        and cfg.max_itemset_len < 3
+        and cfg.native_cpu_pair_counts
+        and cpu_popcount.available()
+    )
+
+
+def native_pair_counts(baskets: Baskets) -> np.ndarray:
+    """The native counter, called exactly as the miner calls it."""
+    return cpu_popcount.pair_counts(
+        baskets.playlist_rows, baskets.track_ids,
+        n_playlists=baskets.n_playlists, n_tracks=baskets.n_tracks,
+    )
 
 
 def _popcount_counts(bt: torch.Tensor) -> torch.Tensor:
@@ -461,17 +489,21 @@ def mine(
         # setup is environment preparation, not rule generation
         popcount.kernel_lib()
         torch.cuda.synchronize(dev)
-    # so is the profiler's one-time start when KMLS_PROFILE_DIR is set
+    # so are the profiler's one-time start when KMLS_PROFILE_DIR is set and
+    # the native counter's load (its one-time build on a fresh checkout)
     profiling.prime()
+    native_ok = native_cpu_eligible(cfg, dev, mesh)
     t0 = time.perf_counter()
     # a torch.profiler trace of the mine when KMLS_PROFILE_DIR is set
     with trace_session("mine"):
-        return _mine_timed(baskets, cfg, dev, mesh, backend, timer, t0, launches0)
+        return _mine_timed(
+            baskets, cfg, dev, mesh, backend, timer, t0, launches0, native_ok
+        )
 
 
 def _mine_timed(
     baskets: Baskets, cfg: MiningConfig, dev: torch.device, mesh: RankMesh | None,
-    backend: str, timer: PhaseTimer, t0: float, launches0: int,
+    backend: str, timer: PhaseTimer, t0: float, launches0: int, native_ok: bool,
 ) -> MiningResult:
     """The body of :func:`mine`, inside its timing bracket."""
     n_total = baskets.n_tracks
@@ -541,18 +573,13 @@ def _mine_timed(
         wants_bitpack = False
         plan_source = "census-override"
         staged_threshold = None
-    if (
-        backend == "cpu"
-        and mesh is None
-        and cfg.max_itemset_len < 3
+    # the native counter is the dense family's CPU implementation: a sparse
+    # plan outranks it, and a pinned bitpack family runs as named
+    use_native_cpu = (
+        native_ok
         and not use_sparse
         and not (plan.source == "override" and plan.path == "bitpack")
-    ):
-        print(
-            "NOTE: the reference counts this plan with its native-CPU pair "
-            "counter, which is not ported; counting on the route the plan "
-            "named (exact counts, so the same rule tensors)"
-        )
+    )
     # the vocab-sharded count + emit (reference miner.py:635-660): each
     # rank counts and emits its own rows; the census and the triple merge
     # need the whole one-hot, so they keep the staged route
@@ -567,6 +594,7 @@ def _mine_timed(
         and not wants_bitpack
         and not use_sparse
         and cfg.max_itemset_len < 3
+        and not use_native_cpu
     )
     counts = x = None
     emit = dict(
@@ -586,6 +614,20 @@ def _mine_timed(
     elif use_sparse:
         count_path = "sparse-hybrid"
         tensors = _sparse_mine(mined, cfg, dev, timer, min_count, n_total)
+    elif use_native_cpu:
+        count_path = "native-cpu"
+        with timer.phase("native_pair_counts"):
+            counts_np = native_pair_counts(mined)
+        with timer.phase("rule_emission"):
+            tensors = rules.mine_rules_from_counts_np(
+                counts_np,
+                n_playlists=mined.n_playlists,
+                min_support=cfg.min_support,
+                k_max=cfg.k_max_consequents,
+                mode=cfg.confidence_mode,
+                min_confidence=cfg.min_confidence,
+                n_total_songs=n_total,
+            )
     elif use_shard_mine:
         count_path = f"sharded-vocab-{cfg.sharded_impl}"
         with timer.phase("sharded_mine"):

@@ -62,6 +62,7 @@ import torch
 
 from .. import faults
 from ..config import BASE_INDEX, MiningConfig
+from ..data import native as csv_native
 from ..data.csv import read_tracks
 from ..io import artifacts, registry
 from ..observability import costmodel
@@ -113,11 +114,15 @@ def _crash_site(phase: str) -> None:
 def _run_encode_phase(cfg: MiningConfig, selected: str) -> dict:
     """CSV read + vocab validation/aux maps + basket encoding → the encode
     payload (host objects only)."""
+    native_loads = csv_native.LOADS["native"]
+    t0 = time.perf_counter()
     table = read_tracks(selected, cfg.sample_ratio)
+    reader = "native" if csv_native.LOADS["native"] > native_loads else "stdlib"
     print(
         f"Loaded {len(table)} rows, {table.n_playlists} playlists, "
         f"{table.n_tracks} unique tracks"
     )
+    print(f"CSV reader: {reader} ({time.perf_counter() - t0:.6f} s)")
     return {
         "n_rows": len(table),
         "artists": vocab_mod.validate_and_map_artists(table),

@@ -346,14 +346,23 @@ def mine_rules_from_counts_np(
     min_confidence: float = 0.0,
     n_total_songs: int | None = None,
 ) -> RuleTensors:
-    """Host-only emission from a host count matrix (the sparse route's
-    long-basket fallback on the CPU): :func:`emit_rule_tensors_np`, then
-    the shared assembly. The reference prefers its native C++ top-k here,
-    which is not ported; the numpy emitter is its pinned-identical twin."""
+    """Host-only emission from a host count matrix (the native-CPU route,
+    and the sparse route's long-basket fallback on the CPU): the native
+    C++ top-k (``ops/cpu_popcount.emit_topk``, a bounded per-row heap)
+    where the library loads, else :func:`emit_rule_tensors_np`, its
+    pinned-identical twin; then the shared assembly."""
+    from . import cpu_popcount
+
     min_count = min_count_for(min_support, n_playlists)
-    rule_ids, rule_counts, row_valid = emit_rule_tensors_np(
-        pair_count_matrix, min_count, k_max=k_max
-    )
+    emitted = None
+    if cpu_popcount.available():
+        try:
+            emitted = cpu_popcount.emit_topk(pair_count_matrix, min_count, k_max=k_max)
+        except RuntimeError:  # turned off since the check
+            emitted = None
+    if emitted is None:
+        emitted = emit_rule_tensors_np(pair_count_matrix, min_count, k_max=k_max)
+    rule_ids, rule_counts, row_valid = emitted
     return assemble_rule_tensors(
         rule_ids, rule_counts, row_valid,
         np.diagonal(pair_count_matrix).astype(np.int32, copy=True),

@@ -14,9 +14,9 @@ baskets longer than ``long_basket_threshold`` are split out, their rows
 gathered into a COMPACT sub-problem (only the occupied playlists exist in
 it) and counted densely there (:func:`_count_long_dense`). On a CUDA device
 that block is bit-packed and counted by the tensor-core popcount kernel
-(``ops/popcount.py``) — the "bitpacked half of the hybrid"; the reference's
-native CPU library plays that part on its host. On the CPU it is the
-reference's exact float64 contraction.
+(``ops/popcount.py``) — the "bitpacked half of the hybrid"; on the CPU by
+the native POPCNT counter (``ops/cpu_popcount.py``) where it loads, else
+the reference's exact float64 contraction.
 
 The host functions (:func:`sparse_pair_counts_np`, :func:`sparse_rule_rows`)
 are copies of the reference's; :func:`sparse_pair_counts_device` scatter-adds
@@ -171,8 +171,10 @@ def _count_long_dense(
     """The dense half over the GATHERED long baskets → int32 ``(V, V)`` on
     ``device``: only the occupied playlists exist in the sub-problem. On a
     CUDA device the block is bit-packed and counted by the tensor-core
-    popcount kernel; on the CPU by an exact float64 contraction (counts
-    ≤ P ≪ 2^53, so the cast back to int32 is lossless)."""
+    popcount kernel; on the CPU by the native POPCNT counter where it
+    loads, else by an exact float64 contraction (counts ≤ P ≪ 2^53, so the
+    cast back to int32 is lossless)."""
+    from . import cpu_popcount
     from . import popcount as pc
 
     dev = torch.device(device)
@@ -189,6 +191,14 @@ def _count_long_dense(
         )
         counts = pc.popcount_pair_counts_padded(bt)
         return counts[:n_tracks, :n_tracks].contiguous()
+    if cpu_popcount.available():
+        try:
+            return torch.from_numpy(cpu_popcount.pair_counts(
+                compact.astype(np.int32), tids.astype(np.int32),
+                n_playlists=p_long, n_tracks=n_tracks,
+            ))
+        except RuntimeError:  # turned off since the check
+            pass
     x = np.zeros((p_long, n_tracks), dtype=np.float64)
     x[compact, tids] = 1.0
     return torch.from_numpy((x.T @ x).astype(np.int32))

@@ -71,7 +71,13 @@ rebuild through the same layout decision.
 :meth:`RecommendEngine.prewarm_touch` is the forecast's pre-touch: one
 dispatch of the largest bucket per replica before a predicted ramp.
 
-The native host kernel is not part of this package.
+On the CPU (the caller asked for it) and with ``KMLS_NATIVE_SERVE`` on,
+the engine serves through the native C++ lookup
+(``serving/native_serve.py``): one bundle whose rule tensors are also held
+as host arrays, no bucket warm-up (nothing compiles and no shape is
+padded), the batch looked up in ``finish()`` with the GIL released and
+observed as ``serve_native``. Same answers as ``recommend_batch``. On a
+card the engine never takes this branch and holds no host copies.
 """
 
 from __future__ import annotations
@@ -106,6 +112,7 @@ from ..ops.serve import (
 )
 from ..parallel.layout import resolve_serve_span
 from . import mesh as mesh_mod
+from . import native_serve
 from ..ops.support import min_count_for
 from ..utils.device import resolve_device
 
@@ -173,6 +180,11 @@ class RuleBundle:
     emb_index: dict[str, int] | None = None
     # the (batch, length) shapes the embedding lookup ran before publication
     emb_warmed_shapes: set = dataclasses.field(default_factory=set)
+    # host copies of the rule tensors in the native lookup's layout
+    # (native_serve.host_rule_rows), present only when the engine runs on
+    # the CPU with native_serve on; None on a card
+    host_rule_ids: np.ndarray | None = None
+    host_rule_confs: np.ndarray | None = None
     # ---- model layout (parallel/layout.py) ----
     # "replicated": one full copy on `device`. "sharded": one logical bundle
     # whose rule rows are cut into n_shards slabs of shard_size rows (the
@@ -537,7 +549,7 @@ class RecommendEngine:
             cm.watch_compiles("serve_mesh_merge", self._unwarmed_merge_probe)
         elif bundle.layout == "sharded":
             cm.watch_compiles("serve_sharded", self._unwarmed_rules_probe)
-        else:
+        elif bundle.host_rule_ids is None:
             cm.watch_compiles("serve_rules", self._unwarmed_rules_probe)
         if bundle.emb_factors is not None:
             cm.watch_compiles("embed_topk", self._unwarmed_embed_probe)
@@ -729,6 +741,15 @@ class RecommendEngine:
             return [self._build_mesh_bundle(vocab, index, known, ids, confs, token, devs[0])]
         if layout == "sharded" and vocab:
             return [self._build_sharded_bundle(vocab, index, known, ids, confs, token, devs)]
+        if self._use_native_serve():
+            # one bundle: the host lookup has no per-device state to spread
+            host_ids, host_confs = native_serve.host_rule_rows(ids, confs)
+            return [RuleBundle(
+                vocab=vocab, index=index,
+                rule_ids=torch.from_numpy(ids), rule_confs=torch.from_numpy(confs),
+                known_mask=known, model_token=token, device=self.device,
+                host_rule_ids=host_ids, host_rule_confs=host_confs,
+            )]
         return [
             RuleBundle(
                 vocab=vocab, index=index,
@@ -880,6 +901,15 @@ class RecommendEngine:
             for i, count in enumerate(per_shard):
                 self.shard_dispatch_counts[i] += int(count)
 
+    def _use_native_serve(self) -> bool:
+        """The native host lookup iff the engine runs on the CPU (a card's
+        lookups belong on the card), the knob allows it, and the library
+        loads."""
+        return (
+            self.device.type == "cpu" and self.cfg.native_serve
+            and native_serve.available()
+        )
+
     def _serve_devices(self) -> list[torch.device]:
         """The devices the replica set spans. On ``cuda``: every card
         (``serve_devices == 0``) or the first ``serve_devices`` of them; a
@@ -916,7 +946,9 @@ class RecommendEngine:
         for length in self._len_buckets():
             for batch in self._batch_buckets():
                 shape = (batch, length)
-                if bundle.vocab:  # an empty rule vocabulary knows no seed
+                # an empty rule vocabulary knows no seed; the native lookup
+                # runs any shape as it comes
+                if bundle.vocab and bundle.host_rule_ids is None:
                     ids, confs = self._launch(bundle, self._staging(shape, bundle.device))()
                     if bundle.layout == "mesh":
                         self._merge_on_device(
@@ -944,7 +976,7 @@ class RecommendEngine:
         touched = 0
         for bundle in replicas:
             try:
-                if bundle.vocab and bundle.layout != "mesh":
+                if bundle.vocab and bundle.layout != "mesh" and bundle.host_rule_ids is None:
                     self._launch(bundle, self._staging(shape, bundle.device))()
                     touched += 1
                 if bundle.emb_factors is not None:
@@ -1420,6 +1452,8 @@ class RecommendEngine:
             return finish_fallback
         if bundle.layout == "mesh":
             return self._mesh_recommend_async(bundle, seed_sets, idx)
+        if bundle.host_rule_ids is not None:
+            return self._native_recommend_async(bundle, seed_sets, idx)
         length = self._bucket_len(max((len(s) for s in seed_sets), default=1))
         n_rows = self._bucket_batch(max(len(seed_sets), 1))
         seeds, known_rows = self._stage_seeds(bundle, seed_sets, n_rows, length)
@@ -1465,6 +1499,60 @@ class RecommendEngine:
                     bundle, s, bool(known_rows[r]),
                     host_ids[r] if host_ids is not None else None,
                     host_confs[r] if host_confs is not None else None,
+                    None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
+                )
+                for r, s in enumerate(seed_sets)
+            ]
+
+        return finish
+
+    def _native_recommend_async(
+        self, bundle: RuleBundle, seed_sets: list[list[str]], idx: int,
+    ) -> Callable[[], list[tuple[list[str], str]]]:
+        """The native host lookup's dispatch/finish pair. No bucketing: the
+        seed array is exact-sized and fresh (it outlives the dispatch until
+        ``finish()`` runs on the completion thread). The embedding lookup,
+        when attached, still runs on the warmed bucket grid."""
+        length = min(max((len(s) for s in seed_sets), default=1), self.cfg.max_seed_tracks)
+        arr = np.full((len(seed_sets), max(length, 1)), -1, dtype=np.int32)
+        known_rows = self._fill_seed_rows(bundle, seed_sets, arr, length)
+        emb_shape = (self._bucket_batch(max(len(seed_sets), 1)),
+                     self._bucket_len(max((len(s) for s in seed_sets), default=1)))
+        emb = self._dispatch_embed(bundle, seed_sets, *emb_shape)
+        self._note_dispatch(idx)
+        cm = self.cost_model
+        k_best = self.cfg.k_best_tracks
+
+        def finish() -> list[tuple[list[str], str]]:
+            # chaos site on the completion path, where a real kernel failure
+            # or stall surfaces
+            faults.fire("replica.kernel", replica=idx)
+            t_kernel = time.perf_counter()
+            # the ctypes call releases the GIL for the whole batch
+            host_ids, host_confs = native_serve.serve_topk(
+                bundle.host_rule_ids, bundle.host_rule_confs, arr, k_best
+            )
+            t_rules = time.perf_counter()
+            if cm is not None:
+                # the synchronous host call is its own fence
+                cm.observe_kernel(
+                    "serve_native", t_rules - t_kernel,
+                    b=len(seed_sets), l=arr.shape[1],
+                    k_max=bundle.host_rule_ids.shape[1], v=len(bundle.vocab),
+                    k_best=k_best,
+                )
+            emb_ids = emb_sims = emb_known = None
+            if emb is not None:
+                (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
+                if cm is not None:
+                    cm.observe_kernel(
+                        "embed_topk", time.perf_counter() - t_rules,
+                        b=emb_shape[0], l=emb_shape[1], v=len(bundle.emb_vocab or ()),
+                        r=int(bundle.emb_factors.shape[1]), k_best=k_best,
+                    )
+            return [
+                self._compose_answer(
+                    bundle, s, bool(known_rows[r]), host_ids[r], host_confs[r],
                     None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
                 )
                 for r, s in enumerate(seed_sets)

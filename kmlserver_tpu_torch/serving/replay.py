@@ -10,6 +10,14 @@ reporting achieved QPS and latency percentiles.
     python -m kmlserver_tpu_torch.serving.replay \\
         --fleet replica-0=http://127.0.0.1:8000,replica-1=http://127.0.0.1:8001 \\
         [--fleet-policy ring|roundrobin]
+    python -m kmlserver_tpu_torch.serving.replay --qps 1000 --requests 2000 \\
+        [--batch-max-size 32] [--batch-window-ms 2]
+
+With neither ``--url`` nor ``--fleet`` the target is in process: an app
+(``serving/app.RecommendApp``: answer cache → micro-batcher → engine) over
+the artifacts under ``BASE_DIR``, on ``KMLS_TORCH_DEVICE`` (default
+``cuda``; the engine serves through the native host lookup on ``cpu``),
+and the report adds the cache hit ratio and each replica's dispatches.
 
 Seed sets are sampled from the served vocabulary (read from the artifacts
 under ``BASE_DIR``, when it points at the server's PVC): mostly known
@@ -1130,9 +1138,49 @@ def _local_vocab() -> list[str]:
     return sorted(set(rules) | {o for row in rules.values() for o in row})
 
 
+def _replay_in_process(args, arrivals: np.ndarray, reshape) -> int:
+    """The in-process target: the app core over ``BASE_DIR`` — the cache →
+    batcher → engine path the HTTP front ends serve, without a socket."""
+    from ..config import ServingConfig, torch_device_from_env
+    from .app import RecommendApp
+
+    cfg = dataclasses.replace(
+        ServingConfig.from_env(),
+        batch_max_size=args.batch_max_size, batch_window_ms=args.batch_window_ms,
+    )
+    app = RecommendApp(cfg, device=torch_device_from_env())
+    try:
+        if not app.engine.load():
+            print("artifacts not found; run the mining job first")
+            return 1
+
+        def send(seeds: list[str]) -> tuple[str, bool]:
+            _, source, cached = app.recommend_direct(seeds)
+            return source, cached
+
+        payloads = reshape(sample_seed_sets(
+            app.engine.bundle.vocab, args.requests, zipf_s=args.zipf_s
+        ))
+        report = replay(send, payloads, qps=args.qps, arrivals=arrivals)
+        attach_attribution(report, app.metrics)
+        if app.cache is not None:
+            report.cache_hit_ratio = app.cache.hit_ratio()
+        out = json.loads(report.to_json())
+        out["per_device_dispatch"] = list(app.engine.dispatch_counts)
+        print(json.dumps(out))
+        return 0
+    finally:
+        app.close()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--url", default=None, help="the server, e.g. http://127.0.0.1:8000")
+    parser.add_argument("--url", default=None,
+                        help="the server, e.g. http://127.0.0.1:8000; default: in process")
+    parser.add_argument("--batch-max-size", type=int, default=32,
+                        help="in-process target: the batcher's batch size")
+    parser.add_argument("--batch-window-ms", type=float, default=2.0,
+                        help="in-process target: the batcher's window")
     parser.add_argument("--qps", type=float, default=1000.0)
     parser.add_argument("--requests", type=int, default=2000)
     parser.add_argument("--workers", type=int, default=64)
@@ -1199,8 +1247,7 @@ def main() -> int:
         print(json.dumps(out))
         return 0
     if not args.url:
-        print("--url or --fleet is required")
-        return 1
+        return _replay_in_process(args, arrivals, reshape)
     if not vocab:
         print("NOTE: no local artifacts found (BASE_DIR); all seeds are "
               "unknown — this measures the static-fallback path only")

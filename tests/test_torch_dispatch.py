@@ -5,8 +5,9 @@
 cells, budgets and backends (``cpu``, ``gpu``, ``tpu``) exactly as the
 reference does. Then ``mine`` runs on the CPU at every setting that
 ``chip_smoke.py``'s phase 7 runs on the card (plus the capacity-overflow
-paths), beside the reference's ``mine`` with its native counter (not
-ported) off: route, dispatch source, rule tensors, ``rule_confs64``,
+paths), beside the reference's ``mine``, the native counter off on both
+sides (``test_torch_native.py`` holds its route): route, dispatch source,
+rule tensors, ``rule_confs64``,
 census and merge flag must be equal. Last, the job end to end in
 confidence mode with ``max_itemset_len=3``.
 """
@@ -75,10 +76,16 @@ def _shape(name):
 
 def _plans(shape, backend, capsys, **cfg):
     p, v, nnz, baskets = _shape(shape)
+    # both decide from the same evidence: the port's packaged table (it banks
+    # cells the reference's copy lacks), unless the test names another
+    ref_cfg = cfg
+    if "dispatch_table" not in cfg and not os.environ.get("KMLS_DISPATCH_TABLE"):
+        ref_cfg = dict(cfg, dispatch_table=dispatch.builtin_table_path())
     out = []
-    for mod, config in ((ref_dispatch, RefMiningConfig), (dispatch, MiningConfig)):
+    for mod, config, knobs in ((ref_dispatch, RefMiningConfig, ref_cfg),
+                               (dispatch, MiningConfig, cfg)):
         plan = mod.plan_count_path(
-            config(**cfg), p, v, nnz, backend=backend, baskets=baskets
+            config(**knobs), p, v, nnz, backend=backend, baskets=baskets
         )
         out.append((_plan_tuple(plan), capsys.readouterr().out))
     return out
@@ -174,8 +181,19 @@ def test_table_from_env_or_config_matches_reference(tmp_path, backend, monkeypat
 
 
 def test_packaged_table_is_the_reference_copy():
-    assert dispatch.load_table() == ref_dispatch.load_table()
-    assert sorted(dispatch.load_table()["backends"]) == ["cpu"]
+    """The reference's cells, byte for byte, plus the ``gpu`` cells the
+    density sweep banked on the H100 (``mining/sweep.py``)."""
+    port, ref = dispatch.load_table(), ref_dispatch.load_table()
+    assert sorted(ref["backends"]) == ["cpu"]
+    assert sorted(port["backends"]) == ["cpu", "gpu"]
+    assert json.dumps(port["backends"]["cpu"], indent=1, sort_keys=True) == \
+        json.dumps(ref["backends"]["cpu"], indent=1, sort_keys=True)
+    assert {k: v for k, v in port.items() if k not in ("backends", "banked_at")} == \
+        {k: v for k, v in ref.items() if k not in ("backends", "banked_at")}
+    gpu = port["backends"]["gpu"]
+    assert gpu["measured_on"].endswith("/NVIDIA H100 80GB HBM3")
+    assert gpu["cells"] and all(c["identical"] for c in gpu["cells"].values())
+    assert all(c["path"] in dispatch.PATHS for c in gpu["cells"].values())
 
 
 @pytest.mark.parametrize("density,elems", [
@@ -313,7 +331,8 @@ def _mine_both(data, capsys, **cfg):
     ref_b, port_b = data
     ref = ref_miner.mine(ref_b, RefMiningConfig(native_cpu_pair_counts=False, **cfg))
     ref_out = capsys.readouterr().out
-    port = miner.mine(port_b, MiningConfig(**cfg), device="cpu")
+    # the native counter off on both sides (test_torch_native.py has its route)
+    port = miner.mine(port_b, MiningConfig(native_cpu_pair_counts=False, **cfg), device="cpu")
     out = capsys.readouterr().out
     return ref, ref_out, port, out
 

@@ -11,8 +11,8 @@ equals the reference engine's, in the modes ``rules``, ``embed`` and
 served by the other, the answers are equal except where two candidate
 scores lie within 1e-6 of each other and decide the answer (a near-tie
 the packages' sums may order either way); each difference must be one.
-The reference runs its device path (``native_serve=False``: its native
-host kernel is not ported).
+Both packages run their device paths (``native_serve=False``; the native
+host lookup has its own tests, ``test_torch_native.py``).
 """
 
 import dataclasses

@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax_or_the_reference():
                  "mining.als", "models", "models.embedding_model", "models.rule_model",
                  "freshness", "freshness.delta", "freshness.ring", "quality",
                  "quality.lifecycle", "parallel.collectives", "serving.mesh",
-                 "serving.forecast"):
+                 "serving.forecast", "utils.nativelib", "data.native", "ops.cpu_popcount",
+                 "serving.native_serve", "mining.sweep"):
         assert f"kmlserver_tpu_torch.{name}" in names, name
     proc = _run(
         f"""
@@ -121,3 +122,61 @@ def test_chip_smoke_refuses_without_cuda_or_the_repo(tmp_path):
                           capture_output=True, text=True, timeout=300,
                           env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_native_libraries_build_from_the_ports_sources_without_make(tmp_path):
+    """The port's three native libraries build with g++ from
+    ``kmlserver_tpu_torch/native/`` into ``build/kmls_torch_native/``: no
+    port module runs ``make`` or loads a library under the repository's
+    ``native/`` (the JAX package's)."""
+    (tmp_path / "ds.csv").write_text("pid,track_name\n1,a\n1,b\n2,a\n")
+    proc = _run(
+        f"""
+        import os, subprocess
+        commands = []
+        real_run, real_popen = subprocess.run, subprocess.Popen.__init__
+
+        def run(cmd, *a, **k):
+            commands.append(list(cmd))
+            return real_run(cmd, *a, **k)
+
+        def popen(self, cmd, *a, **k):
+            commands.append(list(cmd) if not isinstance(cmd, str) else [cmd])
+            return real_popen(self, cmd, *a, **k)
+
+        subprocess.run, subprocess.Popen.__init__ = run, popen
+        import numpy as np
+        from kmlserver_tpu_torch.data import native
+        from kmlserver_tpu_torch.data.csv import read_tracks
+        from kmlserver_tpu_torch.ops import cpu_popcount
+        from kmlserver_tpu_torch.serving import native_serve
+        from kmlserver_tpu_torch.utils import nativelib
+
+        table = read_tracks({str(tmp_path / "ds.csv")!r})
+        assert native.LOADS == {{"native": 1, "stdlib": 0}}, native.LOADS
+        counts = cpu_popcount.pair_counts(np.array([0, 0, 1]), np.array([0, 1, 0]),
+                                          n_playlists=2, n_tracks=2)
+        assert counts.tolist() == [[2, 1], [1, 1]]
+        assert native_serve.available()
+        for lib in (native._loader, cpu_popcount._loader, native_serve._LIB):
+            assert lib._lib is not None, lib.error
+            print("LIB", lib._lib._name)
+        print("SRC", nativelib.SOURCE_DIR)
+        for cmd in commands:
+            print("CMD", os.path.basename(cmd[0]))
+        with open("/proc/self/maps") as fh:
+            for line in fh:
+                if "libkmls" in line:
+                    print("MAP", line.split()[-1])
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    build_dir = os.path.join(REPO, "build", "kmls_torch_native") + os.sep
+    libs = [line[4:] for line in lines if line.startswith("LIB ")]
+    maps = {line[4:] for line in lines if line.startswith("MAP ")}
+    assert len(libs) == 3 and all(p.startswith(build_dir) for p in libs), libs
+    assert maps and all(p.startswith(build_dir) for p in maps), maps
+    assert not any(p.startswith(os.path.join(REPO, "native") + os.sep) for p in maps)
+    assert f"SRC {os.path.join(REPO, 'kmlserver_tpu_torch', 'native')}" in lines
+    assert {line[4:] for line in lines if line.startswith("CMD ")} <= {"g++", "c++"}

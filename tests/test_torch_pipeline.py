@@ -66,11 +66,9 @@ def pvcs(tmp_path_factory):
             bases.append(str(base))
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
-            # the native counter (not ported) off, so the reference takes
-            # the route its dispatch names
+            # both at their defaults: on the CPU the native counter
             ref_run_mining_job(
-                RefMiningConfig(base_dir=bases[0], datasets_dir=bases[0] + "/datasets",
-                                native_cpu_pair_counts=False)
+                RefMiningConfig(base_dir=bases[0], datasets_dir=bases[0] + "/datasets")
             )
         ref_path = log.getvalue().split("Pair-count path: ", 1)[1].split()[0]
         summary = run_mining_job(

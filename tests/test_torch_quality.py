@@ -79,7 +79,8 @@ def knobs(**overrides) -> dict:
 
 
 def ref_config(**overrides) -> RefMiningConfig:
-    # the reference's native CPU counter is not ported
+    # the reference on its dispatch's route; counts are exact, so the port's
+    # native route gives the same report
     return RefMiningConfig(native_cpu_pair_counts=False, **knobs(**overrides))
 
 

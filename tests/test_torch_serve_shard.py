@@ -15,8 +15,8 @@ against the JAX package on the same seeded inputs.
   on the same PVC, across epochs, with zero unwarmed dispatches; ``auto``
   shards only past the budget; hybrid embeddings ride the sharded layout;
   the per-shard dispatch series render (the cases of
-  ``tests/test_shard_layout.py:154-298`` but the native-serve bypass: the
-  native host kernel is not ported).
+  ``tests/test_shard_layout.py:154-298`` but the native-serve bypass: both
+  packages run with ``native_serve=False``).
 
 The ``cuda`` twin runs the same lookups on the card.
 """

@@ -85,12 +85,13 @@ def mining_knobs(**overrides) -> dict:
 
 
 def port_mining_cfg(base: str, **overrides) -> MiningConfig:
+    # the native CPU counter off on both sides: each mines on the route its
+    # dispatch names (the native route has its own tests, test_torch_native.py)
     return MiningConfig(base_dir=base, datasets_dir=os.path.join(base, "datasets"),
-                        **mining_knobs(**overrides))
+                        native_cpu_pair_counts=False, **mining_knobs(**overrides))
 
 
 def ref_mining_cfg(base: str, **overrides) -> RefMiningConfig:
-    # the reference's native CPU counter is not ported
     return RefMiningConfig(base_dir=base, datasets_dir=os.path.join(base, "datasets"),
                            native_cpu_pair_counts=False, **mining_knobs(**overrides))
 
@@ -110,12 +111,14 @@ def serving_pvc(base: str) -> MiningConfig:
 
 
 def port_serving_cfg(base: str, **knobs) -> ServingConfig:
-    return ServingConfig(base_dir=base, polling_wait_in_minutes=0.001, **{**SERVE_KNOBS, **knobs})
+    # both sides on their device lookups (the native host lookup has its own
+    # tests, test_torch_native.py)
+    return ServingConfig(base_dir=base, polling_wait_in_minutes=0.001, native_serve=False,
+                         **{**SERVE_KNOBS, **knobs})
 
 
 def ref_serving_cfg(base: str, **knobs):
     from kmlserver_tpu.config import ServingConfig as RefServingConfig
 
-    # the reference's native host kernel is not ported: its device path
     return RefServingConfig(base_dir=base, polling_wait_in_minutes=0.001, native_serve=False,
                             **{**SERVE_KNOBS, **knobs})

@@ -42,11 +42,14 @@ def mine_pvc(root) -> str:
 
 
 def port_cfg(base: str, **knobs) -> ServingConfig:
-    return ServingConfig(base_dir=base, polling_wait_in_minutes=5.0, **{**KNOBS, **knobs})
+    # both sides on their device lookups (the native host lookup has its own
+    # tests, test_torch_native.py)
+    return ServingConfig(
+        base_dir=base, polling_wait_in_minutes=5.0, **{"native_serve": False, **KNOBS, **knobs}
+    )
 
 
 def ref_cfg(base: str, **knobs) -> RefServingConfig:
-    # the reference's native host kernel is not ported: its device path
     return RefServingConfig(
         base_dir=base, polling_wait_in_minutes=5.0, native_serve=False, **{**KNOBS, **knobs}
     )
