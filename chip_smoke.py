@@ -113,9 +113,12 @@ main loop on the card and fails loudly on any mismatch:
    equal to ``phase_cost("als_sweep")``, the card's training against the
    CPU plain run (normalized factors within 1e-4, final loss within 1e-5
    relative); (b) that PVC served in blend mode under 2,000 distinct
-   config-5 draws over the embedding vocabulary at 1,000 QPS: every answer
-   the CPU engine's except those decided by a near-tie (two candidate
-   scores within 1e-6), counted; sources counted; zero 5xx; no unwarmed
+   config-5 draws over the embedding vocabulary at 1,000 QPS, the
+   admission ladder at its default: every answer the CPU engine's except
+   those decided by a near-tie (two candidate scores within 1e-6), counted,
+   and those the ladder degraded (``overload`` only, each the popularity
+   fallback, the server's ladder lines logged); sources counted; zero 5xx;
+   no unwarmed
    dispatch; (c) sparse ALS on the scale baskets: ``auto`` picks sparse,
    one accumulate each way held bit for bit against the CPU plain version
    and timed beside ``index_add_`` on the card and its bound (bytes,
@@ -131,7 +134,7 @@ main loop on the card and fails loudly on any mismatch:
    ``python -c "import chip_smoke as c; c.phase_freshness()"``): (a) the
    job with ``KMLS_DELTA_ENABLED=1`` and ``KMLS_DELTA_COMPACT_AFTER=3`` and
    the server with ``KMLS_DELTA_ENABLED=1`` on a ds2 PVC: the full path
-   (the job with deltas off + the server's reload) three times, then four
+   (the job with deltas off + the server's reload) twice, then four
    cycles of the reference bench's append (24 playlists × 90 rows over a
    128-track slice, plus a new track) → the job → applied in the server —
    cycle 1 moves ``min_count`` 113 → 114, cycle 3 compacts the chain and
@@ -164,7 +167,9 @@ main loop on the card and fails loudly on any mismatch:
    launches) publish the same sha256; (c) the server with
    ``KMLS_HYBRID_BLEND_WEIGHT=measured`` serves the report's weight and
    answers 2,000 config-5 draws over the embedding vocabulary as the CPU
-   engine does, but at counted near-ties, with no 5xx; (d) with
+   engine does, but at counted near-ties and at counted ``overload``
+   answers of the admission ladder (each the fallback, its ladder lines
+   logged), with no 5xx; (d) with
    ``KMLS_ARTIFACT_MAX_AGE_S`` below the artifacts' age ``/readyz`` is
    degraded naming each and every ``kmls_artifact_stale`` reads 1, and with
    0 every flag reads 0 and ``/readyz`` is ready; (e) two ranks sharing the
@@ -229,8 +234,10 @@ Then phase 7 runs (it needs no work directory), and last:
    ``auto`` layout flipping at the budget; (c) a gang of two ``python -m
    kmlserver_tpu_torch.serving.server`` (the ``KMLS_SERVE_GANG_*``
    quartet, a probed free port pair) and one replicated server under
-   config 5's draws at 500 QPS — every answer the CPU engine's, client
-   p50/p99 side by side —, rank 1 SIGKILLed (200 with ``X-KMLS-Degraded:
+   config 5's draws at 500 QPS — every answer the CPU engine's or an
+   ``overload`` fallback of the admission ladder (counted, its ladder
+   lines logged), none shed, client p50/p99 side by side —, rank 1
+   SIGKILLed (200 with ``X-KMLS-Degraded:
    mesh-shard-missing:1``, ``/readyz`` naming it), respawned with
    ``mesh.peer`` armed once (a ``mesh-straggler`` answer), the re-form
    timed, fresh answers identical again; (d) one bench-size append: the
@@ -308,6 +315,19 @@ Then phase 7 runs (it needs no work directory), and last:
    ``--mesh auto`` at phase 5's 1M x 1M x 50M shape: each rank's slab equal
    to the plain sharded generator's (its time beside the kernel's on that
    slab), the all-reduced counts equal to one launch on the gathered slabs.
+19. the dispatch held sync-free (``serving/engine.py::recommend_many_async``
+   and what it enqueues: ``ops/serve.py``, ``ops/embed.py``; run last, on
+   phase 4's ds2 PVC and phase 11's embedding PVC; alone: ``python -c
+   "import chip_smoke as c; c.phase_sync_guard()"``): three engines on the
+   card with no reload poller and no batcher — the replicated rules
+   engine, the blend engine (rules + ALS embeddings) and the ``sharded``
+   layout at S = 2 on cuda:0 — each dispatch one batch per warmed (batch,
+   length) bucket under ``torch.cuda.set_sync_debug_mode("error")``, which
+   raises on any host synchronization, around the dispatch half only
+   (``recommend_many_async`` up to its return); then the mode back to
+   ``default`` and every ``finish()``; the answers equal the same engine's
+   unguarded ones and the CPU engine's (blend: but at counted near-ties);
+   no unwarmed dispatch; one ``sync_guard:`` line.
 Then the kernels line is printed (the sharded entry carries the sharded
 routes' calls and times under ``x8``, and X9's under ``x9``: library
 calls, not kernel launches; the popcount entry its config-4 time under
@@ -1684,6 +1704,43 @@ def engine_answers(engine, payloads: list) -> list:
     return out
 
 
+def degraded_reason(head: bytes) -> str | None:
+    """The ``X-KMLS-Degraded`` reason of a raw response head, or None."""
+    for ln in head.split(b"\r\n"):
+        if ln.lower().startswith(b"x-kmls-degraded:"):
+            return ln.split(b":", 1)[1].strip().decode()
+    return None
+
+
+def hold_to_fallback(label: str, cpu, payload: list, songs) -> None:
+    """A degraded answer must be the popularity fallback: the seeds' static
+    recommendation or, past a deadline, the head of the best tracks."""
+    head_k = [b["track_name"] for b in cpu.best_tracks][: cpu.cfg.k_best_tracks]
+    if songs not in (cpu.static_recommendation(payload), head_k):
+        fail(f"{label}: degraded answer for {payload} is not the fallback")
+
+
+def overload_only(label: str, responses: list, lines: list[str]) -> int:
+    """Phases 11 (b), 13 (c), 15 (c) serve with the production admission
+    ladder: an answer may be degraded only by it (``overload``), and each
+    such run logs the server's ``admission ladder`` lines — the projected
+    wait and its device-time parts, the queue-wait EWMA and the loop lag
+    that drove it. → the overload answers (held to the fallback by the
+    caller)."""
+    reasons = [degraded_reason(r[2]) for r in responses]
+    other = sorted({r for r in reasons if r not in (None, "overload")})
+    if other:
+        fail(f"{label}: answers degraded for {other}, not by the admission ladder")
+    n = reasons.count("overload")
+    if n:
+        ladder = [ln for ln in lines if "admission ladder" in ln]
+        log(f"{label}: {n} answers degraded by the admission ladder, each the popularity "
+            f"fallback; the server's ladder lines ({len(ladder)}):")
+        for ln in ladder or ["(none logged)"]:
+            log("  " + ln)
+    return n
+
+
 def check_responses(label: str, responses: list, payloads: list, want: list, cpu,
                     allow_drops: bool = False) -> dict:
     """Every HTTP answer against the CPU engine's: a rule, empty or fallback
@@ -1695,7 +1752,6 @@ def check_responses(label: str, responses: list, payloads: list, want: list, cpu
               "dropped": len(payloads) - len(responses)}
     if counts["dropped"] and not allow_drops:
         fail(f"{label}: {counts['dropped']} requests got no answer")
-    head_k = [b["track_name"] for b in cpu.best_tracks][: cpu.cfg.k_best_tracks]
     for i, status, head, body in responses:
         if status >= 500:
             fail(f"{label}: HTTP {status} for {payloads[i]}: {body[:200]!r}")
@@ -1705,8 +1761,7 @@ def check_responses(label: str, responses: list, payloads: list, want: list, cpu
         got = json.loads(body)
         if status == 200 and b"x-kmls-degraded:" in head:
             counts["degraded"] += 1
-            if got["songs"] not in (cpu.static_recommendation(payloads[i]), head_k):
-                fail(f"{label}: degraded answer for {payloads[i]} is not the fallback")
+            hold_to_fallback(label, cpu, payloads[i], got["songs"])
             continue
         expect = {"songs": want[i][0], "model_date": cpu.cache_value, "version": "V1.1"}
         if status != 200 or got != expect:
@@ -1749,9 +1804,12 @@ def server_window(base: str) -> dict:
 
 
 def replay_run(base: str, label: str, payloads: list, want: list, cpu, qps: float,
-               allow_drops: bool = False, phase: str = "phase 8") -> dict:
+               allow_drops: bool = False, phase: str = "phase 8",
+               ladder_lines: list[str] | None = None) -> dict:
     """One replay through the port's load generator, every answer checked,
-    then the server's window read (reset just before it)."""
+    then the server's window read (reset just before it). With the
+    server's ``ladder_lines`` a degraded answer must be the admission
+    ladder's (:func:`overload_only`)."""
     from kmlserver_tpu_torch.serving.replay import replay_async_http
 
     status, _, _ = post(base + "/metrics/reset", b"")
@@ -1762,6 +1820,8 @@ def replay_run(base: str, label: str, payloads: list, want: list, cpu, qps: floa
     report = replay_async_http(base, payloads, qps=qps, n_conns=CONFIG5_CONNS,
                                responses=responses)
     counts = check_responses(label, responses, payloads, want, cpu, allow_drops)
+    if ladder_lines is not None:
+        overload_only(f"{phase} {label}", responses, ladder_lines)
     window = server_window(base)
     for key in ("shed_total", "degraded_total", "batches_total"):  # counters: this run's
         window[key] -= before[key]
@@ -2952,12 +3012,16 @@ def phase_embed_ds2(work: str) -> dict:
         code = stop_server(server)
     if len(responses) != len(payloads):
         fail(f"phase 11 (b): {len(payloads) - len(responses)} requests got no answer")
+    degraded = overload_only("phase 11 (b)", responses, lines)
     near_ties, by_source = 0, {}
     for i, status, head, body in responses:
-        if status != 200 or b"x-kmls-degraded:" in head:
+        if status != 200:
             fail(f"phase 11 (b): HTTP {status} for {payloads[i]}: {head[:200]!r} {body[:200]!r}")
         songs, source = want[i]
         by_source[source] = by_source.get(source, 0) + 1
+        if b"x-kmls-degraded:" in head:
+            hold_to_fallback("phase 11 (b)", cpu, payloads[i], json.loads(body)["songs"])
+            continue
         if json.loads(body)["songs"] != songs:
             if not decisive_near_tie(cpu, payloads[i]):
                 fail(f"phase 11 (b): answer for {payloads[i]} != the CPU engine's and no "
@@ -2983,7 +3047,7 @@ def phase_embed_ds2(work: str) -> dict:
         f"ms, server p50/p99 {window['server_p50_ms']:.3f}/{window['server_p99_ms']:.3f} ms, "
         f"device p50/p99 {window['device_p50_ms']:.3f}/{window['device_p99_ms']:.3f} ms; "
         f"0 5xx; sources (CPU engine) {by_source}, served (/metrics) {served}; answers == the "
-        f"CPU engine's but {near_ties} decided by a near-tie (|Δ| <= {NEAR_TIE}); embed_topk "
+        f"CPU engine's but {degraded} degraded (the fallback) and {near_ties} decided by a near-tie (|Δ| <= {NEAR_TIE}); embed_topk "
         f"{emb_dispatches:.0f} dispatches, {emb_device_s:.6f} device s; embed_topk at V={v} "
         + ", ".join(f"B x L {k_} {t['ms']:.4f} ms (bound {t['ms_bound']:.6f}, {t['bound_by']})"
                     for k_, t in topk_ms.items()))
@@ -3452,6 +3516,8 @@ FRESH_CSV = "2023_spotify_ds2_synthetic.csv"
 FRESH_COMPACT_AFTER = 3  # KMLS_DELTA_COMPACT_AFTER of the phase's job
 FRESH_POLL = "0.0005"  # the server's POLLING_WAIT_IN_MINUTES (the engine polls every 50 ms at least)
 FRESH_PROBES = 500  # config-5 draws checked against the CPU engine after an idle cycle
+# the full path's repetitions (job + reload), timed for their median
+FRESH_FULL_RUNS = 2
 FRESH_HIT_DRAWS = 2000  # Zipf draws replayed around cycle 2's apply (the hit ratio)
 FRESH_METRICS_EVERY_S = 0.02  # /metrics scrape period while waiting for an apply
 RECOUNT_PLAYLISTS = 1000  # phase 12 (b): the playlists a 0.1 % append adds
@@ -3525,7 +3591,6 @@ def timed_checks(label: str, responses: list, payloads: list, pre: list, post: l
     (perf_counter, ``responses`` entries carry their scheduled time) must
     be the post answer. No 5xx, nothing unanswered, a degraded answer the
     popularity fallback (the admission ladder's). → counts."""
-    head_k = [b["track_name"] for b in cpu.best_tracks][: cpu.cfg.k_best_tracks]
     counts = {"pre_only": 0, "post": 0, "both": 0, "after_apply": 0, "degraded": 0, "shed": 0,
               "changed_payloads": sum(a[0] != b[0] for a, b in zip(pre, post))}
     if len(responses) != len(payloads):
@@ -3539,8 +3604,7 @@ def timed_checks(label: str, responses: list, payloads: list, pre: list, post: l
         got = json.loads(body)
         if b"x-kmls-degraded:" in head:
             counts["degraded"] += 1
-            if got["songs"] not in (cpu.static_recommendation(payloads[i]), head_k):
-                fail(f"phase 12 (a) {label}: degraded answer for {payloads[i]} is not the fallback")
+            hold_to_fallback(f"phase 12 (a) {label}", cpu, payloads[i], got["songs"])
             continue
         if status != 200 or got["model_date"] not in tokens:
             fail(f"phase 12 (a) {label}: {status} {body[:200]!r}")
@@ -3577,7 +3641,7 @@ class ScheduledResponses(list):
 
 def freshness_ds2(work: str) -> dict:
     """Phase 12 (a): the ds2 CSV through both entry points with deltas on —
-    the full path three times, then four append → job → applied cycles
+    the full path twice, then four append → job → applied cycles
     (the third compacts the chain and the server hot-swaps the snapshot
     under a replay; the fourth publishes in the middle of config 5's
     replay), then a full re-mine of the final CSV in a pristine PVC, equal
@@ -3635,9 +3699,9 @@ def freshness_ds2(work: str) -> dict:
         fail(f"phase 12 (a): the server logged no apply of delta {seq}")
 
     try:
-        # ---- the full path: the job with deltas off + the server's reload, x3
+        # ---- the full path: the job with deltas off + the server's reload
         full_runs, full_in_process = [], []
-        for i in range(3):
+        for i in range(FRESH_FULL_RUNS):
             reloads = scrape_metrics(base)["kmls_reloads_total"]
             t0 = time.perf_counter()
             job_process(pvc, f"full {i + 1}")
@@ -4320,10 +4384,14 @@ def quality_serving(pvc: str, report: dict) -> dict:
         fail(f"phase 13 (c): kmls_hybrid_blend_weight {served_w}, report {weight}; exit {code}")
     if len(responses) != len(payloads):
         fail(f"phase 13 (c): {len(payloads) - len(responses)} requests got no answer")
+    degraded = overload_only("phase 13 (c)", responses, lines)
     near_ties = 0
     for i, status, head, body in responses:
-        if status != 200 or b"x-kmls-degraded:" in head:
+        if status != 200:
             fail(f"phase 13 (c): HTTP {status} for {payloads[i]}: {head[:200]!r}")
+        if b"x-kmls-degraded:" in head:
+            hold_to_fallback("phase 13 (c)", cpu, payloads[i], json.loads(body)["songs"])
+            continue
         if json.loads(body)["songs"] != want[i][0]:
             if not decisive_near_tie(cpu, payloads[i]):
                 fail(f"phase 13 (c): answer for {payloads[i]} != the CPU engine's, no near-tie")
@@ -4331,7 +4399,7 @@ def quality_serving(pvc: str, report: dict) -> dict:
     log(f"phase 13 (c) KMLS_HYBRID_BLEND_WEIGHT=measured: kmls_hybrid_blend_weight {served_w} "
         f"== the report's; {len(payloads)} draws at {QUALITY_QPS:.0f} QPS → {run.achieved_qps:.1f} "
         f"QPS, client p50/p99 {run.p50_ms:.3f}/{run.p99_ms:.3f} ms, 0 5xx; answers == the CPU "
-        f"engine's at w={weight} but {near_ties} near-ties (|Δ| <= {NEAR_TIE})")
+        f"engine's at w={weight} but {degraded} degraded (the fallback) and {near_ties} near-ties (|Δ| <= {NEAR_TIE})")
 
     # ---- (d) the staleness bound, in process on the card
     stale = {}
@@ -5517,10 +5585,10 @@ def gang_on_card(pvc: str, keys: list, cpu, spawned: list, port: int) -> tuple[d
     log(f"reduced: phase 15 (c) replays {MESH_REQUESTS} of config 5's draws a run, not the "
         "meshserve bracket's 4,000: the phase's 90 s and the smoke's 1,150 s budgets")
     runs = {}
-    for label, base in (("gang rank 0", bases[0]), ("gang rank 1", bases[1]),
-                        ("replicated", bases[2])):
-        row = replay_run(base, f"(c) {label}", payloads, want, cpu, MESH_QPS, phase="phase 15")
-        if row["degraded"] or row["shed"] or row["errors"]:
+    for label, (_, base, lines) in zip(("gang rank 0", "gang rank 1", "replicated"), servers):
+        row = replay_run(base, f"(c) {label}", payloads, want, cpu, MESH_QPS, phase="phase 15",
+                         ladder_lines=lines)
+        if row["shed"] or row["errors"]:
             fail(f"phase 15 (c) {label}: {row}")
         runs[label] = row
     serving_key = 'kmls_serve_mesh_shards{state="serving"}'
@@ -5577,7 +5645,8 @@ def gang_on_card(pvc: str, keys: list, cpu, spawned: list, port: int) -> tuple[d
               "seconds": time.perf_counter() - t0}
     log(f"phase 15 (c) gang of two `python -m kmlserver_tpu_torch.serving.server` sharing the "
         f"card: {MESH_REQUESTS} config-5 draws at {MESH_QPS:.0f} QPS at each member == the CPU "
-        f"engine's, 0 5xx, 0 degraded, 0 unwarmed; client p50/p99 rank 0 "
+        f"engine's but {sum(r['degraded'] for r in runs.values())} degraded by the admission "
+        f"ladder (each the fallback), 0 shed, 0 5xx, 0 unwarmed; client p50/p99 rank 0 "
         f"{runs['gang rank 0']['p50_ms']:.3f}/{runs['gang rank 0']['p99_ms']:.3f} ms, rank 1 "
         f"{runs['gang rank 1']['p50_ms']:.3f}/{runs['gang rank 1']['p99_ms']:.3f} ms, one "
         f"replicated server {runs['replicated']['p50_ms']:.3f}/{runs['replicated']['p99_ms']:.3f}"
@@ -5762,12 +5831,16 @@ SHAPE_SEEDS = {"ramp": 41, "sine": 43, "constant": 47}
 PREFETCH_DRAWS = 2000  # (c)'s Zipf traffic before the delta the pre-fetch follows
 
 
+# the admission ladder off, as the reference bench's fleet and meshserve
+# servers have it: phase 16's replicas and its gang
+LADDER_OFF = {"KMLS_SHED_QUEUE_BUDGET_MS": "0"}
+
+
 def fleet_env(me: str, peers: list[str], **extra: str) -> dict:
     """A fleet replica's env: its stable identity among ``peers``, as
     kubernetes/statefulset.yaml sets ``KMLS_FLEET_SELF`` / ``_PEERS``; the
     admission ladder off as the bench's fleet servers have it."""
-    return dict(KMLS_FLEET_SELF=me, KMLS_FLEET_PEERS=",".join(peers),
-                KMLS_SHED_QUEUE_BUDGET_MS="0", **extra)
+    return dict(KMLS_FLEET_SELF=me, KMLS_FLEET_PEERS=",".join(peers), **LADDER_OFF, **extra)
 
 
 def fleet_pvc(work: str) -> str:
@@ -6320,7 +6393,7 @@ def phase_fleet(work: str | None = None, phase8_buckets: list | None = None) -> 
         port = gang_ports()
         spawned_g = [spawn_server(pvc_b, **{
             **gang_env(port, rank), "KMLS_CACHE_ENABLED": "1", "KMLS_DELTA_ENABLED": "0",
-            "KMLS_SHED_QUEUE_BUDGET_MS": "0",
+            **LADDER_OFF,
             "KMLS_FLEET_SELF": "gang", "KMLS_FLEET_PEERS": "gang", "KMLS_HEDGE_DELAY_MS": "20",
             "KMLS_HEDGE_MAX_FRAC": "0.5", "KMLS_PEER_SLOW_RATIO": "3.0",
             **({"KMLS_FAULT_MESH_PEER_DELAY_MS": f"1:{SLOW_STALL_MS}:12"} if rank == 1 else {}),
@@ -7094,6 +7167,142 @@ def phase_config4(work: str | None = None, quick: bool = False) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------- phase 19
+
+SYNC_GUARD_SHARDS = 2  # the sharded layout's slabs, both on cuda:0
+SYNC_GUARD_SEED = 19
+
+
+def guard_batches(engine, rule_names: list, emb_names: list, rng) -> list[list[list[str]]]:
+    """One batch per warmed (batch, length) bucket of ``engine``: ``batch``
+    seed sets of exactly ``length`` names (drawn with replacement, so the
+    set lands in that bucket whatever the vocabulary's size), each led by a
+    name the rule vocabulary knows (the rule lookup launches) and, where
+    ``emb_names`` is given, continued from the embedding vocabulary (the
+    embedding lookup launches too)."""
+    pool = emb_names or rule_names
+    batches = []
+    for length in engine._len_buckets():
+        for batch in engine._batch_buckets():
+            if (batch, length) not in engine.bundle.warmed_shapes:
+                fail(f"phase 19: bucket {(batch, length)} was not warmed")
+            batches.append([
+                [rule_names[rng.integers(len(rule_names))]]
+                + [pool[i] for i in rng.integers(len(pool), size=length - 1)]
+                for _ in range(batch)])
+    return batches
+
+
+def guarded_dispatches(label: str, engine, batches: list) -> list:
+    """Every batch's dispatch half under ``set_sync_debug_mode("error")``
+    (a host synchronization raises), then the mode back to ``default`` and
+    every ``finish()`` → the answers, batch by batch."""
+    import torch
+
+    torch.cuda.synchronize()  # nothing earlier left for the dispatch to wait on
+    finishes = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for sets in batches:
+            finishes.append(engine.recommend_many_async(sets))
+    except RuntimeError as exc:
+        torch.cuda.set_sync_debug_mode("default")
+        import traceback
+
+        where = [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}"
+                 for f in traceback.extract_tb(exc.__traceback__)
+                 if "kmlserver_tpu_torch" in f.filename]
+        fail(f"phase 19 {label}: the dispatch of a {len(sets)} x {len(sets[0])} batch "
+             f"synchronized the host at {where[-1] if where else '?'}: {exc}")
+    torch.cuda.set_sync_debug_mode("default")
+    return [finish() for finish in finishes]
+
+
+def phase_sync_guard(work: str | None = None) -> dict:
+    """Phase 19: the dispatch half of the rules, blend and sharded engines
+    held free of host synchronization on the card, every warmed bucket,
+    the answers against the unguarded dispatch and the CPU engine."""
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="kmls_smoke19_")
+    try:
+        t0 = time.perf_counter()
+        rules_pvc = ds2_pvc(work)
+        blend_pvc = os.path.join(work, "pvc_embed")  # phase 11 (a)'s
+        if not os.path.exists(os.path.join(blend_pvc, "pickles", "embeddings.npz")):
+            os.makedirs(os.path.join(blend_pvc, "datasets"), exist_ok=True)
+            shutil.copy(os.path.join(rules_pvc, "datasets", "2023_spotify_ds2_synthetic.csv"),
+                        os.path.join(blend_pvc, "datasets"))
+            run_job(blend_pvc, "phase 19 blend PVC", KMLS_EMBED_ENABLED="1")
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rules_cfg = ServingConfig(base_dir=rules_pvc)
+        layouts = {
+            "rules": (RecommendEngine(rules_cfg, device="cuda"), rules_cfg),
+            "blend": (RecommendEngine(ServingConfig(base_dir=blend_pvc), device="cuda"),
+                      ServingConfig(base_dir=blend_pvc)),
+            "sharded": (sharded_engine(ServingConfig(base_dir=rules_pvc, model_layout="sharded"),
+                                       SYNC_GUARD_SHARDS), rules_cfg),
+        }
+        rng = np.random.default_rng(SYNC_GUARD_SEED)
+        dispatches, near_ties, buckets = 0, 0, set()
+        per_layout = {}
+        for label, (card, cpu_cfg) in layouts.items():
+            cpu = RecommendEngine(cpu_cfg, device="cpu")
+            if not card.load() or not cpu.load():
+                fail(f"phase 19 {label}: an engine could not load its PVC")
+            bundle = card.bundle
+            if label == "blend" and (bundle.emb_factors is None or card.cfg.hybrid_mode != "blend"):
+                fail("phase 19 blend: the engine serves no embeddings in blend mode")
+            if label == "sharded" and (bundle.layout != "sharded"
+                                        or bundle.n_shards != SYNC_GUARD_SHARDS):
+                fail(f"phase 19 sharded: layout {bundle.layout} with {bundle.n_shards} slabs")
+            rule_names = [n for n, k in zip(bundle.vocab, bundle.known_mask) if k]
+            emb_names = list(bundle.emb_vocab or ()) if label == "blend" else []
+            batches = guard_batches(card, rule_names, emb_names, rng)
+            guarded = guarded_dispatches(label, card, batches)
+            unguarded = [card.recommend_many_async(sets)() for sets in batches]
+            ties = 0
+            for sets, got, again in zip(batches, guarded, unguarded):
+                want = engine_answers(cpu, sets)
+                if got != again:
+                    fail(f"phase 19 {label}: a guarded {len(sets)} x {len(sets[0])} batch "
+                         "answered other than the same batch unguarded")
+                for seeds, g, w in zip(sets, got, want):
+                    if g == w:
+                        continue
+                    if label != "blend" or not decisive_near_tie(cpu, seeds):
+                        fail(f"phase 19 {label}: answer for {seeds} {g} != the CPU engine's {w}")
+                    ties += 1
+            if card.unwarmed_dispatches:
+                fail(f"phase 19 {label}: {card.unwarmed_dispatches} unwarmed dispatches")
+            dispatches += len(batches)
+            near_ties += ties
+            buckets |= {(len(b), len(b[0])) for b in batches}
+            per_layout[label] = {"dispatches": len(batches), "near_ties": ties}
+            log(f"phase 19 {label}: {len(batches)} guarded dispatches, one per warmed bucket, "
+                f"no raise; answers == unguarded == the CPU engine's ({ties} near-ties)")
+            card.close()
+            cpu.close()
+        seconds = time.perf_counter() - t0
+        print(f"sync_guard: layouts={','.join(layouts)} dispatches={dispatches} "
+              f"buckets={len(buckets)} seconds={seconds:.3f}", flush=True)
+        result = {"layouts": per_layout, "dispatches": dispatches, "buckets": sorted(buckets),
+                  "near_ties": near_ties, "seconds": seconds, "setup_s": setup_s}
+        log(f"phase 19: every warmed bucket's dispatch of the rules, blend and sharded "
+            f"(S = {SYNC_GUARD_SHARDS} on cuda:0) engines ran under "
+            f"set_sync_debug_mode('error') without a raise; answers == the unguarded "
+            f"dispatch's and the CPU engine's (blend: {near_ties} near-ties); "
+            f"{seconds:.3f} s (+ {setup_s:.3f} s making PVCs)")
+        log("PHASE19 " + json.dumps(result))
+        return result
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 # draws in bernoulli_bits.cu's code: a word's 32, fully unrolled
 BERNOULLI_DRAWS_IN_CODE = 32
 
@@ -7269,6 +7478,7 @@ def main() -> int:
         timed("17", phase_native, work, native_builds)
         torch.cuda.empty_cache()  # phase 18's runner and ranks share the card
         config4 = timed("18", phase_config4, work, quick)
+        timed("19", phase_sync_guard, work)
     finally:
         stop_spawned()
         shutil.rmtree(work, ignore_errors=True)

@@ -22,6 +22,263 @@ DROP_COLUMNS = ("duration_ms",)
 BASE_INDEX = 1
 
 
+# ---------------------------------------------------------------------------
+# The env-knob registry — THE declaration point for every KMLS_* knob the
+# port or chip_smoke.py reads, with the reference's scope for every knob the
+# two packages share (the knobs are the reference's by design).
+#
+# The port's kmls-verify `knobs` checker (kmlserver_tpu_torch/analysis/
+# registries.py) enforces: every knob read anywhere in the port is declared
+# here; every entry here is still read somewhere (no dead docs); every entry
+# has a README row; and runtime scopes are bound or documented in the port's
+# Kubernetes manifest that deploys them (kmlserver_tpu_torch/deploy/). Scopes:
+#
+#   "serving" — read by the API pod           (deploy/kubernetes/deployment.yaml)
+#   "mining"  — read by the batch mining job  (deploy/kubernetes/job*.yaml)
+#   "both"    — read by both workloads        (all three manifests)
+#   "tool"    — sweep/replay/dev harness only (never shipped in manifests)
+#   "fault"   — fault injection (faults.py)   (the port's tests must exercise it)
+#
+# Adding a knob = add the os.getenv read, an entry here, and a README row
+# (+ a manifest line for runtime scopes) — or `python -m
+# kmlserver_tpu_torch.analysis` rejects the diff, naming what is missing.
+# ---------------------------------------------------------------------------
+KNOB_REGISTRY: dict[str, str] = {
+    # --- serving: request path / transport ---
+    "KMLS_PORT": "serving",
+    "KMLS_HTTP_IMPL": "serving",
+    "KMLS_MAX_SEED_TRACKS": "serving",
+    "KMLS_BATCH_WINDOW_MS": "serving",
+    "KMLS_BATCH_MAX_SIZE": "serving",
+    "KMLS_BATCH_ADAPTIVE": "serving",
+    "KMLS_BATCH_WINDOW_MIN_MS": "serving",
+    "KMLS_BATCH_MAX_INFLIGHT": "serving",
+    "KMLS_SHED_QUEUE_BUDGET_MS": "serving",
+    "KMLS_SHED_RETRY_AFTER_S": "serving",
+    "KMLS_SHED_SOFT_RATIO": "serving",
+    "KMLS_SHED_HARD_RATIO": "serving",
+    "KMLS_SHED_RETRY_JITTER": "serving",
+    "KMLS_SERVE_DEVICES": "serving",
+    "KMLS_CACHE_ENABLED": "serving",
+    "KMLS_CACHE_MAX_ENTRIES": "serving",
+    "KMLS_PREFER_TENSOR_ARTIFACT": "serving",
+    "KMLS_NATIVE_SERVE": "serving",
+    "KMLS_DRAIN_SETTLE_S": "serving",
+    "KMLS_GIL_SWITCH_S": "serving",
+    # --- serving: fault tolerance ---
+    "KMLS_VERIFY_MANIFEST": "serving",
+    "KMLS_QUARANTINE_AFTER_FAILURES": "serving",
+    "KMLS_RELOAD_BACKOFF_BASE_S": "serving",
+    "KMLS_RELOAD_BACKOFF_MAX_S": "serving",
+    "KMLS_REPLICA_EJECT_THRESHOLD": "serving",
+    "KMLS_REPLICA_PROBE_INTERVAL_S": "serving",
+    "KMLS_REDISPATCH_MAX_RETRIES": "serving",
+    "KMLS_REQUEST_DEADLINE_MS": "serving",
+    "KMLS_FALLBACK_BUDGET_MS": "serving",
+    # --- serving: hybrid rule∪embedding merge (second model family) ---
+    "KMLS_HYBRID_MODE": "serving",
+    "KMLS_HYBRID_BLEND_WEIGHT": "serving",
+    # --- serving: quality loop ---
+    "KMLS_ARTIFACT_MAX_AGE_S": "serving",
+    # --- serving: fleet cache affinity ---
+    "KMLS_CACHE_AFFINITY": "serving",
+    "KMLS_CACHE_AFFINITY_PEERS": "serving",
+    "KMLS_CACHE_AFFINITY_SELF": "serving",
+    # --- serving: fleet cache routing ---
+    "KMLS_FLEET_SELF": "serving",
+    "KMLS_FLEET_PEERS": "serving",
+    # --- serving: pod-spanning serve mesh ---
+    "KMLS_SERVE_GANG_COORDINATOR": "serving",
+    "KMLS_SERVE_GANG_SIZE": "serving",
+    "KMLS_SERVE_GANG_RANK": "serving",
+    "KMLS_SERVE_GANG_PORT": "serving",
+    # --- serving: gray-failure spine ---
+    "KMLS_HEDGE": "serving",
+    "KMLS_PEER_SLOW_RATIO": "serving",
+    "KMLS_HEDGE_DELAY_MS": "serving",
+    "KMLS_HEDGE_MAX_FRAC": "serving",
+    # --- serving: storage gray-failure spine ---
+    "KMLS_IO_SLOW_MS": "serving",
+    "KMLS_IO_READ_DEADLINE_S": "serving",
+    # --- serving: observability ---
+    "KMLS_TRACE_SAMPLE": "serving",
+    "KMLS_TRACE_BUFFER": "serving",
+    "KMLS_TRACE_SLOW_N": "serving",
+    "KMLS_LOOP_LAG_HALF_LIFE_S": "serving",
+    # --- serving: device-truth cost attribution + SLOs ---
+    "KMLS_COSTMODEL": "serving",
+    "KMLS_PEAK_FLOPS": "serving",
+    "KMLS_PEAK_BYTES_PER_S": "serving",
+    "KMLS_SLO_P99_MS": "serving",
+    "KMLS_SLO_ERROR_BUDGET": "serving",
+    "KMLS_SLO_DEGRADE_BUDGET": "serving",
+    "KMLS_SLO_FAST_WINDOW_S": "serving",
+    "KMLS_SLO_SLOW_WINDOW_S": "serving",
+    # --- serving: predictive serving ---
+    "KMLS_FORECAST": "serving",
+    "KMLS_FORECAST_HORIZON_S": "serving",
+    "KMLS_FORECAST_WINDOW_S": "serving",
+    "KMLS_FORECAST_ALPHA": "serving",
+    "KMLS_FORECAST_UTIL_CAP": "serving",
+    "KMLS_FORECAST_RAMP_RATIO": "serving",
+    "KMLS_FORECAST_PREFETCH_TOP_N": "serving",
+    # --- mining: semantics / device dispatch ---
+    "KMLS_MAX_ITEMSET_LEN": "mining",
+    "KMLS_K_MAX_CONSEQUENTS": "mining",
+    "KMLS_CONFIDENCE_MODE": "mining",
+    "KMLS_MIN_CONFIDENCE": "mining",
+    "KMLS_MESH_SHAPE": "mining",
+    "KMLS_BITPACK_THRESHOLD_ELEMS": "mining",
+    "KMLS_COUNT_PATH": "mining",
+    "KMLS_DISPATCH_TABLE": "mining",
+    "KMLS_SPARSE_LONG_BASKET": "mining",
+    "KMLS_HBM_BUDGET_BYTES": "mining",
+    "KMLS_SHARDED_IMPL": "mining",
+    "KMLS_PRUNE_VOCAB_THRESHOLD": "mining",
+    "KMLS_WRITE_TENSOR_ARTIFACT": "mining",
+    "KMLS_WRITE_MANIFEST": "mining",
+    "KMLS_NATIVE_PAIR_COUNTS": "mining",
+    "KMLS_NATIVE_PAIR_METHOD": "mining",
+    "KMLS_NATIVE_THREADS": "mining",
+    "KMLS_POPCOUNT_VARIANT": "mining",
+    "KMLS_POPCOUNT_SWAR": "mining",
+    "KMLS_POPCOUNT_TILE_I": "mining",
+    "KMLS_POPCOUNT_TILE_J": "mining",
+    "KMLS_POPCOUNT_WORD_CHUNK": "mining",
+    # torch.profiler traces: the mining phase sessions AND the serving
+    # /debug/profile?seconds=N capture (unset disables both)
+    "KMLS_PROFILE_DIR": "both",
+    # --- mining: ALS embedding phase (second model family) ---
+    "KMLS_EMBED_ENABLED": "mining",
+    "KMLS_ALS_RANK": "mining",
+    "KMLS_ALS_ITERS": "mining",
+    "KMLS_ALS_REG": "mining",
+    "KMLS_ALS_SPARSE": "mining",
+    # --- mining: telemetry ---
+    "KMLS_JOB_METRICS": "mining",
+    # --- mining: preemption-proofing / multi-host ---
+    "KMLS_CKPT_ENABLED": "mining",
+    "KMLS_CKPT_DIR": "mining",
+    "KMLS_CKPT_QUARANTINE_AFTER": "mining",
+    "KMLS_LEASE_ENABLED": "mining",
+    "KMLS_LEASE_TTL_S": "mining",
+    "KMLS_LEASE_HEARTBEAT_S": "mining",
+    # --- mining: storage gray-failure spine ---
+    "KMLS_DISK_MIN_FREE_BYTES": "mining",
+    "KMLS_IO_RETRIES": "mining",
+    "KMLS_IO_RETRY_BASE_MS": "mining",
+    "KMLS_LEASE_STALL_FRACTION": "mining",
+    # --- mining: ranks (bootstrap and the dead-rank watchdog) ---
+    "KMLS_RANK_TIMEOUT_S": "mining",
+    "KMLS_RANK_HEARTBEAT_S": "mining",
+    "KMLS_COLLECTIVE_TIMEOUT_S": "mining",
+    "KMLS_COORDINATOR_ADDRESS": "mining",
+    "KMLS_NUM_PROCESSES": "mining",
+    "KMLS_PROCESS_ID": "mining",
+    # --- mining: continuous freshness ---
+    "KMLS_DELTA_MAX_CHAIN": "mining",
+    # --- mining: quality loop ---
+    "KMLS_DELTA_COMPACT_AFTER": "mining",
+    "KMLS_EVAL_ENABLED": "mining",
+    "KMLS_EVAL_HOLDOUT_N": "mining",
+    "KMLS_EVAL_K": "mining",
+    "KMLS_EVAL_MAX_PLAYLISTS": "mining",
+    # --- both workloads ---
+    "KMLS_NATIVE": "both",
+    "KMLS_DELTA_ENABLED": "both",
+    "KMLS_MODEL_LAYOUT": "both",
+    "KMLS_DEVICE_BUDGET_BYTES": "both",
+    # the port's own: the device the two entry points run on
+    "KMLS_TORCH_DEVICE": "both",
+    # --- sweep / replay / dev harness ---
+    "KMLS_REPLAY_SHAPE": "tool",
+    "KMLS_SWEEP_START": "tool",
+    "KMLS_SWEEP_STOP": "tool",
+    "KMLS_SWEEP_STEP": "tool",
+    # --- fault injection (faults.py switchboard) ---
+    "KMLS_FAULT_RELOAD_FAIL": "fault",
+    "KMLS_FAULT_REPLICA_FAIL": "fault",
+    "KMLS_FAULT_REPLICA_DELAY_MS": "fault",
+    "KMLS_FAULT_MINE_CRASH_PHASE": "fault",
+    "KMLS_FAULT_CKPT_CORRUPT": "fault",
+    "KMLS_FAULT_RANK_DEAD": "fault",
+    "KMLS_FAULT_EMBED_CORRUPT": "fault",
+    "KMLS_FAULT_DELTA_CORRUPT": "fault",
+    "KMLS_FAULT_MESH_PEER_DELAY_MS": "fault",
+    "KMLS_FAULT_FLEET_PEER_DELAY_MS": "fault",
+    "KMLS_FAULT_IO_WRITE": "fault",
+    "KMLS_FAULT_IO_WRITE_STALL_MS": "fault",
+    "KMLS_FAULT_IO_READ": "fault",
+    "KMLS_FAULT_IO_READ_STALL_MS": "fault",
+    "KMLS_FAULT_IO_FSYNC": "fault",
+}
+
+_BENCH_REASON = (
+    "a benchmark harness knob of the reference's bench.py; the port's "
+    "benchmark, when it comes, will read it"
+)
+
+# The reference's knobs the port deliberately does not read, each with its
+# reason. The `knobs` checker treats these keys as no code reference and
+# flags a read of one (the port grew it back: move it to KNOB_REGISTRY).
+KNOBS_ABSENT: dict[str, str] = {
+    "KMLS_REFERENCE_RACE_COMPAT": (
+        "the port always writes artifacts atomically (io/artifacts.py); the "
+        "reference's in-place writes exist only for byte-compat races"
+    ),
+    "KMLS_BITPACK_IMPL": (
+        "the reference's mxu / vpu choice of Pallas kernel; the port has one "
+        "popcount kernel (ops/csrc/popcount.cu) for both"
+    ),
+    "KMLS_JAX_CACHE_DIR": "the XLA compilation cache: JAX only",
+    "KMLS_BENCH_CPU": _BENCH_REASON,
+    "KMLS_BENCH_DEADLINE_S": _BENCH_REASON,
+    "KMLS_BENCH_SIDECAR": _BENCH_REASON,
+    "KMLS_BENCH_STATE": _BENCH_REASON,
+    "KMLS_BENCH_STATE_MAX_AGE_S": _BENCH_REASON,
+    "KMLS_BENCH_STARTUP_GRACE_S": _BENCH_REASON,
+    "KMLS_BENCH_PROBE_INTERVAL_S": _BENCH_REASON,
+    "KMLS_BENCH_PROBE_TIMEOUT_S": _BENCH_REASON,
+    "KMLS_BENCH_PROBE_TIMEOUT_DECAY_S": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY_QPS": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY_RUNS": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY_WARMUP": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY_WORKERS": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY_QUEUE": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY10K_QPS": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY10K_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_REPLAY10K_ZIPF_S": _BENCH_REASON,
+    "KMLS_BENCH_CHAOS_QPS": _BENCH_REASON,
+    "KMLS_BENCH_CHAOS_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_CHAOS_ZIPF_S": _BENCH_REASON,
+    "KMLS_BENCH_RESUME_PHASE": _BENCH_REASON,
+    "KMLS_BENCH_LOADSHAPE_QPS": _BENCH_REASON,
+    "KMLS_BENCH_LOADSHAPE_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_LOADSHAPE_BURST": _BENCH_REASON,
+    "KMLS_BENCH_TRACE_QPS": _BENCH_REASON,
+    "KMLS_BENCH_TRACE_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_COSTATTRIB_QPS": _BENCH_REASON,
+    "KMLS_BENCH_COSTATTRIB_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_FRESHNESS_QPS": _BENCH_REASON,
+    "KMLS_BENCH_FRESHNESS_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_FLEET_QPS": _BENCH_REASON,
+    "KMLS_BENCH_FLEET_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_FLEET_REPLICAS": _BENCH_REASON,
+    "KMLS_BENCH_FLEET_CACHE": _BENCH_REASON,
+    "KMLS_BENCH_MESHSERVE_QPS": _BENCH_REASON,
+    "KMLS_BENCH_MESHSERVE_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_SLOWPEER_QPS": _BENCH_REASON,
+    "KMLS_BENCH_SLOWPEER_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_GRAYSTORE_QPS": _BENCH_REASON,
+    "KMLS_BENCH_GRAYSTORE_REQUESTS": _BENCH_REASON,
+    "KMLS_BENCH_QUALITY_ROWS": _BENCH_REASON,
+    "KMLS_BENCH_SPARSE_PLAYLISTS": _BENCH_REASON,
+    "KMLS_BENCH_SPARSE_TRACKS": _BENCH_REASON,
+    "KMLS_BENCH_SPARSE_ROWS": _BENCH_REASON,
+}
+
+
 def _getenv_int(name: str, default: int) -> int:
     raw = os.getenv(name)
     return int(raw) if raw not in (None, "") else default

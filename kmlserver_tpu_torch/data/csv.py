@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import io
 import re
 from collections.abc import Iterable
 
@@ -163,7 +164,12 @@ def write_tracks_csv(path: str, table: TrackTable) -> None:
         c for c in OPTIONAL_COLUMNS if getattr(table, c) is not None
     ]
     cols = [getattr(table, c) for c in names]
-    with open(path, "w", newline="", encoding="utf-8") as fh:
-        writer = csv.writer(fh, lineterminator="\n")
-        writer.writerow(names)
-        writer.writerows(zip(*(c.tolist() for c in cols)))
+    buf = io.StringIO(newline="")
+    writer = csv.writer(buf, lineterminator="\n")
+    writer.writerow(names)
+    writer.writerows(zip(*(c.tolist() for c in cols)))
+    # through the atomic writer: a job polling the datasets folder never
+    # reads a torn CSV (no fsync — a dataset is re-made, not published)
+    from ..io.artifacts import atomic_write_text
+
+    atomic_write_text(path, buf.getvalue(), durable=False)

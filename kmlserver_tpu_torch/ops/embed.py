@@ -41,15 +41,18 @@ def embed_topk(
     seeds = seed_ids.to(torch.int64)
     valid_seed = seeds >= 0
     safe = torch.where(valid_seed, seeds, torch.zeros_like(seeds))
-    neg = torch.tensor(NEG, dtype=item_factors.dtype, device=item_factors.device)
+    # NEG enters as a Python scalar or a fill, never as torch.tensor(...,
+    # device=...): that copy from pageable host memory would synchronize
+    # the host with the card on every dispatch
     running = torch.full((b, v), NEG, dtype=item_factors.dtype, device=item_factors.device)
     factors_t = item_factors.t()
     for slot in range(seeds.shape[1]):
         sims = item_factors[safe[:, slot]] @ factors_t  # (B, V)
-        sims = torch.where(valid_seed[:, slot, None], sims, neg)
+        sims = torch.where(valid_seed[:, slot, None], sims, NEG)
         torch.maximum(running, sims, out=running)
     # mask the seeds out of their own candidates; padding lands in column V
-    scores = torch.cat([running, neg.expand(b, 1)], dim=1)
+    pad = torch.full((b, 1), NEG, dtype=item_factors.dtype, device=item_factors.device)
+    scores = torch.cat([running, pad], dim=1)
     targets = torch.where(valid_seed, seeds, torch.full_like(seeds, v))
     scores.scatter_(1, targets, NEG)
     k = min(k_best, v)

@@ -304,7 +304,9 @@ class _Conn(asyncio.Protocol):
         """Completion for the batcherless off-loop ``app.handle`` call."""
         if not self.closed:
             try:
-                # scheduled after the pool task completed: result() is ready
+                # kmls-verify: allow[loopblock] — this callback only runs
+                # via call_soon_threadsafe AFTER the engine-pool task
+                # completed, so result() returns immediately
                 response = task.result()
             except Exception:
                 logger.exception("engine-pool request failed")

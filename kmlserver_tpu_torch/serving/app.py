@@ -524,6 +524,10 @@ class RecommendApp:
         if not full.startswith(root + os.sep):
             return _json_response(404, {"detail": "Not Found"})
         try:
+            # kmls-verify: allow[loopblock] — deliberate: static assets
+            # are a handful of small local files (dashboard HTML/JS) on
+            # the container image, not the PVC; a sub-ms read is cheaper
+            # than an executor hop and the route is cold
             with open(full, "rb") as fh:
                 data = fh.read()
         except OSError:
@@ -1035,6 +1039,8 @@ class RecommendApp:
         future resolved to a degradable exception answers the fallback for
         the seeds that rode in on it."""
         try:
+            # kmls-verify: allow[loopblock] — callers hand in a DONE
+            # future (docstring contract above); result() only unwraps
             recs, source = future.result()
         except Exception as exc:
             if isinstance(exc, MeshShardUnavailable):

@@ -306,6 +306,10 @@ class _ReplicaPolicy:
         # a sliding window of arrival times (the adaptive window's rate)
         self._arrivals: collections.deque[float] = collections.deque(maxlen=64)
         self._device_s_ewma: float | None = None
+        # the ladder's inputs are logged at most once a second while it
+        # degrades or sheds; the decisions in between are counted
+        self._ladder_logged_at = -math.inf
+        self._ladder_unlogged = 0
 
     # ---------- replica bookkeeping ----------
 
@@ -457,6 +461,8 @@ class _ReplicaPolicy:
         if self.shed_budget_s <= 0:
             return
         decision, pressure = self._admission.decide(projected_s)
+        if decision != "admit":
+            self._log_ladder(decision, pressure, projected_s)
         if decision == "shed":
             self.shed_total += 1
             if self.metrics is not None:
@@ -469,6 +475,31 @@ class _ReplicaPolicy:
         if decision == "degrade":
             self.degrade_total += 1
             raise OverloadDegraded(pressure)
+
+    def _log_ladder(self, decision: str, pressure: float, projected_s: float) -> None:
+        """One log line with what drove a degrade or shed decision: the
+        projected wait and its device-time parts, the measured queue-wait
+        EWMA and the loop lag. Reads the lanes without the lock (copies
+        only), so a line may be a batch stale."""
+        now = time.perf_counter()
+        if now - self._ladder_logged_at < 1.0:
+            self._ladder_unlogged += 1
+            return
+        ages = [now - head for lane in list(self._dispatch_times.values())
+                for head in list(lane)[:1]]
+        lag_source = self._admission._lag_source
+        logger.warning(
+            "admission ladder %s at pressure %.3f (budget %.0f ms; %d more since the last "
+            "line): projected wait %.3f ms (%d batches in flight, device EWMA %.3f ms, oldest "
+            "in flight %.3f ms), queue-wait EWMA %.3f ms, loop lag %.3f ms",
+            decision, pressure, self.shed_budget_s * 1e3, self._ladder_unlogged,
+            projected_s * 1e3, sum(list(self._inflight_by_replica.values())),
+            (self._device_s_ewma or 0.0) * 1e3, max(ages, default=0.0) * 1e3,
+            self._admission._decayed_wait(now) * 1e3,
+            (lag_source() if lag_source is not None else 0.0) * 1e3,
+        )
+        self._ladder_logged_at = now
+        self._ladder_unlogged = 0
 
     def _note_replica_ok_locked(self, idx: int) -> None:
         """Successful completion on ``idx``: reset the breaker's count; a
@@ -1075,7 +1106,9 @@ class AsyncMicroBatcher(_ReplicaPolicy):
             loop.call_soon(self._flush, loop)  # overflow past max_size
 
     def _complete(self, batch, task, t_dispatch: float, loop, idx: int) -> None:
-        # scheduled from the task's done-callback: result() returns at once
+        # kmls-verify: allow[loopblock] — scheduled via
+        # call_soon_threadsafe from the executor task's done-callback,
+        # so the task is complete and result() returns immediately
         self._resolve(batch, task.result(), t_dispatch, loop, idx)
 
     def _resolve(self, batch, outcome, t_dispatch: float, loop, idx: int) -> None:

@@ -1486,13 +1486,15 @@ class RecommendEngine:
                     # dispatch → the batch's CUDA event (the wait above is
                     # its fence): the same span kmls_device_ms reports, an
                     # upper bound on device time, so the MFU is a lower bound
-                    cm.observe_kernel(
-                        "serve_sharded" if bundle.layout == "sharded" else "serve_rules",
-                        t_rules - t_kernel,
+                    dims = dict(
                         b=n_rows, l=length, k_max=bundle.rule_ids.shape[1],
                         v=len(bundle.vocab), k_best=self.cfg.k_best_tracks,
                         shards=bundle.n_shards,
                     )
+                    if bundle.layout == "sharded":
+                        cm.observe_kernel("serve_sharded", t_rules - t_kernel, **dims)
+                    else:
+                        cm.observe_kernel("serve_rules", t_rules - t_kernel, **dims)
             emb_ids = emb_sims = emb_known = None
             if emb is not None:
                 (emb_ids, emb_sims), emb_known = emb[0](), emb[1]

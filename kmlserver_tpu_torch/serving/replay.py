@@ -145,6 +145,8 @@ class ClientTraceLog:
         """Dump the log → records written (a client-side scratch file,
         not a volume artifact)."""
         entries = self.entries()
+        # kmls-verify: allow[atomic-write] — loadgen-side scratch JSONL on
+        # the client host, not a PVC artifact; no reader races it
         with open(path, "w", encoding="utf-8") as fh:
             for e in entries:
                 fh.write(json.dumps(e) + "\n")

@@ -26,6 +26,8 @@ from kmlserver_tpu_torch.serving.batcher import (
     DeadlineExceeded,
     MicroBatcher,
     NoHealthyReplicas,
+    Overloaded,
+    OverloadDegraded,
 )
 from kmlserver_tpu_torch.serving.engine import RecommendEngine
 
@@ -434,6 +436,60 @@ def test_slow_inline_finish_reaches_the_lag_monitor(monkeypatch):
     port = _inline_trace(AsyncMicroBatcher, monkeypatch, gaps=[0.05] * 3, stall_s=0.2)
     ref = _inline_trace(RefAsyncMicroBatcher, monkeypatch, gaps=[0.05] * 3, stall_s=0.2)
     assert port["noted"] == ref["noted"] == [pytest.approx(0.2, abs=1e-9)] * 3
+
+
+class _StallLag(_LagMonitor):
+    """A loop-lag source stuck at ``lag`` seconds."""
+
+    def __init__(self, lag: float):
+        super().__init__()
+        self.lag = lag
+
+    def lag_s(self, now=None) -> float:
+        return self.lag
+
+
+def test_ladder_logs_its_inputs_once_a_second(monkeypatch, caplog):
+    """A degraded or shed arrival leaves one log line with what drove it:
+    the projected wait and its device-time parts, the queue-wait EWMA and
+    the loop lag. At most one a second; the decisions between are counted
+    in the next line."""
+    clock = [1000.0]
+    monkeypatch.setattr(time, "perf_counter", lambda: clock[0])
+    lag = _StallLag(0.08)  # 80 ms of loop lag on a 100 ms budget: the degrade band
+
+    async def run():
+        batcher = AsyncMicroBatcher(_HostEngine(clock, host=False), max_size=8,
+                                    shed_queue_budget_ms=100.0, lag_monitor=lag)
+        monkeypatch.setattr(batcher._admission._rng, "random", lambda: 0.0)
+        outcomes = []
+        try:
+            for gap, stall in ((0.0, 0.08), (0.3, 0.08), (0.3, 0.08), (0.5, 0.08), (0.0, 0.2)):
+                clock[0] += gap
+                lag.lag = stall
+                try:
+                    batcher.submit(["t0"])
+                    outcomes.append("admit")
+                except OverloadDegraded:
+                    outcomes.append("degrade")
+                except Overloaded:
+                    outcomes.append("shed")
+        finally:
+            batcher.close()
+        return outcomes
+
+    with caplog.at_level("WARNING", logger="kmlserver_tpu_torch.serving"):
+        outcomes = asyncio.run(run())
+    assert outcomes == ["degrade"] * 4 + ["shed"]
+    lines = [r.getMessage() for r in caplog.records if "admission ladder" in r.getMessage()]
+    assert lines == [
+        "admission ladder degrade at pressure 0.800 (budget 100 ms; 0 more since the last "
+        "line): projected wait 0.000 ms (0 batches in flight, device EWMA 0.000 ms, oldest "
+        "in flight 0.000 ms), queue-wait EWMA 0.000 ms, loop lag 80.000 ms",
+        "admission ladder degrade at pressure 0.800 (budget 100 ms; 2 more since the last "
+        "line): projected wait 0.000 ms (0 batches in flight, device EWMA 0.000 ms, oldest "
+        "in flight 0.000 ms), queue-wait EWMA 0.000 ms, loop lag 80.000 ms",
+    ]
 
 
 def test_host_kernel_active_follows_the_bundle(pvc):

@@ -41,7 +41,11 @@ def test_every_module_imports_without_jax_or_the_reference():
                  "quality.lifecycle", "parallel.collectives", "serving.mesh",
                  "serving.forecast", "utils.nativelib", "data.native", "ops.cpu_popcount",
                  "serving.native_serve", "mining.sweep", "ops.threefry", "ops.bernoulli",
-                 "data.device_synthetic", "mining.config4"):
+                 "data.device_synthetic", "mining.config4", "analysis", "analysis.core",
+                 "analysis.callgraph", "analysis.registries", "analysis.exitcodes",
+                 "analysis.atomicwrite", "analysis.hotpath", "analysis.locking",
+                 "analysis.lockown", "analysis.loopblock", "analysis.envread",
+                 "analysis.metricsreg", "analysis.costspec", "analysis.__main__"):
         assert f"kmlserver_tpu_torch.{name}" in names, name
     proc = _run(
         f"""
