@@ -61,7 +61,7 @@ main loop on the card and fails loudly on any mismatch:
    flight, hammered with 2,000 distinct seed sets from 64 threads; the
    server with each transport under 256 concurrent posts; on the async
    server with default knobs BASELINE config 5's replay — 1,000 warm-up
-   requests, then 3 × 8,000 at 1,000 QPS over 48 connections with
+   requests, then 2 × 8,000 at 1,000 QPS over 48 connections with
    ``/metrics/reset`` between runs — and 8,000 distinct requests at
    10,000 QPS; ``recommend_batch`` timed at every (batch, length) bucket
    beside its byte bound. Every answer is held against the engine on the
@@ -88,7 +88,7 @@ main loop on the card and fails loudly on any mismatch:
 10. observability (``observability/``, ``utils/profiling.py``; run right
    after phase 9 on phase 4's PVC; alone: ``python -c "import chip_smoke
    as c; c.phase_observability()"``): (a) the async server with
-   ``KMLS_TRACE_SAMPLE=1.0`` under 2,000 distinct config-5 seed sets at
+   ``KMLS_TRACE_SAMPLE=1.0`` under 1,000 distinct config-5 seed sets at
    1,000 QPS with a ``ClientTraceLog`` — every answer equal to the CPU
    engine's, every retained trace holding queue + device + compose spans
    that sum within its server time, ``tracejoin`` joining ≥ 95 % of the
@@ -244,7 +244,16 @@ Then phase 7 runs (it needs no work directory), and last:
    two-rank sharded delta job (the mesh recount on both ranks), its bundle
    equal to a one-card job's member by member, applied into the (b) engine
    and the gang (still sharded) with answers equal to a pristine full
-   re-mine's, and the compaction equal to that re-mine.
+   re-mine's, and the compaction equal to that re-mine; (e), run before
+   (d) on the same publication: the collective gang — two members started
+   by :func:`run_ranks` (``--gang-worker``), each a ``RecommendEngine(...,
+   gang_transport="collective")`` on cuda:0 in one torch.distributed world
+   over gloo (they share the card), answering 1,000 of config 5's draws
+   each from two threads, every answer the CPU engine's with no unwarmed
+   dispatch; rank 1 then SIGKILLs itself while rank 0 keeps submitting,
+   and rank 0 must exit 76 within the heartbeat bound plus 5 s; the round's
+   split (header, seeds, partials, all-gather, the merge), a batch's
+   latency, bytes a round and an idle member's CPU share are logged.
 16. the serving fleet (``freshness/ring.py``'s ``FleetRouter``,
    ``serving/forecast.py``, the app's owner stamping and gang 503,
    ``serving/replay.py``'s fleet client; alone: ``python -c "import
@@ -530,11 +539,13 @@ def int_mm_ms(bt, want) -> float:
 
 
 def run_ranks(argvs: list[list[str]], envs: list[dict], timeout_s: float, label: str,
-              want_exit: int = 0) -> list[str]:
+              want_exit: int | list[int] = 0, exit_times: dict | None = None) -> list[str]:
     """Start one process per rank and wait for all of them. A rank that
-    exits with another code than ``want_exit``, or a group that outlives
-    ``timeout_s``, kills the group and fails the smoke. → each rank's
-    output."""
+    exits with another code than ``want_exit`` (one for all, or one a
+    rank), or a group that outlives ``timeout_s``, kills the group and
+    fails the smoke. ``exit_times`` gets each rank's ``time.time()`` when
+    its exit was seen (polled every 0.2 s). → each rank's output."""
+    wants = want_exit if isinstance(want_exit, list) else [want_exit] * len(argvs)
     procs = [
         subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)
@@ -553,11 +564,15 @@ def run_ranks(argvs: list[list[str]], envs: list[dict], timeout_s: float, label:
     try:
         while True:
             codes = [p.poll() for p in procs]
-            bad = [i for i, c in enumerate(codes) if c not in (None, want_exit)]
+            if exit_times is not None:
+                for i, c in enumerate(codes):
+                    if c is not None:
+                        exit_times.setdefault(i, time.time())
+            bad = [i for i, c in enumerate(codes) if c not in (None, wants[i])]
             if bad:
                 i = bad[0]
                 fail(f"{label}: rank {i} exited {codes[i]}:\n" + "\n".join(outs[i][-60:]))
-            if all(c == want_exit for c in codes):
+            if codes == wants:
                 break
             if time.monotonic() > deadline:
                 fail(f"{label}: ranks still running after {timeout_s:.0f} s:\n"
@@ -774,22 +789,42 @@ def stop_spawned() -> None:
             stop_server(server)
 
 
-def job_process(pvc: str, label: str, **extra: str) -> tuple[str, float]:
+def job_process(pvc: str, label: str, started: threading.Event | None = None,
+                **extra: str) -> tuple[str, float]:
     """``python -m kmlserver_tpu_torch.mining.job`` on the card over
-    ``pvc``; echoes its log and fails on a non-zero exit. → (stdout, wall s)."""
+    ``pvc``; echoes its log and fails on a non-zero exit; sets ``started``
+    when the job logs ``Job starting at`` (its process start-up done).
+    → (stdout, wall s)."""
     t0 = time.perf_counter()
-    job = subprocess.run(
+    if started is not None:
+        extra = {"PYTHONUNBUFFERED": "1", **extra}  # each line as it is logged
+    job = subprocess.Popen(
         [sys.executable, "-m", "kmlserver_tpu_torch.mining.job"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=subproc_env(BASE_DIR=pvc, DATASETS_DIR=os.path.join(pvc, "datasets"), **extra),
     )
+    err: list[str] = []
+    drain = threading.Thread(target=lambda: err.append(job.stderr.read()), daemon=True)
+    drain.start()
+    lines = []
+    for line in job.stdout:
+        lines.append(line)
+        if started is not None and line.startswith("Job starting at"):
+            started.set()
+    try:
+        job.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        job.kill()
+        job.wait()
+    drain.join(10)
     wall = time.perf_counter() - t0
-    for line in job.stdout.splitlines():
+    out = "".join(lines)
+    for line in out.splitlines():
         log(f"  job {label} | {line}")
     if job.returncode != 0:
-        log(job.stderr[-4000:])
+        log("".join(err)[-4000:])
         fail(f"mining job ({label}) exited {job.returncode}")
-    return job.stdout, wall
+    return out, wall
 
 
 def run_job(pvc: str, label: str, **extra: str) -> tuple[str, int, float]:
@@ -1674,7 +1709,9 @@ def phase_routes() -> dict:
 CONFIG5_QPS = 1000.0
 CONFIG5_WARMUP = 1000
 CONFIG5_REQUESTS = 8000
-CONFIG5_RUNS = 3
+# 3 before the collective gang's phase 15 (e): runs 2 and 3 are all cache
+# hits, and the smoke's time limit pays for (e) with one of them
+CONFIG5_RUNS = 2
 CONFIG5_CONNS = 48
 REPLAY10K_QPS = 10000.0
 PIPELINE_SETS = 2000  # distinct seed sets per batcher in the staging check
@@ -2011,6 +2048,8 @@ def phase_serving(work: str | None = None) -> dict:
                 if impl == "async":
                     warm = sample_seed_sets(keys, CONFIG5_WARMUP)
                     replay_async_http(base, warm, qps=CONFIG5_QPS, n_conns=CONFIG5_CONNS)
+                    log(f"reduced: phase 8 replays config 5 {CONFIG5_RUNS} times, not 3 (the "
+                        "later runs are cache hits): the smoke's time limit pays for phase 15 (e)")
                     for i in range(CONFIG5_RUNS):
                         row = replay_run(base, f"config 5 run {i + 1}", config5_payloads,
                                          config5_want, cpu, CONFIG5_QPS)
@@ -2400,7 +2439,7 @@ def phase_resume(work: str | None = None) -> dict:
 
 # ---------------------------------------------------------------- phase 10
 
-TRACED_REQUESTS = 2000  # distinct config-5 seed sets replayed with tracing on
+TRACED_REQUESTS = 1000  # distinct config-5 seed sets replayed with tracing on (2,000 before 15 (e))
 TRACED_QPS = 1000.0
 STALL_S = 0.2  # the event-loop stall of check (b)
 STALL_BUDGET_MS = 100.0  # (b)'s shed budget: the stall is twice it
@@ -2476,6 +2515,8 @@ def traced_replay(base: str, server_lines: list, keys: list, cpu, work: str) -> 
 
     payloads = distinct_sets(keys, TRACED_REQUESTS, 29)
     want = engine_answers(cpu, payloads)
+    log(f"reduced: phase 10 (a) traces {TRACED_REQUESTS} distinct draws, not 2,000: the smoke's "
+        "time limit pays for phase 15 (e)")
     trace_log = ClientTraceLog()
     responses: list = []
     report = replay_async_http(base, payloads, qps=TRACED_QPS, n_conns=CONFIG5_CONNS,
@@ -3725,7 +3766,8 @@ def freshness_ds2(work: str) -> dict:
             m0 = scrape_metrics(base)
             run: dict = {}
 
-            def publish(cycle=cycle, m0=m0, run=run, compacts=compacts) -> None:
+            def publish(cycle=cycle, m0=m0, run=run, compacts=compacts,
+                        started: threading.Event | None = None) -> None:
                 """Append, run the job, wait until the server serves it;
                 a failure is kept for the caller (this may run on a
                 thread)."""
@@ -3733,7 +3775,7 @@ def freshness_ds2(work: str) -> dict:
                     t1 = time.perf_counter()
                     append_bench_rows(csv_path, rng, 10_000_000 + cycle * 1_000,
                                       96 + (cycle - 1) * 160, 9_000_000 + cycle)
-                    out, run["job_s"] = job_process(pvc, f"delta {cycle}", **delta_env)
+                    out, run["job_s"] = job_process(pvc, f"delta {cycle}", started, **delta_env)
                     run["in_process_s"] = job_duration_s(pvc)
                     run["split"] = job_split(out, f"cycle {cycle}")
                     run["log"] = [ln for ln in out.splitlines() if ln.startswith("Delta ")]
@@ -3766,23 +3808,23 @@ def freshness_ds2(work: str) -> dict:
                     raise run["error"]
             else:
                 # under load: cycle 3's compaction swap and cycle 4's apply
-                # land mid-replay; the job starts first, the replay so that
-                # the publication falls 25 % into it (from earlier jobs'
-                # walls). The replay's load only slows the job, whose wall is
-                # mostly process start-up (on a loaded host one ran ~5 s over
-                # its ~6.4 s estimate), so the later side keeps the larger
-                # margin
+                # land mid-replay; the job starts first, and the replay
+                # once the job logs its start: its wall is mostly process
+                # start-up, which varies by seconds from host to host (an
+                # aim from earlier jobs' walls missed an 8 s replay on both
+                # sides), while its own run takes under a second, so the
+                # publication falls early in the replay
                 payloads = config5 if cycle == 4 else sample_seed_sets(
                     keys, CONFIG5_REQUESTS, rng_seed=33)
                 pre, pre_token = engine_answers(cpu, payloads), cpu.cache_value
-                job_est = float(np.median([c["job_s"] for c in cycles]))
-                lead = max(job_est - 0.25 * CONFIG5_REQUESTS / CONFIG5_QPS, 0.0)
                 if post(base + "/metrics/reset", b"")[0] != 200:
                     fail("phase 12 (a): /metrics/reset refused")
                 before_replay = scrape_metrics(base)
-                publisher = threading.Thread(target=publish, daemon=True)
+                started = threading.Event()
+                publisher = threading.Thread(target=publish, kwargs={"started": started},
+                                             daemon=True)
                 publisher.start()
-                time.sleep(lead)
+                started.wait(120)
                 responses = ScheduledResponses(len(payloads), CONFIG5_QPS)
                 report = replay_async_http(base, payloads, qps=CONFIG5_QPS,
                                            n_conns=CONFIG5_CONNS, responses=responses)
@@ -5211,7 +5253,7 @@ def phase_sharded(work: str | None = None, one_card_loss: float | None = None,
 MESH_SHARDS = (2, 3, 4)  # X9's shard counts: 3 leaves both vocabularies no multiple of S
 MESH_TIMED_SHARDS = (2, 4)
 MESH_SERVE_SHARDS = 2  # the (b) engine's slabs
-MESH_REQUESTS = 2000  # per run; config 5's meshserve bracket sends 4,000 (bench.py:3502-3503)
+MESH_REQUESTS = 1000  # per run; config 5's meshserve bracket sends 4,000 (bench.py:3502-3503)
 MESH_QPS = 500.0
 MESH_DRAWS = 2000  # (b): config-5 draws through the sharded engine
 MESH_PROBES = 300  # fresh draws checked after the re-form and after the delta
@@ -5578,12 +5620,13 @@ def gang_on_card(pvc: str, keys: list, cpu, spawned: list, port: int) -> tuple[d
     log(f"phase 15 (c): the gang formed and the replicated server ready "
         f"{time.perf_counter() - t0:.3f} s into the wait ({form_s:.3f} s of /readyz probes); "
         f"gang ports {port}, {port + 1}")
-    if not any(ln.startswith("NOTE: serve gang rank") for ln in servers[0][2]):
+    if not any(ln.startswith("NOTE: serve gang rank 0/2: socket transport")
+               for ln in servers[0][2]):
         fail("phase 15 (c): rank 0 logged no NOTE about the socket transport")
     payloads = sample_seed_sets(keys, MESH_REQUESTS, rng_seed=16)
     want = engine_answers(cpu, payloads)
     log(f"reduced: phase 15 (c) replays {MESH_REQUESTS} of config 5's draws a run, not the "
-        "meshserve bracket's 4,000: the phase's 90 s and the smoke's 1,150 s budgets")
+        "meshserve bracket's 4,000 (2,000 before phase 15 (e)): the smoke's time limit")
     runs = {}
     for label, (_, base, lines) in zip(("gang rank 0", "gang rank 1", "replicated"), servers):
         row = replay_run(base, f"(c) {label}", payloads, want, cpu, MESH_QPS, phase="phase 15",
@@ -5751,6 +5794,237 @@ def delta_across_layouts(work: str, pvc: str, engine, servers: list, cpu) -> dic
     return {"two_ranks_s": t_two, "route": route, "seconds": seconds}
 
 
+GANG_DRAWS = 1000  # (e): config-5 draws a collective member answers
+GANG_THREADS = 2  # submitting threads a member, so rounds carry both members' batches
+GANG_MAX_ROWS = 16  # a thread's batches hold 1..16 draws
+GANG_HEARTBEAT_S = 3.0  # the members' heartbeat_timeout_s: the kill's bound
+GANG_IDLE_S = 1.0  # the idle window rank 0 measures its CPU share over
+GANG_PROBES = 50  # one-row batches rank 0 sends to the idle gang, 20 ms apart
+
+
+def wait_barrier(directory: str, name: str, count: int, timeout_s: float) -> None:
+    """Until ``count`` files ``<name>.<rank>`` exist in ``directory``."""
+    deadline = time.monotonic() + timeout_s
+    while sum(n.startswith(name + ".") for n in os.listdir(directory)) < count:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{name}: {count} members never arrived")
+        time.sleep(0.01)
+
+
+def mark_barrier(directory: str, name: str, rank: int) -> None:
+    with open(os.path.join(directory, f"{name}.{rank}"), "w", encoding="utf-8") as fh:
+        fh.write(repr(time.time()))
+
+
+def quantile_ms(values) -> dict:
+    values = np.asarray(list(values), dtype=np.float64)
+    return ({"p50": float(np.percentile(values, 50)), "p99": float(np.percentile(values, 99))}
+            if values.size else {"p50": None, "p99": None})
+
+
+def thread_cpu_s() -> dict[str, float]:
+    """This process's CPU seconds by thread name (``/proc/self/task``),
+    threads of one name summed."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out: dict[str, float] = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat", encoding="utf-8") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        name = stat[stat.index("(") + 1:stat.rindex(")")]
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[name] = out.get(name, 0.0) + (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+def gang_worker(work: str, rank: int) -> int:
+    """One member of phase 15 (e)'s collective gang, on cuda:0: joins the
+    gang's world (the heartbeat bound :data:`GANG_HEARTBEAT_S`), serves its
+    draws from :data:`GANG_THREADS` threads through the engine with the X9
+    counts set to 0 just before and read just after, writes
+    ``gang<rank>.json``; then rank 0 measures the idle gang and keeps
+    submitting until its watchdog ends it, and rank 1 SIGKILLs itself."""
+    sys.path.insert(0, ROOT)
+    import signal
+
+    from kmlserver_tpu_torch.config import ServingConfig
+    from kmlserver_tpu_torch.ops import serve
+    from kmlserver_tpu_torch.parallel import distributed
+    from kmlserver_tpu_torch.serving.engine import RecommendEngine
+    from kmlserver_tpu_torch.serving.mesh import MeshShardUnavailable
+
+    with open(os.path.join(work, "gang_spec.json"), encoding="utf-8") as fh:
+        spec = json.load(fh)
+    coordinator = spec["coordinator"]
+    distributed.maybe_initialize_serve_gang(coordinator, 2, rank, "cuda",
+                                            heartbeat_timeout_s=GANG_HEARTBEAT_S)
+    cfg = ServingConfig(base_dir=spec["pvc"], serve_gang_coordinator=coordinator,
+                        serve_gang_size=2, serve_gang_rank=rank)
+    engine = RecommendEngine(cfg, device="cuda", gang_transport="collective")
+    t_load = time.perf_counter()
+    if not engine.load():
+        print("GANG_FAIL the engine did not load", flush=True)
+        return 1
+    gang = engine.mesh_coordinator
+    while not gang.formed:
+        if time.perf_counter() - t_load > 60:
+            print(f"GANG_FAIL the gang never formed: missing {engine.mesh_missing_shards()}",
+                  flush=True)
+            return 1
+        time.sleep(0.005)
+    formed_s = time.perf_counter() - t_load
+    mark_barrier(work, "ready", rank)
+    wait_barrier(work, "ready", 2, 60)
+    draws = spec["draws"][rank]
+    rng = np.random.default_rng(15 + rank)
+    plans = []
+    for t in range(GANG_THREADS):
+        mine, batches, i = draws[t::GANG_THREADS], [], 0
+        while i < len(mine):
+            n = int(rng.integers(1, GANG_MAX_ROWS + 1))
+            batches.append(mine[i:i + n])
+            i += n
+        plans.append(batches)
+    answers: list[list] = [[] for _ in plans]
+    latency: list[float] = []
+
+    def submit(t: int) -> None:
+        for batch in plans[t]:
+            t0 = time.perf_counter()
+            answers[t].append(engine.recommend_many(batch))
+            latency.append(1e3 * (time.perf_counter() - t0))
+
+    # the main path: the counts to 0, the draws, the counts read
+    for key in serve.CALLS:
+        serve.CALLS[key] = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submit, args=(t,)) for t in range(GANG_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    traffic_s = time.perf_counter() - t0
+    calls = dict(serve.CALLS)
+    result = {
+        "rank": rank, "formed_s": formed_s, "traffic_s": traffic_s, "calls": calls,
+        "answers": [[list(a) for a in batch] for t in answers for batch in t],
+        "order": [batch for plan in plans for batch in plan],
+        "batches": sum(len(p) for p in plans), "latency_ms": quantile_ms(latency),
+        "merge_ms": quantile_ms(engine.mesh_merge_ms.copy()), "stats": gang.stats(),
+        "unwarmed": engine.unwarmed_dispatches,
+    }
+    if rank == 0:
+        # the idle gang: both members submit nothing for GANG_IDLE_S
+        time.sleep(0.1)
+        rounds0, cpu0, wall0 = gang.rounds, time.process_time(), time.perf_counter()
+        threads0 = thread_cpu_s()
+        time.sleep(GANG_IDLE_S)
+        wall = time.perf_counter() - wall0
+        threads1 = thread_cpu_s()
+        by_thread = sorted(((threads1[n] - threads0.get(n, 0.0)) / wall, n) for n in threads1)
+        result["idle"] = {"cpu_share": (time.process_time() - cpu0) / wall,
+                          "rounds_per_s": (gang.rounds - rounds0) / wall,
+                          "by_thread": {n: share for share, n in by_thread[::-1][:5] if share}}
+        probe_ms = []
+        for seeds in draws[:GANG_PROBES]:
+            time.sleep(0.02)
+            t0 = time.perf_counter()
+            engine.recommend_many([seeds])
+            probe_ms.append(1e3 * (time.perf_counter() - t0))
+        result["idle"]["probe_ms"] = quantile_ms(probe_ms)
+        result["unwarmed"] = engine.unwarmed_dispatches
+    with open(os.path.join(work, f"gang{rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(result, fh)
+    mark_barrier(work, "done", rank)
+    print(f"GANG_DONE rank {rank}", flush=True)
+    wait_barrier(work, "done", 2, 120)
+    if rank == 1:
+        mark_barrier(work, "killed", rank)
+        os.kill(os.getpid(), signal.SIGKILL)
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:  # until the watchdog ends this member
+        try:
+            engine.recommend_many([draws[0]])
+        except MeshShardUnavailable:
+            pass
+    print("GANG_FAIL rank 0 outlived its peer's SIGKILL by 60 s", flush=True)
+    return 1
+
+
+def collective_gang(work: str, pvc: str, keys: list, cpu) -> dict:
+    """Phase 15 (e): the collective gang of two members on cuda:0 over
+    gloo (:func:`gang_worker`), held to the CPU engine; rank 1's SIGKILL
+    ends rank 0 with exit 76 within the bound."""
+    from kmlserver_tpu_torch.serving.replay import sample_seed_sets
+
+    t0 = time.perf_counter()
+    gw = os.path.join(work, "gang15e")
+    os.makedirs(gw)
+    draws = sample_seed_sets(keys, 2 * GANG_DRAWS, rng_seed=19)
+    want = {tuple(d): list(a) for d, a in zip(draws, engine_answers(cpu, draws))}
+    with open(os.path.join(gw, "gang_spec.json"), "w", encoding="utf-8") as fh:
+        json.dump({"coordinator": f"127.0.0.1:{free_port()}", "pvc": pvc,
+                   "draws": [draws[:GANG_DRAWS], draws[GANG_DRAWS:]]}, fh)
+    exit_times: dict = {}
+    worker = [sys.executable, os.path.abspath(__file__), "--gang-worker", gw]
+    outs = run_ranks([worker + [str(r)] for r in range(2)], [subproc_env()] * 2, 300,
+                     "phase 15 (e)", want_exit=[76, -9], exit_times=exit_times)
+    with open(os.path.join(gw, "killed.1"), encoding="utf-8") as fh:
+        t_kill = float(fh.read())
+    end_s = exit_times[0] - t_kill
+    members = []
+    for rank, out in enumerate(outs):
+        line = f"Serve gang: rank {rank}/2 on cuda:0, backend gloo (ranks share a card)"
+        note = (f"NOTE: serve gang rank {rank}/2: collective transport (asked for; members share "
+                "a card)")
+        if line not in out or note not in out:
+            fail(f"phase 15 (e) rank {rank}: no gloo world on cuda:0:\n" + out[-3000:])
+        with open(os.path.join(gw, f"gang{rank}.json"), encoding="utf-8") as fh:
+            res = json.load(fh)
+        got = [tuple(a) for batch in res["answers"] for a in batch]
+        sent = [tuple(d) for batch in res["order"] for d in batch]
+        bad = [i for i, (d, a) in enumerate(zip(sent, got)) if want[d] != list(a)]
+        if len(got) != GANG_DRAWS or bad:
+            fail(f"phase 15 (e) rank {rank}: {len(got)} answers, {len(bad)} differ from the CPU "
+                 f"engine's" + (f", first {sent[bad[0]]} {got[bad[0]]} != {want[sent[bad[0]]]}"
+                                if bad else ""))
+        if res["unwarmed"] or min(res["calls"].values()) < 1:
+            fail(f"phase 15 (e) rank {rank}: unwarmed {res['unwarmed']}, X9 calls {res['calls']}")
+        members.append(res)
+    if "RANK WATCHDOG ABORT (rank 0)" not in outs[0] or not 0 <= end_s <= GANG_HEARTBEAT_S + 5:
+        fail(f"phase 15 (e): rank 0 exited 76 {end_s:.3f} s after rank 1's SIGKILL (bound "
+             f"{GANG_HEARTBEAT_S} + 5 s):\n" + outs[0][-2000:])
+    abort = next(ln for ln in outs[0].splitlines() if "RANK WATCHDOG ABORT" in ln)
+    seconds = time.perf_counter() - t0
+    stats = members[0]["stats"]
+    split = {k: stats[f"{k}_ms"] for k in ("header", "seeds", "partials", "gather")}
+    split["merge"] = members[0]["merge_ms"]
+    log(f"phase 15 (e) collective gang: two RecommendEngine(gang_transport='collective') on "
+        f"cuda:0, one torch.distributed world over gloo; {2 * GANG_DRAWS} config-5 draws "
+        f"({GANG_THREADS} threads a member, batches of 1-{GANG_MAX_ROWS}) == the CPU engine's, "
+        f"0 unwarmed, X9 calls {[m['calls'] for m in members]}; formed in "
+        f"{members[0]['formed_s']:.3f} / {members[1]['formed_s']:.3f} s after load; traffic "
+        f"{members[0]['traffic_s']:.3f} / {members[1]['traffic_s']:.3f} s; rank 0: "
+        f"{stats['rounds']} rounds ({stats['empty_rounds']} empty), "
+        f"{stats['bytes_per_work_round']:.0f} B received a round with rows; per round ms p50/p99 "
+        + ", ".join(f"{k} {v['p50']:.3f}/{v['p99']:.3f}" for k, v in split.items())
+        + f"; a batch dispatch-to-finish p50/p99 {members[0]['latency_ms']['p50']:.3f}/"
+        f"{members[0]['latency_ms']['p99']:.3f} ms (rank 1 {members[1]['latency_ms']['p50']:.3f}/"
+        f"{members[1]['latency_ms']['p99']:.3f}); idle gang (parked on the store, {stats['parks']}"
+        f" parks): {members[0]['idle']['rounds_per_s']:.1f} rounds/s, CPU share "
+        f"{members[0]['idle']['cpu_share']:.4f} of a core (by thread "
+        f"{members[0]['idle']['by_thread']}), a one-row batch to it p50/p99 "
+        f"{members[0]['idle']['probe_ms']['p50']:.3f}/{members[0]['idle']['probe_ms']['p99']:.3f}"
+        f" ms; rank 1 SIGKILLed → rank 0 exit 76 after {end_s:.3f} s (bound {GANG_HEARTBEAT_S} +"
+        f" 5 s): {abort.strip()}; {nvidia_smi_query('name,power.limit')}; {seconds:.3f} s")
+    return {"members": [{k: v for k, v in m.items() if k not in ("answers", "order")}
+                        for m in members],
+            "split_ms": split, "kill_to_exit_s": end_s, "abort": abort.strip(),
+            "seconds": seconds}
+
+
 def mesh_job_env(pvc: str) -> dict:
     """The sharded delta-armed job's env (two ranks on ``1x2``)."""
     return dict(BASE_DIR=pvc, DATASETS_DIR=os.path.join(pvc, "datasets"),
@@ -5795,13 +6069,15 @@ def phase_model_parallel(work: str | None = None) -> dict:
         sharded, engine = sharded_on_card(pvc, keys, cpu)
         gang, servers = gang_on_card(pvc, keys, cpu, spawned, port)
         x9 = x9_on_card(pvc)  # the servers idle: the card is this process's
+        collective = collective_gang(work, pvc, keys, cpu)  # before (d) appends
         delta = delta_across_layouts(work, pvc, engine, servers, cpu)
         seconds = time.perf_counter() - t0
-        result = {"x9": x9, "sharded": sharded, "gang": gang, "delta": delta,
-                  "seconds": {"base_mine": t_mine, "phase": seconds}}
+        result = {"x9": x9, "sharded": sharded, "gang": gang, "collective": collective,
+                  "delta": delta, "seconds": {"base_mine": t_mine, "phase": seconds}}
         log(f"phase 15 seconds {seconds:.3f} (the two-rank base mine {t_mine:.3f}, (a) "
             f"{sum(x9['seconds'].values()):.3f}, (b) {sharded['seconds']:.3f}, (c) "
-            f"{gang['seconds']:.3f}, (d) {delta['seconds']:.3f})")
+            f"{gang['seconds']:.3f}, (e) {collective['seconds']:.3f}, (d) "
+            f"{delta['seconds']:.3f})")
         log("PHASE15 " + json.dumps(result, default=str))
         return result
     finally:
@@ -7541,4 +7817,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--gang-worker"]:
+        sys.exit(gang_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -22,10 +22,12 @@ the host. The kernels run on the card either way.
 
 The serve gang's identity (``:56-142``): ``KMLS_SERVE_GANG_COORDINATOR``,
 ``KMLS_SERVE_GANG_SIZE`` and ``KMLS_SERVE_GANG_RANK`` (falling back to the
-StatefulSet ordinal, :func:`gang_rank_fallback`). A gang serves through
-the socket transport of ``serving/mesh.py``; the reference's
-real-collectives gang (``maybe_initialize_serve_gang``, one JAX world over
-the gang) is not ported.
+StatefulSet ordinal, :func:`gang_rank_fallback`). :func:`choose_gang_transport`
+picks how a gang exchanges its partials, from each member's own env alone:
+the collective transport — one torch.distributed world over the gang
+(:func:`maybe_initialize_serve_gang`, the reference's ``:145-197``) and the
+rounds of ``serving/mesh.py::CollectiveGang`` — where every member has a
+card of its own, else the socket transport of ``serving/mesh.py``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,9 @@ class Runtime:
     group: object  # its process group (None = the gloo world group)
     hostnames: tuple[str, ...]  # per rank
     timeout: object = None  # torch's limit on each collective (None = its default)
+    # a serve gang's bound on a silent or hung member (jax's
+    # heartbeat_timeout_seconds); None in a mining world
+    heartbeat_timeout_s: float | None = None
 
 
 _runtime: Runtime | None = None
@@ -128,43 +133,53 @@ def choose_backend(device_type: str, peers: list[tuple[str, int]]) -> str:
     return "nccl" if len(cards) == len(peers) else "gloo"
 
 
-def maybe_initialize(device: str | None = None, timeout_s: float | None = None) -> bool:
-    """Join the multi-rank runtime when the env triple is set; idempotent;
-    False in a single process. Must run before the first touch of the
-    device: it pins the rank's card. ``timeout_s`` is torch's own limit
-    on each collective (None = torch's default); the job sets it above the
-    watchdog's so that the watchdog, not torch, decides a hang."""
-    global _runtime
-    if _runtime is not None:
-        return True
-    env = distributed_env()
-    if env is None:
-        return False
+def choose_gang_transport(device_type: str, gang, device_count: int) -> str:
+    """How a serve gang exchanges its partials: ``"collective"`` (one
+    torch.distributed world, :func:`maybe_initialize_serve_gang`) where
+    the members cannot share a card — the gang's addresses
+    (``GangConfig.peer_address``) name a host for each member, as the
+    ``-0`` ordinal DNS form does, or one host has a card for each member
+    (member r pins card ``r % device_count``, the NCCL condition of
+    :func:`choose_backend`) — else ``"socket"``: on the CPU (the
+    reference's CPU gate, ``:166-179``) and where members share a card,
+    where a world would stage every tensor through the host as gloo does
+    and give up the socket transport's failure model. Every member
+    computes the same answer from its own env; nothing is exchanged."""
+    if device_type != "cuda" or gang is None or gang.size <= 1:
+        return "socket"
+    hosts = {gang.peer_address(r)[0] for r in range(gang.size)}
+    if len(hosts) == gang.size:
+        return "collective"
+    if len(hosts) == 1 and device_count >= gang.size:
+        return "collective"
+    return "socket"
+
+
+def _join_world(coordinator: str, size: int, rank: int, device,
+                timeout_s: float | None) -> tuple[str, str, str, list]:
+    """The ``tcp://`` bootstrap both worlds share: pin the rank's card,
+    join the gloo world, learn every rank's ``(host, card count)`` and make
+    the NCCL group where :func:`choose_backend` says so → ``(backend, why,
+    where, peers)``; the caller latches ``_runtime``."""
     import torch
     import torch.distributed as dist
 
     from ..config import torch_device_from_env
     from ..utils.device import resolve_device
 
-    coordinator, num_processes, rank = env
     dev = resolve_device(device or torch_device_from_env())
     count = 0
     if dev.type == "cuda":
         count = torch.cuda.device_count()
         torch.cuda.set_device(rank % count)
     timeout = datetime.timedelta(seconds=timeout_s) if timeout_s else None
-    logger.info(
-        "joining distributed runtime: coordinator=%s rank=%d/%d",
-        coordinator, rank, num_processes,
-    )
     dist.init_process_group(
         "gloo", init_method=f"tcp://{coordinator}",
-        world_size=num_processes, rank=rank, timeout=timeout,
+        world_size=size, rank=rank, timeout=timeout,
     )
-    peers: list = [None] * num_processes
+    peers: list = [None] * size
     dist.all_gather_object(peers, (socket.gethostname(), count))
     backend = choose_backend(dev.type, peers)
-    group = dist.new_group(backend="nccl", timeout=timeout) if backend == "nccl" else None
     if backend == "nccl":
         why = "one card per rank"
     elif dev.type == "cuda":
@@ -172,16 +187,75 @@ def maybe_initialize(device: str | None = None, timeout_s: float | None = None) 
     else:
         why = "ranks on the CPU"
     where = f"cuda:{rank % count}" if dev.type == "cuda" else "cpu"
+    return backend, why, where, peers
+
+
+def _latch(rank: int, backend: str, peers: list, timeout_s: float | None,
+           heartbeat_timeout_s: float | None = None) -> None:
+    global _runtime
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(seconds=timeout_s) if timeout_s else None
+    group = dist.new_group(backend="nccl", timeout=timeout) if backend == "nccl" else None
+    _runtime = Runtime(
+        rank=rank, backend=backend, group=group,
+        hostnames=tuple(host for host, _ in peers),
+        timeout=timeout, heartbeat_timeout_s=heartbeat_timeout_s,
+    )
+
+
+def maybe_initialize(device: str | None = None, timeout_s: float | None = None) -> bool:
+    """Join the multi-rank runtime when the env triple is set; idempotent;
+    False in a single process. Must run before the first touch of the
+    device: it pins the rank's card. ``timeout_s`` is torch's own limit
+    on each collective (None = torch's default); the job sets it above the
+    watchdog's so that the watchdog, not torch, decides a hang."""
+    if _runtime is not None:
+        return True
+    env = distributed_env()
+    if env is None:
+        return False
+    coordinator, num_processes, rank = env
+    logger.info(
+        "joining distributed runtime: coordinator=%s rank=%d/%d",
+        coordinator, rank, num_processes,
+    )
+    backend, why, where, peers = _join_world(coordinator, num_processes, rank, device, timeout_s)
     print(
         f"Distributed runtime: rank {rank}/{num_processes} on {where}, "
         f"backend {backend} ({why})",
         flush=True,
     )
-    _runtime = Runtime(
-        rank=rank, backend=backend, group=group,
-        hostnames=tuple(host for host, _ in peers),
-        timeout=timeout,
+    _latch(rank, backend, peers, timeout_s)
+    return True
+
+
+def maybe_initialize_serve_gang(coordinator: str, size: int, rank: int, device=None,
+                                heartbeat_timeout_s: float = 100.0) -> bool:
+    """Join the serve gang's one torch.distributed world — the reference's
+    ``maybe_initialize_serve_gang`` (``:145-197``) — over the gang's
+    triple, through :func:`maybe_initialize`'s ``tcp://`` bootstrap and its
+    latch (a process belongs to one world; a second call is a no-op). The
+    backend is :func:`choose_backend`'s: NCCL where each member has a card
+    of its own, else gloo. ``heartbeat_timeout_s`` mirrors jax's
+    ``heartbeat_timeout_seconds`` and its default: the bound after which
+    the gang's watchdog ends a member whose peer is silent or hung
+    (``serving/mesh.py::CollectiveGang``). False for a gang of one; a
+    failed bootstrap raises (the engine decides whether to fall back)."""
+    if size <= 1:
+        return False
+    if _runtime is not None:
+        return True
+    logger.info(
+        "joining serve-gang runtime: coordinator=%s rank=%d/%d",
+        coordinator, rank, size,
     )
+    backend, why, where, peers = _join_world(coordinator, size, rank, device, None)
+    print(
+        f"Serve gang: rank {rank}/{size} on {where}, backend {backend} ({why})",
+        flush=True,
+    )
+    _latch(rank, backend, peers, None, heartbeat_timeout_s)
     return True
 
 
@@ -376,7 +450,10 @@ class RankWatchdog:
                 self._guard_name = None
                 self._guard_deadline = None
 
-    def _abort(self, reason: str) -> None:
+    def abort(self, reason: str) -> None:
+        """End this rank now through ``on_abort`` (once): a caller that saw
+        the collective fail, or a peer leave, need not wait for the
+        monitor."""
         if self.aborted_reason is None:
             self.aborted_reason = reason
             self.on_abort(reason)
@@ -393,7 +470,7 @@ class RankWatchdog:
             with self._guard_lock:
                 g_name, g_deadline = self._guard_name, self._guard_deadline
             if g_deadline is not None and time.monotonic() > g_deadline:
-                self._abort(
+                self.abort(
                     f"collective section {g_name!r} exceeded "
                     f"{self.collective_timeout_s:.0f}s — a peer rank is hung or dead"
                 )
@@ -402,7 +479,7 @@ class RankWatchdog:
             if stale:
                 ages = self.peer_ages()
                 detail = ", ".join(f"rank {r}: {ages[r]:.0f}s" for r in stale)
-                self._abort(
+                self.abort(
                     f"peer heartbeat(s) stale past {self.timeout_s:.0f}s "
                     f"({detail}) — dead rank(s), collectives would hang"
                 )

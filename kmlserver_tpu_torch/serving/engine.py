@@ -62,10 +62,15 @@ partial top-k on its card and merges the partials on the first
 (``ops/serve.sharded_recommend``). An armed serve gang
 (``KMLS_SERVE_GANG_*``) is the ``mesh`` layout: this process holds only its
 own slab, serves its partial to its peers (``serving/mesh.py``), and for its
-own batches merges its partial with theirs on its card in rank order. Both
-answer as the replicated layout does, bit for bit; a dead gang member
+own batches merges its partial with theirs on its card in rank order. The
+partials travel over sockets, or over one torch.distributed world in
+lockstep rounds where the members cannot share a card (the constructor's
+``gang_transport``; ``"auto"`` asks
+``parallel/distributed.py::choose_gang_transport``). Both answer as the
+replicated layout does, bit for bit. Over sockets a dead gang member
 raises :class:`~.mesh.MeshShardUnavailable`, which the app answers
-degraded (503 + ``X-KMLS-Mesh-Unavailable`` in a routed fleet). Deltas
+degraded (503 + ``X-KMLS-Mesh-Unavailable`` in a routed fleet); over the
+world it ends its peers with exit 76 within the heartbeat bound. Deltas
 rebuild through the same layout decision.
 
 :meth:`RecommendEngine.prewarm_touch` is the forecast's pre-touch: one
@@ -82,6 +87,7 @@ card the engine never takes this branch and holds no host copies.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -141,6 +147,18 @@ def blend_candidates(
 def _on_device(dev: torch.device):
     """The current-device context for work on ``dev`` from any thread."""
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+# the collective serve gang's heartbeat files, under BASE_DIR (the PVC)
+GANG_HEARTBEAT_DIR = "serve_gang_heartbeats"
+
+
+@dataclasses.dataclass(frozen=True)
+class _MeshSlab:
+    """What a collective gang round needs of this member's slab."""
+
+    token: str
+    partial: Callable[[np.ndarray], tuple[torch.Tensor, torch.Tensor]]
 
 
 def stable_seed(seed_tracks: list[str]) -> int:
@@ -272,7 +290,8 @@ class RecommendEngine:
     is present). Thread-safe: the replica set and best-tracks references
     are replaced atomically; readers never block."""
 
-    def __init__(self, cfg: ServingConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: ServingConfig, device: str | torch.device = "cuda",
+                 gang_transport: str = "auto"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.bundle: RuleBundle | None = None
@@ -297,6 +316,25 @@ class RecommendEngine:
         # 0 unless a caller passes more rows than batch_max_size
         self.unwarmed_dispatches = 0
         self.unwarmed_embed_dispatches = 0
+        # the gang's merges of an unwarmed shape (part of unwarmed_dispatches)
+        self.unwarmed_merge_dispatches = 0
+        # the serve gang (serving/mesh.py), armed when
+        # KMLS_SERVE_GANG_COORDINATOR and a size > 1 name one, over the
+        # transport _join_gang picks. Socket: the worker serves this rank's
+        # partial to its peers and the coordinator fetches theirs; both
+        # start at the first mesh publication (under the reload lock).
+        # Collective: mesh_coordinator is the CollectiveGang, whose rounds
+        # start here. Either outlives hot swaps (the model token fences
+        # generations) and stops in close()
+        self.gang = mesh_mod.gang_from_config(cfg)
+        self.mesh_worker: mesh_mod.MeshWorkerServer | None = None
+        self.mesh_coordinator: mesh_mod.MeshCoordinator | mesh_mod.CollectiveGang | None = None
+        # answers merged without a straggler's slab (degraded by contract;
+        # 0 with KMLS_HEDGE off)
+        self.mesh_straggler_degraded = 0
+        # wall ms of the gang's merges on this member's card, newest kept
+        self.mesh_merge_ms: collections.deque = collections.deque(maxlen=mesh_mod.ROUND_STATS_KEPT)
+        self.gang_transport = self._join_gang(gang_transport) if self.gang is not None else None
         # per-kernel cost attribution; None with KMLS_COSTMODEL=0, making
         # every call site one attribute check
         self.cost_model = (
@@ -308,32 +346,11 @@ class RecommendEngine:
             lambda: self.unwarmed_dispatches - self.unwarmed_embed_dispatches
         )
         self._unwarmed_embed_probe = lambda: self.unwarmed_embed_dispatches
-        # the gang's merges of an unwarmed shape (part of unwarmed_dispatches)
-        self.unwarmed_merge_dispatches = 0
         self._unwarmed_merge_probe = lambda: self.unwarmed_merge_dispatches
         self._unwarmed_partial_probe = (
             lambda: self.unwarmed_dispatches - self.unwarmed_embed_dispatches
             - self.unwarmed_merge_dispatches
         )
-        # the serve gang (serving/mesh.py), armed when
-        # KMLS_SERVE_GANG_COORDINATOR and a size > 1 name one: the worker
-        # serves this rank's partial to its peers, the coordinator fetches
-        # theirs. Both start at the first mesh publication (under the
-        # reload lock), outlive hot swaps (the model token on every partial
-        # fences generations) and stop in close()
-        self.gang = mesh_mod.gang_from_config(cfg)
-        self.mesh_worker: mesh_mod.MeshWorkerServer | None = None
-        self.mesh_coordinator: mesh_mod.MeshCoordinator | None = None
-        # answers merged without a straggler's slab (degraded by contract;
-        # 0 with KMLS_HEDGE off)
-        self.mesh_straggler_degraded = 0
-        if self.gang is not None:
-            print(
-                f"NOTE: serve gang rank {self.gang.rank}/{self.gang.size}: the "
-                "reference's real-collectives gang is not ported; every partial "
-                f"is computed on {self.device} and crosses the socket transport",
-                flush=True,
-            )
         # embedding-artifact failures are survivable (the bundle publishes
         # rules-only), so they have counters of their own; degraded = the
         # last publication wanted embeddings but serves rules only
@@ -810,9 +827,91 @@ class RecommendEngine:
         )
         return bundle
 
+    def _join_gang(self, wanted: str) -> str:
+        """Pick the gang's transport — ``wanted``, or under ``"auto"``
+        :func:`~..parallel.distributed.choose_gang_transport` on this
+        member's own env — and print it on a ``NOTE:`` line. The collective
+        transport joins the gang's torch.distributed world (pinning this
+        member's card) and starts its rounds; a failed bootstrap raises
+        when it was asked for, and under ``"auto"`` falls back to the
+        socket transport, as the reference's does
+        (``kmlserver_tpu/parallel/distributed.py:185-195``)."""
+        from ..parallel import distributed
+
+        if wanted not in ("auto", "socket", "collective"):
+            raise ValueError(f"gang_transport must be auto, socket or collective, got {wanted!r}")
+        gang = self.gang
+        count = torch.cuda.device_count() if self.device.type == "cuda" else 0
+        transport = wanted
+        if wanted == "auto":
+            transport = distributed.choose_gang_transport(self.device.type, gang, count)
+        if self.device.type != "cuda":
+            why = "members on the CPU"
+        elif transport == "collective":
+            hosts = {gang.peer_address(r)[0] for r in range(gang.size)}
+            why = "a host per member" if len(hosts) == gang.size else (
+                "members share a card" if count < gang.size else "a card per member")
+        else:
+            why = "members share " + (str(self.device) if self.device.index is not None else "cuda:0")
+        if wanted != "auto":
+            why = f"asked for; {why}"
+        if transport == "collective":
+            try:
+                distributed.maybe_initialize_serve_gang(
+                    gang.coordinator, gang.size, gang.rank, self.device)
+            except Exception as exc:
+                if wanted == "collective":
+                    raise
+                print(
+                    f"NOTE: serve gang rank {gang.rank}/{gang.size}: the collective bootstrap "
+                    f"failed ({type(exc).__name__}: {exc}); the socket transport serves",
+                    flush=True,
+                )
+                transport, why = "socket", "the collective bootstrap failed"
+        if transport == "collective":
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            runtime = distributed.runtime()
+            self.mesh_coordinator = mesh_mod.CollectiveGang(
+                gang, slab=self._mesh_slab, k_best=self.cfg.k_best_tracks, device=self.device,
+                heartbeat_dir=os.path.join(self.cfg.base_dir, GANG_HEARTBEAT_DIR),
+                heartbeat_timeout_s=runtime.heartbeat_timeout_s or 100.0,
+            ).start()
+        print(f"NOTE: serve gang rank {gang.rank}/{gang.size}: {transport} transport ({why})",
+              flush=True)
+        return transport
+
+    def _mesh_slab(self):
+        """The collective gang's view of this member's slab: None before a
+        mesh publication, else its token and its partial."""
+        bundle = self.bundle
+        if bundle is None or bundle.layout != "mesh":
+            return None
+        return _MeshSlab(bundle.model_token or "",
+                         lambda seeds: self._mesh_partial(bundle, seeds))
+
+    def _mesh_partial(
+        self, bundle: RuleBundle, seeds: np.ndarray
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """This slab's ``(B, k_best)`` partial of a peer's host seed batch,
+        on the slab's device (enqueued, not awaited)."""
+        shape = (int(seeds.shape[0]), int(seeds.shape[1]))
+        if shape not in bundle.warmed_shapes:
+            self.unwarmed_dispatches += 1
+            logger.warning("mesh partial for unwarmed shape %s", shape)
+        host = torch.from_numpy(np.array(seeds, dtype=np.int32))
+        with _on_device(bundle.device):
+            return shard_partial_topk(
+                bundle.rule_ids, bundle.rule_confs, host.to(bundle.device), bundle.mesh_lo,
+                v=bundle.mesh_v, k_best=self.cfg.k_best_tracks,
+            )
+
     def _ensure_mesh_runtime(self) -> None:
-        """Start the gang's partial worker and coordinator once (under the
-        reload lock at a mesh publication)."""
+        """Start the socket gang's partial worker and coordinator once
+        (under the reload lock at a mesh publication); the collective
+        gang's rounds run already."""
+        if self.gang_transport == "collective":
+            return
         if self.mesh_worker is None:
             self.mesh_worker = mesh_mod.MeshWorkerServer(
                 self._mesh_serve_partial, self._mesh_status, port=self.cfg.serve_gang_port,
@@ -838,18 +937,9 @@ class RecommendEngine:
         bundle = self.bundle
         if bundle is None or bundle.layout != "mesh":
             raise RuntimeError("no mesh bundle published on this rank")
-        shape = (int(seeds.shape[0]), int(seeds.shape[1]))
-        if shape not in bundle.warmed_shapes:
-            self.unwarmed_dispatches += 1
-            logger.warning("mesh partial for unwarmed shape %s", shape)
-        host = torch.from_numpy(np.array(seeds, dtype=np.int32))
-        with _on_device(bundle.device):
-            ids, confs = shard_partial_topk(
-                bundle.rule_ids, bundle.rule_confs, host.to(bundle.device), bundle.mesh_lo,
-                v=bundle.mesh_v, k_best=self.cfg.k_best_tracks,
-            )
-            # .cpu() waits for the lookup: the bytes are final
-            return ids.cpu().numpy(), confs.cpu().numpy(), bundle.model_token or ""
+        ids, confs = self._mesh_partial(bundle, seeds)
+        # .cpu() waits for the lookup: the bytes are final
+        return ids.cpu().numpy(), confs.cpu().numpy(), bundle.model_token or ""
 
     def _mesh_status(self) -> dict:
         """The worker's ``ready`` payload: what a peer's probe learns."""
@@ -862,14 +952,16 @@ class RecommendEngine:
         }
 
     def mesh_missing_shards(self, probe: bool = False) -> list[int]:
-        """Sorted ranks the coordinator cannot serve through (empty outside
-        the mesh layout); ``probe=True`` re-auditions them, rate-limited."""
+        """Sorted ranks the gang cannot serve through (empty outside the
+        mesh layout): the socket coordinator's record (``probe=True``
+        re-auditions them, rate-limited), or the ranks the collective
+        gang's last round found on another generation."""
         coord = self.mesh_coordinator
         return coord.missing_shards(probe=probe) if coord is not None else []
 
     def close(self) -> None:
-        """Stop the serve gang's worker and coordinator (a no-op outside the
-        mesh layout)."""
+        """Stop the serve gang's worker and coordinator, or leave the
+        collective gang (a no-op without a gang)."""
         worker, self.mesh_worker = self.mesh_worker, None
         coord, self.mesh_coordinator = self.mesh_coordinator, None
         if worker is not None:
@@ -1616,8 +1708,10 @@ class RecommendEngine:
             for rank in dropped:
                 stack_ids[rank] = 0
                 stack_confs[rank] = np.float32(-np.inf)
+            t_merge = time.perf_counter()
             host_ids, host_confs = self._merge_on_device(bundle, stack_ids, stack_confs)
             t_rules = time.perf_counter()
+            self.mesh_merge_ms.append(1e3 * (t_rules - t_merge))
             if cm is not None:
                 cm.observe_kernel(
                     "serve_mesh", t_rules - t_kernel,

@@ -27,16 +27,26 @@ or ``/readyz`` — so a respawned member rejoins with no background thread.
 A model token rides every partial: a peer serving another generation reads
 as a missing shard, never as a silent merge across generations.
 
-The reference's real-collectives gang (one JAX world over the gang) is not
-ported: every partial crosses this socket transport.
+The reference's real-collectives gang (one JAX world over the gang) is
+:class:`CollectiveGang`: one torch.distributed world, the partials
+all-gathered in rounds that every member joins. The engine takes it where
+the members cannot share a card (``parallel/distributed.py::
+choose_gang_transport``), and the socket transport elsewhere; both answer
+alike. Under the collective transport a dead, hung or leaving member ends
+its peers with the resumable exit code 76 within a bound, and the
+StatefulSet re-forms the gang.
 
 Threads: ``kmls-mesh-worker`` (accept), ``kmls-mesh-conn`` (one per peer
-connection) and ``kmls-mesh-fetch`` (the coordinator's pool); each is
-stopped and joined by its owner's ``stop()`` / ``close()``.
+connection), ``kmls-mesh-fetch`` (the coordinator's pool) and
+``kmls-mesh-round`` (the collective gang's rounds, with its watchdog's
+``kmls-rank-heartbeat`` and ``kmls-rank-monitor``); each is stopped and
+joined by its owner's ``stop()`` / ``close()``.
 """
 
 from __future__ import annotations
 
+import datetime
+import hashlib
 import json
 import logging
 import socket
@@ -734,3 +744,401 @@ class MeshCoordinator:
         finish.dropped = []
         finish.hedge_outcome = None
         return finish
+
+
+# ---------------------------------------------------------------------------
+# the collective transport: one torch.distributed world over the gang
+# ---------------------------------------------------------------------------
+
+# an idle gang parks after a round with rows nowhere, each round thread
+# blocked on the park's key in the world's store; a parked member's
+# kmls-mesh-wake thread sets the key at once when a batch reaches it, and
+# looks this often for a publication the others must hear of
+PARK_RECHECK_S = 0.1
+# a parked round thread's wait on the store, renewed when it runs out
+PARK_WAIT_S = 600.0
+# per-stage round times kept for stats() (the newest)
+ROUND_STATS_KEPT = 1 << 16
+
+
+def token_digest(token: str) -> int:
+    """A model token as a round header's fixed-width field: the first 8
+    bytes of its blake2b as a signed int64, never 0 (0 = no slab)."""
+    digest = int.from_bytes(
+        hashlib.blake2b(token.encode("utf-8"), digest_size=8).digest(), "big", signed=True
+    )
+    return digest or 1
+
+
+class _Batch:
+    """One batch handed to the round thread, and what its round gave."""
+
+    __slots__ = ("seeds", "digest", "done", "parts", "error")
+
+    def __init__(self, seeds: np.ndarray, digest: int):
+        self.seeds = seeds
+        self.digest = digest
+        self.done = threading.Event()
+        self.parts: dict[int, tuple[np.ndarray, np.ndarray]] | None = None
+        self.error: MeshShardUnavailable | None = None
+
+
+class CollectiveGang:
+    """The gang's collective transport — the reference's real-collectives
+    branch (``kmlserver_tpu/serving/engine.py:894-905`` over X9's
+    ``shard_map`` program, ``kmlserver_tpu/ops/serve.py:126-249``) run in
+    rounds that every member joins, on the torch.distributed world of
+    ``parallel/distributed.py::maybe_initialize_serve_gang``.
+
+    The engine calls it as it calls :class:`MeshCoordinator`:
+    ``fetch_partials(seeds, token) -> finish()``, ``missing_shards()`` and
+    ``close()``. A ``kmls-mesh-round`` thread runs the rounds:
+
+    1. every member's header is all-gathered (its batch's rows and bucket
+       length, 0 rows when it has none; its slab's token digest; whether
+       it is leaving) — a round with no rows anywhere ends here, and the
+       gang parks: each round thread blocks on the park's key in the world's
+       store until a member with a batch (or leaving, or a new publication)
+       sets it from its ``kmls-mesh-wake`` thread, so an idle gang runs no
+       collective and spins no core;
+    2. the batches' seeds are all-gathered (padded to the round's largest);
+    3. each member computes its slab's partial (``slab.partial``, X9's
+       ``shard_partial_topk`` on its card) for every other member's batch
+       at that batch's own bucket, padded to the round's largest batch;
+    4. the ``(S, B, k_best)`` ids and confidences (one int32 tensor) are
+       all-gathered in rank order over the runtime's collective group, and
+       each member takes the rows of its own batch; the engine merges them
+       with its own partial on its card (``merge_partial_topk``).
+
+    A member whose slab's token digest differs from a batch's is a
+    missing shard for that batch: ``finish()`` raises
+    :class:`MeshShardUnavailable` naming it, as the socket transport does
+    for a peer on another generation. A leaving member (``close()``) says
+    so in its last header, and its peers end at once. A dead or hung peer
+    is caught by a :class:`~..parallel.distributed.RankWatchdog` (peer
+    heartbeats on the PVC, each round's collectives guarded, both bounded
+    by ``heartbeat_timeout_s``), which ends this member with the resumable
+    exit code 76, as does a collective that raises; no ``finish()`` waits
+    past ``2 · heartbeat_timeout_s + 5`` seconds.
+
+    ``slab()`` → None before the first mesh publication, else an object
+    with ``token`` and ``partial(seeds) -> (ids, confs)`` (device tensors
+    of ``(rows, k_best)``)."""
+
+    def __init__(
+        self, gang: GangConfig, *, slab, k_best: int, device, heartbeat_dir: str,
+        heartbeat_timeout_s: float, on_abort=None,
+    ):
+        from ..parallel.distributed import RankWatchdog
+
+        self.gang = gang
+        self._slab = slab
+        self.k_best = int(k_best)
+        self.device = device
+        self.heartbeat_timeout_s = float(heartbeat_timeout_s)
+        self.finish_bound_s = 2 * self.heartbeat_timeout_s + 5.0
+        self.watchdog = RankWatchdog(
+            heartbeat_dir, gang.rank, gang.size,
+            heartbeat_interval_s=min(5.0, self.heartbeat_timeout_s / 5),
+            timeout_s=self.heartbeat_timeout_s,
+            collective_timeout_s=self.heartbeat_timeout_s, on_abort=on_abort,
+        )
+        self._queue: deque[_Batch] = deque()
+        self._missing: list[int] = []
+        self._formed = False
+        self._closed = False
+        self._park_key: str | None = None
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._leaving = threading.Event()
+        self._stopped = threading.Event()
+        # counted by the round thread alone
+        self.rounds = 0
+        self.empty_rounds = 0
+        self.parks = 0
+        self._sent_digest = 0
+        self.bytes_received = 0
+        self.stage_ms = {
+            name: deque(maxlen=ROUND_STATS_KEPT)
+            for name in ("header", "seeds", "partials", "gather")
+        }
+        self._thread = threading.Thread(target=self._run, name="kmls-mesh-round", daemon=True)
+        self._waker = threading.Thread(target=self._wake_loop, name="kmls-mesh-wake", daemon=True)
+        self._store = self._wake_store = None
+
+    def start(self) -> "CollectiveGang":
+        from torch.distributed import distributed_c10d
+
+        # the world's store: the round thread parks on it, the waker (on a
+        # client of its own: a waiting client serves nothing else) sets keys
+        self._store = distributed_c10d._get_default_store()
+        self._wake_store = self._store.clone()
+        self.watchdog.start()
+        self._thread.start()
+        self._waker.start()
+        return self
+
+    def close(self) -> None:
+        """Leave the gang: the next round's header says so (its peers end
+        at once), the round thread ends after it, and the world is left.
+        A batch not served by then raises out of its ``finish()``."""
+        if self._thread.is_alive():
+            self._leaving.set()
+            self._wake.set()
+            self._thread.join(self.finish_bound_s)
+        left = not self._thread.is_alive()
+        self._stopped.set()
+        self._wake.set()
+        if self._waker.is_alive():
+            self._waker.join(self.finish_bound_s)
+        self.watchdog.stop()
+        self._fail_queued("the collective gang is closed")
+        if left:
+            from ..parallel import distributed
+
+            distributed.shutdown()
+
+    # -- the engine's side ------------------------------------------------
+
+    def missing_shards(self, probe: bool = False) -> list[int]:
+        """Ranks whose slab serves another generation than this member's,
+        as the last round's headers said (no probe: every round refreshes
+        it)."""
+        with self._lock:
+            return list(self._missing)
+
+    @property
+    def formed(self) -> bool:
+        """The last round's headers all carried this member's published
+        slab's digest: the gang serves one generation."""
+        with self._lock:
+            return self._formed
+
+    def fetch_partials(self, seeds: np.ndarray, token: str, budget_ms: float | None = None):
+        """Hand a copy of the batch's seeds to the round thread (never
+        blocks) → ``finish()``, which waits for the batch's round and
+        yields ``{rank: (ids, confs)}`` for every other member, or raises
+        :class:`MeshShardUnavailable`. ``budget_ms`` is not used: a round
+        serves every batch it carries."""
+        batch = _Batch(np.array(seeds, dtype=np.int32, copy=True), token_digest(token))
+        with self._lock:
+            closed = self._closed
+            if not closed:
+                self._queue.append(batch)
+        if closed:
+            self._settle(batch, error=MeshShardUnavailable(
+                self._blame(), "the collective gang is closed"))
+        self._wake.set()
+        bound = self.finish_bound_s
+
+        def finish() -> dict[int, tuple[np.ndarray, np.ndarray]]:
+            if not batch.done.wait(bound):
+                raise MeshShardUnavailable(
+                    self._blame(), f"no gang round answered within {bound:.0f} s")
+            if batch.error is not None:
+                raise batch.error
+            return batch.parts
+
+        finish.dropped = []
+        finish.hedge_outcome = None
+        return finish
+
+    def stats(self) -> dict:
+        """Rounds, empty rounds, bytes this member's gathers received (in
+        all, and a round with rows on average), and each stage's p50 / p99
+        ms over the kept rounds that did work."""
+        work = self.rounds - self.empty_rounds
+        header_bytes = 32 * self.gang.size  # four int64 fields a member
+        out = {"rounds": self.rounds, "empty_rounds": self.empty_rounds, "parks": self.parks,
+               "bytes_received": self.bytes_received,
+               "bytes_per_work_round": (
+                   (self.bytes_received - header_bytes * self.empty_rounds) / work if work else 0.0)}
+        for name, kept in self.stage_ms.items():
+            values = np.asarray(kept.copy(), dtype=np.float64)  # one C call: no torn read
+            out[f"{name}_ms"] = (
+                {"p50": float(np.percentile(values, 50)), "p99": float(np.percentile(values, 99)),
+                 "n": int(values.size)} if values.size else None
+            )
+        return out
+
+    # -- the round thread -------------------------------------------------
+
+    @staticmethod
+    def _settle(batch: _Batch, parts=None, error=None) -> None:
+        batch.parts, batch.error = parts, error
+        batch.done.set()
+
+    def _blame(self) -> int:
+        """The rank a batch names when the gang itself failed or closed
+        (the member ends at once, so no shard is known missing): the first
+        peer."""
+        return 1 if self.gang.rank == 0 else 0
+
+    def _fail_queued(self, reason: str) -> None:
+        with self._lock:
+            self._closed = True
+            queued = list(self._queue)
+            self._queue.clear()
+        for batch in queued:
+            self._settle(batch, error=MeshShardUnavailable(self._blame(), reason))
+
+    def _take(self) -> _Batch | None:
+        with self._lock:
+            return self._queue.popleft() if self._queue else None
+
+    def _digest(self) -> int:
+        slab = self._slab()
+        return token_digest(slab.token) if slab is not None else 0
+
+    def _has_work(self) -> bool:
+        """A batch queued, leaving, or a slab published since the last
+        header (its peers must learn the new digest)."""
+        with self._lock:
+            queued = bool(self._queue)
+        return queued or self._leaving.is_set() or self._digest() != self._sent_digest
+
+    def _park(self) -> str:
+        """Block, with no collective, until some member sets this park's
+        key; this member's waker sets it once a batch reaches it, it is
+        leaving or it has published a slab. Every member parks after the
+        same rounds, so the keys agree. → the key."""
+        from torch.distributed import DistStoreError
+
+        key = f"kmls-serve-gang/wake/{self.parks}"
+        self.parks += 1
+        with self._lock:
+            self._park_key = key
+        try:
+            if self._has_work():  # before the key was visible to the waker
+                self._store.set(key, b"1")
+                return key
+            while True:
+                t0 = time.monotonic()
+                try:
+                    self._store.wait([key], datetime.timedelta(seconds=PARK_WAIT_S))
+                    return key
+                except DistStoreError:
+                    if time.monotonic() - t0 < 0.9 * PARK_WAIT_S:
+                        raise  # the store failed, not the wait
+        finally:
+            with self._lock:
+                self._park_key = None
+
+    def _wake_loop(self) -> None:
+        """Set the parked round's key when this member has work."""
+        while not self._stopped.is_set():
+            self._wake.wait(PARK_RECHECK_S)
+            self._wake.clear()
+            with self._lock:
+                key = self._park_key
+            if key is not None and self._has_work():
+                try:
+                    self._wake_store.set(key, b"1")
+                except Exception:  # the round thread sees the store fail too
+                    logger.exception("serve gang wake failed")
+                    return
+
+    def _run(self) -> None:
+        batch = None
+        park = False
+        try:
+            while True:
+                woke = self._park() if park else None
+                leaving = self._leaving.is_set()
+                batch = self._take()
+                heads, worked = self._round(batch, leaving)
+                batch = None
+                if woke is not None and self.gang.rank == 0:
+                    self._store.delete_key(woke)  # every member is past it
+                leavers = [r for r in range(self.gang.size)
+                           if heads[r, 3] and r != self.gang.rank]
+                if leaving:
+                    return
+                if leavers:
+                    self._fail_queued(f"serve gang rank {leavers[0]} left")
+                    self.watchdog.abort(
+                        f"serve gang rank {leavers[0]} left the gang (closed); the gang "
+                        "re-forms when every member restarts")
+                    return
+                park = not worked
+        except Exception as exc:
+            reason = f"serve gang round failed: {type(exc).__name__}: {exc}"
+            if batch is not None:
+                self._settle(batch, error=MeshShardUnavailable(self._blame(), reason))
+            self._fail_queued(reason)
+            self.watchdog.abort(reason)
+        finally:
+            self._stopped.set()
+            self._wake.set()
+
+    def _round(self, batch: _Batch | None, leaving: bool) -> tuple[np.ndarray, bool]:
+        """One round (every member runs the same collectives, decided by
+        the gathered headers) → (the headers, whether any member had rows)."""
+        import torch
+
+        from ..parallel import collectives, distributed
+        from ..parallel.mesh import Axis
+
+        size, me = self.gang.size, self.gang.rank
+        slab = self._slab()
+        digest = self._sent_digest = token_digest(slab.token) if slab is not None else 0
+        rows, length = batch.seeds.shape if batch is not None else (0, 0)
+        world = Axis(tuple(range(size)))  # the gloo world group: host tensors
+        with self.watchdog.guard("serve gang round"):
+            t0 = time.perf_counter()
+            # batch rows, bucket length, the slab's token digest, leaving
+            header = torch.tensor([[rows, length, digest, int(leaving)]], dtype=torch.int64)
+            heads = collectives.all_gather_cat(header, world).numpy()  # (S, 4)
+            t1 = time.perf_counter()
+            with self._lock:
+                self._missing = [r for r in range(size)
+                                 if r != me and digest and heads[r, 2] != digest]
+                self._formed = bool(digest) and not self._missing
+            self.rounds += 1
+            self.bytes_received += heads.nbytes
+            if not heads[:, 0].any():
+                self.empty_rounds += 1
+                return heads, False
+            b_max, l_max = int(heads[:, 0].max()), int(heads[:, 1].max())
+            padded = torch.full((1, b_max, l_max), -1, dtype=torch.int32)
+            if batch is not None:
+                padded[0, :rows, :length] = torch.from_numpy(batch.seeds)
+            seeds = collectives.all_gather_cat(padded, world).numpy()  # (S, B, L)
+            t2 = time.perf_counter()
+            # this slab's partial for every other member's batch, ids and
+            # confidences in one int32 tensor (the confidences' bits)
+            out = torch.zeros((2, size, b_max, self.k_best), dtype=torch.int32, device=self.device)
+            out[0] = -1
+            if slab is not None:
+                for m in range(size):
+                    m_rows, m_len = int(heads[m, 0]), int(heads[m, 1])
+                    if m == me or not m_rows:
+                        continue
+                    ids, confs = slab.partial(seeds[m, :m_rows, :m_len])
+                    out[0, m, :m_rows] = ids
+                    out[1, m, :m_rows] = confs.view(torch.int32)
+            axis = Axis(tuple(range(size)), group=distributed.collective_group())
+            if collectives.staged(out, axis):
+                out = out.cpu()  # gloo gathers host tensors: stage it once
+            elif out.is_cuda:
+                torch.cuda.current_stream(out.device).synchronize()
+            t3 = time.perf_counter()
+            every = collectives.all_gather_cat(out.unsqueeze(0), axis)  # (S, 2, S, B, k)
+            mine = every[:, :, me, :rows].contiguous().cpu()
+            t4 = time.perf_counter()
+        self.bytes_received += seeds.nbytes + every.numel() * 4
+        for name, ms in (("header", t1 - t0), ("seeds", t2 - t1), ("partials", t3 - t2),
+                         ("gather", t4 - t3)):
+            self.stage_ms[name].append(1e3 * ms)
+        if batch is not None:
+            other = [p for p in range(size) if p != me and heads[p, 2] != batch.digest]
+            if other:
+                self._settle(batch, error=MeshShardUnavailable(
+                    other[0], f"model token mismatch (rank {other[0]} serves another "
+                              "generation)"))
+            else:
+                ids = mine[:, 0].numpy()
+                confs = mine[:, 1].view(torch.float32).numpy()
+                self._settle(batch, parts={p: (ids[p], confs[p])
+                                           for p in range(size) if p != me})
+        return heads, True
