@@ -1085,18 +1085,18 @@ def phase_scale(seed: int, work: str, shape: dict) -> dict:
         f"{bound['bytes']} bytes at {PEAK_BYTES_PER_S:.3g} B/s = {bound['bytes_ms']:.3f} ms "
         f"-> {bound['ms']:.3f} ms ({bound['unit']}); the kernel at {100 * share:.1f} %, "
         f"torch._int_mm (both triangles) at {100 * bound['ms'] / library_ms:.1f} %")
-    # the cost model's support_count formula counts the full 2·p·v²
-    # product; the bound above counts one triangle of int8 operations
-    from kmlserver_tpu_torch.observability.costmodel import PEAK_TABLE, phase_cost
+    # the cost model's support_count counts the one triangle of the mined
+    # (unpadded) shape; the bound above counts it at the padded shape
+    from kmlserver_tpu_torch.observability.costmodel import INT8_PEAK_TABLE, phase_cost
 
     support_flops, _ = phase_cost("support_count", p=mined_p, v=mined_v)
-    bf16_peak = dict((needle, f) for needle, f, _bw in PEAK_TABLE)["h100"]
-    log(f"yardstick: support_count 2·p·v² at (p={mined_p}, v={mined_v}) = "
-        f"{support_flops:.6g}, the kernel's triangle {bound['int8_ops']:.6g} int8 ops, ratio "
-        f"{support_flops / bound['int8_ops']:.4f}; over the kernel's {kernel_ms:.3f} ms: "
-        f"{support_flops / (kernel_ms / 1e3):.6g} FLOP/s = "
-        f"{support_flops / (kernel_ms / 1e3) / bf16_peak:.4f}x the bf16 peak "
-        f"{bf16_peak:.4g} (kmls_mfu would clamp it at 1.0)")
+    int8_peak = dict(INT8_PEAK_TABLE)["h100"]
+    log(f"yardstick: support_count (one triangle) at (p={mined_p}, v={mined_v}) = "
+        f"{support_flops:.6g}, the kernel's padded triangle {bound['int8_ops']:.6g} int8 ops, "
+        f"ratio {support_flops / bound['int8_ops']:.4f}; over the kernel's {kernel_ms:.3f} ms: "
+        f"{support_flops / (kernel_ms / 1e3):.6g} op/s = "
+        f"{support_flops / (kernel_ms / 1e3) / int8_peak:.4f} of the int8 peak "
+        f"{int8_peak:.4g} (kmls_mfu, unclamped)")
     kernel = {
         "name": "popcount_pairs",
         "route": "cuda",
@@ -2728,7 +2728,7 @@ def profiled_job(work: str, pvc: str) -> dict:
     from kmlserver_tpu_torch.data.csv import read_tracks
     from kmlserver_tpu_torch.mining import vocab as vocab_mod
     from kmlserver_tpu_torch.mining.miner import prune_infrequent
-    from kmlserver_tpu_torch.observability.costmodel import PEAK_TABLE, phase_cost
+    from kmlserver_tpu_torch.observability.costmodel import INT8_PEAK_TABLE, phase_cost
     from kmlserver_tpu_torch.ops import popcount as pc
     from kmlserver_tpu_torch.ops.support import min_count_for
 
@@ -2795,11 +2795,12 @@ def profiled_job(work: str, pvc: str) -> dict:
                    if line.startswith("kmls_job_phase_duration")}
     log("phase 10 (d): job_metrics.prom of the unprofiled job that published the ds2 PVC "
         "(default dispatch): " + ", ".join(f"{k} {v:.4f} s" for k, v in sorted(plain_s.items())))
-    # the yardstick A.10 needs: support_count's full 2·p·v² product against
-    # the one triangle of int8 operations the kernel's bound counts
+    # the yardstick A.10 needs: support_count's one triangle of the mined
+    # shape against the one triangle of int8 operations the kernel's bound
+    # counts at the padded shape
     bound = popcount_bound(v_pad, w_pad)
     kernel_flops, _ = phase_cost("support_count", p=mined.n_playlists, v=mined.n_tracks)
-    bf16_peak = dict((needle, f) for needle, f, _bw in PEAK_TABLE)["h100"]
+    int8_peak = dict(INT8_PEAK_TABLE)["h100"]
     log(f"phase 10 (d): job with KMLS_COUNT_PATH=bitpack, KMLS_PROFILE_DIR set: {wall:.3f} s "
         f"wall; job_metrics.prom phases " + ", ".join(f"{k} {v:.4f} s" for k, v in
                                                      sorted(phase_s.items()))
@@ -2808,11 +2809,11 @@ def profiled_job(work: str, pvc: str) -> dict:
         f"the job's popcount launch {job_ms:.4f} ms vs CUDA events {event_ms:.4f} ms in "
         f"process at ({v_pad}, {w_pad}) ({100 * (job_ms / event_ms - 1):+.1f} %)")
     log(f"phase 10 (d) yardstick at the ds2 mine shape (p={mined.n_playlists}, "
-        f"v={mined.n_tracks}): support_count 2·p·v² = {kernel_flops:.6g}, the kernel's "
-        f"triangle {bound['int8_ops']:.6g} int8 ops at ({v_pad}, {w_pad}), ratio "
+        f"v={mined.n_tracks}): support_count (one triangle) = {kernel_flops:.6g}, the "
+        f"kernel's triangle {bound['int8_ops']:.6g} int8 ops at ({v_pad}, {w_pad}), ratio "
         f"{kernel_flops / bound['int8_ops']:.4f}; over {event_ms:.4f} ms: "
-        f"{kernel_flops / (event_ms / 1e3):.6g} FLOP/s = "
-        f"{kernel_flops / (event_ms / 1e3) / bf16_peak:.4f} of the bf16 peak; job_metrics "
+        f"{kernel_flops / (event_ms / 1e3):.6g} op/s = "
+        f"{kernel_flops / (event_ms / 1e3) / int8_peak:.4f} of the int8 peak; job_metrics "
         f"attributes v={v_all} (unpruned): {flops:.6g}")
     return {"wall_s": wall, "phases_s": phase_s, "plain_phases_s": plain_s, "flops": flops,
             "job_kernel_ms": job_ms,

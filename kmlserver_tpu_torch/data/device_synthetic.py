@@ -24,6 +24,10 @@ on their true counts. Pad rows get q = 0 and stay zero.
 On a mesh (``dp`` only) each rank draws only its own word slab, under a key
 folded with its ``dp`` index, its positions masked against the slab's
 global word offset.
+
+Under a running profiler (``utils/profiling.span``) a call is a
+``kmls:gen`` span with ``kmls:gen.host`` (q, the cut and the padding on the
+host) and ``kmls:gen.draw`` (the keys and the kernel's launch) inside it.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 
 from ..ops import bernoulli, threefry
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .synthetic import zipf_weights
 
 # margin (in standard deviations of Binomial at min_count) for the analytic
@@ -173,32 +178,41 @@ def device_synthetic_bitset(
     ``dp``-only mesh: this rank's ``(v_pad, w_pad/dp)`` slab, ``w_pad``
     rounded up to ``dp · WORD_CHUNK``), and the reference's analytic
     accounting (expected rows over the whole vocabulary, the candidate cut,
-    the whole bitset's bytes)."""
+    the whole bitset's bytes).
+
+    The ``kmls:gen`` span opens before the candidate cut is known, so it
+    carries the call's sizes (``p``, ``tracks``, ``rows``); ``kmls:gen.draw``
+    carries the cut and the bitset's shape (``f``, ``p``, ``v_pad``,
+    ``w_pad``)."""
     from ..ops import popcount as pc
 
-    q = zipf_bit_probs(n_tracks, n_playlists, target_rows, zipf_exponent)
-    f = candidate_frequent_count(q, n_playlists, min_count, margin_sigmas)
-    if f == 0:
-        raise ValueError(
-            f"no candidate-frequent tracks at min_count {min_count}; "
-            "lower min_support or raise target_rows"
-        )
-    v_pad, w_pad = pc.padded_shape(f, n_playlists)
-    q_padded = np.zeros(v_pad, dtype=np.float32)
-    q_padded[:f] = q[:f]
-    if mesh is not None:
-        from ..parallel.mesh import AXIS_DP, round_up
+    with span("gen", p=n_playlists, tracks=n_tracks, rows=target_rows):
+        with span("gen.host"):
+            q = zipf_bit_probs(n_tracks, n_playlists, target_rows, zipf_exponent)
+            f = candidate_frequent_count(q, n_playlists, min_count, margin_sigmas)
+            if f == 0:
+                raise ValueError(
+                    f"no candidate-frequent tracks at min_count {min_count}; "
+                    "lower min_support or raise target_rows"
+                )
+            v_pad, w_pad = pc.padded_shape(f, n_playlists)
+            q_padded = np.zeros(v_pad, dtype=np.float32)
+            q_padded[:f] = q[:f]
+            if mesh is not None:
+                from ..parallel.mesh import AXIS_DP, round_up
 
-        w_pad = round_up(w_pad, mesh.shape[AXIS_DP] * pc.word_chunk())
-        bitset = sharded_bitset_from_probs(
-            q_padded, seed, mesh, n_playlists=n_playlists, v_pad=v_pad, w_pad=w_pad,
-            row_block=row_block, device=device,
-        )
-    else:
-        bitset = bitset_from_probs(
-            q_padded, seed, n_playlists=n_playlists, v_pad=v_pad, w_pad=w_pad,
-            row_block=row_block, device=device,
-        )
+                w_pad = round_up(w_pad, mesh.shape[AXIS_DP] * pc.word_chunk())
+        with span("gen.draw", f=f, p=n_playlists, v_pad=v_pad, w_pad=w_pad):
+            if mesh is not None:
+                bitset = sharded_bitset_from_probs(
+                    q_padded, seed, mesh, n_playlists=n_playlists, v_pad=v_pad, w_pad=w_pad,
+                    row_block=row_block, device=device,
+                )
+            else:
+                bitset = bitset_from_probs(
+                    q_padded, seed, n_playlists=n_playlists, v_pad=v_pad, w_pad=w_pad,
+                    row_block=row_block, device=device,
+                )
     info = {
         "model": "bernoulli-zipf",
         "expected_rows_total": float(n_playlists * q.sum()),

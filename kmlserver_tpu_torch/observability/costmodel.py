@@ -3,18 +3,23 @@
 memory accounting, and the serving path's unwarmed-dispatch counter.
 
 - **Analytic cost specs** (:data:`KERNEL_COST_SPECS`): the reference's
-  FLOPs(shape) and bytes-moved(shape) formulas, copied unchanged, so the
-  two packages attribute the same work to the same dispatch. They are
-  leading-order counts (matmul 2·m·n·k, scatter/compare work, top-k
-  ~ n·log2(k)), not instrumented truth; with the timings the serving and
-  mining paths already take they give achieved FLOP/s and bytes/s, MFU
-  against the device's peak, and a roofline class.
-- **Peak table**: per-device dense peak FLOP/s and memory bytes/s, keyed
+  FLOPs(shape) and bytes-moved(shape) formulas, so the two packages
+  attribute the same work to the same dispatch — except the pair count
+  (``support_count``), which the port counts as its kernel computes it:
+  one triangle of the symmetric result, read against the int8 tensor
+  peak. They are leading-order counts (matmul 2·m·n·k, scatter/compare
+  work, top-k ~ n·log2(k)), not instrumented truth; with the timings the
+  serving and mining paths already take they give achieved FLOP/s and
+  bytes/s, MFU against the device's peak, and a roofline class.
+- **Peak tables**: per-device dense peak FLOP/s and memory bytes/s, keyed
   by the device name (``torch.cuda.get_device_name``), overridable with
-  ``KMLS_PEAK_FLOPS`` / ``KMLS_PEAK_BYTES_PER_S``.
+  ``KMLS_PEAK_FLOPS`` / ``KMLS_PEAK_BYTES_PER_S``, and the int8 tensor
+  peak of the cards that publish one (elsewhere the FLOP/s peak stands).
 - :class:`CostModel`: the serving-side accumulator. The engine calls
-  :meth:`CostModel.observe_kernel` on the completion path with the
-  dispatch → CUDA-event seconds and the dispatch shape; ``/metrics``
+  :meth:`CostModel.observe_kernel` in ``finish()`` with each lookup's
+  device seconds — on a card the CUDA events recorded around its
+  launches on its stream, read after the lookup's own fence; on the CPU
+  the synchronous call's time — and the dispatch shape; ``/metrics``
   renders ``kmls_kernel_device_seconds{kernel}`` and friends from it. Its
   :class:`CompileWatcher` is the port's counterpart of the reference's
   jit-cache watch: PyTorch has no jit cache, so
@@ -68,6 +73,15 @@ PEAK_TABLE: tuple[tuple[str, float, float], ...] = (
     ("cpu", 2e11, 1e11),
 )
 
+# the dense int8 tensor peak (ops/s) by device-name substring, matched in
+# order, where the card publishes one: NVIDIA's H100 data sheet, without
+# sparsity (PCIe 1,513 TOP/s, SXM5 1,979 TOP/s). A kernel whose spec reads
+# the int8 peak falls back to the FLOP/s peak on any other device.
+INT8_PEAK_TABLE: tuple[tuple[str, float], ...] = (
+    ("h100 pcie", 1513e12),
+    ("h100", 1979e12),
+)
+
 
 def device_kind(device: torch.device | str | None = None) -> str:
     """``"<platform> <device name>"`` of ``device`` (default: the first
@@ -113,6 +127,16 @@ def resolve_peaks(device: torch.device | str | None = None) -> tuple[float, floa
     return flops, bw, source
 
 
+def resolve_int8_peak(device: torch.device | str | None = None) -> float | None:
+    """The int8 tensor peak (ops/s) of ``device`` (default: the first
+    card, else the CPU), or None where the table has none."""
+    lowered = device_kind(device).lower()
+    for needle, ops in INT8_PEAK_TABLE:
+        if needle in lowered:
+            return ops
+    return None
+
+
 def _log2k(k: float) -> float:
     """Comparison depth of a top-k pass, floored at 1."""
     return max(1.0, math.log2(max(float(k), 2.0)))
@@ -128,6 +152,9 @@ class CostSpec:
     flops: Callable[[dict], float]
     bytes_moved: Callable[[dict], float]
     doc: str
+    # the peak its MFU is read against: "flops" (the device's FLOP/s row)
+    # or "int8" (the int8 tensor peak where the device has one)
+    peak: str = "flops"
 
 
 def _d(dims: dict, key: str, default: float = 1.0) -> float:
@@ -242,9 +269,15 @@ def _als_bytes(dims: dict) -> float:
 
 
 def _support_flops(dims: dict) -> float:
-    # C = XᵀX: one (v, p) x (p, v) contraction
+    # C = XᵀX over v tracks and p playlists, the work the result needs: one
+    # triangle of the symmetric result with its diagonal, v(v+1)/2 dot
+    # products of p terms, two operations each, whatever the route runs.
+    # The popcount kernel computes just that; the dense route's int8 gram
+    # and the ring compute the whole square, so there the figure (and the
+    # MFU read from it) is the useful half of what they run. The reference
+    # counts the whole square, 2·p·v².
     p, v = _d(dims, "p"), _d(dims, "v")
-    return 2.0 * p * v * v
+    return v * (v + 1.0) / 2.0 * p * 2.0
 
 
 def _support_bytes(dims: dict) -> float:
@@ -302,10 +335,12 @@ def _sparse_als_bytes(dims: dict) -> float:
     )
 
 
-# The reference's registry, every formula unchanged: the port observes
-# ``serve_rules`` on the serving path and attributes ``support_count`` /
-# ``sparse_count`` to the mine phase; the other entries describe kernels
-# of modules not ported yet and keep the two packages' numbers comparable.
+# The reference's registry, every formula but ``support_count``'s
+# unchanged. The serving engine observes ``serve_rules`` /
+# ``serve_sharded`` / ``serve_mesh`` / ``serve_native`` and ``embed_topk``;
+# the job's telemetry attributes ``support_count`` or ``sparse_count`` to
+# the mine phase, ``als_sweep`` or ``als_sweep_sparse`` to the embed phase
+# and ``delta_recount`` to a delta generation.
 KERNEL_COST_SPECS: dict[str, CostSpec] = {
     "serve_rules": CostSpec(
         "serve_rules", _serve_flops, _serve_bytes,
@@ -340,8 +375,11 @@ KERNEL_COST_SPECS: dict[str, CostSpec] = {
     ),
     "support_count": CostSpec(
         "support_count", _support_flops, _support_bytes,
-        "pair-support contraction C = XᵀX (ops/support.py, "
-        "parallel/support.py; dims p, v)",
+        "pair-support contraction C = XᵀX on the int8 tensor cores, "
+        "counted as the one triangle the result needs on every route "
+        "(ops/popcount.py computes that; ops/support.py's dense gram and "
+        "parallel/support.py's ring compute the whole square; dims p, v)",
+        peak="int8",
     ),
     "delta_recount": CostSpec(
         "delta_recount", _recount_flops, _recount_bytes,
@@ -452,6 +490,9 @@ class CostModel:
         self, peak_flops: float = 0.0, peak_bytes_s: float = 0.0,
         device: torch.device | str | None = None,
     ):
+        # an explicit FLOP/s peak stands for every precision; otherwise the
+        # device's int8 row, else its FLOP/s peak
+        int8 = None if peak_flops > 0 else resolve_int8_peak(device)
         if peak_flops > 0 and peak_bytes_s > 0:
             self.peak_flops, self.peak_bytes_s = peak_flops, peak_bytes_s
             self.peak_source = "explicit"
@@ -464,6 +505,9 @@ class CostModel:
                 if (peak_flops > 0 or peak_bytes_s > 0)
                 else resolved_src
             )
+        if int8 is None or os.getenv(PEAK_FLOPS_ENV):
+            int8 = self.peak_flops
+        self.peak_int8_ops = int8
         self._lock = threading.Lock()
         # kernel -> [device_s, flops, bytes, dispatches]
         self._kernels: dict[str, list[float]] = {}
@@ -481,9 +525,10 @@ class CostModel:
     # ---------- observation (completion path) ----------
 
     def observe_kernel(self, kernel: str, device_s: float, **dims) -> None:
-        """Fold one timing into the per-kernel totals. ``device_s`` is
-        dispatch → result on the host (the batcher's device span): an upper
-        bound on device time, so the derived MFU is a lower bound."""
+        """Fold one timing into the per-kernel totals. ``device_s`` is the
+        lookup's time on its stream, from its first launch's start to its
+        last copy's end (the gaps between its launches included), so the
+        derived MFU is a lower bound on what its kernels achieve."""
         global OBSERVATIONS_TOTAL
         OBSERVATIONS_TOTAL += 1  # benign race: the zero-cost proof counter
         spec = KERNEL_COST_SPECS.get(kernel)
@@ -537,10 +582,6 @@ class CostModel:
             self.n_shards = max(1, int(n_shards))
             self.publish_watermark_bytes = int(watermark_bytes)
 
-    def per_device_tensor_bytes(self) -> int:
-        with self._lock:
-            return sum(self.tensor_bytes.values()) // self.n_shards
-
     def headroom_bytes(self) -> int:
         """Budget minus the per-device tensor residency."""
         with self._lock:
@@ -557,6 +598,8 @@ class CostModel:
         for kernel, (device_s, flops, moved, n) in snap.items():
             flops_s = flops / device_s if device_s > 0 else 0.0
             bytes_s = moved / device_s if device_s > 0 else 0.0
+            spec = KERNEL_COST_SPECS.get(kernel)
+            peak = self.peak_int8_ops if spec is not None and spec.peak == "int8" else self.peak_flops
             out[kernel] = {
                 "device_s": device_s,
                 "dispatches": n,
@@ -564,10 +607,11 @@ class CostModel:
                 "bytes": moved,
                 "flops_per_s": flops_s,
                 "bytes_per_s": bytes_s,
-                # clamped at 1, as the reference has it: a formula that
-                # overcounts the work can hide behind the clamp
-                "mfu": min(flops_s / self.peak_flops, 1.0) if self.peak_flops > 0 else 0.0,
-                "roofline": classify_roofline(flops, moved, self.peak_flops, self.peak_bytes_s),
+                # not clamped (the reference clamps at 1): a reading above 1
+                # says the formula overcounts the work or the time misses
+                # part of it
+                "mfu": flops_s / peak if peak > 0 else 0.0,
+                "roofline": classify_roofline(flops, moved, peak, self.peak_bytes_s),
             }
         return out
 

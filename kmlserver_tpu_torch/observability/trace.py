@@ -23,6 +23,13 @@ The id travels in ``X-KMLS-Trace`` (request: ``<trace_id>`` or
 ``<trace_id>:<parent_id>``; the response echoes the trace id), so a
 replay client can join its own timing to the server's spans
 (``observability/tracejoin.py``).
+
+Each rendered span also carries ``start_unix_us``, its start in unix
+microseconds: the ``perf_counter`` endpoints mapped through one
+``time.time_ns()`` reading taken beside a ``perf_counter`` reading when
+the trace opens. A ``torch.profiler`` Chrome trace of the same process
+(``GET /debug/profile``) puts its events at ``ts + baseTimeNanoseconds /
+1e3`` unix microseconds, so the two lay on one clock.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ class TraceContext:
     recorder keeps the dict rendered at finish, which cannot change."""
 
     __slots__ = (
-        "trace_id", "parent_id", "t0", "wall_start",
+        "trace_id", "parent_id", "t0", "wall_start", "unix_us_at_zero",
         "spans", "attrs", "status", "duration_s", "finished",
     )
 
@@ -63,6 +70,9 @@ class TraceContext:
         self.parent_id = parent_id
         self.t0 = t0  # perf_counter at begin
         self.wall_start = time.time()
+        # unix microseconds at perf_counter() == 0: the two clocks read
+        # back to back, so a perf_counter endpoint maps to the unix clock
+        self.unix_us_at_zero = time.time_ns() / 1e3 - time.perf_counter() * 1e6
         self.spans: list[tuple[str, float, float, dict | None]] = []
         self.attrs: dict[str, object] = {}
         self.status = "open"
@@ -93,6 +103,7 @@ class TraceContext:
                 {
                     "name": name,
                     "start_ms": round((t_start - self.t0) * 1e3, 4),
+                    "start_unix_us": round(self.unix_us_at_zero + t_start * 1e6, 1),
                     "duration_ms": round((t_end - t_start) * 1e3, 4),
                     **({"attrs": attrs} if attrs else {}),
                 }

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import encode
 
 TILE_I_DEFAULT = 32
@@ -170,7 +171,8 @@ def popcount_pair_counts_padded(
     A CUDA tensor launches the tensor-core kernel (``swar=True``: the SWAR
     kernel; ``variant`` is accepted for the reference's signature, both
     variants are the same kernel); a CPU tensor takes
-    :func:`popcount_pair_counts_plain`."""
+    :func:`popcount_pair_counts_plain`. Under a running profiler the count
+    is a ``kmls:count`` span with the bitset's shape."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     ti, tj, wk = resolve_tiles(tile_i, tile_j, word_chunk)
@@ -186,36 +188,37 @@ def popcount_pair_counts_padded(
         )
     if bt.dtype != torch.int32:
         raise TypeError(f"bt must be int32 (uint32 bit pattern), got {bt.dtype}")
-    if bt.device.type == "cpu":
-        return popcount_pair_counts_plain(bt)
-    if bt.device.type != "cuda":
-        raise ValueError(f"no popcount kernel for device {bt.device}")
-    if not bt.is_contiguous():
-        raise ValueError("bt must be contiguous")
-    out = torch.empty((v_pad, v_pad), dtype=torch.int32, device=bt.device)
-    if v_pad == 0:
+    with span("count", v_pad=v_pad, w_pad=w_pad):
+        if bt.device.type == "cpu":
+            return popcount_pair_counts_plain(bt)
+        if bt.device.type != "cuda":
+            raise ValueError(f"no popcount kernel for device {bt.device}")
+        if not bt.is_contiguous():
+            raise ValueError("bt must be contiguous")
+        out = torch.empty((v_pad, v_pad), dtype=torch.int32, device=bt.device)
+        if v_pad == 0:
+            return out
+        if w_pad == 0:
+            return out.zero_()
+        lib = kernel_lib()
+        with torch.cuda.device(bt.device):
+            stream = torch.cuda.current_stream(bt.device).cuda_stream
+            if swar:
+                name = "popcount_pairs_swar"
+                rc = lib.kmls_popcount_pair_counts_swar(
+                    bt.data_ptr(), out.data_ptr(), v_pad, w_pad, *block_shape(ti, tj), stream
+                )
+            else:
+                name = "popcount_pairs"
+                rc = lib.kmls_popcount_pair_counts(
+                    bt.data_ptr(), out.data_ptr(), v_pad, w_pad, stream
+                )
+        if rc != 0:
+            raise RuntimeError(
+                f"{name} kernel launch failed: CUDA error {rc} (bt {tuple(bt.shape)})"
+            )
+        LAUNCHES[name] += 1
         return out
-    if w_pad == 0:
-        return out.zero_()
-    lib = kernel_lib()
-    with torch.cuda.device(bt.device):
-        stream = torch.cuda.current_stream(bt.device).cuda_stream
-        if swar:
-            name = "popcount_pairs_swar"
-            rc = lib.kmls_popcount_pair_counts_swar(
-                bt.data_ptr(), out.data_ptr(), v_pad, w_pad, *block_shape(ti, tj), stream
-            )
-        else:
-            name = "popcount_pairs"
-            rc = lib.kmls_popcount_pair_counts(
-                bt.data_ptr(), out.data_ptr(), v_pad, w_pad, stream
-            )
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: CUDA error {rc} (bt {tuple(bt.shape)})"
-        )
-    LAUNCHES[name] += 1
-    return out
 
 
 def kernel_lib() -> ctypes.CDLL:

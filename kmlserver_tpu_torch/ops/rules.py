@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import encode, support
 from .support import min_count_for
 
@@ -437,19 +438,28 @@ def mine_rules_from_counts(
 
     ``n_total_songs``: the dataset's full unique-track count when the count
     matrix covers an Apriori-pruned vocabulary (keeps the missing-songs
-    counter meaning total_songs - frequent keys)."""
+    counter meaning total_songs - frequent keys).
+
+    Under a running profiler the call is a ``kmls:emit`` span (the matrix's
+    rows ``f``, ``k_max``) around ``emit.topk`` (the threshold and top-k
+    launches), ``emit.fetch`` (the copy to the host, which waits for them)
+    and ``emit.assemble`` (the host assembly)."""
     min_count = min_count_for(min_support, n_playlists)
-    rule_ids, rule_counts, row_valid = emit_rule_tensors(
-        pair_count_matrix, min_count, k_max=k_max
-    )
-    diag = torch.diagonal(pair_count_matrix)
-    rule_ids, rule_counts, row_valid, item_counts = (
-        t.cpu().numpy() for t in (rule_ids, rule_counts, row_valid, diag)
-    )
-    return assemble_rule_tensors(
-        rule_ids, rule_counts, row_valid, item_counts.astype(np.int32),
-        n_playlists=n_playlists, min_support=min_support, k_max=k_max,
-        mode=mode, min_confidence=min_confidence,
-        n_total_songs=n_total_songs,
-        n_tracks=int(pair_count_matrix.shape[0]),
-    )
+    with span("emit", f=pair_count_matrix.shape[0], k_max=k_max):
+        with span("emit.topk"):
+            rule_ids, rule_counts, row_valid = emit_rule_tensors(
+                pair_count_matrix, min_count, k_max=k_max
+            )
+            diag = torch.diagonal(pair_count_matrix)
+        with span("emit.fetch"):
+            rule_ids, rule_counts, row_valid, item_counts = (
+                t.cpu().numpy() for t in (rule_ids, rule_counts, row_valid, diag)
+            )
+        with span("emit.assemble"):
+            return assemble_rule_tensors(
+                rule_ids, rule_counts, row_valid, item_counts.astype(np.int32),
+                n_playlists=n_playlists, min_support=min_support, k_max=k_max,
+                mode=mode, min_confidence=min_confidence,
+                n_total_songs=n_total_songs,
+                n_tracks=int(pair_count_matrix.shape[0]),
+            )

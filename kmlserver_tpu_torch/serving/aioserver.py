@@ -28,6 +28,11 @@ settle for at most ``KMLS_DRAIN_SETTLE_S``, and then the connections still
 open — idle keep-alive ones included — are closed, so the server's
 ``wait_closed()`` (which waits for every connection on Python ≥ 3.12.1)
 returns instead of hanging.
+
+Under a running profiler (``utils/profiling.span``) each request's framing
+is a ``kmls:http.parse`` span (the body's JSON is the app's, under the
+same name) and each recommend answer's encoding and write a
+``kmls:http.respond`` span; no span crosses a loop iteration.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 from .. import faults
 from ..config import drain_settle_s_from_env
+from ..utils.profiling import span
 from .app import RecommendApp, batcher_kwargs
 
 logger = logging.getLogger("kmlserver_tpu_torch.serving")
@@ -150,51 +156,61 @@ class _Conn(asyncio.Protocol):
     # ---------- request framing ----------
 
     def _process_buffer(self) -> None:
-        while not self.closed and self._next_seq - self._next_write < _MAX_PIPELINE:
-            end = self.buf.find(b"\r\n\r\n")
-            if end < 0:
-                if len(self.buf) > _MAX_HEAD:
-                    self._bad_request("headers too large")
+        while self.buf and not self.closed and self._next_seq - self._next_write < _MAX_PIPELINE:
+            with span("http.parse"):
+                request = self._next_request()
+            if request is None:
                 return
-            head = self.buf[:end]
-            try:
-                request_line, _, header_block = head.partition(b"\r\n")
-                method, path, _ = request_line.decode("latin1").split(" ", 2)
-            except ValueError:
-                self._bad_request("malformed request line")
-                return
-            content_length = 0
-            close_after = False
-            trace_header: str | None = None
-            budget_header: str | None = None
-            for line in header_block.split(b"\r\n"):
-                key, _, value = line.partition(b":")
-                lowered = key.strip().lower()
-                if lowered == b"content-length":
-                    try:
-                        content_length = int(value.strip())
-                    except ValueError:
-                        self._bad_request("bad Content-Length")
-                        return
-                elif lowered == b"connection":
-                    close_after = value.strip().lower() == b"close"
-                elif lowered == b"x-kmls-trace":
-                    # span-trace propagation: the raw value; the recorder
-                    # validates it (charset, length) or replaces it
-                    trace_header = value.strip().decode("latin1")
-                elif lowered == b"x-kmls-deadline-budget":
-                    # remaining budget (ms) forwarded by an upstream hop;
-                    # the app ignores malformed values
-                    budget_header = value.strip().decode("latin1")
-            if content_length > _MAX_BODY:
-                self._bad_request("body too large")
-                return
-            total = end + 4 + content_length
-            if len(self.buf) < total:
-                return  # body still arriving
-            body = self.buf[end + 4: total] or None
-            self.buf = self.buf[total:]
-            self._dispatch(method, path, body, close_after, trace_header, budget_header)
+            self._dispatch(*request)
+
+    def _next_request(self) -> tuple | None:
+        """Frame the next complete request out of the buffer → the
+        arguments of :meth:`_dispatch`, or None when it is incomplete or
+        was answered 400."""
+        end = self.buf.find(b"\r\n\r\n")
+        if end < 0:
+            if len(self.buf) > _MAX_HEAD:
+                self._bad_request("headers too large")
+            return None
+        head = self.buf[:end]
+        try:
+            request_line, _, header_block = head.partition(b"\r\n")
+            method, path, _ = request_line.decode("latin1").split(" ", 2)
+        except ValueError:
+            self._bad_request("malformed request line")
+            return None
+        content_length = 0
+        close_after = False
+        trace_header: str | None = None
+        budget_header: str | None = None
+        for line in header_block.split(b"\r\n"):
+            key, _, value = line.partition(b":")
+            lowered = key.strip().lower()
+            if lowered == b"content-length":
+                try:
+                    content_length = int(value.strip())
+                except ValueError:
+                    self._bad_request("bad Content-Length")
+                    return None
+            elif lowered == b"connection":
+                close_after = value.strip().lower() == b"close"
+            elif lowered == b"x-kmls-trace":
+                # span-trace propagation: the raw value; the recorder
+                # validates it (charset, length) or replaces it
+                trace_header = value.strip().decode("latin1")
+            elif lowered == b"x-kmls-deadline-budget":
+                # remaining budget (ms) forwarded by an upstream hop;
+                # the app ignores malformed values
+                budget_header = value.strip().decode("latin1")
+        if content_length > _MAX_BODY:
+            self._bad_request("body too large")
+            return None
+        total = end + 4 + content_length
+        if len(self.buf) < total:
+            return None  # body still arriving
+        body = self.buf[end + 4: total] or None
+        self.buf = self.buf[total:]
+        return method, path, body, close_after, trace_header, budget_header
 
     def _bad_request(self, detail: str) -> None:
         seq = self._next_seq
@@ -289,15 +305,17 @@ class _Conn(asyncio.Protocol):
             logger.exception("unhandled error for POST %s", path)
             app.metrics.record_error()
             response = _ERROR_500
-        self._stage(seq, response, close_after)
+        with span("http.respond"):
+            self._stage(seq, response, close_after)
         state.leave()
 
     def _finish_recommend(
         self, seq: int, future, t0: float, close_after: bool, trace=None,
     ) -> None:
         if not self.closed:
-            self._stage(seq, self.state.app.finish_recommend(future, t0, trace=trace),
-                        close_after)
+            with span("http.respond"):
+                self._stage(seq, self.state.app.finish_recommend(future, t0, trace=trace),
+                            close_after)
         self._after_answer()
 
     def _finish_handled(self, seq: int, task, close_after: bool) -> None:

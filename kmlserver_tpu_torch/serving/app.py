@@ -48,7 +48,10 @@ With ``KMLS_TRACE_SAMPLE`` > 0 every request carries a trace
 generated) and is echoed on the response, and the cache, batcher queue,
 device and compose spans are recorded; tail-based retention decides what
 ``/debug/traces`` keeps. With tracing off (the default) no request builds
-anything.
+anything. Apart from that recorder, under a running profiler the body's
+parse is a ``kmls:http.parse`` span, the cache lookup ``kmls:cache`` and
+the admission decision with its ``submit`` ``kmls:admit``
+(``utils/profiling.span``).
 
 ``handle()`` maps a request to ``(status, headers, body)`` independently of
 the transport; ``submit_recommend`` / ``finish_recommend`` are its
@@ -74,6 +77,7 @@ from ..config import ServingConfig
 from ..io.iohealth import MONITOR
 from ..observability import LoopLagMonitor, SloTracker, SpanRecorder
 from ..utils import profiling
+from ..utils.profiling import span
 from .batcher import DeadlineExceeded, NoHealthyReplicas, Overloaded, OverloadDegraded
 from .cache import RecommendCache
 from .engine import RecommendEngine
@@ -542,23 +546,24 @@ class RecommendApp:
     @staticmethod
     def _validate_recommend(body: bytes | None) -> tuple[Response | None, list[str] | None]:
         """→ (error response, None) or (None, songs)."""
-        try:
-            payload = json.loads(body or b"")
-        except json.JSONDecodeError:
-            return _json_response(
-                422, {"detail": [{"msg": "request body is not valid JSON"}]}
-            ), None
-        songs = payload.get("songs") if isinstance(payload, dict) else None
-        if not isinstance(songs, list) or not all(isinstance(s, str) for s in songs):
-            return _json_response(
-                422,
-                {"detail": [{"loc": ["body", "songs"],
-                             "msg": "field 'songs' must be a list of strings"}]},
-            ), None
-        if not songs:
-            # reference: empty request → 400 (rest_api/app/main.py:178-179)
-            return _json_response(400, {"detail": "Request with no songs"}), None
-        return None, songs
+        with span("http.parse"):
+            try:
+                payload = json.loads(body or b"")
+            except json.JSONDecodeError:
+                return _json_response(
+                    422, {"detail": [{"msg": "request body is not valid JSON"}]}
+                ), None
+            songs = payload.get("songs") if isinstance(payload, dict) else None
+            if not isinstance(songs, list) or not all(isinstance(s, str) for s in songs):
+                return _json_response(
+                    422,
+                    {"detail": [{"loc": ["body", "songs"],
+                                 "msg": "field 'songs' must be a list of strings"}]},
+                ), None
+            if not songs:
+                # reference: empty request → 400 (rest_api/app/main.py:178-179)
+                return _json_response(400, {"detail": "Request with no songs"}), None
+            return None, songs
 
     # ---------- span tracing ----------
 
@@ -889,18 +894,20 @@ class RecommendApp:
                 self.affinity_remote_total += 1
         if self.cache is None or self.batcher is None:
             return "off", None
-        key = self._cache_key(songs)
-        if trace is not None:
-            t_cache = time.perf_counter()
-            hit = self.cache.get(key)
-            trace.span("cache", t_cache, time.perf_counter(), {"hit": hit is not None})
-        else:
-            hit = self.cache.get(key)
+        with span("cache"):
+            key = self._cache_key(songs)
+            if trace is not None:
+                t_cache = time.perf_counter()
+                hit = self.cache.get(key)
+                trace.span("cache", t_cache, time.perf_counter(), {"hit": hit is not None})
+            else:
+                hit = self.cache.get(key)
         if hit is not None:
             return "hit", hit
-        future, joined = self.cache.join_or_lead(
-            key, lambda: self.batcher.submit(songs, deadline=deadline, trace=trace)
-        )
+        with span("admit"):
+            future, joined = self.cache.join_or_lead(
+                key, lambda: self.batcher.submit(songs, deadline=deadline, trace=trace)
+            )
         if joined and trace is not None:
             # a joiner shares the leader's batch slot: no queue/device spans
             trace.annotate("singleflight", "joined")
@@ -1018,7 +1025,8 @@ class RecommendApp:
         try:
             state, payload = self._cache_lookup_or_lead(songs, deadline, trace)
             if state == "off":
-                payload = self.batcher.submit(songs, deadline=deadline, trace=trace)
+                with span("admit"):
+                    payload = self.batcher.submit(songs, deadline=deadline, trace=trace)
                 payload._kmls_seeds = songs
         except Exception as exc:  # Overloaded / OverloadDegraded / NoHealthyReplicas
             if isinstance(exc, MeshShardUnavailable):
@@ -1258,8 +1266,9 @@ def make_handler(app: RecommendApp):
             try:
                 body = None
                 if method == "POST":
-                    length = int(self.headers.get("Content-Length") or 0)
-                    body = self.rfile.read(length) if length else b""
+                    with span("http.parse"):
+                        length = int(self.headers.get("Content-Length") or 0)
+                        body = self.rfile.read(length) if length else b""
                 try:
                     status, headers, payload = app.handle(
                         method, self.path, body,
@@ -1273,17 +1282,18 @@ def make_handler(app: RecommendApp):
                     status, headers, payload = 500, {"Content-Type": "application/json"}, (
                         b'{"detail": "Internal Server Error"}'
                     )
-                self.send_response(status)
-                for key, value in headers.items():
-                    self.send_header(key, value)
-                self.send_header("Content-Length", str(len(payload)))
-                # during a drain, tell keep-alive clients to reconnect
-                # elsewhere: endpoint removal only diverts NEW connections
-                if self.server.draining.is_set():
-                    self.send_header("Connection", "close")
-                    self.close_connection = True
-                self.end_headers()
-                self.wfile.write(payload)
+                with span("http.respond"):
+                    self.send_response(status)
+                    for key, value in headers.items():
+                        self.send_header(key, value)
+                    self.send_header("Content-Length", str(len(payload)))
+                    # during a drain, tell keep-alive clients to reconnect
+                    # elsewhere: endpoint removal only diverts NEW connections
+                    if self.server.draining.is_set():
+                        self.send_header("Connection", "close")
+                        self.close_connection = True
+                    self.end_headers()
+                    self.wfile.write(payload)
             finally:
                 with self.server.active_lock:
                     self.server.active_requests -= 1

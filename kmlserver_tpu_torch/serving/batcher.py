@@ -37,6 +37,9 @@ intervals as its ``queue`` and ``device`` spans, recorded before its
 future resolves. With a ``lag_monitor`` (observability/runtime.py) the
 decayed event-loop stall joins the admission pressure: a wedged loop
 escalates the ladder as a saturated queue would.
+Under a running profiler a batch's dispatch is a ``kmls:flush`` span and
+its completion a ``kmls:resolve`` span (``utils/profiling.span``), each
+with the batch's rows.
 A failure is propagated to every waiting request — the batcher threads
 themselves never die.
 
@@ -86,6 +89,7 @@ import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
 
+from ..utils.profiling import span
 from .engine import RecommendEngine
 
 logger = logging.getLogger("kmlserver_tpu_torch.serving")
@@ -853,7 +857,8 @@ class MicroBatcher(_ReplicaPolicy):
                         pending.future.set_exception(err)
                 continue
             try:
-                finish = self._dispatch(batch, idx, n)
+                with span("flush", rows=len(batch)):
+                    finish = self._dispatch(batch, idx, n)
             except Exception as exc:  # propagate, don't die
                 with self._pipe_cond:
                     self._unreserve_locked(idx)
@@ -885,7 +890,8 @@ class MicroBatcher(_ReplicaPolicy):
             if err is not None:
                 self._on_replica_failure(idx, batch, err)
                 continue
-            self._record_done(batch, results, idx, t_dispatch, t_complete)
+            with span("resolve", rows=len(batch)):
+                self._record_done(batch, results, idx, t_dispatch, t_complete)
 
     # ---------- replica health ----------
 
@@ -1068,7 +1074,8 @@ class AsyncMicroBatcher(_ReplicaPolicy):
             return
         t_dispatch = time.perf_counter()
         try:
-            finish = self._dispatch(batch, idx, n)
+            with span("flush", rows=len(batch)):
+                finish = self._dispatch(batch, idx, n)
         except Exception as exc:  # propagate, don't die
             self._unreserve_locked(idx)
             self._on_replica_failure(idx, batch, exc, loop)
@@ -1114,11 +1121,13 @@ class AsyncMicroBatcher(_ReplicaPolicy):
     def _resolve(self, batch, outcome, t_dispatch: float, loop, idx: int) -> None:
         results, err = outcome
         t_complete = time.perf_counter()
-        self._note_completion_locked(idx, None if err is not None else t_complete - t_dispatch)
-        if err is not None:
-            self._on_replica_failure(idx, batch, err, loop)
-        else:
-            self._record_done(batch, results, idx, t_dispatch, t_complete)
+        with span("resolve", rows=len(batch)):
+            self._note_completion_locked(
+                idx, None if err is not None else t_complete - t_dispatch)
+            if err is not None:
+                self._on_replica_failure(idx, batch, err, loop)
+            else:
+                self._record_done(batch, results, idx, t_dispatch, t_complete)
         if self._pending and self._flush_handle is None:
             # a freed pipeline slot dispatches the waiting batch now
             self._flush(loop)

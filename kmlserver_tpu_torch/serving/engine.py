@@ -38,11 +38,20 @@ checksum-failing embedding artifact degrades to rules only; the reload
 never fails for it.
 
 Cost attribution (``observability/costmodel.py``, on unless
-``KMLS_COSTMODEL=0``): each finished batch reports its dispatch → CUDA
-event seconds and its bucket's shape as a ``serve_rules`` observation
-(and the embedding lookup's as ``embed_topk``), each publication the
-tensors' bytes and the allocator's watermark, and the unwarmed dispatches
-of each lookup are watched as ``kmls_compiles_total``.
+``KMLS_COSTMODEL=0``): each finished batch reports each lookup's device
+seconds — CUDA events recorded around its launches on its stream, read
+after its own fence; on the CPU the synchronous call's time — and its
+bucket's shape as a ``serve_rules`` observation (and the embedding
+lookup's as ``embed_topk``), each publication the tensors' bytes and the
+allocator's watermark, and the unwarmed dispatches of each lookup are
+watched as ``kmls_compiles_total``.
+
+Spans (``utils/profiling.span``, free without a running profiler): a
+dispatch is ``kmls:dispatch`` (rows, padded length, replica) around the
+seeds' staging (``stage``), the rule lookup's launches
+(``rules_launch``) and the embedding lookup's (``embed_topk``, with its
+valid seeds and shape); ``finish()`` is ``finish.wait`` (blocked on the
+batch's fences) then ``compose`` (the answers).
 
 Continuous freshness (``KMLS_DELTA_ENABLED``): the poll also reads the
 delta chain of the serving generation and applies each new
@@ -121,6 +130,7 @@ from . import mesh as mesh_mod
 from . import native_serve
 from ..ops.support import min_count_for
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 logger = logging.getLogger("kmlserver_tpu_torch.serving")
 
@@ -142,6 +152,24 @@ def blend_candidates(
         scores[name] = scores.get(name, 0.0) + w * float(sim)
     ranked = sorted(scores.items(), key=lambda kv: (-kv[1], kv[0]))
     return [n for n, _ in ranked[:k_best]]
+
+
+class _EnqueuedLookup:
+    """One enqueued lookup: calling it waits for the host ``(ids,
+    scores)``; after that, ``device_s`` holds the lookup's seconds on its
+    stream (CUDA events around its launches, read once its own fence has
+    passed, so no new synchronization), or on the CPU the synchronous
+    call's time."""
+
+    __slots__ = ("_run", "device_s")
+
+    def __init__(self, run: Callable[[], tuple[np.ndarray, np.ndarray, float]]):
+        self._run = run
+        self.device_s = 0.0
+
+    def __call__(self) -> tuple[np.ndarray, np.ndarray]:
+        ids, scores, self.device_s = self._run()
+        return ids, scores
 
 
 def _on_device(dev: torch.device):
@@ -1370,8 +1398,9 @@ class RecommendEngine:
         """Fill the padded (rows, length) host seed tensor → (host seed
         tensor, per-row any-known-seed mask)."""
         shape = (rows, length)
-        seeds = self._staging(shape, bundle.device)
-        known_rows = self._fill_seed_rows(bundle, seed_sets, seeds.numpy(), length)
+        with span("stage"):
+            seeds = self._staging(shape, bundle.device)
+            known_rows = self._fill_seed_rows(bundle, seed_sets, seeds.numpy(), length)
         if bundle.n_shards > 1 and bundle.shard_size > 0:
             self._note_shard_dispatch(bundle, seeds.numpy())
         if shape not in bundle.warmed_shapes:
@@ -1386,38 +1415,42 @@ class RecommendEngine:
     def _enqueue(
         lookup: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
         seeds: torch.Tensor, dev: torch.device,
-    ) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
+    ) -> _EnqueuedLookup:
         """Start ``lookup`` on the host ``seeds`` on ``dev`` → ``wait()``,
-        which returns the (rows, k_best) host ids and scores.
+        which returns the (rows, k_best) host ids and scores, and then
+        holds the lookup's device seconds in ``wait.device_s``.
 
         On a card the seed copy, the lookup and the copies of its two
         outputs into pinned host tensors are enqueued on the device's
-        current stream with a CUDA event after them, and ``wait()``
-        synchronizes on that event only (releasing the GIL). On the CPU the
+        current stream between two timing CUDA events, and ``wait()``
+        synchronizes on the second only (releasing the GIL). On the CPU the
         lookup runs inside ``wait()``, so a dispatch never computes on the
         caller's thread."""
         if dev.type != "cuda":
-            def wait_cpu() -> tuple[np.ndarray, np.ndarray]:
+            def run_cpu() -> tuple[np.ndarray, np.ndarray, float]:
+                t0 = time.perf_counter()
                 ids, scores = lookup(seeds)
-                return ids.numpy(), scores.numpy()
+                return ids.numpy(), scores.numpy(), time.perf_counter() - t0
 
-            return wait_cpu
+            return _EnqueuedLookup(run_cpu)
         with torch.cuda.device(dev):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
             seeds_dev = seeds.to(dev, non_blocking=True)
             outs = lookup(seeds_dev)
             host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
             for h, t in zip(host, outs):
                 h.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
+            done = torch.cuda.Event(enable_timing=True)
             done.record()
 
         # _staged keeps the fresh pinned seed tensor alive until the copy
         # that reads it has provably finished
-        def wait_cuda(_staged: torch.Tensor = seeds) -> tuple[np.ndarray, np.ndarray]:
+        def run_cuda(_staged: torch.Tensor = seeds) -> tuple[np.ndarray, np.ndarray, float]:
             done.synchronize()
-            return host[0].numpy(), host[1].numpy()
+            return host[0].numpy(), host[1].numpy(), start.elapsed_time(done) / 1e3
 
-        return wait_cuda
+        return _EnqueuedLookup(run_cuda)
 
     def _launch(self, bundle: RuleBundle, seeds: torch.Tensor):
         """The rule lookup of ``seeds`` on ``bundle`` → ``wait()`` for the
@@ -1435,7 +1468,8 @@ class RecommendEngine:
         else:
             def lookup(s):
                 return recommend_batch(bundle.rule_ids, bundle.rule_confs, s, k_best=k_best)
-        return self._enqueue(lookup, seeds, bundle.device)
+        with span("rules_launch"):
+            return self._enqueue(lookup, seeds, bundle.device)
 
     def _merge_on_device(
         self, bundle: RuleBundle, stack_ids: np.ndarray, stack_confs: np.ndarray
@@ -1453,11 +1487,16 @@ class RecommendEngine:
 
     def _launch_embed(self, bundle: RuleBundle, seeds: torch.Tensor):
         """The embedding lookup of ``seeds`` (embedding ids) on ``bundle``
-        → ``wait()`` for the host (ids, similarities)."""
+        → ``wait()`` for the host (ids, similarities). Its span carries the
+        batch's valid seeds and shape, read from the host staging."""
         k_best = self.cfg.k_best_tracks
-        return self._enqueue(
-            lambda s: embed_topk(bundle.emb_factors, s, k_best=k_best), seeds, bundle.device,
-        )
+        staged = seeds.numpy()
+        v, r = bundle.emb_factors.shape
+        with span("embed_topk", valid=lambda: int((staged >= 0).sum()), rows=staged.shape[0],
+                  len=staged.shape[1], v=v, r=r, k=k_best):
+            return self._enqueue(
+                lambda s: embed_topk(bundle.emb_factors, s, k_best=k_best), seeds, bundle.device,
+            )
 
     def _dispatch_embed(
         self, bundle: RuleBundle, seed_sets: list[list[str]], n_rows: int, length: int,
@@ -1471,14 +1510,15 @@ class RecommendEngine:
         if bundle.emb_factors is None or self.cfg.hybrid_mode == "rules":
             return None
         shape = (n_rows, length)
-        seeds = self._staging(shape, bundle.device)
-        arr = seeds.numpy()
-        known = np.zeros(len(seed_sets), dtype=bool)
-        index = bundle.emb_index or {}
-        for r, names in enumerate(seed_sets):
-            ids = [index[s] for s in names if s in index][:length]
-            arr[r, : len(ids)] = ids
-            known[r] = len(ids) > 0
+        with span("stage"):
+            seeds = self._staging(shape, bundle.device)
+            arr = seeds.numpy()
+            known = np.zeros(len(seed_sets), dtype=bool)
+            index = bundle.emb_index or {}
+            for r, names in enumerate(seed_sets):
+                ids = [index[s] for s in names if s in index][:length]
+                arr[r, : len(ids)] = ids
+                known[r] = len(ids) > 0
         if not known.any():
             return None
         if shape not in bundle.emb_warmed_shapes:
@@ -1552,15 +1592,21 @@ class RecommendEngine:
                 return [(self.static_recommendation(s), "fallback") for s in seed_sets]
 
             return finish_fallback
-        if bundle.layout == "mesh":
-            return self._mesh_recommend_async(bundle, seed_sets, idx)
-        if bundle.host_rule_ids is not None:
-            return self._native_recommend_async(bundle, seed_sets, idx)
         length = self._bucket_len(max((len(s) for s in seed_sets), default=1))
+        with span("dispatch", rows=len(seed_sets), len=length, replica=idx):
+            if bundle.layout == "mesh":
+                return self._mesh_recommend_async(bundle, seed_sets, idx, length)
+            if bundle.host_rule_ids is not None:
+                return self._native_recommend_async(bundle, seed_sets, idx, length)
+            return self._device_recommend_async(bundle, seed_sets, idx, length)
+
+    def _device_recommend_async(
+        self, bundle: RuleBundle, seed_sets: list[list[str]], idx: int, length: int,
+    ) -> Callable[[], list[tuple[list[str], str]]]:
+        """The replicated and sharded layouts' dispatch/finish pair."""
         n_rows = self._bucket_batch(max(len(seed_sets), 1))
         seeds, known_rows = self._stage_seeds(bundle, seed_sets, n_rows, length)
         cm = self.cost_model
-        t_kernel = time.perf_counter()
         wait = self._launch(bundle, seeds) if known_rows.any() else None
         emb = self._dispatch_embed(bundle, seed_sets, n_rows, length)
         self._note_dispatch(idx)
@@ -1570,58 +1616,55 @@ class RecommendEngine:
             # failure or stall surfaces
             faults.fire("replica.kernel", replica=idx)
             host_ids = host_confs = None
-            t_rules = time.perf_counter()
-            if wait is not None:
-                host_ids, host_confs = wait()
-                t_rules = time.perf_counter()
-                if cm is not None:
-                    # dispatch → the batch's CUDA event (the wait above is
-                    # its fence): the same span kmls_device_ms reports, an
-                    # upper bound on device time, so the MFU is a lower bound
+            emb_ids = emb_sims = emb_known = None
+            with span("finish.wait"):
+                if wait is not None:
+                    host_ids, host_confs = wait()
+                if emb is not None:
+                    (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
+            if cm is not None:
+                # each lookup's own time on the stream, read after its fence
+                if wait is not None:
                     dims = dict(
                         b=n_rows, l=length, k_max=bundle.rule_ids.shape[1],
                         v=len(bundle.vocab), k_best=self.cfg.k_best_tracks,
                         shards=bundle.n_shards,
                     )
                     if bundle.layout == "sharded":
-                        cm.observe_kernel("serve_sharded", t_rules - t_kernel, **dims)
+                        cm.observe_kernel("serve_sharded", wait.device_s, **dims)
                     else:
-                        cm.observe_kernel("serve_rules", t_rules - t_kernel, **dims)
-            emb_ids = emb_sims = emb_known = None
-            if emb is not None:
-                (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
-                if cm is not None:
-                    # the rule lookup is fenced already and the stream runs
-                    # in order, so this span bills the embedding lookup
+                        cm.observe_kernel("serve_rules", wait.device_s, **dims)
+                if emb is not None:
                     cm.observe_kernel(
-                        "embed_topk", time.perf_counter() - t_rules,
+                        "embed_topk", emb[0].device_s,
                         b=n_rows, l=length, v=len(bundle.emb_vocab or ()),
                         r=int(bundle.emb_factors.shape[1]), k_best=self.cfg.k_best_tracks,
                     )
-            return [
-                self._compose_answer(
-                    bundle, s, bool(known_rows[r]),
-                    host_ids[r] if host_ids is not None else None,
-                    host_confs[r] if host_confs is not None else None,
-                    None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
-                )
-                for r, s in enumerate(seed_sets)
-            ]
+            with span("compose", rows=len(seed_sets)):
+                return [
+                    self._compose_answer(
+                        bundle, s, bool(known_rows[r]),
+                        host_ids[r] if host_ids is not None else None,
+                        host_confs[r] if host_confs is not None else None,
+                        None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
+                    )
+                    for r, s in enumerate(seed_sets)
+                ]
 
         return finish
 
     def _native_recommend_async(
-        self, bundle: RuleBundle, seed_sets: list[list[str]], idx: int,
+        self, bundle: RuleBundle, seed_sets: list[list[str]], idx: int, bucket_len: int,
     ) -> Callable[[], list[tuple[list[str], str]]]:
         """The native host lookup's dispatch/finish pair. No bucketing: the
         seed array is exact-sized and fresh (it outlives the dispatch until
         ``finish()`` runs on the completion thread). The embedding lookup,
         when attached, still runs on the warmed bucket grid."""
         length = min(max((len(s) for s in seed_sets), default=1), self.cfg.max_seed_tracks)
-        arr = np.full((len(seed_sets), max(length, 1)), -1, dtype=np.int32)
-        known_rows = self._fill_seed_rows(bundle, seed_sets, arr, length)
-        emb_shape = (self._bucket_batch(max(len(seed_sets), 1)),
-                     self._bucket_len(max((len(s) for s in seed_sets), default=1)))
+        with span("stage"):
+            arr = np.full((len(seed_sets), max(length, 1)), -1, dtype=np.int32)
+            known_rows = self._fill_seed_rows(bundle, seed_sets, arr, length)
+        emb_shape = (self._bucket_batch(max(len(seed_sets), 1)), bucket_len)
         emb = self._dispatch_embed(bundle, seed_sets, *emb_shape)
         self._note_dispatch(idx)
         cm = self.cost_model
@@ -1633,9 +1676,10 @@ class RecommendEngine:
             faults.fire("replica.kernel", replica=idx)
             t_kernel = time.perf_counter()
             # the ctypes call releases the GIL for the whole batch
-            host_ids, host_confs = native_serve.serve_topk(
-                bundle.host_rule_ids, bundle.host_rule_confs, arr, k_best
-            )
+            with span("serve_native", rows=len(seed_sets)):
+                host_ids, host_confs = native_serve.serve_topk(
+                    bundle.host_rule_ids, bundle.host_rule_confs, arr, k_best
+                )
             t_rules = time.perf_counter()
             if cm is not None:
                 # the synchronous host call is its own fence
@@ -1647,25 +1691,27 @@ class RecommendEngine:
                 )
             emb_ids = emb_sims = emb_known = None
             if emb is not None:
-                (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
+                with span("finish.wait"):
+                    (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
                 if cm is not None:
                     cm.observe_kernel(
-                        "embed_topk", time.perf_counter() - t_rules,
+                        "embed_topk", emb[0].device_s,
                         b=emb_shape[0], l=emb_shape[1], v=len(bundle.emb_vocab or ()),
                         r=int(bundle.emb_factors.shape[1]), k_best=k_best,
                     )
-            return [
-                self._compose_answer(
-                    bundle, s, bool(known_rows[r]), host_ids[r], host_confs[r],
-                    None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
-                )
-                for r, s in enumerate(seed_sets)
-            ]
+            with span("compose", rows=len(seed_sets)):
+                return [
+                    self._compose_answer(
+                        bundle, s, bool(known_rows[r]), host_ids[r], host_confs[r],
+                        None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
+                    )
+                    for r, s in enumerate(seed_sets)
+                ]
 
         return finish
 
     def _mesh_recommend_async(
-        self, bundle: RuleBundle, seed_sets: list[list[str]], idx: int,
+        self, bundle: RuleBundle, seed_sets: list[list[str]], idx: int, length: int,
     ) -> Callable[[], list[tuple[list[str], str]]]:
         """The gang's dispatch/finish pair: the staged batch goes to every
         peer first (their sockets overlap this member's device work), this
@@ -1674,7 +1720,6 @@ class RecommendEngine:
         raises :class:`~.mesh.MeshShardUnavailable` out of ``finish()``; a
         straggler the coordinator dropped (``KMLS_HEDGE``) makes every
         answer of the batch ``degraded:mesh-straggler``."""
-        length = self._bucket_len(max((len(s) for s in seed_sets), default=1))
         n_rows = self._bucket_batch(max(len(seed_sets), 1))
         seeds, known_rows = self._stage_seeds(bundle, seed_sets, n_rows, length)
         if (n_rows, length) not in bundle.warmed_shapes:
@@ -1692,9 +1737,10 @@ class RecommendEngine:
 
         def finish() -> list[tuple[list[str], str]]:
             faults.fire("replica.kernel", replica=idx)
-            local_ids, local_confs = wait()
-            # blocks on the slowest peer; raises for the first dead rank
-            parts = finish_remote()
+            with span("finish.wait"):
+                local_ids, local_confs = wait()
+                # blocks on the slowest peer; raises for the first dead rank
+                parts = finish_remote()
             stack_ids = np.empty((bundle.n_shards, *local_ids.shape), dtype=np.int32)
             stack_confs = np.empty((bundle.n_shards, *local_confs.shape), dtype=np.float32)
             stack_ids[bundle.gang_rank] = local_ids
@@ -1720,14 +1766,16 @@ class RecommendEngine:
                 )
             emb_ids = emb_sims = emb_known = None
             if emb is not None:
-                (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
-            out = [
-                self._compose_answer(
-                    bundle, s, bool(known_rows[r]), host_ids[r], host_confs[r],
-                    None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
-                )
-                for r, s in enumerate(seed_sets)
-            ]
+                with span("finish.wait"):
+                    (emb_ids, emb_sims), emb_known = emb[0](), emb[1]
+            with span("compose", rows=len(seed_sets)):
+                out = [
+                    self._compose_answer(
+                        bundle, s, bool(known_rows[r]), host_ids[r], host_confs[r],
+                        None if emb_ids is None else (emb_ids[r], emb_sims[r], emb_known[r]),
+                    )
+                    for r, s in enumerate(seed_sets)
+                ]
             if dropped:
                 # a partial catalog is a degraded answer, never a silent one
                 # (the app flags it; the cache refuses to store it)

