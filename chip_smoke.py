@@ -127,7 +127,7 @@ main loop on the card and fails loudly on any mismatch:
    timed: the measurement the constant is set from), one synthetic row of
    2,000,000 events held against the plain version and timed, two full
    trainings (counters set to 0 just before the first) bit-identical,
-   peak device memory, ``embed_topk`` at V = 1M against the CPU.
+   peak device memory, ``embed_topk`` at V = 1M against its plain version.
 12. continuous freshness (``freshness/``, ``quality/lifecycle.py``, the
    engine's in-place apply, ``parallel/support.py::restricted_pair_counts``;
    run after phase 11 on phase 4's CSV and phase 5's scale baskets; alone:
@@ -2877,8 +2877,10 @@ NEAR_TIE = 1e-6  # a score gap at most this wide may order two packages' floats 
 # another order, and each sweep's solve carries the difference forward
 ALS_FACTOR_TOL = 1e-4  # max |Δ| of the normalized factors
 ALS_LOSS_RTOL = 1e-5  # relative difference of the final loss
-EMBED_SIM_TOL = 1e-6  # embed_topk similarities, card vs CPU
-EMBED_TOPK_SHAPES = ((1, 8), (32, 8))  # (batch, seed slots) buckets timed at V = 1M
+EMBED_TOPK_SHAPES = ((8, 128), (32, 128))  # (batch, seed slots) buckets of the main path
+# valid seeds a row of a timed embed_topk batch: the serving cell's mean
+# request (31.2 seeds, 10 % unknown), the rest of the 128 slots padding
+EMBED_VALID_PER_ROW = 28
 FP32_PEAK_OPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
 # cycles from one dependent fp32 add to the next on one lane (the segsum
 # kernel's chain; Hopper's fp32 pipeline latency)
@@ -2903,7 +2905,8 @@ def decisive_near_tie(engine, seeds: list, eps: float = NEAR_TIE) -> bool:
     emb = [bundle.emb_index[s] for s in seeds if s in (bundle.emb_index or {})][:cap]
     if bundle.emb_factors is None or not emb:
         return False
-    ids, sims = embed_topk(bundle.emb_factors, torch.tensor([emb], dtype=torch.int32),
+    ids, sims = embed_topk(bundle.emb_factors,
+                           torch.tensor([emb], dtype=torch.int32, device=bundle.emb_factors.device),
                            k_best=k + 1)
     live = sims[0][ids[0] >= 0].tolist()
     if any(a - b <= eps for a, b in zip(live, live[1:])):
@@ -2959,7 +2962,6 @@ def phase_embed_ds2(work: str) -> dict:
     from kmlserver_tpu_torch.mining import als
     from kmlserver_tpu_torch.mining.vocab import build_baskets
     from kmlserver_tpu_torch.observability.costmodel import phase_cost
-    from kmlserver_tpu_torch.ops.embed import embed_topk
     from kmlserver_tpu_torch.serving.engine import RecommendEngine
     from kmlserver_tpu_torch.serving.replay import replay_async_http
 
@@ -3029,16 +3031,10 @@ def phase_embed_ds2(work: str) -> dict:
     payloads = distinct_sets(list(cpu.bundle.emb_vocab), EMBED_REQUESTS, 41)
     want = engine_answers(cpu, payloads)
     cold = sum(not any(s in rule_keys for s in p_) for p_ in payloads)
-    topk_ms = {}
-    for b, length in EMBED_TOPK_SHAPES:
-        seeds = torch.randint(0, v, (b, length), dtype=torch.int32,
-                              generator=torch.Generator().manual_seed(b)).cuda()
-        factors = torch.as_tensor(published["item_factors"], device="cuda")
-        embed_topk(factors, seeds, k_best=scfg.k_best_tracks)
-        torch.cuda.synchronize()
-        topk_ms[f"{b}x{length}"] = {
-            "ms": cuda_ms(lambda: embed_topk(factors, seeds, k_best=scfg.k_best_tracks), 50),
-            **embed_topk_bound(b, length, v, factors.shape[1], scfg.k_best_tracks)}
+    factors = torch.as_tensor(published["item_factors"], device="cuda")
+    topk_ms = {f"{b}x{length}": time_embed_topk(factors, b, length, scfg.k_best_tracks, 50,
+                                                f"phase 11 (b) embed_topk {b}x{length}")
+               for b, length in EMBED_TOPK_SHAPES}
     server, base, lines = start_server(pvcs[0])
     try:
         post(base + "/metrics/reset", b"")
@@ -3091,8 +3087,8 @@ def phase_embed_ds2(work: str) -> dict:
         f"0 5xx; sources (CPU engine) {by_source}, served (/metrics) {served}; answers == the "
         f"CPU engine's but {degraded} degraded (the fallback) and {near_ties} decided by a near-tie (|Δ| <= {NEAR_TIE}); embed_topk "
         f"{emb_dispatches:.0f} dispatches, {emb_device_s:.6f} device s; embed_topk at V={v} "
-        + ", ".join(f"B x L {k_} {t['ms']:.4f} ms (bound {t['ms_bound']:.6f}, {t['bound_by']})"
-                    for k_, t in topk_ms.items()))
+        + ", ".join(f"B x L {k_} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
+                    f"{t['ms_bound']:.6f}, {t['bound_by']})" for k_, t in topk_ms.items()))
     return {"wall_s": [wall_a, wall_b], "embed_phase_s": [train_a, train_b],
             "train_warm_s": card_s, "train_bound": dense_bound, "cpu_train_s": cpu_s, **diff,
             "serve": {"achieved_qps": report.achieved_qps, "p50_ms": report.p50_ms,
@@ -3134,16 +3130,94 @@ class StageTimes:
         return False
 
 
-def embed_topk_bound(b: int, length: int, v: int, rank: int, k: int) -> dict:
+def embed_topk_bound(valid: int, b: int, length: int, v: int, rank: int, k: int) -> dict:
     """The least time of one ``embed_topk`` on this card: the factor matrix
     and the seeds read once, the top-k ids and sims written once, over the
-    HBM rate; and its B·L·V·R multiply-adds (two operations each) over the
-    fp32 peak (the products run outside the tensor cores: TF32 is off)."""
+    HBM rate; and the valid seeds' V·R multiply-adds each (two operations
+    each; padding slots need none) over the fp32 peak (the products run
+    outside the tensor cores: TF32 is off). The count of
+    ``kmls_bench/roofline/embed_topk.py``."""
     nbytes = 4 * v * rank + 4 * b * length + 8 * b * k
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * 2 * b * length * v * rank / FP32_PEAK_OPS
+    ops_ms = 1e3 * 2 * valid * v * rank / FP32_PEAK_OPS
     return {"ms_bound": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def serving_seeds(b: int, length: int, v: int, seed: int):
+    """A ``(b, length)`` int32 host seed batch as the serving cell stages
+    it: :data:`EMBED_VALID_PER_ROW` ids a row (at most ``length``), then
+    ``-1`` padding."""
+    import torch
+
+    seeds = torch.full((b, length), -1, dtype=torch.int32)
+    n = min(EMBED_VALID_PER_ROW, length)
+    seeds[:, :n] = torch.randint(0, v, (b, n), dtype=torch.int32,
+                                 generator=torch.Generator().manual_seed(seed))
+    return seeds
+
+
+def time_embed_topk(factors, b: int, length: int, k: int, reps: int, label: str) -> dict:
+    """``embed_topk`` (the kernel) against ``embed_topk_plain`` on the same
+    card at ``(b, length)`` over ``factors``: both timed by CUDA events;
+    the similarities within ``SIM_TOL`` and the ids equal but at a near-tie
+    of the plain version's top k + 1, else :func:`fail`."""
+    import torch
+
+    from kmlserver_tpu_torch.ops.embed import SIM_TOL, embed_topk, embed_topk_plain
+
+    v, rank = factors.shape
+    seeds_h = serving_seeds(b, length, v, b * 1000 + length)
+    seeds = seeds_h.cuda()
+    ids, sims = embed_topk(factors, seeds, k_best=k)
+    p_ids, p_sims = embed_topk_plain(factors, seeds, k_best=k)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: embed_topk(factors, seeds, k_best=k), reps)
+    plain_ms = cuda_ms(lambda: embed_topk_plain(factors, seeds, k_best=k), max(reps // 10, 3))
+    d_sims = float((sims - p_sims).abs().max())
+    if d_sims > SIM_TOL:
+        fail(f"{label}: sims max |Δ| {d_sims} > {SIM_TOL}")
+    ties = 0
+    for r in range(b):
+        if torch.equal(ids[r], p_ids[r]):
+            continue
+        _, wide = embed_topk_plain(factors, seeds[r:r + 1], k_best=k + 1)
+        s = wide[0].tolist()
+        if not any(x - y <= NEAR_TIE for x, y in zip(s, s[1:])):
+            fail(f"{label}: row {r} ids differ from the plain version's, no near-tie")
+        ties += 1
+    valid = int((seeds_h >= 0).sum())
+    return {"ms": ms, "plain_ms": plain_ms, "valid_seeds": valid, "sims_max_abs": d_sims,
+            "near_ties": ties, **embed_topk_bound(valid, b, length, v, rank, k)}
+
+
+def probe_embed_topk(v: int = 1 << 20, rank: int = 32, reps: int = 200) -> dict:
+    """The X5 row alone (~1 min): builds ``embed_topk.cu`` (its ptxas
+    report logged), then times the kernel against the plain version at
+    :data:`EMBED_TOPK_SHAPES` over ``v`` unit factors and over ds2's
+    2,171: ``python -c "import chip_smoke as c; c.probe_embed_topk()"``."""
+    import torch
+
+    from kmlserver_tpu_torch.ops import cuda_build
+    from kmlserver_tpu_torch.ops.embed import kernel_plan
+
+    out = {"device": torch.cuda.get_device_name(0),
+           "power_limit": nvidia_smi_query("power.limit"), "plan": kernel_plan(v, rank)}
+    log(f"probe embed_topk: {out['device']}, power limit {out['power_limit']}, plan "
+        f"{out['plan']}; ptxas: {cuda_build.BUILD_LOG['embed_topk']['ptxas'].strip()}")
+    g = torch.Generator(device="cuda").manual_seed(rank)
+    for n in (v, 2171):
+        factors = torch.randn((n, rank), generator=g, device="cuda")
+        factors /= factors.norm(dim=1, keepdim=True)
+        for b, length in EMBED_TOPK_SHAPES:
+            t = time_embed_topk(factors, b, length, 10, reps, f"probe embed_topk {b}x{length}")
+            out[f"v{n}_{b}x{length}"] = t
+            log(f"probe embed_topk V={n} B x L = {b} x {length} ({t['valid_seeds']} valid "
+                f"seeds): {t['ms']:.4f} ms (bound {t['ms_bound']:.4f} ms, {t['bound_by']}: "
+                f"{100 * t['ms_bound'] / t['ms']:.1f} %), plain {t['plain_ms']:.4f} ms; sims "
+                f"max |Δ| {t['sims_max_abs']:.3g}, {t['near_ties']} rows at a near-tie")
+    log("PROBE_EMBED " + json.dumps(out))
+    return out
 
 
 def als_dense_bound(p: int, v: int, rank: int, iters: int) -> dict:
@@ -3202,7 +3276,6 @@ def phase_embed_scale(work: str) -> dict:
     from kmlserver_tpu_torch.mining import als
     from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
     from kmlserver_tpu_torch.ops import segsum
-    from kmlserver_tpu_torch.ops.embed import embed_topk
 
     with open(os.path.join(work, "scale_shape.json")) as fh:
         shape = json.load(fh)
@@ -3363,41 +3436,16 @@ def phase_embed_scale(work: str) -> dict:
         + f", the rest (host init, uploads, solves' setup, copy back) "
         f"{stages_wall - sum(stages.seconds.values()):.3f} s")
 
-    # ---- embed_topk at V = 1M, card vs CPU
-    factors_h = torch.as_tensor(first["item_factors"])
-    factors = factors_h.cuda()
+    # ---- embed_topk at V = 1M, the kernel against the plain version
+    factors = torch.as_tensor(first["item_factors"], device="cuda")
     topk = {}
     for b, length in EMBED_TOPK_SHAPES:
-        seeds_h = torch.randint(-1, v, (b, length), dtype=torch.int32,
-                                generator=torch.Generator().manual_seed(b))
-        seeds = seeds_h.cuda()
-        ids, sims = embed_topk(factors, seeds, k_best=10)
-        torch.cuda.synchronize()
-        ms = cuda_ms(lambda: embed_topk(factors, seeds, k_best=10), 20)
-        t0 = time.perf_counter()
-        c_ids, c_sims = embed_topk(factors_h, seeds_h, k_best=10)
-        cpu_ms = 1e3 * (time.perf_counter() - t0)
-        d_sims = float((sims.cpu() - c_sims).abs().max())
-        id_rows = int((ids.cpu() != c_ids).any(dim=1).sum())
-        if d_sims > EMBED_SIM_TOL:
-            fail(f"phase 11 (c) embed_topk {b}x{length}: sims max |Δ| {d_sims} > {EMBED_SIM_TOL}")
-        ties = 0
-        for r in range(b):
-            if torch.equal(ids[r].cpu(), c_ids[r]):
-                continue
-            s = c_sims[r].tolist()
-            if not any(x - y <= NEAR_TIE for x, y in zip(s, s[1:])):
-                ids11, sims11 = embed_topk(factors_h, seeds_h[r:r + 1], k_best=11)
-                s = sims11[0].tolist()
-                if not any(x - y <= NEAR_TIE for x, y in zip(s, s[1:])):
-                    fail(f"phase 11 (c) embed_topk {b}x{length}: row {r} ids differ, no near-tie")
-            ties += 1
-        bound = embed_topk_bound(b, length, v, rank, 10)
-        topk[f"{b}x{length}"] = {"ms": ms, "cpu_ms": cpu_ms, "sims_max_abs": d_sims,
-                                 "rows_ids_differ": id_rows, "near_ties": ties, **bound}
-        log(f"phase 11 (c) embed_topk B x L = {b} x {length} at V={v}: {ms:.4f} ms on the "
-            f"card (bound {bound['ms_bound']:.4f} ms, {bound['bound_by']}), {cpu_ms:.1f} ms CPU "
-            f"plain; sims max |Δ| {d_sims:.3g}, {id_rows} rows' ids differ, each at a near-tie")
+        t = time_embed_topk(factors, b, length, 10, 20, f"phase 11 (c) embed_topk {b}x{length}")
+        topk[f"{b}x{length}"] = t
+        log(f"phase 11 (c) embed_topk B x L = {b} x {length} ({t['valid_seeds']} valid seeds) "
+            f"at V={v}: {t['ms']:.4f} ms on the card (bound {t['ms_bound']:.4f} ms, "
+            f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms; sims max |Δ| "
+            f"{t['sims_max_abs']:.3g}, {t['near_ties']} rows at a near-tie")
     one = {k: sum(s[k] for s in entry_sides.values())
            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gathered_rows_ms", "chain_ms")}
     entry = {

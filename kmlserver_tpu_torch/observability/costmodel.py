@@ -233,21 +233,20 @@ def _mesh_serve_bytes(dims: dict) -> float:
 
 
 def _embed_flops(dims: dict) -> float:
-    # lax.scan over l seed slots: one (b, r) x (r, v) matmul each
-    # (2·b·r·v), the running max-merge (b·v per step), final top-k
+    # each valid seed scores every item: r multiply-adds an item
+    # (2·v·r); padded slots cost nothing (ops/csrc/embed_topk.cu). Without
+    # a ``valid`` count every one of the b·l slots is taken as valid
     b, length, v = _d(dims, "b"), _d(dims, "l"), _d(dims, "v")
-    r, k_best = _d(dims, "r"), _d(dims, "k_best", 10)
-    return b * length * v * (2.0 * r + 1.0) + b * v * _log2k(k_best)
+    valid = _d(dims, "valid", b * length)
+    return 2.0 * valid * v * _d(dims, "r")
 
 
 def _embed_bytes(dims: dict) -> float:
-    # the factor matrix re-read per scan step + the (b, v) running max
-    # written+read per step + seeds/outputs
+    # the factor matrix read once + the seeds + each row's k_best ids and
+    # similarities
     b, length, v = _d(dims, "b"), _d(dims, "l"), _d(dims, "v")
     r, k_best = _d(dims, "r"), _d(dims, "k_best", 10)
-    return length * (v * r * 4.0 + 2.0 * b * v * 4.0) + b * (
-        length * 4.0 + k_best * 8.0
-    )
+    return v * r * 4.0 + b * (length * 4.0 + k_best * 8.0)
 
 
 def _als_flops(dims: dict) -> float:
@@ -366,7 +365,8 @@ KERNEL_COST_SPECS: dict[str, CostSpec] = {
     "embed_topk": CostSpec(
         "embed_topk", _embed_flops, _embed_bytes,
         "embedding cosine top-k (ops/embed.py embed_topk; dims b, l, "
-        "v, r, k_best)",
+        "valid, v, r, k_best: the valid seeds' products, the factors "
+        "read once)",
     ),
     "als_sweep": CostSpec(
         "als_sweep", _als_flops, _als_bytes,

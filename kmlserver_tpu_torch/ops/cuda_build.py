@@ -74,6 +74,9 @@ def build(name: str) -> Path:
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     t0 = time.perf_counter()
+    # kmls-verify: allow[hotpath] one-time build: a process's first launch
+    # of a kernel compiles it (the serving engine's warm-up at publication
+    # launches ops/embed.py's); every later call finds it loaded in `load`
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -85,8 +88,8 @@ def build(name: str) -> Path:
     ptxas = proc.stderr + proc.stdout
     tmp_report = report.with_name(f".{report.name}.{os.getpid()}.tmp")
     tmp_report.write_text(ptxas)
-    os.replace(tmp_report, report)
-    os.replace(tmp, out)
+    os.replace(tmp_report, report)  # kmls-verify: allow[hotpath] one-time build
+    os.replace(tmp, out)  # kmls-verify: allow[hotpath] one-time build
     BUILD_LOG[name] = {"seconds": seconds, "ptxas": ptxas}
     return out
 

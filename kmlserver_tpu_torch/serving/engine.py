@@ -1500,9 +1500,9 @@ class RecommendEngine:
 
     def _dispatch_embed(
         self, bundle: RuleBundle, seed_sets: list[list[str]], n_rows: int, length: int,
-    ) -> tuple[Callable[[], tuple[np.ndarray, np.ndarray]], np.ndarray] | None:
+    ) -> tuple[Callable[[], tuple[np.ndarray, np.ndarray]], np.ndarray, int] | None:
         """Stage and enqueue the embedding lookup for a batch → ``(wait,
-        per-row embed-known mask)``, or None when the bundle has no
+        per-row embed-known mask, valid seeds)``, or None when the bundle has no
         factors, the mode is ``rules``, or no row has a seed the embedding
         vocabulary knows (the full-vocabulary product would be thrown away).
         Its seeds go into a fresh pinned tensor of their own, kept alive
@@ -1515,10 +1515,12 @@ class RecommendEngine:
             arr = seeds.numpy()
             known = np.zeros(len(seed_sets), dtype=bool)
             index = bundle.emb_index or {}
+            valid = 0
             for r, names in enumerate(seed_sets):
                 ids = [index[s] for s in names if s in index][:length]
                 arr[r, : len(ids)] = ids
                 known[r] = len(ids) > 0
+                valid += len(ids)
         if not known.any():
             return None
         if shape not in bundle.emb_warmed_shapes:
@@ -1528,7 +1530,7 @@ class RecommendEngine:
                 "unwarmed embedding seed shape %s dispatched; warmed buckets: "
                 "batches %s x lengths %s", shape, self._batch_buckets(), self._len_buckets(),
             )
-        return self._launch_embed(bundle, seeds), known
+        return self._launch_embed(bundle, seeds), known, valid
 
     def _compose_answer(
         self, bundle: RuleBundle, seeds: list[str], rule_known: bool,
@@ -1637,7 +1639,7 @@ class RecommendEngine:
                 if emb is not None:
                     cm.observe_kernel(
                         "embed_topk", emb[0].device_s,
-                        b=n_rows, l=length, v=len(bundle.emb_vocab or ()),
+                        b=n_rows, l=length, valid=emb[2], v=len(bundle.emb_vocab or ()),
                         r=int(bundle.emb_factors.shape[1]), k_best=self.cfg.k_best_tracks,
                     )
             with span("compose", rows=len(seed_sets)):
@@ -1696,7 +1698,8 @@ class RecommendEngine:
                 if cm is not None:
                     cm.observe_kernel(
                         "embed_topk", emb[0].device_s,
-                        b=emb_shape[0], l=emb_shape[1], v=len(bundle.emb_vocab or ()),
+                        b=emb_shape[0], l=emb_shape[1], valid=emb[2],
+                        v=len(bundle.emb_vocab or ()),
                         r=int(bundle.emb_factors.shape[1]), k_best=k_best,
                     )
             with span("compose", rows=len(seed_sets)):

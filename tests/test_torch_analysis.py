@@ -1749,9 +1749,14 @@ def test_real_tree_runs_clean():
     assert result["findings"] == [], "\n".join(
         f.render() for f in result["findings"]
     )
-    # the suppressions are the reference's pragma sites, and only those
+    # the suppressions are the reference's pragma sites and the port's
+    # one-time kernel build (nvcc and its two renames, reached from the
+    # embedding lookup's first launch in a process), and only those
     assert sorted((f.checker, f.file.rsplit("/", 1)[1]) for f in result["suppressed"]) == [
         ("atomic-write", "replay.py"),
+        ("hotpath", "cuda_build.py"),
+        ("hotpath", "cuda_build.py"),
+        ("hotpath", "cuda_build.py"),
         ("loopblock", "aioserver.py"),
         ("loopblock", "app.py"),
         ("loopblock", "app.py"),
@@ -1910,7 +1915,8 @@ def test_embed_dispatch_regression_is_caught(tmp_path):
         "    neg = torch.tensor(NEG, dtype=item_factors.dtype, "
         "device=item_factors.device)\n")))
     result = run_analysis(str(tmp_path), AnalysisConfig(), checkers=["hotpath"])
-    assert keys(result, "hotpath") == {"torch.tensor(device=)@embed_topk"}
+    # the torch-op body is embed_topk_plain, which embed_topk calls
+    assert keys(result, "hotpath") == {"torch.tensor(device=)@embed_topk_plain"}
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,8 @@ from kmlserver_tpu_torch.io import artifacts
 from kmlserver_tpu_torch.mining import als
 from kmlserver_tpu_torch.mining.vocab import build_baskets
 from kmlserver_tpu_torch.models import EmbeddingModel, RuleModel
-from kmlserver_tpu_torch.ops.embed import embed_topk
+from kmlserver_tpu_torch.ops import embed as embed_ops
+from kmlserver_tpu_torch.ops.embed import embed_topk, embed_topk_plain
 
 from .oracle import random_baskets
 from .test_ops import table_from_baskets
@@ -113,6 +114,68 @@ class TestEmbedTopk:
         """The products stay full fp32 (the default this module relies on)."""
         assert not torch.backends.cuda.matmul.allow_tf32
         assert torch.get_float32_matmul_precision() == "highest"
+
+
+class TestWrapper:
+    """The entry point's checks and routes, on the CPU."""
+
+    @pytest.mark.parametrize("seed,b,length,v,rank,k", [
+        (0, 4, 3, 50, 4, 10), (1, 8, 8, 300, 8, 10), (2, 3, 2, 1, 4, 10),
+    ])
+    def test_cpu_tensors_take_the_plain_version(self, seed, b, length, v, rank, k):
+        f = dyadic_factors(seed, v, rank, dups=max(v // 4, 1))
+        seeds = random_seeds(seed, b, length, v)
+        before = dict(embed_ops.LAUNCHES)
+        got = ours(f, seeds, k)
+        ids, sims = embed_topk_plain(torch.from_numpy(f), torch.from_numpy(seeds), k_best=k)
+        assert np.array_equal(got[0], ids.numpy()) and np.array_equal(got[1], sims.numpy())
+        want = reference(f, seeds, k)
+        assert np.array_equal(ids.numpy(), want[0]) and np.array_equal(sims.numpy(), want[1])
+        assert embed_ops.LAUNCHES == before
+
+    @pytest.mark.parametrize("k,route", [
+        (1, "fused"), (10, "fused"), (embed_ops.TOPK_CAPACITY, "fused"),
+        (embed_ops.TOPK_CAPACITY + 1, "sort"), (10 * embed_ops.TOPK_CAPACITY, "sort"),
+    ])
+    def test_the_route_follows_k(self, k, route):
+        assert embed_ops.topk_route(k) == route
+
+    def test_the_capacity_is_at_least_64(self):
+        assert embed_ops.TOPK_CAPACITY >= 64
+
+    @pytest.mark.parametrize("what", ["float64 factors", "int64 seeds"])
+    def test_raises_on_other_dtypes(self, what):
+        f = torch.from_numpy(dyadic_factors(3, 20, 4, dups=2))
+        seeds = torch.zeros((2, 3), dtype=torch.int32)
+        if what == "float64 factors":
+            f = f.double()
+        else:
+            seeds = seeds.long()
+        with pytest.raises(TypeError):
+            embed_topk(f, seeds, k_best=5)
+
+    @pytest.mark.parametrize("what", ["factors", "seeds"])
+    def test_raises_on_non_contiguous_input(self, what):
+        f = torch.from_numpy(dyadic_factors(4, 20, 4, dups=2))
+        seeds = torch.zeros((3, 2), dtype=torch.int32)
+        if what == "factors":
+            f = f.t().contiguous().t()
+        else:
+            seeds = seeds.t().contiguous().t()
+        assert not (f.is_contiguous() and seeds.is_contiguous())
+        with pytest.raises(ValueError, match="contiguous"):
+            embed_topk(f, seeds, k_best=5)
+
+    def test_raises_on_seeds_on_another_device(self):
+        f = torch.from_numpy(dyadic_factors(5, 20, 4, dups=2))
+        with pytest.raises(ValueError, match="seeds on"):
+            embed_topk(f, torch.zeros((2, 3), dtype=torch.int32, device="meta"), k_best=5)
+
+    @pytest.mark.parametrize("shape", [(5,), (2, 3, 4)])
+    def test_raises_on_other_ranks_of_tensor(self, shape):
+        f = torch.from_numpy(dyadic_factors(6, 20, 4, dups=2))
+        with pytest.raises(ValueError):
+            embed_topk(f, torch.zeros(shape, dtype=torch.int32), k_best=5)
 
 
 def _factors(v=6, rank=3):
@@ -294,3 +357,137 @@ def test_embed_topk_on_the_card_matches_the_cpu():
     assert np.array_equal(ids.cpu().numpy(), want[0])
     assert np.array_equal(sims.cpu().numpy(), want[1])
 
+
+
+# ---------------------------------------------------------------------------
+# the kernel on the card, against the plain version on the same card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the GPU machine)")
+    return torch.device("cuda")
+
+
+def card_factors(seed: int, v: int, rank: int) -> np.ndarray:
+    """Dyadic factors (every product and sum exact in fp32, in any order)
+    with a quarter of the rows copied over others: equal scores are
+    common, so the ids must agree tie order included."""
+    rng = np.random.default_rng(seed)
+    f = (rng.integers(-16, 17, (v, rank)) / 64.0).astype(np.float32)
+    n = max(v // 4, 1)
+    f[rng.integers(0, v, n)] = f[rng.integers(0, v, n)]
+    return f
+
+
+def card_seeds(seed: int, b: int, length: int, v: int) -> np.ndarray:
+    """Three quarters of the slots padding, as a serving batch has; the last
+    row all -1, the one before it one seed repeated, row 0 holding the
+    first and the last item."""
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(0, v, (b, length)).astype(np.int32)
+    seeds[rng.random((b, length)) < 0.75] = -1
+    seeds[0, 0] = 0
+    if length > 1:
+        seeds[0, -1] = v - 1
+    if b > 1:
+        seeds[-1] = -1
+    if b > 2:
+        seeds[-2] = seeds[-2, 0] if seeds[-2, 0] >= 0 else 7 % v
+    return seeds
+
+
+def both_on_card(f: np.ndarray, seeds: np.ndarray, k: int, factors=None):
+    """(kernel ids, kernel sims, plain ids, plain sims) on the card."""
+    fd = torch.from_numpy(f).cuda() if factors is None else factors
+    sd = torch.from_numpy(seeds).cuda()
+    got = embed_topk(fd, sd, k_best=k)
+    want = embed_topk_plain(fd, sd, k_best=k)
+    torch.cuda.synchronize()
+    out = [t.cpu().numpy() for t in (*got, *want)]
+    assert out[0].dtype == np.int32 and out[1].dtype == np.float32
+    assert out[0].shape == out[1].shape == (seeds.shape[0], k)
+    return out
+
+
+def assert_exact(out):
+    gi, gs, wi, ws = out
+    assert np.array_equal(gi, wi)
+    assert np.array_equal(gs, ws)
+
+
+@pytest.mark.cuda
+class TestKernelOnTheCard:
+    @pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 32, 64])
+    @pytest.mark.parametrize("length", [1, 8, 32, 128])
+    def test_the_engines_grid_matches_the_plain_version_exactly(self, card, b, length):
+        f = card_factors(b * 1000 + length, 2171, 32)
+        assert_exact(both_on_card(f, card_seeds(b + length, b, length, 2171), 10))
+
+    @pytest.mark.parametrize("v", [2171, 1 << 20, 1_000_003])
+    @pytest.mark.parametrize("k", [1, 10, embed_ops.TOPK_CAPACITY, embed_ops.TOPK_CAPACITY + 1])
+    def test_sizes_and_routes_match_the_plain_version_exactly(self, card, v, k):
+        f = card_factors(v % 9973 + k, v, 32)
+        before = dict(embed_ops.LAUNCHES)
+        assert_exact(both_on_card(f, card_seeds(k, 8, 128, v), k))
+        sort = int(embed_ops.topk_route(k) == "sort")
+        assert embed_ops.LAUNCHES["embed_topk"] == before["embed_topk"] + 1
+        assert embed_ops.LAUNCHES["embed_topk_sort_route"] == (
+            before["embed_topk_sort_route"] + sort)
+
+    @pytest.mark.parametrize("v,k", [(1, 10), (50, 100), (100, 300), (129, 128)])
+    def test_k_above_the_valid_scores_pads(self, card, v, k):
+        f = card_factors(v, v, 32)
+        out = both_on_card(f, card_seeds(v, 6, 8, v), k)
+        assert_exact(out)
+        assert (out[0][-1] == -1).all() and (out[1][-1] == 0).all()  # the all -1 row
+
+    @pytest.mark.parametrize("rank", [1, 3, 5, 16, 31, 48, 64, 100, 128])
+    def test_other_ranks(self, card, rank):
+        f = card_factors(rank, 3001, rank)
+        assert_exact(both_on_card(f, card_seeds(rank, 8, 32, 3001), 10))
+
+    def test_misaligned_factors_take_the_narrow_loads(self, card):
+        f = card_factors(21, 5000, 32)
+        flat = torch.empty(f.size + 1, dtype=torch.float32, device="cuda")
+        factors = flat[1:].view(5000, 32)
+        factors.copy_(torch.from_numpy(f))
+        assert factors.is_contiguous() and factors.data_ptr() % 16 != 0
+        assert_exact(both_on_card(f, card_seeds(21, 8, 32, 5000), 10, factors=factors))
+
+    def test_every_score_tied(self, card):
+        """All items share one row: every score ties, lowest index first."""
+        f = np.tile(card_factors(22, 1, 32), (70_000, 1))
+        out = both_on_card(f, card_seeds(22, 4, 8, 70_000), embed_ops.TOPK_CAPACITY)
+        assert_exact(out)
+
+    @pytest.mark.parametrize("seed", range(4))
+    def test_unit_factors_agree_within_the_tolerance(self, card, seed):
+        rng = np.random.default_rng(seed)
+        f = rng.standard_normal((200_000, 32)).astype(np.float32)
+        f /= np.linalg.norm(f, axis=1, keepdims=True)
+        seeds = card_seeds(seed, 16, 32, len(f))
+        gi, gs, wi, ws = both_on_card(f, seeds, 10)
+        assert np.abs(gs - ws).max() <= embed_ops.SIM_TOL
+        _, _, _, wide = both_on_card(f, seeds, 11)
+        for r in range(len(seeds)):
+            if not np.array_equal(gi[r], wi[r]):
+                assert (-np.diff(wide[r]) <= NEAR_TIE).any(), f"row {r} differs without a near-tie"
+
+    def test_the_plain_version_is_the_cpus(self, card):
+        f = card_factors(23, 3001, 32)
+        seeds = card_seeds(23, 8, 32, 3001)
+        gi, gs, _, _ = both_on_card(f, seeds, 10)
+        ci, cs = ours(f, seeds, 10)
+        assert np.array_equal(gi, ci) and np.array_equal(gs, cs)
+
+    def test_a_rank_above_the_kernels_raises(self, card):
+        f = torch.zeros((10, embed_ops.MAX_RANK + 1), dtype=torch.float32, device="cuda")
+        with pytest.raises(ValueError, match="rank"):
+            embed_topk(f, torch.zeros((1, 1), dtype=torch.int32, device="cuda"), k_best=3)
+
+    def test_a_kernel_plan(self, card):
+        plan = embed_ops.kernel_plan(1 << 20, 32)
+        assert plan["padded_rank"] == 32 and plan["capacity"] == embed_ops.TOPK_CAPACITY
+        assert 1 <= plan["lists"] <= 1024 and plan["tile"] % 128 == 0

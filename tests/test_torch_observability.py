@@ -272,9 +272,27 @@ def test_phase_cost_and_roofline_equal_the_references(kernel, dims, peaks):
         # whole square, 2·p·v²); the bytes stay the reference's
         p, v = float(dims.get("p", 1)), float(dims.get("v", 1))
         want = (v * (v + 1.0) / 2.0 * p * 2.0, want[1])
+    elif kernel == "embed_topk":
+        # the port's kernel scores only the valid seeds (every one of the
+        # b·l slots where no ``valid`` count is given), 2·v·r operations
+        # each, and reads the factors once (ops/csrc/embed_topk.cu)
+        b, length, v, r = (float(dims.get(d, 1)) for d in ("b", "l", "v", "r"))
+        k_best = float(dims.get("k_best", 10))
+        want = (2.0 * (b * length) * v * r, v * r * 4.0 + b * (length * 4.0 + k_best * 8.0))
     assert got == want
     assert costmodel.classify_roofline(*got, *peaks) == ref_costmodel.classify_roofline(
         *got, *peaks)
+
+
+def test_embed_topk_cost_counts_the_valid_seeds():
+    """A batch's padding costs the kernel nothing: the operations follow the
+    valid seeds, the bytes the factors read once and the outputs."""
+    v, r = 1 << 20, 32
+    flops, moved = costmodel.phase_cost("embed_topk", b=8, l=128, valid=225, v=v, r=r, k_best=10)
+    assert flops == 2.0 * 225 * v * r
+    assert moved == v * r * 4.0 + 8 * (128 * 4.0 + 10 * 8.0)
+    padded, _ = costmodel.phase_cost("embed_topk", b=8, l=128, v=v, r=r, k_best=10)
+    assert padded == 2.0 * 8 * 128 * v * r
 
 
 def test_phase_cost_rejects_an_unknown_kernel():
