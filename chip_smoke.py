@@ -337,6 +337,20 @@ Then phase 7 runs (it needs no work directory), and last:
    ``default`` and every ``finish()``; the answers equal the same engine's
    unguarded ones and the CPU engine's (blend: but at counted near-ties);
    no unwarmed dispatch; one ``sync_guard:`` line.
+20. config 4's embed phase at its full shape (10M playlists x 1M tracks x
+   500M rows, ``min_support`` 5e-4; ``data/device_synthetic.py``,
+   ``ops/events.py`` + ``csrc/events.cu``, ``ops/segsum.py``,
+   ``mining/als.py``; alone: ``python -c "import chip_smoke as c;
+   c.phase_embed_config4()"``): (a) ``device_synthetic_events`` with its
+   launches counted around it (a count and a write pass a source); (b) the
+   same bitset drawn again: each source's passes timed by CUDA events
+   beside a bound from the call's inputs, the whole head's list equal to
+   ``bitset_events_plain``'s in chunks of rows and the whole tail's to
+   ``tail_events_plain``'s (on the card), bit for bit; (c) ``segment_sum``
+   over the two CSRs of that list, each side timed beside
+   ``segsum_bound``, chosen rows (the longest of each side, the 10M-event
+   tracks among them) equal to the in-order float32 sums bit for bit; (d)
+   ``train_embeddings`` over the list: sparse storage, 16 segsum launches.
 Then the kernels line is printed (the sharded entry carries the sharded
 routes' calls and times under ``x8``, and X9's under ``x9``: library
 calls, not kernel launches; the popcount entry its config-4 time under
@@ -390,7 +404,7 @@ KERNEL_DESIGN = ("int8 wgmma m64n128k32, bits unpacked in the operand load (A in
                  "triangle of 128 x 128 tiles, mbarrier stage ring")
 
 # the hand-written CUDA sources the smoke builds (ops/csrc/<name>.cu)
-KERNEL_SOURCES = ("popcount", "segsum", "bernoulli_bits")
+KERNEL_SOURCES = ("popcount", "segsum", "bernoulli_bits", "events", "normals")
 
 SCALE = dict(n_playlists=1_000_000, n_tracks=1_000_000, target_rows=50_000_000)
 QUICK_SCALE = dict(n_playlists=100_000, n_tracks=100_000, target_rows=5_000_000)
@@ -7492,6 +7506,289 @@ def phase_config4(work: str | None = None, quick: bool = False) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------- phase 20
+
+EMBED4_SEED = 20  # phase 20's generator and init seed
+EMBED4_HEAD_CHUNK = 32  # head rows the plain version expands at a time
+EMBED4_USERS = 64  # playlists whose X F row is held against the in-order sums
+EMBED4_TRACKS = 32  # tracks whose Xt U row is
+
+
+def events_bound(kind: str, *, rows: int = 0, words: int = 0, tracks: int = 0,
+                 events: int = 0) -> dict:
+    """The least time of one source's event list (its count and write passes
+    together): the head's bitset rows read once and its events' two int32
+    columns written once, over the memory rate; the tail's draws (one an
+    event and one a track, :data:`THREEFRY_MIN_INSTRUCTIONS` each) at the
+    card's issue rate and top SM clock, or its probabilities read and its
+    events written once, the larger."""
+    import torch
+
+    if kind == "bitset_events":
+        nbytes, ops = 4 * rows * words + 8 * events, 0
+    else:
+        nbytes, ops = 8 * tracks + 8 * events, (events + tracks) * THREEFRY_MIN_INSTRUCTIONS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
+    ops_ms = 1e3 * ops / (ISSUE_PER_CLOCK_PER_SM * sms * clock_hz)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms > bytes_ms
+            else "bytes", "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bytes": nbytes,
+            "instructions": ops}
+
+
+# int32 lane operations a PCG64 raw takes at least: the 128-bit multiply-add
+# (16 partial products of 32-bit limbs, 4 adds of the increment), the xor
+# and the rotation (kmls_bench/roofline/normals.py)
+PCG64_MIN_INSTRUCTIONS = 26
+
+
+def phase_init_normals(seed: int = EMBED4_SEED, p: int = CONFIG4["playlists"],
+                       v: int = CONFIG4["tracks"], rank: int = 32) -> dict:
+    """Phase 20 (e): the ALS init's normals at config 4 on the card
+    (``ops/normals.py``): the main path's call, its launches counted around
+    it, against numpy's draw of the whole init bit for bit; then each
+    call timed beside its least time (one raw a value at the issue rate,
+    or the values written once). Alone: ``python -c "import chip_smoke as
+    c; c.phase_init_normals()"``."""
+    import torch
+
+    from kmlserver_tpu_torch.mining import als
+    from kmlserver_tpu_torch.ops import cuda_build, normals
+
+    cuda_build.build("normals")
+    normals.LAUNCHES["normals"] = 0
+    got = normals.init_rows(seed, (p, v), rank, torch.device("cuda"))
+    launches = normals.LAUNCHES["normals"]
+    if got is None or launches != 2:
+        fail(f"phase 20 (e): init_rows gave {'nothing' if got is None else 'rows'} in "
+             f"{launches} launches, want rows in 2")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    want = [np.empty((n, rank), dtype=np.float32) for n in (p, v)]
+    for w in want:
+        als._draw_init(rng, w)
+    host_s = time.perf_counter() - t0
+    differ = sum(int((g.cpu().numpy().view(np.int32) != w.view(np.int32)).sum())
+                 for g, w in zip(got, want))
+    if differ:
+        fail(f"phase 20 (e): {differ} init values differ from numpy's draw")
+    del got, want
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        normals.init_rows(seed, (p, v), rank, torch.device("cuda"))
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0) / 3
+    values = (p + v) * rank
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
+    ops_ms = 1e3 * values * PCG64_MIN_INSTRUCTIONS / (ISSUE_PER_CLOCK_PER_SM * sms * clock_hz)
+    bytes_ms = 1e3 * 4 * values / PEAK_BYTES_PER_S
+    out = {"values": values, "launches": launches, "host_draw_s": host_s, "call_ms": call_ms,
+           "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+    log(f"phase 20 (e) init_rows at {p} + {v} rows x {rank}: {values} values in {launches} "
+        f"launches, == numpy's draw bit for bit (the host's draw {host_s:.3f} s); the call "
+        f"{call_ms:.3f} ms (the tails finished on the host included), bound "
+        f"{out['bound_ms']:.3f} ms (bytes {bytes_ms:.3f}, operations {ops_ms:.3f})")
+    return out
+
+
+def in_order_sum(mat, idx, chunk: int = 1 << 22) -> np.ndarray:
+    """The float32 sum of ``mat``'s rows ``idx`` added in ``idx``'s order
+    from 0.0, one add at a time (``np.add.accumulate`` is sequential)."""
+    acc = np.zeros(mat.shape[1], dtype=np.float32)
+    for lo in range(0, len(idx), chunk):
+        cols = mat[idx[lo:lo + chunk]].T.contiguous().cpu().numpy()
+        cols[:, 0] = acc + cols[:, 0]
+        acc = np.add.accumulate(cols, axis=1)[:, -1].copy()
+    return acc
+
+
+def phase_embed_config4(seed: int = EMBED4_SEED) -> dict:
+    """Phase 20: config 4's embed phase at its full shape (10M playlists x
+    1M tracks x 500M rows, ``min_support`` 5e-4). Alone: ``python -c
+    "import chip_smoke as c; c.phase_embed_config4()"``."""
+    import torch
+
+    from kmlserver_tpu_torch.config import MiningConfig
+    from kmlserver_tpu_torch.data import device_synthetic as ds
+    from kmlserver_tpu_torch.mining import als
+    from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
+    from kmlserver_tpu_torch.ops import cuda_build, events, normals, segsum
+    from kmlserver_tpu_torch.ops.support import min_count_for
+
+    t_phase = time.perf_counter()
+    for name in ("bernoulli_bits", "events", "normals", "segsum"):
+        cuda_build.build(name)
+    p, v, rows = CONFIG4["playlists"], CONFIG4["tracks"], CONFIG4["rows"]
+    min_count = min_count_for(CONFIG4_MIN_SUPPORT, p)
+
+    # ---- (a) the main path's call, its launches counted around it
+    for key in events.LAUNCHES:
+        events.LAUNCHES[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pl, tr = ds.device_synthetic_events(p, v, rows, min_count, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated()
+    launches = dict(events.LAUNCHES)
+    if launches != {"bitset_events": 2, "tail_events": 2}:
+        fail(f"phase 20 (a): launches {launches}, want a count and a write pass each")
+    nnz = pl.shape[0]
+    log(f"phase 20 (a) device_synthetic_events at {p} x {v} x {rows} (seed {seed}): {nnz} "
+        f"events in {gen_s:.3f} s (the first call: the bitset's draw included), launches "
+        f"{launches}, peak {gen_peak} B")
+
+    # ---- (b) the same bitset: each kernel's passes timed, its list against the plain version
+    q = ds.zipf_bit_probs(v, p, rows, 1.0)
+    bitset, f, _ = ds.device_synthetic_bitset(p, v, rows, min_count, seed=seed, device="cuda",
+                                              q=q)
+    words = -(-p // 32)
+    n_head = int(torch.searchsorted(tr, torch.tensor([f], dtype=tr.dtype, device="cuda")))
+    head = events.count_bitset(bitset, f, p)
+    if int(head.total) != n_head:
+        fail(f"phase 20 (b): the head counts {int(head.total)} events, the list {n_head}")
+    col_pl = torch.empty(n_head, dtype=torch.int32, device="cuda")
+    col_tr = torch.empty_like(col_pl)
+    head_ms = {"count": cuda_ms(lambda: events.count_bitset(bitset, f, p), 3),
+               "write": cuda_ms(lambda: events.write(head, col_pl, col_tr), 3)}
+    if not (torch.equal(col_pl, pl[:n_head]) and torch.equal(col_tr, tr[:n_head])):
+        fail("phase 20 (b): the head's write pass differs from the main path's list")
+    del col_pl, col_tr, head
+    head_diff, t0 = 0, time.perf_counter()
+    bounds = torch.searchsorted(tr, torch.arange(0, f + EMBED4_HEAD_CHUNK, EMBED4_HEAD_CHUNK,
+                                                 dtype=tr.dtype, device="cuda").clamp_(max=f))
+    for i, lo in enumerate(range(0, f, EMBED4_HEAD_CHUNK)):
+        hi = min(lo + EMBED4_HEAD_CHUNK, f)
+        want_pl, want_tr = events.bitset_events_plain(bitset[lo:hi], hi - lo, p)
+        a, b = int(bounds[i]), int(bounds[i + 1])
+        if (b - a != want_pl.shape[0] or not torch.equal(pl[a:b], want_pl)
+                or not torch.equal(tr[a:b], want_tr + lo)):
+            head_diff += 1
+    head_plain_s = time.perf_counter() - t0
+    if head_diff:
+        fail(f"phase 20 (b): {head_diff} chunks of {EMBED4_HEAD_CHUNK} head rows differ "
+             f"from the plain version")
+    head_bound = events_bound("bitset_events", rows=f, words=words, events=n_head)
+    del bitset
+    torch.cuda.empty_cache()
+    key = events.tail_key(seed)
+    q_tail = torch.as_tensor(q[f:], dtype=torch.float64).cuda()
+    n_tail = nnz - n_head
+    tail = events.count_tail(q_tail, f, p, key)
+    col_pl = torch.empty(n_tail, dtype=torch.int32, device="cuda")
+    col_tr = torch.empty_like(col_pl)
+    tail_ms = {"count": cuda_ms(lambda: events.count_tail(q_tail, f, p, key), 3),
+               "write": cuda_ms(lambda: events.write(tail, col_pl, col_tr), 3)}
+    del col_pl, col_tr, tail
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_pl, want_tr = events.tail_events_plain(q_tail, f, p, key)
+    torch.cuda.synchronize()
+    tail_plain_s = time.perf_counter() - t0
+    if not (torch.equal(pl[n_head:], want_pl) and torch.equal(tr[n_head:], want_tr)):
+        fail(f"phase 20 (b): the tail's list differs from the plain version ({n_tail} against "
+             f"{want_pl.shape[0]} events)")
+    del want_pl, want_tr
+    tail_bound = events_bound("tail_events", tracks=v - f, events=n_tail)
+    for name, n, ms, bound, plain_s, what in (
+            ("bitset_events", n_head, head_ms, head_bound, head_plain_s,
+             f"all {f} head rows, in chunks of {EMBED4_HEAD_CHUNK}"),
+            ("tail_events", n_tail, tail_ms, tail_bound, tail_plain_s,
+             f"all {v - f} tail tracks")):
+        log(f"phase 20 (b) {name}: {n} events, == the plain version bit for bit over {what} "
+            f"(plain on the card {plain_s:.3f} s); count {ms['count']:.3f} ms + write "
+            f"{ms['write']:.3f} ms = {ms['count'] + ms['write']:.3f} ms; bound "
+            f"{bound['ms']:.3f} ms ({bound['bound_by']}: bytes {bound['bytes_ms']:.3f}, "
+            f"operations {bound['ops_ms']:.3f})")
+
+    # ---- (c) segsum at the config-4 CSRs: each side timed, chosen rows in order
+    rank = MiningConfig().als_rank
+    clock_hz = 1e6 * float(nvidia_smi_query("clocks.max.sm").split()[0])
+    by_user = segsum.build_csr(pl, tr, p, v)
+    by_item = segsum.build_csr(tr, pl, v, p)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    user = torch.randn(p, rank, device="cuda", generator=gen) / rank ** 0.5
+    item = torch.randn(v, rank, device="cuda", generator=gen) / rank ** 0.5
+    rng = np.random.default_rng(seed)
+    lengths = (by_user.offsets[1:] - by_user.offsets[:-1])
+    users = sorted({0, p - 1, int(lengths.argmax())}
+                   | set(rng.choice(p, EMBED4_USERS - 3, replace=False).tolist()))
+    tracks = sorted({0, 1, 2, f - 1, f, v - 1}
+                    | set(rng.choice(v, EMBED4_TRACKS - 6, replace=False).tolist()))
+    item_bounds = torch.searchsorted(tr, torch.tensor(tracks + [t + 1 for t in tracks],
+                                                      dtype=tr.dtype, device="cuda")).tolist()
+    sides = {
+        "X F": (by_user, item, users,
+                [tr[(pl == u).nonzero().flatten()].long() for u in users]),
+        "Xt U": (by_item, user, tracks,
+                 [pl[a:b].long() for a, b in zip(item_bounds[:len(tracks)],
+                                                 item_bounds[len(tracks):])]),
+    }
+    seg = {}
+    for label, (csr, mat, picked, idx) in sides.items():
+        got = segsum.segment_sum(mat, csr)
+        ms = cuda_ms(lambda: segsum.segment_sum(mat, csr), 3)
+        picked_t = torch.tensor(picked, device="cuda")
+        want = np.stack([in_order_sum(mat, i) for i in idx])
+        differ = int((got[picked_t].cpu().numpy().view(np.int32) != want.view(np.int32)).sum())
+        if differ:
+            fail(f"phase 20 (c) {label}: {differ} bits of {len(picked)} rows differ from the "
+                 f"in-order float32 sums")
+        bound = segsum_bound(csr, rank, clock_hz)
+        seg[label] = {"ms": ms, "bound_ms": bound["ms"], "bound_term": bound["bound_term"],
+                      "bytes_ms": bound["bytes_ms"], "chain_ms": bound["chain_ms"],
+                      "longest_row": bound["longest_row"], "long_rows": csr.n_long,
+                      "rows_checked": len(picked)}
+        log(f"phase 20 (c) segsum {label} (out {csr.n_out} x {rank}, {csr.nnz} events, longest "
+            f"row {bound['longest_row']}, {csr.n_long} long rows): {len(picked)} rows == the "
+            f"in-order float32 sums bit for bit (the longest included); {ms:.3f} ms, bound "
+            f"{bound['ms']:.3f} ms ({bound['bound_term']}: bytes {bound['bytes_ms']:.3f}, chain "
+            f"{bound['chain_ms']:.3f})")
+    del by_user, by_item, user, item, sides, got
+
+    # ---- (d) the embed phase's call over the list: sparse, 16 segsum launches,
+    # the init drawn on the card (2 normals launches)
+    names = [f"track_{t:07d}" for t in range(v)]
+    baskets = Baskets(playlist_rows=pl, track_ids=tr, n_playlists=p,
+                      vocab=Vocab(names=names, index={}))
+    cfg = MiningConfig(embed_enabled=True)
+    segsum.LAUNCHES["segsum"] = 0
+    normals.LAUNCHES["normals"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = als.train_embeddings(baskets, cfg, seed=seed, device="cuda")
+    train_s = time.perf_counter() - t0
+    seg_launches = segsum.LAUNCHES["segsum"]
+    if (out["storage"] != "sparse" or seg_launches != 2 * cfg.als_iters
+            or normals.LAUNCHES["normals"] != 2):
+        fail(f"phase 20 (d): storage {out['storage']}, {seg_launches} segsum and "
+             f"{normals.LAUNCHES['normals']} normals launches, want sparse, "
+             f"{2 * cfg.als_iters} and 2")
+    if not np.isfinite(out["item_factors"]).all():
+        fail("phase 20 (d): non-finite factors")
+    train_peak = torch.cuda.max_memory_allocated()
+    log(f"phase 20 (d) train_embeddings over the {nnz} events (R={cfg.als_rank}, "
+        f"{cfg.als_iters} iters, auto): {out['storage']}, {seg_launches} segsum launches, "
+        f"{train_s:.3f} s, loss {out['final_loss']:.6f}, peak {train_peak} B")
+    del baskets, pl, tr
+    torch.cuda.empty_cache()
+    init = phase_init_normals(seed, p, v, cfg.als_rank)
+    summary = {"seconds": time.perf_counter() - t_phase, "seed": seed, "events": nnz,
+               "head_events": n_head, "candidates": f, "gen_s": gen_s, "gen_peak": gen_peak,
+               "launches": launches,
+               "bitset_events": {"ms": head_ms, "bound": head_bound, "plain_s": head_plain_s},
+               "tail_events": {"ms": tail_ms, "bound": tail_bound, "plain_s": tail_plain_s},
+               "segsum": seg, "train_s": train_s, "segsum_launches": seg_launches,
+               "train_peak": train_peak, "init": init}
+    log(f"phase 20: {summary['seconds']:.3f} s")
+    log("PHASE20 " + json.dumps(summary, default=str))
+    return summary
+
+
 # ---------------------------------------------------------------- phase 19
 
 SYNC_GUARD_SHARDS = 2  # the sharded layout's slabs, both on cuda:0
@@ -7804,6 +8101,8 @@ def main() -> int:
         torch.cuda.empty_cache()  # phase 18's runner and ranks share the card
         config4 = timed("18", phase_config4, work, quick)
         timed("19", phase_sync_guard, work)
+        torch.cuda.empty_cache()
+        timed("20", phase_embed_config4)
     finally:
         stop_spawned()
         shutil.rmtree(work, ignore_errors=True)

@@ -28,6 +28,11 @@ global word offset.
 Under a running profiler (``utils/profiling.span``) a call is a
 ``kmls:gen`` span with ``kmls:gen.host`` (q, the cut and the padding on the
 host) and ``kmls:gen.draw`` (the keys and the kernel's launch) inside it.
+
+**The whole catalog as events** (:func:`device_synthetic_events`, the
+embed phase's input at config 4): the head's set bits and the tail's
+tracks, drawn by geometric gaps (``ops/events.py``), as one int32 event
+list ordered by (track, playlist) — no host membership array either.
 """
 
 from __future__ import annotations
@@ -172,13 +177,15 @@ def device_synthetic_bitset(
     margin_sigmas: float = CANDIDATE_MARGIN_SIGMAS,
     mesh=None,
     device: str | torch.device = "cuda",
+    q: np.ndarray | None = None,
 ) -> tuple[torch.Tensor, int, dict]:
     """The whole device-side workload → ``(bitset, n_candidates, info)``:
     the ``(v_pad, w_pad)`` int32 bitset on ``device`` (with ``mesh``, a
     ``dp``-only mesh: this rank's ``(v_pad, w_pad/dp)`` slab, ``w_pad``
     rounded up to ``dp · WORD_CHUNK``), and the reference's analytic
     accounting (expected rows over the whole vocabulary, the candidate cut,
-    the whole bitset's bytes).
+    the whole bitset's bytes). ``q``: the whole catalog's float64
+    membership probabilities where the caller has them already.
 
     The ``kmls:gen`` span opens before the candidate cut is known, so it
     carries the call's sizes (``p``, ``tracks``, ``rows``); ``kmls:gen.draw``
@@ -188,7 +195,8 @@ def device_synthetic_bitset(
 
     with span("gen", p=n_playlists, tracks=n_tracks, rows=target_rows):
         with span("gen.host"):
-            q = zipf_bit_probs(n_tracks, n_playlists, target_rows, zipf_exponent)
+            if q is None:
+                q = zipf_bit_probs(n_tracks, n_playlists, target_rows, zipf_exponent)
             f = candidate_frequent_count(q, n_playlists, min_count, margin_sigmas)
             if f == 0:
                 raise ValueError(
@@ -224,3 +232,72 @@ def device_synthetic_bitset(
         "bitset_bytes": int(v_pad) * int(w_pad) * 4,
     }
     return bitset, f, info
+
+
+def device_synthetic_events(
+    n_playlists: int,
+    n_tracks: int,
+    target_rows: int,
+    min_count: int,
+    *,
+    zipf_exponent: float = 1.0,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole catalog's memberships as an event list on ``device`` →
+    int32 ``(playlist_rows, track_ids)``, ordered by (track, playlist), each
+    (playlist, track) pair once: the model above over all ``n_tracks``
+    tracks, not only the candidate head.
+
+    - **head** (tracks ``[0, f)``, ``f`` the candidate cut): the set bits of
+      :func:`device_synthetic_bitset` under the same arguments and seed;
+    - **tail** (tracks ``[f, n_tracks)``): ``ops/events.py``'s geometric
+      gaps under the key ``fold_in(PRNGKey(seed), 0x7461696C)``: draw ``j``
+      of track ``t`` is ``threefry2x32(key, (t, j))``, its 53 bits
+      ``n = (y0 >> 11)·2^32 + y1`` the uniform ``u = (n + 1)·2^-53``, the
+      gap ``floor(log_basic(u) / log_basic(1 - q_t))`` in float64 (IEEE
+      adds, multiplies and divides only), the next playlist ``pos + 1 +
+      gap`` from ``pos = -1``, until one reaches ``n_playlists``.
+
+    On the card each part is a count pass and a write pass into one list
+    allocated when both counts are known; the bitset is freed before this
+    returns, so the peak is the bitset and the list. Under a running
+    profiler the call is a ``kmls:gen.events`` span (``tracks``, and
+    ``events``: the model's expected count) holding the bitset's ``gen``
+    span, then ``gen.tail`` and ``gen.compact`` for the count passes and
+    again, with the ``events`` each wrote, for the write passes."""
+    from ..ops import events
+
+    dev = resolve_device(device)
+    q = zipf_bit_probs(n_tracks, n_playlists, target_rows, zipf_exponent)
+    with span("gen.events", tracks=n_tracks, events=int(round(n_playlists * float(q.sum())))):
+        bitset, f, _ = device_synthetic_bitset(
+            n_playlists, n_tracks, target_rows, min_count, zipf_exponent=zipf_exponent,
+            seed=seed, device=dev, q=q)
+        key = events.tail_key(seed)
+        q_tail = torch.as_tensor(q[f:], dtype=torch.float64).to(dev)
+        words = -(-n_playlists // 32)
+        if dev.type != "cuda":
+            with span("gen.compact", rows=f, words=words):
+                head = events.bitset_events_plain(bitset, f, n_playlists)
+            del bitset
+            with span("gen.tail", tracks=n_tracks - f):
+                tail = (events.tail_events_plain(q_tail, f, n_playlists, key) if n_tracks > f
+                        else (head[0][:0], head[1][:0]))
+            return torch.cat([head[0], tail[0]]), torch.cat([head[1], tail[1]])
+        with span("gen.tail", tracks=n_tracks - f):
+            tail = events.count_tail(q_tail, f, n_playlists, key) if n_tracks > f else None
+        with span("gen.compact", rows=f, words=words):
+            head = events.count_bitset(bitset, f, n_playlists)
+            totals = torch.stack([head.total, tail.total if tail is not None
+                                  else torch.zeros_like(head.total)]).tolist()
+        n_head, n_tail = totals
+        playlists = torch.empty(n_head + n_tail, dtype=torch.int32, device=dev)
+        tracks = torch.empty(n_head + n_tail, dtype=torch.int32, device=dev)
+        with span("gen.compact", rows=f, words=words, events=n_head):
+            events.write(head, playlists[:n_head], tracks[:n_head])
+            del head, bitset
+        if tail is not None:
+            with span("gen.tail", tracks=n_tracks - f, events=n_tail):
+                events.write(tail, playlists[n_head:], tracks[n_head:])
+    return playlists, tracks

@@ -22,9 +22,11 @@ Two storages, decided by the reference's byte formulas against
 
 Serving consumes only the item factors, L2-normalized (cosine similarity
 in item space). The init is the reference's fixed-seed host draw (users,
-then items), so both packages start from identical factors; two trainings
-on the same card give bit-identical factors, which the ``embed`` phase's
-checkpoint resume and the manifest sha256 rely on.
+then items), so both packages start from identical factors; the sparse
+route on a CUDA device draws the same values on the card
+(``ops/normals.py``). Two trainings on the same card give bit-identical
+factors, which the ``embed`` phase's checkpoint resume and the manifest
+sha256 rely on.
 
 - **mesh-sharded** (``KMLS_MODEL_LAYOUT=sharded``, or ``auto`` where one
   device's dense matrix would bust the budget; reference
@@ -46,12 +48,13 @@ import numpy as np
 import torch
 
 from ..config import MiningConfig
-from ..ops import encode
+from ..ops import encode, normals
 from ..ops.segsum import build_csr, segment_sum
 from ..parallel import collectives
 from ..parallel.layout import validate_layout
 from ..parallel.mesh import AXIS_TP, round_up, this_rank
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .vocab import Baskets
 
 ALS_SPARSE_MODES = ("auto", "always", "never")
@@ -61,6 +64,19 @@ CALLS = {"sharded_sweep": 0}
 
 # elements of the residual the sharded loss builds at a time (1 GiB of f32)
 _LOSS_CHUNK_ELEMS = 1 << 28
+
+# rows of the init drawn and rounded at a time (8 MiB of float64 at R = 32)
+_INIT_BLOCK_ROWS = 1 << 15
+
+# leading user rows of an init drawn on the card checked against numpy's draw
+_INIT_CHECK_ROWS = 64
+
+# chunks of the loss's cross term gathered at a time (512 MiB of rows a side
+# at R = 32 and the full chunk)
+_LOSS_GROUP_CHUNKS = 64
+
+# rows of the item factors normalized on the card checked against numpy's
+_NORM_CHECK_ROWS = 2048
 
 # accumulation-chunk ceiling of the reference's sparse half-sweeps; the
 # budget formula counts one (chunk, R) gathered block, and the loss's
@@ -123,48 +139,137 @@ def _als_loss(
     )
 
 
-def _sparse_als_sweep(by_user, by_item, user_f, item_f, reg):
+def _draw_init(rng: np.random.Generator, out) -> None:
+    """Fill ``out`` (float32 ``(n, rank)``, a host array or a tensor) with
+    the reference's init rows: ``rng``'s float64 standard normals rounded
+    to float32, over ``sqrt(rank)`` in float64, rounded to float32 again.
+    The generator fills blocks of :data:`_INIT_BLOCK_ROWS` rows in the
+    order one draw of the whole would, so the values are the same, without
+    the whole float64 draw and its full-size copies on the host."""
+    n, rank = out.shape
+    buf = np.empty((min(_INIT_BLOCK_ROWS, n), rank))
+    for lo in range(0, n, _INIT_BLOCK_ROWS):
+        block = buf[:min(_INIT_BLOCK_ROWS, n - lo)]
+        rng.standard_normal(out=block)
+        rows = normals.round_rows(block, rank)
+        if isinstance(out, np.ndarray):
+            out[lo:lo + len(rows)] = rows
+        else:
+            out[lo:lo + len(rows)].copy_(torch.from_numpy(rows))
+
+
+def _host_init(seed: int, p: int, v: int, rank: int, device: torch.device | None = None):
+    """The init's user then item rows from the host's draw: host arrays,
+    or (``device``) tensors there filled block by block."""
+    rng = np.random.default_rng(seed)
+    if device is None:
+        outs = [np.empty((n, rank), dtype=np.float32) for n in (p, v)]
+    else:
+        outs = [torch.empty((n, rank), dtype=torch.float32, device=device) for n in (p, v)]
+    for out in outs:
+        _draw_init(rng, out)
+    return outs
+
+
+def _card_init(seed: int, p: int, v: int, rank: int, device: torch.device):
+    """The init's user and item rows drawn on the CUDA ``device``
+    (``ops/normals.py``: numpy's values bit for bit, users then items), its
+    first rows checked against numpy's own draw; where the kernels decline
+    or the check fails, :func:`_host_init`."""
+    drawn = normals.init_rows(seed, (p, v), rank, device)
+    if drawn is not None:
+        want = np.empty((min(p, _INIT_CHECK_ROWS), rank), dtype=np.float32)
+        _draw_init(np.random.default_rng(seed), want)
+        got = drawn[0][:want.shape[0]].cpu().numpy()
+        if np.array_equal(got.view(np.int32), want.view(np.int32)):
+            return drawn
+        logging.getLogger("kmlserver_tpu_torch.mining").warning(
+            "the init drawn on %s differs from numpy's draw on its first rows; "
+            "drawing it on the host", device)
+    return _host_init(seed, p, v, rank, device)
+
+
+def _csr_fields(csr, rank: int) -> dict:
+    """A half-sweep span's fields: the segment sum's shape (its roofline's
+    dimensions)."""
+    return {"rows": csr.n_out, "n_in": csr.n_in, "events": csr.nnz, "longest": csr.longest,
+            "r": rank}
+
+
+def _sparse_als_sweep(by_user, by_item, user_f, item_f, reg, keep=None):
     """One sweep over the compressed matrix: ``X F`` and ``Xᵀ U`` are
-    segment sums over the events; the Gramians and solves are unchanged."""
-    eye = _eye_reg(user_f.shape[1], reg)
-    g_item = item_f.T @ item_f + eye
-    user_f = torch.linalg.solve(g_item, segment_sum(item_f, by_user).T).T  # X F
-    g_user = user_f.T @ user_f + eye
-    item_f = torch.linalg.solve(g_user, segment_sum(user_f, by_item).T).T  # Xᵀ U
-    return user_f, item_f
+    segment sums over the events; the Gramians and solves are unchanged.
+    ``keep`` (a dict, or None) receives the sweep's inputs, Gramians
+    (``+ λI``) and right-hand sides."""
+    rank = user_f.shape[1]
+    eye = _eye_reg(rank, reg)
+    with span("als.users", **_csr_fields(by_user, rank)):
+        g_item = item_f.T @ item_f + eye
+        xf = segment_sum(item_f, by_user)  # X F
+        new_user = torch.linalg.solve(g_item, xf.T).T
+    with span("als.items", **_csr_fields(by_item, rank)):
+        g_user = new_user.T @ new_user + eye
+        xtu = segment_sum(new_user, by_item)  # Xᵀ U
+        new_item = torch.linalg.solve(g_user, xtu.T).T
+    if keep is not None:
+        keep.update(user_in=user_f, item_in=item_f, g_item=g_item, rhs_users=xf,
+                    g_user=g_user, rhs_items=xtu)
+    return new_user, new_item
 
 
 def _sparse_als_loss(rows, cols, user_f, item_f, reg) -> torch.Tensor:
     """Exact loss without densifying: ``‖X − U Fᵀ‖² = nnz − 2·Σ_nnz u_r·f_c
-    + Σ (UᵀU)∘(FᵀF)``, the cross term summed chunk by chunk in fp32."""
+    + Σ (UᵀU)∘(FᵀF)``, the cross term summed chunk by chunk in fp32: each
+    chunk's dot products summed, then the chunks' sums. The rows are
+    gathered :data:`_LOSS_GROUP_CHUNKS` chunks at a time."""
     nnz = rows.shape[0]
     chunk = _als_chunk(nnz)
+    step = chunk * _LOSS_GROUP_CHUNKS
     gram = torch.sum((user_f.T @ user_f) * (item_f.T @ item_f))
-    cross = torch.zeros((), dtype=torch.float32, device=user_f.device)
-    for lo in range(0, nnz, chunk):
-        u = user_f[rows[lo:lo + chunk]]
-        f = item_f[cols[lo:lo + chunk]]
-        cross = cross + torch.sum(torch.sum(u * f, dim=1))
+    sums = []
+    for lo in range(0, nnz, step):
+        dots = torch.sum(user_f[rows[lo:lo + step]] * item_f[cols[lo:lo + step]], dim=1)
+        dots = torch.nn.functional.pad(dots, (0, -dots.shape[0] % chunk))
+        sums.append(torch.sum(dots.view(-1, chunk), dim=1))
+    cross = torch.sum(torch.cat(sums)) if sums else torch.zeros(
+        (), dtype=torch.float32, device=user_f.device)
     penalty = reg * (torch.sum(user_f * user_f) + torch.sum(item_f * item_f))
     return float(nnz) - 2.0 * cross + gram + penalty
 
 
+def _event_column(ids, device: torch.device) -> torch.Tensor:
+    """An event column as int32 on ``device``: a tensor already there is
+    used in place, host ids are uploaded."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(ids, np.int32), device=device)
+
+
 def _train_sparse(
-    baskets: Baskets, user_init: np.ndarray, item_init: np.ndarray,
-    reg: torch.Tensor, iters: int, p: int, v: int, device: torch.device,
-) -> tuple[np.ndarray, float]:
-    """The compressed-storage sweep loop → ``(item factors, final loss)``."""
-    rows = torch.as_tensor(np.asarray(baskets.playlist_rows, np.int32), device=device)
-    cols = torch.as_tensor(np.asarray(baskets.track_ids, np.int32), device=device)
-    by_user = build_csr(rows, cols, p, v)  # X F: a playlist's tracks
-    by_item = build_csr(cols, rows, v, p)  # Xᵀ U: a track's playlists
+    baskets: Baskets, user_init, item_init, reg: torch.Tensor, iters: int, p: int, v: int,
+    device: torch.device, keep: dict | None = None,
+) -> tuple[torch.Tensor, float]:
+    """The compressed-storage sweep loop → ``(item factors on the device,
+    final loss)``. ``keep`` (a dict, or None) receives both CSRs, the last
+    sweep's inputs, Gramians and right-hand sides, and the final factors."""
+    with span("als.csr"):
+        rows = _event_column(baskets.playlist_rows, device)
+        cols = _event_column(baskets.track_ids, device)
+        by_user = build_csr(rows, cols, p, v)  # X F: a playlist's tracks
+        by_item = build_csr(cols, rows, v, p)  # Xᵀ U: a track's playlists
     user_f = torch.as_tensor(user_init, device=device)
     item_f = torch.as_tensor(item_init, device=device)
-    for _ in range(iters):
-        user_f, item_f = _sparse_als_sweep(by_user, by_item, user_f, item_f, reg)
+    for i in range(iters):
+        with span("als.sweep", i=i):
+            user_f, item_f = _sparse_als_sweep(
+                by_user, by_item, user_f, item_f, reg,
+                keep if i == iters - 1 else None)
+    if keep is not None:
+        keep.update(by_user=by_user, by_item=by_item, user_out=user_f, item_out=item_f)
     del by_user, by_item
-    loss = float(_sparse_als_loss(rows.long(), cols.long(), user_f, item_f, reg))
-    return item_f.cpu().numpy(), loss
+    with span("als.loss"):
+        loss = float(_sparse_als_loss(rows.long(), cols.long(), user_f, item_f, reg))
+    return item_f, loss
 
 
 def _train_dense(
@@ -300,6 +405,62 @@ def normalize_factors(item_factors: np.ndarray) -> np.ndarray:
     return (item_factors / np.maximum(norms, 1e-12)).astype(np.float32)
 
 
+def _f32(op, *args: torch.Tensor) -> torch.Tensor:
+    """``op`` of float32 tensors rounded as one float32 operation: done in
+    float64 and rounded once, which for an add, a multiply, a divide or a
+    square root of float32 inputs is the correctly rounded float32 result
+    (53 ≥ 2·24 + 2 bits), whatever the backend's float32 kernels do."""
+    return op(*(a.double() for a in args)).float()
+
+
+def _row_sums_pairwise(sq: torch.Tensor) -> torch.Tensor:
+    """The sums of ``sq``'s rows (at most 128 float32 items) in the order
+    numpy's float32 reduction adds them (``pairwise_sum``: under 8 items
+    one by one from 0; else eight running sums over whole groups of 8,
+    combined pairwise, then the rest one by one), so they are numpy's bit
+    for bit."""
+    n = sq.shape[1]
+    if n < 8:
+        acc = torch.zeros(sq.shape[0], dtype=sq.dtype, device=sq.device)
+        for i in range(n):
+            acc = _f32(torch.add, acc, sq[:, i])
+        return acc
+    whole = n - n % 8
+    r = sq[:, 0:8]
+    for i in range(8, whole, 8):
+        r = _f32(torch.add, r, sq[:, i:i + 8])
+    half = [_f32(torch.add, r[:, j], r[:, j + 1]) for j in range(0, 8, 2)]
+    acc = _f32(torch.add, _f32(torch.add, half[0], half[1]), _f32(torch.add, half[2], half[3]))
+    for i in range(whole, n):
+        acc = _f32(torch.add, acc, sq[:, i])
+    return acc
+
+
+def _normalize_rows(f: torch.Tensor) -> torch.Tensor:
+    """:func:`normalize_factors` in torch ops on ``f``'s device (float32
+    rows of at most 128): the same norms, floor and division, each step a
+    correctly rounded float32 operation as numpy's."""
+    norms = _f32(torch.sqrt, _row_sums_pairwise(_f32(torch.mul, f, f)))[:, None]
+    return _f32(torch.div, f, torch.clamp_min(norms, 1e-12))
+
+
+def _fetch_normalized(item_f: torch.Tensor) -> np.ndarray:
+    """The payload's item factors from the trained ones: on a CUDA device
+    normalized there (:func:`_normalize_rows`, checked on evenly spaced rows
+    against :func:`normalize_factors`) and copied back once; else, or
+    where the check fails, copied back and normalized on the host."""
+    if item_f.is_cuda and item_f.dtype == torch.float32 and item_f.shape[1] <= 128:
+        unit = _normalize_rows(item_f).cpu().numpy()
+        step = max(1, item_f.shape[0] // _NORM_CHECK_ROWS)
+        want = normalize_factors(item_f[::step].cpu().numpy())
+        if np.array_equal(unit[::step].view(np.int32), want.view(np.int32)):
+            return unit
+        logging.getLogger("kmlserver_tpu_torch.mining").warning(
+            "the item factors normalized on %s differ from numpy's on sampled rows; "
+            "normalizing on the host", item_f.device)
+    return normalize_factors(item_f.cpu().numpy())
+
+
 def _als_shards(cfg: MiningConfig, mesh, p: int, v: int, rank: int) -> int:
     """How many vocab shards the reference would lay the item axis over:
     only when the mesh spans ``tp`` and the layout is ``sharded``, or
@@ -327,7 +488,7 @@ def _skipped(rank: int, iters: int, cfg: MiningConfig, reason: str) -> dict[str,
 
 def train_embeddings(
     baskets: Baskets, cfg: MiningConfig, seed: int = 0, mesh=None,
-    device: str | torch.device = "cuda",
+    device: str | torch.device = "cuda", keep: dict | None = None,
 ) -> dict[str, Any]:
     """Train item embeddings on ``device`` → the ``embed`` phase's payload
     (host objects only): ``{"item_factors": f32 (V, rank) L2-normalized,
@@ -335,7 +496,27 @@ def train_embeddings(
     "storage", "nnz"}`` — or, when the chosen storage would not fit
     ``cfg.hbm_budget_bytes``, ``item_factors=None`` with a ``skipped``
     reason (a function of config and dataset shape alone, so every rank and
-    every resume decides alike)."""
+    every resume decides alike).
+
+    The baskets' event columns may be host arrays or tensors; tensors
+    already on ``device`` are trained from in place (the device-born
+    catalog's route). ``keep`` (a dict, or None: nothing kept) receives,
+    on the sparse route, for a checker in the same process: ``by_user`` and
+    ``by_item`` (the CSRs), ``user_in`` / ``item_in`` (the factors entering
+    the last sweep), ``g_item`` / ``g_user`` (that sweep's Gramians, ``+
+    λI``), ``rhs_users`` / ``rhs_items`` (its segment sums ``X F`` and
+    ``Xᵀ U``), ``user_out`` / ``item_out`` (the final factors before
+    normalization) and ``user_init`` / ``item_init`` (the init), all on
+    the device. The payload does not change.
+
+    Under a running profiler a training is a ``kmls:als.train`` span
+    (``storage``, ``nnz``, ``p``, ``v``, ``r``, ``iters``) holding
+    ``als.init`` (``values``: the draw, on the card for the sparse route
+    on a CUDA device, else on the host and uploaded), on the sparse
+    route ``als.csr``, ``als.sweep`` (``i``) ⊃ ``als.users``, ``als.items``
+    (the segment sum's shape) and ``als.loss``, then ``als.fetch`` (the
+    normalization, on the card for the sparse route there, and the copy
+    back)."""
     dev = resolve_device(device)
     rank = max(1, cfg.als_rank)
     iters = max(1, cfg.als_iters)
@@ -379,28 +560,42 @@ def train_embeddings(
             + "; embed phase skipped — serving stays rules-only"
         ))
     t0 = time.perf_counter()
-    # fixed-seed host init, users then items: the reference's draw, whose
-    # float64 quotient its device upload rounds to float32
-    rng = np.random.default_rng(seed)
-    user_init = (rng.standard_normal((p, rank)).astype(np.float32) / np.sqrt(rank)).astype(np.float32)
-    item_init = (rng.standard_normal((v, rank)).astype(np.float32) / np.sqrt(rank)).astype(np.float32)
-    reg = torch.tensor(cfg.als_reg, dtype=torch.float32, device=dev)
-    if use_sparse:
-        item_raw, final_loss = _train_sparse(baskets, user_init, item_init, reg, iters, p, v, dev)
-    elif shards > 1:
-        item_raw, final_loss = _train_sharded(
-            baskets, mesh, user_init, item_init, reg, iters, p, v, dev
-        )
-    else:
-        item_raw, final_loss = _train_dense(baskets, user_init, item_init, reg, iters, p, v, dev)
+    storage = "sparse" if use_sparse else "dense"
+    with span("als.train", storage=storage, nnz=nnz, p=p, v=v, r=rank, iters=iters):
+        with span("als.init", values=(p + v) * rank):
+            # the reference's fixed-seed init, users then items: numpy's
+            # draw, or the same values drawn on the card for the sparse
+            # route (elsewhere its rows go to the device block by block)
+            if use_sparse and dev.type == "cuda":
+                user_init, item_init = _card_init(seed, p, v, rank, dev)
+            else:
+                user_init, item_init = _host_init(seed, p, v, rank, dev if use_sparse else None)
+            if keep is not None and use_sparse:
+                keep.update(user_init=user_init, item_init=item_init)
+            reg = torch.tensor(cfg.als_reg, dtype=torch.float32, device=dev)
+        if use_sparse:
+            item_raw, final_loss = _train_sparse(
+                baskets, user_init, item_init, reg, iters, p, v, dev, keep)
+        elif shards > 1:
+            item_raw, final_loss = _train_sharded(
+                baskets, mesh, user_init, item_init, reg, iters, p, v, dev
+            )
+        else:
+            item_raw, final_loss = _train_dense(
+                baskets, user_init, item_init, reg, iters, p, v, dev)
+        with span("als.fetch"):
+            if isinstance(item_raw, torch.Tensor):
+                item_factors = _fetch_normalized(item_raw)
+            else:
+                item_factors = normalize_factors(item_raw)
     return {
-        "item_factors": normalize_factors(item_raw),
+        "item_factors": item_factors,
         "rank": rank,
         "iters": iters,
         "reg": float(cfg.als_reg),
         "final_loss": final_loss,
         "duration_s": time.perf_counter() - t0,
         "shards": shards,
-        "storage": "sparse" if use_sparse else "dense",
+        "storage": storage,
         "nnz": nnz,
     }

@@ -7,7 +7,9 @@ memory accounting, and the serving path's unwarmed-dispatch counter.
   attribute the same work to the same dispatch — except the pair count
   (``support_count``), which the port counts as its kernel computes it:
   one triangle of the symmetric result, read against the int8 tensor
-  peak. They are leading-order counts (matmul 2·m·n·k, scatter/compare
+  peak; the embedding lookup (``embed_topk``: the valid seeds); and the
+  sparse ALS sweep (``als_sweep_sparse``: its segment sums' adds and
+  bytes once, as ``kmls_bench/roofline/segsum.py`` counts them). They are leading-order counts (matmul 2·m·n·k, scatter/compare
   work, top-k ~ n·log2(k)), not instrumented truth; with the timings the
   serving and mining paths already take they give achieved FLOP/s and
   bytes/s, MFU against the device's peak, and a roofline class.
@@ -313,29 +315,33 @@ def _sparse_count_bytes(dims: dict) -> float:
 
 
 def _sparse_als_flops(dims: dict) -> float:
-    # per iteration: two gather+segment-add products over the nnz
-    # events (2·nnz·r each), two rank² Gramians, two batched solves —
-    # the 4·p·v·r dense term collapses to 4·nnz·r
+    # per iteration: two segment sums over the nnz events (X is 0/1, so a
+    # product is one add per event and column: nnz·r each, where the
+    # reference counts a multiply-add, 2·nnz·r), two rank² Gramians, two
+    # batched solves
     nnz, p, v, r = _d(dims, "nnz"), _d(dims, "p"), _d(dims, "v"), _d(dims, "r")
     iters = _d(dims, "iters")
     return iters * (
-        4.0 * nnz * r + 2.0 * r * r * (p + v) + 2.0 * r * r * r
+        2.0 * nnz * r + 2.0 * r * r * (p + v) + 2.0 * r * r * r
     )
 
 
 def _sparse_als_bytes(dims: dict) -> float:
-    # index vectors streamed twice per iteration + the gathered factor
-    # rows (r f32 per event per product) + both factor matrices
-    # read/written per half-sweep
+    # per iteration, each segment sum's inputs read once and output written
+    # once (kmls_bench/roofline/segsum.py): the int32 gather indices and the
+    # int64 row offsets of both orderings, and both factor matrices read and
+    # written per half-sweep. The gathered rows (8·nnz·r: the reference
+    # counts them) are traffic a cache may save, not least work.
     nnz, p, v, r = _d(dims, "nnz"), _d(dims, "p"), _d(dims, "v"), _d(dims, "r")
     iters = _d(dims, "iters")
     return iters * (
-        16.0 * nnz + 8.0 * nnz * r + 4.0 * r * (p + v) * 4.0
+        8.0 * nnz + 8.0 * (p + v + 2.0) + 16.0 * r * (p + v)
     )
 
 
-# The reference's registry, every formula but ``support_count``'s
-# unchanged. The serving engine observes ``serve_rules`` /
+# The reference's registry, every formula but ``support_count``'s,
+# ``embed_topk``'s and ``als_sweep_sparse``'s unchanged. The serving engine
+# observes ``serve_rules`` /
 # ``serve_sharded`` / ``serve_mesh`` / ``serve_native`` and ``embed_topk``;
 # the job's telemetry attributes ``support_count`` or ``sparse_count`` to
 # the mine phase, ``als_sweep`` or ``als_sweep_sparse`` to the embed phase

@@ -55,6 +55,7 @@ class Csr:
     # the kernel's schedule: rows by length descending, ties by row index
     order: torch.Tensor  # int32 (n_out,), a permutation of [0, n_out)
     n_long: int  # rows at the head of ``order`` with >= LONG_ROW_EVENTS events
+    longest: int = 0  # events of the longest row (its chain of adds)
 
     @property
     def n_out(self) -> int:
@@ -93,9 +94,10 @@ def build_csr(seg: torch.Tensor, gidx: torch.Tensor, n_out: int, n_in: int) -> C
     offsets = torch.zeros(n_out + 1, dtype=torch.int64, device=seg.device)
     torch.cumsum(counts, 0, out=offsets[1:])
     rows = torch.sort(-counts, stable=True).indices.to(torch.int32)
-    n_long = int((counts >= LONG_ROW_EVENTS).sum())
+    n_long, longest = (torch.stack([(counts >= LONG_ROW_EVENTS).sum(), counts.max()]).tolist()
+                       if n_out else (0, 0))
     return Csr(offsets=offsets, gidx=gidx.to(torch.int32)[order].contiguous(), n_in=n_in,
-               order=rows, n_long=n_long)
+               order=rows, n_long=n_long, longest=longest)
 
 
 def segment_sum_plain(

@@ -279,6 +279,13 @@ def test_phase_cost_and_roofline_equal_the_references(kernel, dims, peaks):
         b, length, v, r = (float(dims.get(d, 1)) for d in ("b", "l", "v", "r"))
         k_best = float(dims.get("k_best", 10))
         want = (2.0 * (b * length) * v * r, v * r * 4.0 + b * (length * 4.0 + k_best * 8.0))
+    elif kernel == "als_sweep_sparse":
+        # the port counts a segment sum of the 0/1 matrix as one add per
+        # event and column and its bytes once (kmls_bench/roofline/segsum.py);
+        # the Gramians and solves stay the reference's
+        nnz, p, v, r, iters = (float(dims.get(d, 1)) for d in ("nnz", "p", "v", "r", "iters"))
+        want = (iters * (2.0 * nnz * r + 2.0 * r * r * (p + v) + 2.0 * r * r * r),
+                iters * (8.0 * nnz + 8.0 * (p + v + 2.0) + 16.0 * r * (p + v)))
     assert got == want
     assert costmodel.classify_roofline(*got, *peaks) == ref_costmodel.classify_roofline(
         *got, *peaks)
