@@ -82,7 +82,7 @@ main loop on the card and fails loudly on any mismatch:
    an npz with rule ids >= V under verification off), every answer held
    against the CPU engine; checkpoint save/load seconds and bytes logged;
    (e) the job with ``KMLS_EMBED_ENABLED=1`` and ``KMLS_ALS_SPARSE=always``
-   (the segsum kernel, 16 launches) killed after ``embed`` and resumed on
+   (the segsum kernel, 17 launches) killed after ``embed`` and resumed on
    the card: the same bytes, embeddings.npz included, with no ALS sweep and
    no segsum launch.
 10. observability (``observability/``, ``utils/profiling.py``; run right
@@ -157,7 +157,7 @@ main loop on the card and fails loudly on any mismatch:
    c.phase_quality()"``): (a) the job with ``KMLS_EVAL_ENABLED=1``,
    ``KMLS_EMBED_ENABLED=1``, ``KMLS_COUNT_PATH=bitpack`` and
    ``KMLS_ALS_SPARSE=always``, its kernel launches counted (2 popcount: the
-   job's mine and eval's; 32 segsum: embed's and eval's trainings), its
+   job's mine and eval's; 34 segsum: embed's and eval's trainings), its
    ``quality.report.json`` in the manifest and held against the same job on
    the CPU (split, rules and popularity equal; the eval's factors within
    1e-4; on one trained model the card's lookups equal their plain versions
@@ -350,7 +350,7 @@ Then phase 7 runs (it needs no work directory), and last:
    over the two CSRs of that list, each side timed beside
    ``segsum_bound``, chosen rows (the longest of each side, the 10M-event
    tracks among them) equal to the in-order float32 sums bit for bit; (d)
-   ``train_embeddings`` over the list: sparse storage, 16 segsum launches.
+   ``train_embeddings`` over the list: sparse storage, 17 segsum launches.
 Then the kernels line is printed (the sharded entry carries the sharded
 routes' calls and times under ``x8``, and X9's under ``x9``: library
 calls, not kernel launches; the popcount entry its config-4 time under
@@ -2313,9 +2313,10 @@ def phase_resume(work: str | None = None) -> dict:
             _, _, emb_wall, _ = job(emb_cfg)
             emb_base_launches = segsum.LAUNCHES["segsum"]
             emb_bytes = publication(emb_cfg.base_dir)
-            if "embeddings.npz" not in emb_bytes or emb_base_launches != 2 * emb_cfg.als_iters:
-                fail(f"phase 9 (e) baseline: {emb_base_launches} segsum launches, published "
-                     f"{sorted(emb_bytes)}")
+            want_launches = 2 * emb_cfg.als_iters + 1  # X F, Xᵀ U a sweep; the loss's X F
+            if "embeddings.npz" not in emb_bytes or emb_base_launches != want_launches:
+                fail(f"phase 9 (e) baseline: {emb_base_launches} segsum launches (want "
+                     f"{want_launches}), published {sorted(emb_bytes)}")
             cfg = new_pvc("crash_embed", **embed_knobs)
             crash(cfg, "embed")
             sweeps = []
@@ -2342,7 +2343,8 @@ def phase_resume(work: str | None = None) -> dict:
                           "baseline_segsum_launches": emb_base_launches,
                           "segsum_launches": segsum.LAUNCHES["segsum"], "sweeps": len(sweeps)}
             log(f"phase 9 (e) KMLS_EMBED_ENABLED=1, KMLS_ALS_SPARSE=always: the job "
-                f"{emb_wall:.3f} s with {emb_base_launches} segsum launches; killed after "
+                f"{emb_wall:.3f} s with {emb_base_launches} segsum launches (2 x "
+                f"{emb_cfg.als_iters} sweeps' + the loss's); killed after "
                 f"'embed', resumed on the card in {emb_resume_s:.3f} s: 0 ALS sweeps, 0 segsum "
                 f"launches, the baseline's bytes (embeddings.npz included)")
         ckpt = {
@@ -3425,14 +3427,15 @@ def phase_embed_scale(work: str) -> dict:
     launches = segsum.LAUNCHES["segsum"]
     peak = torch.cuda.max_memory_allocated()
     # the second training, its stages timed (where the wall clock goes)
-    stage_names = ("build_csr", "_sparse_als_sweep", "_sparse_als_loss", "normalize_factors")
+    stage_names = ("build_csr", "_sparse_als_sweep", "_sparse_als_loss_rows",
+                   "normalize_factors")
     t0 = time.perf_counter()
     with StageTimes(als, stage_names) as stages:
         second = als.train_embeddings(baskets, cfg, device="cuda")
     stages_wall = time.perf_counter() - t0
-    if first["storage"] != "sparse" or launches != 2 * cfg.als_iters:
+    if first["storage"] != "sparse" or launches != 2 * cfg.als_iters + 1:
         fail(f"phase 11 (c): storage {first['storage']}, {launches} segsum launches, want "
-             f"sparse and {2 * cfg.als_iters}")
+             f"sparse and {2 * cfg.als_iters + 1}")
     if not np.array_equal(first["item_factors"], second["item_factors"]) or (
             first["final_loss"] != second["final_loss"]):
         fail("phase 11 (c): two sparse trainings on the card gave different factors")
@@ -3441,7 +3444,8 @@ def phase_embed_scale(work: str) -> dict:
     log(f"phase 11 (c) sparse ALS at {p} x {v}, {nnz} memberships, R={rank}, "
         f"{cfg.als_iters} iters: auto picked {first['storage']} (dense ~{dense_b:.4g} B, "
         f"sparse ~{sparse_b:.4g} B against hbm_budget_bytes {cfg.hbm_budget_bytes}); "
-        f"{train_s:.3f} s ({launches} segsum launches), CSR + CSC build {csr_s:.3f} s (their "
+        f"{train_s:.3f} s ({launches} segsum launches: 2 a sweep, 1 the loss's), CSR + CSC "
+        f"build {csr_s:.3f} s (their "
         f"schedules' sorts {order_s:.4f} s of it); the "
         f"second training bit-identical (loss {first['final_loss']:.6f}); peak device memory "
         f"{peak} B ({peak / 2**30:.3f} GiB); the second's stages (synchronized, "
@@ -4181,8 +4185,9 @@ def phase_freshness(work: str | None = None, shape: dict | None = None) -> dict:
 QUALITY_ENV = dict(KMLS_EVAL_ENABLED="1", KMLS_EMBED_ENABLED="1", KMLS_COUNT_PATH="bitpack",
                    KMLS_ALS_SPARSE="always")
 # launches of one quality job: the job's mine and eval's mine (popcount),
-# 8 sweeps x 2 sides for embed and again for eval's training (segsum)
-QUALITY_LAUNCHES = {"popcount_pairs": 2, "popcount_pairs_swar": 0, "segsum": 32}
+# 8 sweeps x 2 sides and the loss's X F, for embed and again for eval's
+# training (segsum)
+QUALITY_LAUNCHES = {"popcount_pairs": 2, "popcount_pairs_swar": 0, "segsum": 34}
 QUALITY_DRAWS = 2000  # (c)'s config-5 draws over the embedding vocabulary
 QUALITY_QPS = 1000.0
 QUALITY_STALE_S = 1.0  # (d)'s KMLS_ARTIFACT_MAX_AGE_S, below every artifact's age
@@ -7750,7 +7755,7 @@ def phase_embed_config4(seed: int = EMBED4_SEED) -> dict:
             f"{bound['chain_ms']:.3f})")
     del by_user, by_item, user, item, sides, got
 
-    # ---- (d) the embed phase's call over the list: sparse, 16 segsum launches,
+    # ---- (d) the embed phase's call over the list: sparse, 17 segsum launches,
     # the init drawn on the card (2 normals launches)
     names = [f"track_{t:07d}" for t in range(v)]
     baskets = Baskets(playlist_rows=pl, track_ids=tr, n_playlists=p,
@@ -7763,16 +7768,17 @@ def phase_embed_config4(seed: int = EMBED4_SEED) -> dict:
     out = als.train_embeddings(baskets, cfg, seed=seed, device="cuda")
     train_s = time.perf_counter() - t0
     seg_launches = segsum.LAUNCHES["segsum"]
-    if (out["storage"] != "sparse" or seg_launches != 2 * cfg.als_iters
+    if (out["storage"] != "sparse" or seg_launches != 2 * cfg.als_iters + 1
             or normals.LAUNCHES["normals"] != 2):
         fail(f"phase 20 (d): storage {out['storage']}, {seg_launches} segsum and "
              f"{normals.LAUNCHES['normals']} normals launches, want sparse, "
-             f"{2 * cfg.als_iters} and 2")
+             f"{2 * cfg.als_iters + 1} and 2")
     if not np.isfinite(out["item_factors"]).all():
         fail("phase 20 (d): non-finite factors")
     train_peak = torch.cuda.max_memory_allocated()
     log(f"phase 20 (d) train_embeddings over the {nnz} events (R={cfg.als_rank}, "
-        f"{cfg.als_iters} iters, auto): {out['storage']}, {seg_launches} segsum launches, "
+        f"{cfg.als_iters} iters, auto): {out['storage']}, {seg_launches} segsum launches "
+        f"(2 a sweep, 1 the loss's), "
         f"{train_s:.3f} s, loss {out['final_loss']:.6f}, peak {train_peak} B")
     del baskets, pl, tr
     torch.cuda.empty_cache()

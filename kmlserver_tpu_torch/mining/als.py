@@ -16,7 +16,8 @@ Two storages, decided by the reference's byte formulas against
   ``torch.linalg.solve`` (LU, as ``jnp.linalg.solve``);
 - **sparse** (``KMLS_ALS_SPARSE``): X kept as its nnz events; the products
   become segment sums (``ops/segsum.py``: a hand-written CUDA kernel on the
-  card, deterministic, over CSR/CSC orderings built once per training).
+  card, deterministic, over CSR/CSC orderings built once per training;
+  the loss's cross term is one more over the CSR: ``Σ_r u_r·(X F)_r``).
   The two orderings add ``2·(8·(n+1) + 4·nnz)`` bytes the reference's
   formula does not count; ``chip_smoke.py`` records the measured peak.
 
@@ -71,8 +72,8 @@ _INIT_BLOCK_ROWS = 1 << 15
 # leading user rows of an init drawn on the card checked against numpy's draw
 _INIT_CHECK_ROWS = 64
 
-# chunks of the loss's cross term gathered at a time (512 MiB of rows a side
-# at R = 32 and the full chunk)
+# chunks of the gather form's cross term (``_sparse_als_loss``) gathered at a
+# time (512 MiB of rows a side at R = 32 and the full chunk)
 _LOSS_GROUP_CHUNKS = 64
 
 # rows of the item factors normalized on the card checked against numpy's
@@ -218,10 +219,12 @@ def _sparse_als_sweep(by_user, by_item, user_f, item_f, reg, keep=None):
 
 
 def _sparse_als_loss(rows, cols, user_f, item_f, reg) -> torch.Tensor:
-    """Exact loss without densifying: ``‖X − U Fᵀ‖² = nnz − 2·Σ_nnz u_r·f_c
-    + Σ (UᵀU)∘(FᵀF)``, the cross term summed chunk by chunk in fp32: each
-    chunk's dot products summed, then the chunks' sums. The rows are
-    gathered :data:`_LOSS_GROUP_CHUNKS` chunks at a time."""
+    """The gather form of the exact loss (the plain version of
+    :func:`_sparse_als_loss_rows`): ``‖X − U Fᵀ‖² = nnz − 2·Σ_nnz u_r·f_c
+    + Σ (UᵀU)∘(FᵀF)``, both factor rows of every event gathered, the cross
+    term summed chunk by chunk in fp32: each chunk's dot products summed,
+    then the chunks' sums. The rows are gathered
+    :data:`_LOSS_GROUP_CHUNKS` chunks at a time."""
     nnz = rows.shape[0]
     chunk = _als_chunk(nnz)
     step = chunk * _LOSS_GROUP_CHUNKS
@@ -235,6 +238,22 @@ def _sparse_als_loss(rows, cols, user_f, item_f, reg) -> torch.Tensor:
         (), dtype=torch.float32, device=user_f.device)
     penalty = reg * (torch.sum(user_f * user_f) + torch.sum(item_f * item_f))
     return float(nnz) - 2.0 * cross + gram + penalty
+
+
+def _sparse_als_loss_rows(by_user, user_f, item_f, reg) -> torch.Tensor:
+    """The exact loss over the playlist CSR, the training's: the cross term
+    reordered as ``Σ_nnz u_r·f_c = Σ_r u_r·(X F)_r``, ``X F`` one segment
+    sum (each row the in-order fp32 sum of its events, as the sweeps'),
+    then each row's dot, the dots summed in chunks of ``_als_chunk(P)``
+    rows, then the chunks' sums. The Gramian and penalty terms are
+    :func:`_sparse_als_loss`'s."""
+    dots = torch.sum(segment_sum(item_f, by_user).mul_(user_f), dim=1)
+    chunk = _als_chunk(dots.shape[0])
+    dots = torch.nn.functional.pad(dots, (0, -dots.shape[0] % chunk))
+    cross = torch.sum(torch.sum(dots.view(-1, chunk), dim=1))
+    gram = torch.sum((user_f.T @ user_f) * (item_f.T @ item_f))
+    penalty = reg * (torch.sum(user_f * user_f) + torch.sum(item_f * item_f))
+    return float(by_user.nnz) - 2.0 * cross + gram + penalty
 
 
 def _event_column(ids, device: torch.device) -> torch.Tensor:
@@ -257,6 +276,7 @@ def _train_sparse(
         cols = _event_column(baskets.track_ids, device)
         by_user = build_csr(rows, cols, p, v)  # X F: a playlist's tracks
         by_item = build_csr(cols, rows, v, p)  # Xᵀ U: a track's playlists
+        del rows, cols
     user_f = torch.as_tensor(user_init, device=device)
     item_f = torch.as_tensor(item_init, device=device)
     for i in range(iters):
@@ -266,9 +286,9 @@ def _train_sparse(
                 keep if i == iters - 1 else None)
     if keep is not None:
         keep.update(by_user=by_user, by_item=by_item, user_out=user_f, item_out=item_f)
-    del by_user, by_item
-    with span("als.loss"):
-        loss = float(_sparse_als_loss(rows.long(), cols.long(), user_f, item_f, reg))
+    del by_item
+    with span("als.loss", **_csr_fields(by_user, user_f.shape[1])):
+        loss = float(_sparse_als_loss_rows(by_user, user_f, item_f, reg))
     return item_f, loss
 
 

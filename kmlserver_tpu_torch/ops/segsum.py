@@ -1,4 +1,4 @@
-"""Deterministic segment sums for the sparse ALS half-sweeps.
+"""Deterministic segment sums for the sparse ALS half-sweeps and loss.
 
     out[s, :] = Σ_{e : seg[e] = s} mat[gidx[e], :]
 
@@ -21,7 +21,9 @@ row index; the count of long rows at its head). On a CUDA tensor
 :func:`segment_sum` launches the kernel or raises; on a CPU tensor it runs
 :func:`segment_sum_plain`, ``index_add_`` over the events in order — the
 same additions in the same order per (row, column), so the kernel agrees
-with it bit for bit. Launches count in ``LAUNCHES["segsum"]``.
+with it bit for bit. Launches count in ``LAUNCHES["segsum"]``: a sparse
+training makes ``2·iters + 1`` (``X F`` and ``Xᵀ U`` a sweep, and the
+loss's ``X F``).
 """
 
 from __future__ import annotations

@@ -8,8 +8,12 @@ between barriers as the kernels walk it — equal
 the chain's longest attempt declines; the kernel source's constants are the
 module's; the training's init falls back to the host draw where the card's
 declines or differs; the loss gathered in groups of chunks equals the
-float64 loss. On the card (``cuda`` marker): ``init_rows`` equals the host
-draw bit for bit, at config 4's size too, in two launches.
+float64 loss, and so does the training's loss over the playlist CSR
+(``Σ_r u_r·(X F)_r``), which gives the gather form's bits where every sum
+is exact and one more segment sum a training. On the card (``cuda``
+marker): ``init_rows`` equals the host draw bit for bit, at config 4's size
+too, in two launches; a sparse training's loss repeats bit for bit with
+``2·iters + 1`` segsum launches.
 """
 
 import hashlib
@@ -24,8 +28,10 @@ import torch
 from kmlserver_tpu_torch.config import MiningConfig
 from kmlserver_tpu_torch.mining import als
 from kmlserver_tpu_torch.mining.vocab import Baskets, Vocab
-from kmlserver_tpu_torch.ops import normals
+from kmlserver_tpu_torch.ops import normals, segsum
 
+# the ALS tests' bar on a final loss (``tests/test_torch_als.py``)
+LOSS_RTOL = 1e-5
 SEEDS = [0, 7, 3141592653, 2**33 + 5]
 CU = Path(normals.__file__).resolve().parent / "csrc" / "normals.cu"
 
@@ -151,6 +157,95 @@ def test_grouped_loss_is_the_float64_loss(monkeypatch, group):
     assert abs(got - want) <= 1e-5 * abs(want)
 
 
+# (playlists, tracks, rank, event density): one playlist empty and one with
+# every track in each; an empty matrix; more playlists than one chunk of the
+# cross term's row sums (65,536)
+LOSS_SHAPES = [(300, 120, 8, 0.1), (700, 3_000, 32, 0.01), (20, 10, 4, 0.0),
+               (70_001, 50, 3, 0.05)]
+
+
+def _loss_case(shape, seed: int, dyadic: bool = False):
+    """Shuffled distinct events and float32 factors (multiples of 1/8 in
+    [-1, 1] where ``dyadic``: every sum of the loss's cross term exact)."""
+    p, v, r, density = shape
+    g = np.random.default_rng(seed)
+    x = g.random((p, v)) < density
+    if density:
+        x[min(3, p - 1)] = True  # a heavy playlist
+        x[1] = False  # an empty one
+    rows, cols = np.nonzero(x)
+    order = g.permutation(rows.shape[0])
+    rows, cols = torch.as_tensor(rows[order]), torch.as_tensor(cols[order])
+    if dyadic:
+        user, item = (torch.as_tensor(g.integers(-8, 9, (n, r)) / 8, dtype=torch.float32)
+                      for n in (p, v))
+    else:
+        user, item = (torch.as_tensor(g.standard_normal((n, r)), dtype=torch.float32)
+                      for n in (p, v))
+    return rows, cols, user, item
+
+
+def _loss64(rows, cols, user, item, reg: float) -> float:
+    x = torch.zeros((user.shape[0], item.shape[0]), dtype=torch.float64)
+    x[rows, cols] = 1.0
+    u64, f64 = user.double(), item.double()
+    return float(((x - u64 @ f64.T) ** 2).sum() + reg * ((u64 ** 2).sum() + (f64 ** 2).sum()))
+
+
+@pytest.mark.parametrize("shape", LOSS_SHAPES)
+def test_row_loss_is_the_float64_loss(shape):
+    """The cross term as ``Σ_r u_r·(X F)_r`` over the playlist CSR."""
+    p, v = shape[:2]
+    rows, cols, user, item = _loss_case(shape, 11)
+    by_user = segsum.build_csr(rows, cols, p, v)
+    got = float(als._sparse_als_loss_rows(by_user, user, item, torch.tensor(0.1)))
+    want = _loss64(rows, cols, user, item, 0.1)
+    assert abs(got - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.parametrize("shape", LOSS_SHAPES)
+def test_row_loss_is_the_gather_forms(shape):
+    """On factors whose every sum is exact, the two orders of the cross
+    term give the same bits."""
+    p, v = shape[:2]
+    rows, cols, user, item = _loss_case(shape, 12, dyadic=True)
+    reg = torch.tensor(0.1)
+    by_user = segsum.build_csr(rows, cols, p, v)
+    got = als._sparse_als_loss_rows(by_user, user, item, reg)
+    want = als._sparse_als_loss(rows, cols, user, item, reg)
+    assert torch.equal(got, want)
+
+
+def _gather_form(by_user, user_f, item_f, reg):
+    return als._sparse_als_loss(by_user.segments(), by_user.gidx.long(), user_f, item_f, reg)
+
+
+def _skewed_baskets(seed: int = 5, p: int = 400, v: int = 300) -> Baskets:
+    rows, cols, _, _ = _loss_case((p, v, 1, 0.03), seed)
+    names = [f"t{i}" for i in range(v)]
+    return Baskets(playlist_rows=rows.numpy().astype(np.int32),
+                   track_ids=cols.numpy().astype(np.int32), n_playlists=p,
+                   vocab=Vocab(names=names, index={n: i for i, n in enumerate(names)}))
+
+
+def test_training_takes_the_row_loss(monkeypatch):
+    """A sparse training calls the segment sum 2·iters + 1 times (the
+    loss's ``X F`` the last); its factors are a gather-form training's bit
+    for bit, its loss within the ALS tests' bar of that one's."""
+    cfg = MiningConfig(als_sparse="always", als_rank=8, als_iters=3)
+    calls = []
+    segment_sum = als.segment_sum
+    monkeypatch.setattr(als, "segment_sum",
+                        lambda mat, csr: calls.append(csr.n_out) or segment_sum(mat, csr))
+    got = als.train_embeddings(_skewed_baskets(), cfg, seed=9, device="cpu")
+    assert got["storage"] == "sparse" and len(calls) == 2 * cfg.als_iters + 1
+    assert calls[-1] == 400  # the playlist CSR
+    monkeypatch.setattr(als, "_sparse_als_loss_rows", _gather_form)
+    want = als.train_embeddings(_skewed_baskets(), cfg, seed=9, device="cpu")
+    assert np.array_equal(got["item_factors"].view(np.int32), want["item_factors"].view(np.int32))
+    assert abs(got["final_loss"] - want["final_loss"]) <= LOSS_RTOL * abs(want["final_loss"])
+
+
 @pytest.mark.parametrize("rank", [1, 5, 8, 13, 32, 64, 100, 128])
 def test_rows_normalized_in_torch_ops_are_numpys(rank):
     g = np.random.default_rng(rank)
@@ -237,3 +332,34 @@ class TestOnTheCard:
         assert np.array_equal(keep["user_init"].cpu().numpy(), want_user)
         assert np.array_equal(keep["item_init"].cpu().numpy(), want_item)
         assert card["storage"] == "sparse"
+
+
+@pytest.mark.cuda
+class TestLossOnTheCard:
+    """The row-form loss on the card: one more segsum launch, the same bits
+    run to run, the gather form's factors and (within the bar) its loss."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device (runs on the GPU machine)")
+
+    def test_card_training_loss_repeats_bit_for_bit(self, monkeypatch):
+        cfg = MiningConfig(als_sparse="always", als_rank=32, als_iters=4)
+        bk = _skewed_baskets(p=3_000, v=2_000)
+        outs, keep = [], {}
+        for k in (keep, None):
+            launches = segsum.LAUNCHES["segsum"]
+            outs.append(als.train_embeddings(bk, cfg, seed=9, device="cuda", keep=k))
+            assert segsum.LAUNCHES["segsum"] - launches == 2 * cfg.als_iters + 1
+        a, b = outs
+        assert a["storage"] == "sparse" and a["final_loss"] == b["final_loss"]
+        assert np.array_equal(a["item_factors"], b["item_factors"])
+        by_user = keep["by_user"]
+        want = _loss64(by_user.segments().cpu(), by_user.gidx.long().cpu(),
+                       keep["user_out"].cpu(), keep["item_out"].cpu(), cfg.als_reg)
+        assert abs(a["final_loss"] - want) <= 1e-5 * abs(want)
+        monkeypatch.setattr(als, "_sparse_als_loss_rows", _gather_form)
+        gather = als.train_embeddings(bk, cfg, seed=9, device="cuda")
+        assert np.array_equal(a["item_factors"], gather["item_factors"])
+        assert abs(a["final_loss"] - gather["final_loss"]) <= LOSS_RTOL * abs(gather["final_loss"])
